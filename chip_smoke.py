@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --only build,kernels --reps 5
+    python3 chip_smoke.py --only card,build,spec
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,20 +12,33 @@ Phases, in order; any failure exits non-zero:
 2. build    — builds the CUDA kernels from ``flexflow_tpu_torch/csrc`` with
               nvcc (``ops/kernels/_build.py``) and prints the build time.
 3. kernels  — each kernel against its plain PyTorch version at LLaMA-2-7B
-              shapes, with the tolerance stated beside each check; qmm_int8
-              rows must be bitwise independent of the row count. Times each
-              kernel, its plain version and one PyTorch library call with CUDA
-              events, and computes the kernel's bound from this run's shapes.
-4. crosscheck — a 2-layer decoder at full 7B width, INT8: prefill and 8
-              decode steps through the kernels on the GPU against the plain
-              versions on the CPU (same weights, same tokens).
+              shapes, with the tolerance stated beside each check; quant-matmul
+              rows (qmm_int8 and qmm_int4) must be bitwise independent of the
+              row count, and qmm_int4's one-hot rows must give back the
+              dequantized weight (identity probe). Times each kernel, its plain
+              version and one PyTorch library call with CUDA events, and
+              computes the kernel's bound from this run's shapes.
+4. crosscheck — a 2-layer decoder at full 7B width, INT8 and INT4: prefill
+              and 8 decode steps through the kernels on the GPU against the
+              plain versions on the CPU (same weights, same tokens).
 5. serve    — LLaMA-2-7B INT8 (32 layers, random weights from seed 0):
               InferenceEngine + RequestManager(decode_horizon=16, pipelined)
               serve 8 requests; every request must finish and every kernel's
               launch count must rise. Prints decode tok/s, mean TTFT and peak
               memory beside the card's name and power limit.
-6. profile  — (only with ``--profile``) one 16-step decode horizon and one
-              batched prefill of the served model under ``torch.profiler``:
+6. spec     — token-tree speculative serving: a LLaMA-2-7B INT4 verifier
+              (group 128) that block-embeds a 160M-class bf16 draft (both from
+              seed 0), SpecEngine + SpecRequestManager (width 3, depth 4,
+              fused, pipelined over LLM.compile's spec_horizon) serve the same
+              8 requests, then the incremental INT4 run of the same verifier.
+              Every request must finish, qmm_int4, flash_prefill and
+              decode_attention must launch, the mean verified tokens per step
+              must exceed 1, and each request's first 20 tokens must equal the
+              incremental run's. Prints both runs' decode tok/s, mean TTFT and
+              peak memory, and the mean verified tokens per step.
+7. profile  — (only with ``--profile``) one 16-step decode horizon and one
+              batched prefill of the served model, and one 8-iteration
+              speculative horizon of the spec phase, under ``torch.profiler``:
               host dispatch time, wall time, device busy share and the
               device time of the top kernels.
 
@@ -36,6 +50,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,7 +61,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20
-PHASES = ("card", "build", "kernels", "crosscheck", "serve", "profile")
+PHASES = ("card", "build", "kernels", "crosscheck", "serve", "spec", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -121,145 +136,170 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 REPLACES = {
     "qmm_int8": "flexflow_tpu/ops/pallas/quant_matmul.py:46 (_int8_kernel) and :181 "
                 "(_int8_kernel_idx), calls :163 / :304",
+    "qmm_int4": "flexflow_tpu/ops/pallas/quant_matmul.py:58 (_int4_kernel) and :192 "
+                "(_int4_kernel_idx), calls :163 / :304",
     "decode_attention": "flexflow_tpu/ops/pallas/decode_attention.py:54 (kernel), call :106",
     "flash_prefill": "flexflow_tpu/ops/pallas/flash_prefill.py:34 (_kernel), call :139",
 }
 SOURCES = {
-    "qmm_int8": "flexflow_tpu_torch/csrc/quant_matmul_int8.cu",
+    "qmm_int8": "flexflow_tpu_torch/csrc/quant_matmul.cu",
+    "qmm_int4": "flexflow_tpu_torch/csrc/quant_matmul.cu",
     "decode_attention": "flexflow_tpu_torch/csrc/decode_attention.cu",
     "flash_prefill": "flexflow_tpu_torch/csrc/flash_prefill.cu",
 }
 
 
-def qmm_phase(reps: int, records: list) -> None:
+def _qmm(qm, qa, x, layer=None, out_dtype=None):
+    """The kernel on carrier ``qa`` (layer ``layer`` of a stacked one)."""
+    kw = dict(group_size=qa.group_size, n_out=qa.d_rest, layer=layer,
+              out_dtype=out_dtype or x.dtype)
+    if qa.bits == 8:
+        return qm.qmm_int8(x, qa.q, qa.scale, **kw)
+    return qm.qmm_int4(x, qa.q, qa.scale, qa.offset, **kw)
+
+
+def _qmm_plain(qm, qa, x, layer=None, out_dtype=None):
+    """The kernel's plain PyTorch version on the same carrier."""
+    pick = (lambda t: t[layer]) if layer is not None else (lambda t: t)
+    od = out_dtype or x.dtype
+    if qa.bits == 8:
+        return qm.qmm_int8_plain(x, pick(qa.q), pick(qa.scale), qa.group_size, qa.d_rest, od)
+    return qm.qmm_int4_plain(x, pick(qa.q), pick(qa.scale), pick(qa.offset), qa.group_size,
+                             qa.d_rest, od)
+
+
+def _weight_bytes(bits: int, d: int, f: int, g: int) -> int:
+    """Bytes of one carrier at its n_out = f columns: packed weights plus the
+    f32 scale (and, for INT4, offset) tables."""
+    return (d * f if bits == 8 else d * f // 2) + (1 if bits == 8 else 2) * (d // g) * f * 4
+
+
+def qmm_phase(bits: int, reps: int, records: list) -> None:
+    """One quant-matmul kernel (``qmm_int8`` or ``qmm_int4``) at LLaMA-2-7B's
+    fused carriers and the lm_head: against its plain version, rows bitwise
+    independent of the row count, (INT4) the identity probe, and timed with
+    the weights rotating past L2."""
     import torch
 
     from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
     from flexflow_tpu_torch.quant.weight_only import dequantize, quantize
 
+    kname = f"qmm_int{bits}"
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    # rows: one decode slot, 8 decode slots, (INT4) 8 slots x the 13-token
+    # tree of width 3 and depth 4, and a 8192-row prefill
+    rows = (1, 8, 8192) if bits == 8 else (1, 8, 104, 8192)
     # (name, contraction shape, out width, group size, rows) of LLaMA-2-7B's
-    # fused carriers; wgu again at group 64 (quantization_group_size=64), whose
-    # groups are shorter than the decode tiling's 128-deep chunk
-    shapes = [("wqkv", (4096,), 3 * 4096, 128, (1, 8, 8192)),
-              ("wo", (32, 128), 4096, 128, (1, 8, 8192)),
-              ("wgu", (4096,), 2 * 11008, 128, (1, 8, 8192)),
-              ("wd", (11008,), 4096, 128, (1, 8, 8192)),
-              ("wgu", (4096,), 2 * 11008, 64, (8, 8192))]
-    for name, cshape, f, group, rows in shapes:
+    # fused carriers; INT8's wgu again at group 64 (quantization_group_size=64),
+    # whose groups are shorter than the decode tiling's 128-deep chunk
+    shapes = [("wqkv", (4096,), 3 * 4096, 128, rows),
+              ("wo", (32, 128), 4096, 128, rows),
+              ("wgu", (4096,), 2 * 11008, 128, rows),
+              ("wd", (11008,), 4096, 128, rows)]
+    if bits == 8:
+        shapes.append(("wgu", (4096,), 2 * 11008, 64, (8, 8192)))
+
+    def check(name, qa, x, layer, out_dtype, rel):
+        """Kernel against plain on x; rows 0 and m-1 bitwise equal to 1-row
+        calls. Returns (max|err|, output magnitude)."""
+        got = _qmm(qm, qa, x, layer, out_dtype)
+        want = _qmm_plain(qm, qa, x, layer, out_dtype)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        require(bool(torch.isfinite(got).all()) and err <= rel * scale,
+                f"{kname} {name} m={x.shape[0]}: max|err| {err} > {rel} * {scale}")
+        for r in sorted({0, x.shape[0] - 1}):
+            one = _qmm(qm, qa, x[r:r + 1].contiguous(), layer, out_dtype)
+            require(torch.equal(one[0], got[r]),
+                    f"{kname} {name}: row {r} of a {x.shape[0]}-row call differs from a 1-row call")
+        return err, scale
+
+    def timed(name, qa, x, n_layers, w_lib, out_dtype, err, tol):
+        m, d = x.shape
+        f = qa.d_rest
+        stacked = n_layers is not None
+        it = iter(range(10 ** 9))
+        pick = (lambda: next(it) % n_layers) if stacked else (lambda: None)
+        ms = time_ms(lambda: _qmm(qm, qa, x, pick(), out_dtype), reps)
+        plain_ms = time_ms(lambda: _qmm_plain(qm, qa, x, pick(), out_dtype), max(2, reps // 4),
+                           warmup=1)
+        lib_ms = time_ms(lambda: torch.matmul(x, w_lib[next(it) % len(w_lib)]), reps)
+        out_bytes = m * f * (4 if out_dtype == torch.float32 else 2)
+        nbytes = x.numel() * 2 + _weight_bytes(bits, d, f, qa.group_size) + out_bytes
+        b_ms, b_by = bound(nbytes, 2.0 * m * d * f, PEAK_BF16_FLOPS)
+        records.append(dict(name=f"{kname}[{name} m={m}]", kernel=kname, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"  {kname} {name} m={m:5d}: err {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms cuBLAS-bf16 {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+
+    for name, cshape, f, group, mrows in shapes:
         d = math.prod(cshape)
         # enough stacked layers that the rotating weight stream exceeds L2
-        n_layers = max(2, math.ceil(3 * L2_BYTES / (d * f)))
+        n_layers = max(2, math.ceil(3 * L2_BYTES / _weight_bytes(bits, d, f, group)))
         w = torch.randn((n_layers, *cshape, f), generator=gen, device=dev) * (2.0 / (d + f)) ** 0.5
-        qa = quantize(w, 8, group, batch_dims=1, contract_dims=len(cshape))
+        qa = quantize(w, bits, group, batch_dims=1, contract_dims=len(cshape))
         require(qa.group_size == group, f"{name}: group {qa.group_size} != {group}")
         del w
-        q, s = qa.q, qa.scale
-        w_lib = [dequantize(type(qa)(q[i], s[i], None, 8, qa.group_size, qa.shape, 1,
-                                     qa.contract_dims, torch.bfloat16, qa.rest_pad))
-                 .reshape(d, f).contiguous() for i in range(n_layers)]
-        # row invariance: rows of a 1-row call == the same rows of a 64-row call
-        x64 = torch.randn((64, d), generator=gen, device=dev).to(torch.bfloat16)
-        y64 = qm.qmm_int8(x64, q, s, group_size=qa.group_size, n_out=f, layer=1)
-        for r in (0, 37):
-            y1 = qm.qmm_int8(x64[r:r + 1].contiguous(), q, s, group_size=qa.group_size,
-                             n_out=f, layer=1)
-            require(torch.equal(y1[0], y64[r]),
-                    f"qmm_int8 {name}: row {r} of a 1-row call differs from the 64-row call")
+        w_lib = [dequantize(type(qa)(qa.q[i], qa.scale[i],
+                                     None if qa.offset is None else qa.offset[i], bits,
+                                     qa.group_size, qa.shape, 1, qa.contract_dims,
+                                     torch.bfloat16, qa.rest_pad)).reshape(d, f).contiguous()
+                 for i in range(n_layers)]
+        label = f"{name} {d}x{f} g={group}"
         # float32 activations (--full-precision) take the FMA kernel:
         # summation order only -> 1e-5 of the output's magnitude
-        x32 = x64[:8].float()
-        got = qm.qmm_int8(x32, q, s, group_size=qa.group_size, n_out=f, layer=1)
-        want = qm.qmm_int8_plain(x32, q[1], s[1], qa.group_size, f, torch.float32)
-        err = (got - want).abs().max().item()
-        require(err <= 1e-5 * want.abs().max().item(), f"qmm_int8 {name} f32: max|err| {err}")
-        log(f"  qmm_int8 {name:5s} g={group} f32 x, m=8: err {err:.3g}; rows 0, 37 bitwise "
-            f"equal in 1-row and 64-row calls")
-        for m in rows:
+        x32 = torch.randn((8, d), generator=gen, device=dev)
+        err32, _ = check(label + " f32", qa, x32, 1, torch.float32, 1e-5)
+        probe = ""
+        if bits == 4:
+            # identity probe: one-hot rows of x (both half-planes) give back
+            # the dequantized weight's rows bitwise, f32 and rounded to bf16
+            w1 = qm.int4_weight(qa.q[1], qa.scale[1], qa.offset[1], qa.group_size)[:, :f]
+            idx = [0, d // 2 - 1, d // 2, d - 1]
+            for dt in (torch.float32, torch.bfloat16):
+                eye = torch.zeros((len(idx), d), device=dev, dtype=dt)
+                eye[torch.arange(len(idx)), idx] = 1
+                require(torch.equal(_qmm(qm, qa, eye, 1), w1[idx].to(dt)),
+                        f"{kname} {label}: identity probe ({dt}) differs from the weight")
+            probe = "; identity probe bitwise (f32, bf16)"
+        log(f"  {kname} {label} f32 x, m=8: err {err32:.3g}{probe}")
+        for m in mrows:
             x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
-            got = qm.qmm_int8(x, q, s, group_size=qa.group_size, n_out=f, layer=0)
-            want = qm.qmm_int8_plain(x, q[0], s[0], qa.group_size, f, torch.bfloat16)
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            # tolerance: 1% of the output's magnitude — the two sum the same
-            # exact bf16 products in f32 in different orders, then round to bf16
-            require(err <= 1e-2 * scale,
-                    f"qmm_int8 {name} m={m}: max|err| {err} > 1e-2 * {scale}")
-            it = iter(range(10 ** 9))
-            ms = time_ms(lambda: qm.qmm_int8(x, q, s, group_size=qa.group_size, n_out=f,
-                                             layer=next(it) % n_layers), reps)
-            it2 = iter(range(10 ** 9))
-
-            def plain():
-                i = next(it2) % n_layers
-                return qm.qmm_int8_plain(x, q[i], s[i], qa.group_size, f, torch.bfloat16)
-
-            plain_ms = time_ms(plain, max(2, reps // 4), warmup=1)
-            it3 = iter(range(10 ** 9))
-            lib_ms = time_ms(lambda: torch.matmul(x, w_lib[next(it3) % n_layers]), reps)
-            nbytes = x.numel() * 2 + d * f + s[0].numel() * 4 + m * f * 2
-            b_ms, b_by = bound(nbytes, 2.0 * m * d * f, PEAK_BF16_FLOPS)
-            records.append(dict(name=f"qmm_int8[{name} {d}x{f} g={group} m={m}]", kernel="qmm_int8",
-                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=lib_ms))
-            log(f"  qmm_int8 {name:5s} g={group} m={m:5d}: err {err:.3g} (tol {1e-2 * scale:.3g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuBLAS-bf16 {lib_ms:.4f} ms "
-                f"bound {b_ms:.4f} ms ({b_by})")
-        del w_lib, qa, q, s
+            # tolerance: 1% of the output's magnitude - the two sum the same
+            # bf16 products in f32 in different orders, then round to bf16
+            err, scale = check(label, qa, x, 0, torch.bfloat16, 1e-2)
+            timed(label, qa, x, n_layers, w_lib, torch.bfloat16, err, 1e-2 * scale)
+        del w_lib, qa
         torch.cuda.empty_cache()
 
     # shapes no LLaMA carrier has: D and F not multiples of 8 or 16 (plain
-    # loads fill the ring), a group of 7 rows, a stacked layer at an unaligned
-    # offset; both tilings, rows bitwise independent of the row count
-    d, fp, n_out, g = 1001, 300, 290, 7
-    q = torch.randint(-127, 128, (2, d, fp), generator=gen, device=dev, dtype=torch.int8)
-    s = torch.rand((2, d // g, fp), generator=gen, device=dev) * 0.01
-    x = torch.randn((40, d), generator=gen, device=dev).to(torch.bfloat16)
-    got = qm.qmm_int8(x, q, s, group_size=g, n_out=n_out, layer=1)
-    want = qm.qmm_int8_plain(x, q[1], s[1], g, n_out, torch.bfloat16)
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    require(err <= 1e-2 * scale, f"qmm_int8 odd shape: max|err| {err} > 1e-2 * {scale}")
-    for r in (0, 39):
-        y1 = qm.qmm_int8(x[r:r + 1].contiguous(), q, s, group_size=g, n_out=n_out, layer=1)
-        require(torch.equal(y1[0], got[r]), f"qmm_int8 odd shape: row {r} differs by row count")
-    log(f"  qmm_int8 D={d} F={fp}->{n_out} g={g} m=40: err {err:.3g} (tol {1e-2 * scale:.3g}); "
-        f"rows 0, 39 bitwise equal in 1-row and 40-row calls")
+    # loads fill the ring), an odd group, a stacked layer at an unaligned
+    # offset; both tilings
+    d, fp, n_out, g = (1001, 300, 290, 7) if bits == 8 else (1002, 300, 290, 3)
+    qa = quantize(torch.randn((2, d, fp), generator=gen, device=dev), bits, g, batch_dims=1)
+    require(qa.group_size == g, f"{kname} odd shape: group {qa.group_size} != {g}")
+    qa = dataclasses.replace(qa, shape=(2, d, n_out))  # n_out < the carrier's width
+    for m in (7, 40):
+        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        err, scale = check(f"D={d} F={n_out} g={g}", qa, x, 1, torch.bfloat16, 1e-2)
+        log(f"  {kname} D={d} F={n_out} g={g} m={m}: err {err:.3g} (tol {1e-2 * scale:.3g}); "
+            f"rows bitwise equal to 1-row calls")
 
     # lm_head: 4096 -> 32000 (carrier padded to 32256), f32 logits
     d, f = 4096, 32000
     w = torch.randn((d, f), generator=gen, device=dev) * (2.0 / (d + f)) ** 0.5
-    qa = quantize(w, 8, 128)
+    qa = quantize(w, bits, 128)
     require(qa.q.shape[-1] == 32256, f"lm_head carrier width {qa.q.shape[-1]} != 32256")
-    w_lib = dequantize(qa).to(torch.bfloat16)
+    w_lib = [dequantize(qa).to(torch.bfloat16)]
     del w
-    x64 = torch.randn((64, d), generator=gen, device=dev).to(torch.bfloat16)
-    y64 = qm.qmm_int8(x64, qa.q, qa.scale, group_size=128, n_out=f, out_dtype=torch.float32)
-    y1 = qm.qmm_int8(x64[5:6].contiguous(), qa.q, qa.scale, group_size=128, n_out=f,
-                     out_dtype=torch.float32)
-    require(torch.equal(y1[0], y64[5]), "qmm_int8 lm_head: row 5 differs by row count")
-    for m in (1, 8):
+    for m in rows:
         x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
-        got = qm.qmm_int8(x, qa.q, qa.scale, group_size=128, n_out=f, out_dtype=torch.float32)
-        want = qm.qmm_int8_plain(x, qa.q, qa.scale, 128, f, torch.float32)
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
         # f32 out: only the summation order differs (4096 terms)
-        require(err <= 1e-4 * scale, f"qmm_int8 lm_head m={m}: max|err| {err} > 1e-4 * {scale}")
-        ms = time_ms(lambda: qm.qmm_int8(x, qa.q, qa.scale, group_size=128, n_out=f,
-                                         out_dtype=torch.float32), reps)
-        plain_ms = time_ms(lambda: qm.qmm_int8_plain(x, qa.q, qa.scale, 128, f, torch.float32),
-                           max(2, reps // 4), warmup=1)
-        lib_ms = time_ms(lambda: torch.matmul(x, w_lib), reps)
-        # the n_out columns the function produces (the pad is never needed)
-        nbytes = x.numel() * 2 + d * f + (d // 128) * f * 4 + m * f * 4
-        b_ms, b_by = bound(nbytes, 2.0 * m * d * f, PEAK_BF16_FLOPS)
-        records.append(dict(name=f"qmm_int8[lm_head {d}x{f} m={m} f32-out]", kernel="qmm_int8",
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms))
-        log(f"  qmm_int8 lm_head m={m}: err {err:.3g} (tol {1e-4 * scale:.3g}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms cuBLAS-bf16 {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        err, scale = check(f"lm_head {d}x{f} f32-out", qa, x, None, torch.float32, 1e-4)
+        timed(f"lm_head {d}x{f} f32-out", qa, x, None, w_lib, torch.float32, err, 1e-4 * scale)
+    del w_lib, qa
+    torch.cuda.empty_cache()
 
 
 def decode_attention_phase(reps: int, records: list) -> None:
@@ -320,6 +360,73 @@ def decode_attention_phase(reps: int, records: list) -> None:
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
         log(f"    kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms "
             f"bound {b_ms:.4f} ms ({b_by})")
+
+    # the tree form at the speculative verify's shape: 8 slots x the 13-node
+    # tree of width 3 and depth 4, LLaMA-2-7B heads, random parents
+    b, h, kh, s, d, width, depth = 8, 32, 32, 1024, 128, 3, 4
+    t = 1 + width * depth
+    cpu_gen = torch.Generator().manual_seed(6)
+    parents = torch.zeros((b, t), dtype=torch.long)
+    for dd in range(2, depth + 1):
+        base, prev = 1 + (dd - 1) * width, 1 + (dd - 2) * width
+        parents[:, base:base + width] = prev + torch.randint(0, width, (b, width),
+                                                             generator=cpu_gen)
+    anc = torch.eye(t, dtype=torch.bool).repeat(b, 1, 1)
+    for c in range(1, t):
+        anc[:, c] |= anc[torch.arange(b), parents[:, c]]
+    anc = anc.to(dev)
+    lens_l = [600, 400, 256, 128, 100, 64, 32, 17]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, kn, vn = rnd(b, t, h, d), rnd(b, t, kh, d), rnd(b, t, kh, d)
+    kc, vc = rnd(b, kh, s, d), rnd(b, kh, s, d)
+    got = da.tree_attention(q, kc, vc, kn, vn, lens, anc)
+    want = da.tree_attention_plain(q, kc, vc, kn, vn, lens, anc)
+    pv = da.tree_attention_plain(q.float(), kc.float(), vc.float().abs(), kn.float(),
+                                 vn.float().abs(), lens, anc)
+    err, ratio = attn_within(got, want, pv, 2.0 ** -12)
+    del pv
+    tol = "2^-7|want| + 2^-12 sum p|v|"
+    require(ratio <= 1, f"tree attention: max|err| {err}, {ratio:.3g} x the limit {tol}")
+    # each node bitwise equal to the one-token call after its ancestors were
+    # committed into the cache at lens, lens + 1, ... (incremental decoding)
+    for bi, c in ((0, 0), (0, t - 1), (5, 1 + width), (7, t - 2)):
+        path = anc[bi, c].nonzero()[:, 0].tolist()
+        n = lens_l[bi]
+        ck, cv = kc[bi:bi + 1].clone(), vc[bi:bi + 1].clone()
+        for j, a in enumerate(path[:-1]):
+            ck[0, :, n + j] = kn[bi, a]
+            cv[0, :, n + j] = vn[bi, a]
+        one = da.decode_attention(q[bi:bi + 1, c].contiguous(), ck, cv,
+                                  kn[bi:bi + 1, c].contiguous(), vn[bi:bi + 1, c].contiguous(),
+                                  torch.tensor([n + len(path) - 1], dtype=torch.int32,
+                                               device=dev))
+        require(torch.equal(one[0], got[bi, c]),
+                f"tree attention: slot {bi} node {c} differs from the one-token call")
+    log(f"  decode_attention tree B={b} T={t} H={h} KH={kh} S={s} D={d} bfloat16: err {err:.3g} "
+        f"({ratio:.3g} x the limit {tol}); 4 nodes bitwise equal to one-token calls")
+    ms = time_ms(lambda: da.tree_attention(q, kc, vc, kn, vn, lens, anc), reps)
+    plain_ms = time_ms(lambda: da.tree_attention_plain(q, kc, vc, kn, vn, lens, anc), reps)
+    # yardstick: SDPA over [cache | tree] with the joint mask
+    k_all, v_all = torch.cat([kc, kn.transpose(1, 2)], dim=2), torch.cat([vc, vn.transpose(1, 2)], 2)
+    pos = torch.arange(s, device=dev)
+    mask = torch.cat([(pos[None, None] < lens[:, None, None]).expand(b, t, s), anc], dim=-1)[:, None]
+    qt = q.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k_all, v_all, attn_mask=mask),
+                     reps)
+    # bytes: the valid cache rows once, q, the tree's K/V and the output;
+    # operations: 4 per (query head, element, attended column)
+    cols = sum(t * n for n in lens_l) + int(anc.sum())
+    nbytes = (2 * sum(lens_l) * kh * d + 2 * q.numel() + 2 * kn.numel()) * 2 + 4 * b
+    b_ms, b_by = bound(nbytes, 4.0 * h * d * cols, PEAK_F32_FLOPS)
+    records.append(dict(name=f"decode_attention[tree B={b} T={t} H={h} KH={kh} S={s} D={d} bf16]",
+                        kernel="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    log(f"    kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms "
+        f"bound {b_ms:.4f} ms ({b_by})")
 
 
 def flash_prefill_phase(reps: int, records: list) -> None:
@@ -383,7 +490,7 @@ def flash_prefill_phase(reps: int, records: list) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _int8_params(spec, seed: int, device):
+def _quant_params(spec, seed: int, device, bits: int = 8):
     import torch
 
     from flexflow_tpu_torch.models import params as params_lib
@@ -391,14 +498,14 @@ def _int8_params(spec, seed: int, device):
 
     gen = torch.Generator(device=device).manual_seed(seed)
     params = params_lib.init_params(spec, gen, torch.bfloat16, device)
-    params = quantize_params(spec, params, bits=8, group_size=128,
+    params = quantize_params(spec, params, bits=bits, group_size=128,
                              compute_dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     return params
 
 
-def crosscheck_phase() -> dict:
-    """2 layers at full 7B width, INT8: GPU (kernels) vs CPU (plain)."""
+def crosscheck_phase(bits: int) -> dict:
+    """2 layers at full 7B width, INT8 or INT4: GPU (kernels) vs CPU (plain)."""
     import numpy as np
     import torch
 
@@ -407,7 +514,7 @@ def crosscheck_phase() -> dict:
     from flexflow_tpu_torch.specs import ModelSpec
 
     spec = ModelSpec(**{**LLAMA2_7B, "num_layers": 2})
-    gpu = decoder.fuse_qkv_params(spec, _int8_params(spec, 1, torch.device("cuda")))
+    gpu = decoder.fuse_qkv_params(spec, _quant_params(spec, 1, torch.device("cuda"), bits))
     cpu = _params_to(gpu, torch.device("cpu"))
     rng = np.random.default_rng(4)
     lens = np.array([20, 13], np.int32)
@@ -459,36 +566,22 @@ def crosscheck_phase() -> dict:
             f"cross-check greedy tokens disagree at decided positions: {agree.tolist()}")
     out = dict(max_abs_err=err, tol=tol, tokens_equal=int(agree.sum()), tokens=int(agree.numel()),
                decided=int(decided.sum()))
-    log(f"  cross-check: logits max|err| {err:.4g} (tol {tol:.4g}); greedy tokens equal "
+    log(f"  cross-check INT{bits}: logits max|err| {err:.4g} (tol {tol:.4g}); greedy tokens equal "
         f"{out['tokens_equal']}/{out['tokens']} ({out['decided']} beyond the error margin)")
     del gpu, cpu, caches
     torch.cuda.empty_cache()
     return out
 
 
-def profile_phase(engine, prompts) -> dict:
-    """Where a served step's time goes: one decode horizon (16 steps, 8
-    slots) and one batched prefill, each timed on the host and traced."""
-    import numpy as np
+def _trace(runs) -> dict:
+    """Each (name, fn, steps) run once to warm up, once timed on the host
+    (dispatch, then wall after a sync) and once under ``torch.profiler``:
+    device busy share and the device time of the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from flexflow_tpu_torch.ops.sampling import SamplingConfig
-
-    b = engine.max_requests
-    greedy = SamplingConfig(np.zeros(b, np.float32), np.ones(b, np.float32),
-                            np.zeros(b, np.int32))
-    lens = np.array([len(p) for p in prompts], np.int32)
-    toks = np.zeros(b, np.int32)
     out = {}
-
-    def decode():
-        return engine.decode_horizon_async(lens, toks, 0, greedy, 16)
-
-    def prefill():
-        return engine.prefill_batch_to_slots_async(prompts, list(range(b)), 0, greedy)
-
-    for name, fn, steps in (("decode_horizon_16", decode, 16), ("prefill_8x1024", prefill, 1)):
+    for name, fn, steps in runs:
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -517,74 +610,214 @@ def profile_phase(engine, prompts) -> dict:
     return out
 
 
-def serve_phase(card: str, with_profile: bool) -> dict:
+def profile_phase(engine, prompts) -> dict:
+    """Where a served step's time goes: one decode horizon (16 steps, 8
+    slots) and one batched prefill, each timed on the host and traced."""
     import numpy as np
-    import torch
 
+    from flexflow_tpu_torch.ops.sampling import SamplingConfig
+
+    b = engine.max_requests
+    greedy = SamplingConfig(np.zeros(b, np.float32), np.ones(b, np.float32),
+                            np.zeros(b, np.int32))
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros(b, np.int32)
+    return _trace([
+        ("decode_horizon_16", lambda: engine.decode_horizon_async(lens, toks, 0, greedy, 16), 16),
+        ("prefill_8x1024",
+         lambda: engine.prefill_batch_to_slots_async(prompts, list(range(b)), 0, greedy), 1),
+    ])
+
+
+def spec_profile(engine, prompts) -> dict:
+    """Where a speculative iteration's time goes: one horizon of 8 fused
+    iterations (draft tree, tree verify, walk, two commits) on 8 slots."""
+    lens = engine._h([len(p) for p in prompts])
+    roots = engine._h([1] * len(prompts))
+    return _trace([("spec_horizon_8", lambda: engine.fused_step_n_async(lens, roots, 8), 8)])
+
+
+def _launches(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count (set to 0 first with ``reset``)."""
     from flexflow_tpu_torch.ops.kernels import decode_attention as da
     from flexflow_tpu_torch.ops.kernels import flash_prefill as fp
     from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+
+    if reset:
+        qm.LAUNCHES = qm.LAUNCHES_INT4 = da.LAUNCHES = fp.LAUNCHES = 0
+    return {"qmm_int8": qm.LAUNCHES, "qmm_int4": qm.LAUNCHES_INT4,
+            "decode_attention": da.LAUNCHES, "flash_prefill": fp.LAUNCHES}
+
+
+def _prompts(vocab_size: int):
+    """The served runs' 8 prompts (random tokens from seed 5)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [rng.integers(3, vocab_size, n).tolist() for n in (600, 400, 256, 128, 100, 64, 32, 17)]
+
+
+def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
+    """Warm up on one short request (through ``warm``, a scheduler on the
+    same engine, or ``rm``), set the launch counts to 0, serve ``prompts``
+    and read the counts. Every request must finish with ``max_new`` tokens
+    from the vocabulary. Returns (requests, stats)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.serving.request_manager import GenerationConfig
+
+    (warm or rm).generate([prompts[-1]], GenerationConfig(max_new_tokens=4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launches(reset=True)
+    steps0 = rm.total_decoding_steps
+    t_start = time.monotonic()
+    reqs = rm.generate(prompts, GenerationConfig(max_new_tokens=max_new))
+    torch.cuda.synchronize()
+    t_end = time.monotonic()
+    launches = _launches()
+    for r in reqs:
+        require(r.state == "COMPLETED" and len(r.output_tokens) == max_new,
+                f"{path} request {r.guid}: state {r.state}, {len(r.output_tokens)} tokens")
+        require(all(0 <= t < vocab_size for t in r.output_tokens),
+                f"{path} request {r.guid}: token outside the vocabulary")
+    first = max(r.profile.first_token_time for r in reqs)
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
+    return reqs, dict(
+        requests=len(reqs), tokens=sum(len(r.output_tokens) for r in reqs),
+        decode_tok_s=decode_tokens / (t_end - first),
+        mean_ttft_ms=1e3 * float(np.mean([r.profile.ttft for r in reqs])),
+        wall_s=t_end - t_start, steps=rm.total_decoding_steps - steps0,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+
+
+def _log_served(what: str, out: dict, card: str) -> None:
+    log(f"  {what}: {out['requests']} requests, {out['tokens']} tokens in {out['wall_s']:.3f} s: "
+        f"decode {out['decode_tok_s']:.1f} tok/s, mean TTFT {out['mean_ttft_ms']:.1f} ms, "
+        f"{out['steps']} steps, peak memory {out['peak_mem_gib']:.2f} GiB [{card}]")
+    log(f"  launches during the {what} run: {json.dumps(out['launches'])}")
+
+
+def serve_phase(card: str, with_profile: bool) -> dict:
+    import torch
+
     from flexflow_tpu_torch.serving.engine import InferenceEngine
-    from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
     from flexflow_tpu_torch.specs import ModelSpec
 
     dev = torch.device("cuda")
     spec = ModelSpec(**LLAMA2_7B)
     t0 = time.perf_counter()
-    params = _int8_params(spec, 0, dev)
+    params = _quant_params(spec, 0, dev)
     torch.cuda.synchronize()
     log(f"  weights: random LLaMA-2-7B INT8 in {time.perf_counter() - t0:.1f} s")
     engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
                              max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev)
     del params
     rm = RequestManager(engine, decode_horizon=16, pipelined=True)
-    rng = np.random.default_rng(5)
-    prompt_lens = [600, 400, 256, 128, 100, 64, 32, 17]
-    prompts = [rng.integers(3, spec.vocab_size, n).tolist() for n in prompt_lens]
-    cfg = GenerationConfig(max_new_tokens=64)
+    prompts = _prompts(spec.vocab_size)
     try:
-        rm.generate([prompts[-1]], GenerationConfig(max_new_tokens=4))  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        qm.LAUNCHES = da.LAUNCHES = fp.LAUNCHES = 0
-        steps0 = rm.total_decoding_steps
-        t_start = time.monotonic()
-        reqs = rm.generate(prompts, cfg)
-        torch.cuda.synchronize()
-        t_end = time.monotonic()
-        launches = {"qmm_int8": qm.LAUNCHES, "decode_attention": da.LAUNCHES,
-                    "flash_prefill": fp.LAUNCHES}
+        _, out = _served(rm, prompts, 64, spec.vocab_size, "serve")
         if with_profile:
             log("[profile] one decode horizon and one batched prefill of the served model")
-            profiled = profile_phase(engine, prompts)
+            out["profile"] = profile_phase(engine, prompts)
     finally:
         rm.close()
-    for r in reqs:
-        require(r.state == "COMPLETED" and len(r.output_tokens) == 64,
-                f"request {r.guid}: state {r.state}, {len(r.output_tokens)} tokens")
-        require(all(0 <= t < spec.vocab_size for t in r.output_tokens),
-                f"request {r.guid}: token outside the vocabulary")
-    for k, n in launches.items():
-        require(n > 0, f"{k} was never launched while serving")
-    first = max(r.profile.first_token_time for r in reqs)
-    decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
-    out = dict(
-        requests=len(reqs), tokens=sum(len(r.output_tokens) for r in reqs),
-        decode_tok_s=decode_tokens / (t_end - first),
-        mean_ttft_ms=1e3 * float(np.mean([r.profile.ttft for r in reqs])),
-        wall_s=t_end - t_start,
-        steps=rm.total_decoding_steps - steps0,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches, card=card,
-    )
-    if with_profile:
-        out["profile"] = profiled
-    log(f"  served {out['requests']} requests, {out['tokens']} tokens in {out['wall_s']:.3f} s: "
-        f"decode {out['decode_tok_s']:.1f} tok/s, mean TTFT {out['mean_ttft_ms']:.1f} ms, "
-        f"peak memory {out['peak_mem_gib']:.2f} GiB [{card}]")
-    log(f"  launches during the served run: {json.dumps(launches)}")
+    for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+        require(out["launches"][k] > 0, f"{k} was never launched while serving")
+    out["card"] = card
+    _log_served("served", out, card)
     del engine, rm
     torch.cuda.empty_cache()
+    return out
+
+
+# a 160M-class draft at the 7B head_dim (the pair construction needs one
+# head_dim), the widths of bench_spec.py's DRAFT_7B
+DRAFT_160M = dict(LLAMA2_7B, hidden_size=768, num_layers=12, num_heads=6, num_kv_heads=6,
+                  intermediate_size=3072)
+PREFIX = 20  # tokens of every request that must equal incremental decoding's
+
+
+def spec_phase(card: str, with_profile: bool) -> dict:
+    """Tree-speculative serving of LLaMA-2-7B INT4 with a 160M-class bf16
+    draft that the verifier block-embeds (``utils/spec_pair``), through
+    ``SpecEngine`` + the fused, pipelined ``SpecRequestManager``, and the
+    incremental INT4 run of the same verifier it must agree with."""
+    import torch
+
+    from flexflow_tpu_torch.config import config as ffconfig
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+    from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
+    from flexflow_tpu_torch.specs import ModelSpec
+    from flexflow_tpu_torch.utils.spec_pair import embed_draft_in_verifier
+
+    dev = torch.device("cuda")
+    dspec, vspec = ModelSpec(**DRAFT_160M), ModelSpec(**LLAMA2_7B)
+    t0 = time.perf_counter()
+    dparams = params_lib.init_params(dspec, torch.Generator(device=dev).manual_seed(0),
+                                     torch.bfloat16, dev)
+    vparams = embed_draft_in_verifier(dspec, dparams, vspec, bits=4, group_size=128,
+                                      dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    log(f"  weights: 160M-class bf16 draft and the LLaMA-2-7B INT4 verifier embedding it "
+        f"in {time.perf_counter() - t0:.1f} s")
+    width, depth, seq = 3, 4, 1024
+    # LLM.compile's clamp: the speculation margin stays within a quarter of the context
+    horizon = max(1, min(ffconfig.spec_horizon, seq // (4 * (tree_size(width, depth) + 1))))
+    prompts = _prompts(vspec.vocab_size)
+    engine = SpecEngine(vspec, vparams, dspec, dparams, beam_width=width, beam_depth=depth,
+                        max_requests_per_batch=8, max_seq_len=seq, cache_dtype=torch.bfloat16,
+                        device=dev)
+    managers = [SpecRequestManager(engine, fused=True, spec_horizon=horizon,
+                                   pipelined=horizon > 1, pipeline_depth=ffconfig.pipeline_depth)
+                for _ in range(2)]  # a warm-up one, so the measured one counts only its run
+    rm = managers[1]
+    spec_reqs, out = _served(rm, prompts, 64, vspec.vocab_size, "spec", warm=managers[0])
+    out.update(spec_horizon=horizon, pipeline_depth=rm.pipeline_depth,
+               mean_verified_tokens_per_step=rm.mean_verified_tokens_per_step)
+    if with_profile:
+        log("[profile] one 8-iteration horizon of the speculative engine")
+        out["profile"] = spec_profile(engine, prompts)
+    del engine, rm, managers
+    torch.cuda.empty_cache()
+
+    engine = InferenceEngine(vspec, vparams, max_requests_per_batch=8, max_seq_len=seq,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev)
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        incr_reqs, incr = _served(rm, prompts, 64, vspec.vocab_size, "incremental INT4")
+    finally:
+        rm.close()
+    del engine, rm, vparams, dparams
+    torch.cuda.empty_cache()
+
+    out["card"] = card
+    out["incremental"] = incr
+    _log_served("speculative", out, card)
+    log(f"  mean verified tokens per step {out['mean_verified_tokens_per_step']:.3f} "
+        f"(spec_horizon {horizon}, width {width}, depth {depth}) [{card}]")
+    _log_served("incremental INT4", incr, card)
+    same = []
+    for s, i in zip(spec_reqs, incr_reqs):
+        a, b = s.output_tokens, i.output_tokens
+        n = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
+        same.append(n)
+        if n < PREFIX:
+            log(f"  request {s.guid}: first difference at token {n}: spec {a[:n + 2]} "
+                f"incremental {b[:n + 2]}")
+    out["tokens_equal_to_incremental"] = same
+    log(f"  tokens equal to incremental before the first difference, per request: {same}")
+    for k in ("qmm_int4", "decode_attention", "flash_prefill"):
+        require(out["launches"][k] > 0, f"{k} was never launched while serving speculatively")
+    require(out["mean_verified_tokens_per_step"] > 1,
+            f"mean verified tokens per step {out['mean_verified_tokens_per_step']} <= 1")
+    require(min(same) >= PREFIX,
+            f"speculative output differs from incremental within the first {PREFIX} tokens")
     return out
 
 
@@ -593,7 +826,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
                     help="comma-separated phases to run (default: all but profile)")
     ap.add_argument("--profile", action="store_true",
-                    help="add the profile phase (needs serve)")
+                    help="add the profile phase (traces the serve and spec phases run)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p] + (["profile"] if args.profile else [])
@@ -626,23 +859,31 @@ def main(argv=None) -> int:
     records: list = []
     summary: dict = {}
     if "kernels" in phases:
-        log("[kernels] qmm_int8")
-        qmm_phase(args.reps, records)
+        for bits in (8, 4):
+            log(f"[kernels] qmm_int{bits}")
+            qmm_phase(bits, args.reps, records)
         log("[kernels] decode_attention")
         decode_attention_phase(args.reps, records)
         log("[kernels] flash_prefill")
         flash_prefill_phase(args.reps, records)
     if "crosscheck" in phases:
-        log("[crosscheck] 2-layer LLaMA-2-7B-width INT8, GPU kernels vs CPU plain")
-        summary["crosscheck"] = crosscheck_phase()
+        for bits in (8, 4):
+            log(f"[crosscheck] 2-layer LLaMA-2-7B-width INT{bits}, GPU kernels vs CPU plain")
+            summary[f"crosscheck_int{bits}"] = crosscheck_phase(bits)
     if "serve" in phases:
         log("[serve] LLaMA-2-7B INT8, 8 requests, decode_horizon=16, pipelined")
         summary["serve"] = serve_phase(card, "profile" in phases)
+    if "spec" in phases:
+        log("[spec] LLaMA-2-7B INT4 verifier + 160M-class draft, tree width 3 depth 4, "
+            "8 requests, fused and pipelined")
+        summary["spec"] = spec_phase(card, "profile" in phases)
 
-    launches = summary.get("serve", {}).get("launches", {})
+    # each path's launches, counted from 0 over its served run
+    launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0) for p in ("serve", "spec"))
+                for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],
-             replaces=REPLACES[r["kernel"]], launches=launches.get(r["kernel"], 0),
+             replaces=REPLACES[r["kernel"]], launches=launches[r["kernel"]],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
         for r in records

@@ -11,13 +11,15 @@ Two modes, as in JAX:
 - ``forward``: full-prompt causal forward (prefill). ``flash=True`` sends the
   attention through ``ops/kernels/flash_prefill`` at every prompt length
   (no ALiBi, no softcap).
-- ``forward_cached``: T new tokens per slot against the KV cache. With T=1
-  and no masks, ALiBi or softcap the attention is ``ops/kernels/
-  decode_attention``; everything else (tree masks, chunked prefill) is the
-  plain ``ops/attention.split_cached_attention``. The new K/V are written
-  into the cache in place, layer by layer, after that layer's attention
-  (JAX returns an updated cache instead; each layer reads only its own
-  cache, so the results agree).
+- ``forward_cached``: T new tokens per slot against the KV cache. Without a
+  kv mask, extra K/V, ALiBi or softcap the attention is the decode-attention
+  kernel: ``decode_attention`` for one token, ``tree_attention`` under a
+  tree mask (tree verification, which then gives incremental decoding's
+  bits). Everything else (draft expansion over extra K/V, chunked prefill,
+  ALiBi, softcap) is the plain ``ops/attention.split_cached_attention``.
+  The new K/V are written into the cache in place, layer by layer, after
+  that layer's attention (JAX returns an updated cache instead; each layer
+  reads only its own cache, so the results agree).
 
 KV cache layout: ``[L, B, KH, S, D]`` — one contiguous D-row per position
 for coalesced reads on the GPU (JAX keeps ``[L, B, KH, D, S]`` for the TPU's
@@ -36,7 +38,11 @@ import torch
 from flexflow_tpu_torch.ops import activations as act_lib
 from flexflow_tpu_torch.ops import attention as attn_lib
 from flexflow_tpu_torch.ops import norms, rotary
-from flexflow_tpu_torch.ops.kernels.decode_attention import decode_attention
+from flexflow_tpu_torch.ops.kernels.decode_attention import (
+    decode_attention,
+    tree_attention,
+    tree_index,
+)
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import quant_matmul
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
@@ -366,15 +372,27 @@ def forward_cached(
     write_start: Optional[HostInts] = None,  # [B] window start (default lens)
     write_cache: bool = True,  # False: return the new KV instead
     logits_at: Optional[torch.Tensor] = None,  # [B] one position per row
+    extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [L, B, E, KH, D] x2
+    extra_mask: Optional[torch.Tensor] = None,  # [B, T, E] mask over extra_kv
+    extra_positions: Optional[torch.Tensor] = None,  # [B, E] abs positions (alibi)
+    attn_window: Optional[int] = None,  # attend only cache[..., :attn_window, :]
 ):
-    """Cached decode / chunk forward. Returns ``(logits [B, T, V] f32, cache)``
-    with the cache updated in place, or ``(logits, (k_new, v_new))`` stacked
-    [L, B, T, KH, D] when ``write_cache=False``.
+    """Cached decode / chunk / tree forward. Returns ``(logits [B, T, V] f32,
+    cache)`` with the cache updated in place, or ``(logits, (k_new, v_new))``
+    stacked [L, B, T, KH, D] when ``write_cache=False``.
 
     ``write_start`` is taken on the host (a numpy array or list) so the
     window writes need no device round trip; a tensor is copied to the host.
-    Columns past S are dropped. (JAX's ``attn_window`` is not needed: the
-    decode kernel reads only positions below ``cache_lens``.)
+    Columns past S are dropped.
+
+    ``extra_kv`` / ``extra_mask`` put further K/V columns (earlier tree
+    depths during draft expansion) in front of the in-flight tokens: the
+    attention runs under the joint mask ``[extra_mask | tree_mask or
+    causal]``, and under ALiBi the extra columns carry ``extra_positions``.
+
+    ``attn_window`` (>= every row's committed length) limits the plain
+    attention path's cache read to the first ``attn_window`` positions; the
+    decode kernel reads only positions below ``cache_lens`` anyway.
     """
     b, t = tokens.shape
     dev = tokens.device
@@ -391,8 +409,27 @@ def forward_cached(
         if isinstance(write_start, torch.Tensor):
             write_start = write_start.cpu().numpy()
         widx = _window_index(write_start, t, s, dev)
-    use_kernel = (t == 1 and tree_mask is None and kv_mask is None and slopes is None
-                  and spec.attn_logit_softcap is None)
+    window = attn_window if attn_window is not None and attn_window < s else s
+    if kv_mask is not None:
+        kv_mask = kv_mask[..., :window]
+    joint_mask, joint_positions = tree_mask, None
+    if extra_kv is not None:
+        if extra_mask is None:
+            raise ValueError("extra_kv needs extra_mask")
+        base = tree_mask if tree_mask is not None else torch.tril(
+            torch.ones(t, t, dtype=torch.bool, device=dev))[None].expand(b, t, t)
+        joint_mask = torch.cat([extra_mask, base], dim=-1)
+        if slopes is not None:
+            # the extra columns keep their own distance bias
+            if extra_positions is None:
+                raise ValueError("extra_kv under ALiBi needs extra_positions")
+            joint_positions = torch.cat(
+                [extra_positions.to(device=dev, dtype=torch.int32),
+                 positions.to(torch.int32)], dim=1)
+    use_kernel = ((t == 1 or tree_mask is not None) and kv_mask is None and extra_kv is None
+                  and slopes is None and spec.attn_logit_softcap is None)
+    tidx = (tree_index(tree_mask)
+            if use_kernel and tree_mask is not None and dev.type == "cuda" else None)
     rope = _rope_tables(spec, positions)
 
     new_k, new_v = [], []
@@ -404,14 +441,22 @@ def forward_cached(
             # cast once to the cache dtype so attention sees exactly what a
             # later step reads back from the cache
             kc, vc = k.to(ck_l.dtype), v.to(cv_l.dtype)
-            if use_kernel:
+            if use_kernel and tree_mask is not None:
+                out = tree_attention(q.contiguous(), ck_l, cv_l, kc.contiguous(),
+                                     vc.contiguous(), cache_lens, tree_mask, index=tidx)
+            elif use_kernel:
                 out = decode_attention(q[:, 0].contiguous(), ck_l, cv_l,
                                        kc[:, 0].contiguous(), vc[:, 0].contiguous(),
                                        cache_lens)[:, None]
             else:
+                kn, vn = kc, vc
+                if extra_kv is not None:
+                    kn = torch.cat([extra_kv[0][i].to(kc.dtype), kc], dim=1)
+                    vn = torch.cat([extra_kv[1][i].to(vc.dtype), vc], dim=1)
                 out = attn_lib.split_cached_attention(
-                    q, ck_l, cv_l, kc, vc, cache_lens, new_mask=tree_mask,
-                    kv_mask=kv_mask, q_positions=positions, slopes=slopes,
+                    q, ck_l[:, :, :window], cv_l[:, :, :window], kn, vn, cache_lens,
+                    new_mask=joint_mask, kv_mask=kv_mask, q_positions=positions,
+                    new_positions=joint_positions, slopes=slopes,
                     logit_softcap=spec.attn_logit_softcap)
             if write_cache:
                 if widx is not None:

@@ -170,10 +170,10 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     """Turn a parameter tree of numpy arrays (e.g. the JAX package's params
     after ``np.asarray`` on each leaf) into the port's tensors on ``device``.
 
-    Float leaves are cast to ``dtype``. Quantized leaves, given as objects or
-    dicts with ``q/scale/offset/bits/group_size/shape/batch_dims/
-    contract_dims/rest_pad``, keep their carriers byte for byte and get
-    ``dtype`` as their compute dtype.
+    Float leaves (JAX's bfloat16 included) are cast to ``dtype``. Quantized
+    leaves, given as objects or dicts with ``q/scale/offset/bits/group_size/
+    shape/batch_dims/contract_dims/rest_pad``, keep their carriers byte for
+    byte and get ``dtype`` as their compute dtype.
     """
     device = torch.device(device)
     if _is_quantized(tree):
@@ -195,6 +195,8 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     if tree is None:
         return None
     arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16 (JAX's): widening to f32 is exact
+        arr = arr.astype(np.float32)
     t = torch.tensor(arr)
     if arr.dtype.kind == "f":
         t = t.to(dtype)

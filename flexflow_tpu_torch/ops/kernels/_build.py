@@ -37,7 +37,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of every entry point (all return cudaError_t as int)
 SIGNATURES = {
     "ff_qmm_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
-    "ff_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "ff_qmm_int4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
+    "ff_decode_attention": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
     "ff_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

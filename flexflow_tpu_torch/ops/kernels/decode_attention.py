@@ -1,11 +1,19 @@
 """Decode attention: one query token per slot (port of
 ``flexflow_tpu/ops/pallas/decode_attention.py``; kernel
-``csrc/decode_attention.cu``).
+``csrc/decode_attention.cu``), and the same kernel over a token tree.
 
-Softmax over the committed cache positions ``< cache_lens[b]`` plus the
-token's own K/V (not yet in the cache), f32, ``scale = 1/sqrt(D)``. The cache
-is the port's ``[B, KH, S, D]`` layout. G = H / KH may be 1 (MHA), a GQA
-group or all heads (MQA).
+``decode_attention``: softmax over the committed cache positions
+``< cache_lens[b]`` plus the token's own K/V (not yet in the cache), f32,
+``scale = 1/sqrt(D)``. The cache is the port's ``[B, KH, S, D]`` layout.
+G = H / KH may be 1 (MHA), a GQA group or all heads (MQA).
+
+``tree_attention``: T in-flight tokens per slot under a [B, T, T] mask (tree
+verification): each token attends the committed positions, the in-flight
+tokens its mask row names, in ascending order, and itself where the diagonal
+says so. Along a tree path the kernel repeats, bit for bit, the arithmetic of
+``decode_attention`` after the path's tokens were committed one by one, so a
+tree-verified token gets incremental decoding's bits. The JAX package leaves
+this masked attention to XLA; here it is the kernel's second form.
 """
 
 from __future__ import annotations
@@ -14,10 +22,10 @@ import math
 
 import torch
 
-from flexflow_tpu_torch.ops.attention import NEG_INF
+from flexflow_tpu_torch.ops.attention import NEG_INF, split_cached_attention
 from flexflow_tpu_torch.ops.kernels import _build
 
-LAUNCHES = 0
+LAUNCHES = 0  # kernel launches of this process, both forms
 _HEAD_DIMS = (32, 64, 96, 128, 160, 192, 256)
 
 
@@ -53,7 +61,7 @@ def decode_attention(
     b, h, d = q.shape
     if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
-    kh, s = k_cache.shape[1], k_cache.shape[2]
+    kh = k_cache.shape[1]
     if h % kh or v_cache.shape != k_cache.shape:
         raise ValueError("heads / cache shapes are inconsistent")
     if k_self.shape != (b, kh, d) or v_self.shape != (b, kh, d):
@@ -62,26 +70,89 @@ def decode_attention(
         raise ValueError(f"cache_lens must be [{b}]")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, k_self, v_self, cache_lens)
+    out = _launch("decode_attention", q, k_cache, v_cache, k_self, v_self, cache_lens, None, 1)
+    LAUNCHES += 1
+    return out
+
+
+def tree_index(tree_mask: torch.Tensor):
+    """The tree form's per-token inputs from a [B, T, T] mask: the in-flight
+    columns each token attends besides itself, ascending ([B, T, T] int32,
+    the first ``count`` valid), their count ([B, T] int32) and whether it
+    attends itself ([B, T] int32). Computed on the mask's device, no host
+    sync; one per forward, shared by every layer."""
+    t = tree_mask.shape[-1]
+    cols = torch.arange(t, device=tree_mask.device)
+    strict = tree_mask & (cols[:, None] != cols[None, :])
+    idx = torch.argsort(torch.where(strict, cols, cols + t), dim=-1).to(torch.int32)
+    return (idx.contiguous(), strict.sum(-1, dtype=torch.int32).contiguous(),
+            tree_mask.diagonal(dim1=1, dim2=2).to(torch.int32).contiguous())
+
+
+def tree_attention_plain(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask):
+    """Plain PyTorch version: the joint f32 softmax over the committed cache
+    and the masked in-flight tokens (``ops.attention.split_cached_attention``)."""
+    return split_cached_attention(q, k_cache, v_cache, k_new, v_new, cache_lens,
+                                  new_mask=tree_mask)
+
+
+def tree_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_cache: torch.Tensor,  # [B, KH, S, D] committed cache (read-only)
+    v_cache: torch.Tensor,  # [B, KH, S, D]
+    k_new: torch.Tensor,  # [B, T, KH, D] the in-flight tokens' K (cache dtype)
+    v_new: torch.Tensor,  # [B, T, KH, D]
+    cache_lens: torch.Tensor,  # [B] int32
+    tree_mask: torch.Tensor,  # [B, T, T] bool: token t attends in-flight u
+    index=None,  # tree_index(tree_mask), when the caller already has it
+) -> torch.Tensor:
+    """Returns [B, T, H, D] in q's dtype."""
+    global LAUNCHES
+    b, t, h, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
+    kh = k_cache.shape[1]
+    if h % kh or v_cache.shape != k_cache.shape:
+        raise ValueError("heads / cache shapes are inconsistent")
+    if k_new.shape != (b, t, kh, d) or v_new.shape != (b, t, kh, d):
+        raise ValueError(f"k_new/v_new must be {(b, t, kh, d)}")
+    if tree_mask.shape != (b, t, t) or cache_lens.shape != (b,):
+        raise ValueError(f"tree_mask must be {(b, t, t)} and cache_lens [{b}]")
+    if q.device.type == "cpu":
+        return tree_attention_plain(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask)
+    index = tree_index(tree_mask) if index is None else index
+    out = _launch("tree_attention", q, k_cache, v_cache, k_new, v_new, cache_lens, index, t)
+    LAUNCHES += 1
+    return out
+
+
+def _launch(name, q, k_cache, v_cache, k_new, v_new, cache_lens, index, nt):
+    """Checks for a CUDA launch of either form, then the launch."""
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
-    tensors = (q, k_cache, v_cache, k_self, v_self)
-    if any(t.device != q.device for t in (*tensors, cache_lens)):
-        raise ValueError("all inputs must be on one device")
-    if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in tensors):
-        raise TypeError("q, caches and self K/V must share one dtype: bfloat16 or float32")
-    if cache_lens.dtype != torch.int32:
-        raise TypeError("cache_lens must be int32")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
+    tensors = (q, k_cache, v_cache, k_new, v_new)
+    extra = tuple(index or ())
+    if any(x.device != q.device for x in (*tensors, cache_lens, *extra)):
+        raise ValueError(f"{name}: all inputs must be on one device")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(x.dtype != q.dtype for x in tensors):
+        raise TypeError(f"{name}: q, caches and new K/V must share one dtype: "
+                        "bfloat16 or float32")
+    if any(x.dtype != torch.int32 for x in (cache_lens, *extra)):
+        raise TypeError(f"{name}: cache_lens and the tree index must be int32")
+    d = q.shape[-1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in (*tensors, cache_lens)):
-        raise ValueError("decode_attention needs contiguous inputs")
+    if not all(x.is_contiguous() for x in (*tensors, cache_lens, *extra)):
+        raise ValueError(f"{name} needs contiguous inputs")
+    b, kh, s = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
+    h = q.shape[-2]
     out = torch.empty_like(q)
+    ptrs = [x.data_ptr() for x in extra] if extra else [None, None, None]
     err = _build.lib().ff_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_self.data_ptr(),
-        v_self.data_ptr(), cache_lens.data_ptr(), out.data_ptr(),
-        b, h, kh, s, d, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), cache_lens.data_ptr(), *ptrs, out.data_ptr(),
+        b, nt, h, kh, s, d, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         _build.stream_ptr(q.device),
     )
-    _build.check(err, "decode_attention")
-    LAUNCHES += 1
+    _build.check(err, name)
     return out

@@ -1,13 +1,15 @@
-"""INT8 weight-only fused dequant + matmul (port of
-``flexflow_tpu/ops/pallas/quant_matmul.py``; kernel ``csrc/quant_matmul_int8.cu``).
+"""INT8 / INT4 weight-only fused dequant + matmul (port of
+``flexflow_tpu/ops/pallas/quant_matmul.py``; kernel ``csrc/quant_matmul.cu``).
 
-``qmm_int8`` computes ``x @ w`` with ``w = round_to_x_dtype(q * scale)``
-(dequantization exact in f32, rounded once), f32 accumulation and an output in
-x's dtype or f32. A stacked ``[L, D, F]`` carrier is addressed by a layer
-index: the kernel offsets into the stacked buffer, so no layer is copied out
-(the GPU form of ``quant_matmul_indexed``). There is no eligibility gate: the
-kernel takes every shape. Each row's result is bitwise independent of the row
-count of the call.
+``qmm_int8`` computes ``x @ w`` with ``w = round_to_x_dtype(q * scale)``;
+``qmm_int4`` the same for the planar INT4 carrier with
+``w = round_to_x_dtype(nibble * scale + offset)`` (multiply and add each
+rounded in f32, no fused multiply-add). Both accumulate in f32 and give an
+output in x's dtype or f32. A stacked ``[L, ...]`` carrier is addressed by a
+layer index: the kernel offsets into the stacked buffer, so no layer is
+copied out (the GPU form of ``quant_matmul_indexed``). There is no
+eligibility gate: the kernel takes every shape. Each row's result is bitwise
+independent of the row count of the call.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from typing import Optional
 import torch
 
 from flexflow_tpu_torch.ops.kernels import _build
-from flexflow_tpu_torch.quant.weight_only import QuantizedArray, dequantize
+from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 
-LAUNCHES = 0  # kernel launches of this process (plain-version calls not counted)
+LAUNCHES = 0  # qmm_int8 kernel launches of this process (plain-version calls not counted)
+LAUNCHES_INT4 = 0  # qmm_int4 kernel launches
 
 
 def qmm_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -31,6 +34,59 @@ def qmm_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
+def int4_weight(q: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+                group_size: int) -> torch.Tensor:
+    """The f32 dequantized [D, Fp] weight of a planar INT4 carrier (q
+    [D/2, Fp] uint8): low nibbles (unsigned) are rows [0, D/2), high nibbles
+    (signed) rows [D/2, D); ``nibble * scale`` and ``+ offset`` round apart."""
+    packed = q.view(torch.int8)
+    qv = torch.cat([(packed & 0x0F).float(), (packed >> 4).float()], dim=0)
+    s = torch.repeat_interleave(scale, group_size, dim=0)
+    o = torch.repeat_interleave(offset, group_size, dim=0)
+    return qv * s + o
+
+
+def qmm_int4_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                   offset: torch.Tensor, group_size: int, n_out: int,
+                   out_dtype) -> torch.Tensor:
+    """Plain PyTorch version: x [M, D], q [D/2, Fp] uint8, scale and offset
+    [D/g, Fp] f32."""
+    w = int4_weight(q, scale, offset, group_size)[:, :n_out].to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+
+def _check(name, x, q, scale, offset, pack, group_size, n_out, layer, out_dtype):
+    """Shared argument checks; returns (D, Fp)."""
+    stacked = layer is not None
+    tables = [scale] + ([offset] if offset is not None else [])
+    if q.dim() != (3 if stacked else 2) or any(t.dim() != q.dim() for t in tables):
+        raise ValueError(f"{name}: carrier rank {q.dim()} does not match layer={layer}")
+    d, fp = pack * q.shape[-2], q.shape[-1]
+    if x.dim() != 2 or x.shape[1] != d:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not contract with q {tuple(q.shape)}")
+    if d % group_size or any(t.shape[-2:] != (d // group_size, fp) for t in tables):
+        raise ValueError(f"{name}: scale/offset shape does not match the carrier")
+    if not 0 < n_out <= fp:
+        raise ValueError(f"{name}: n_out {n_out} outside (0, {fp}]")
+    if x.device.type == "cpu":
+        return d, fp
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
+    if any(t.device != x.device for t in (q, *tables)):
+        raise ValueError(f"{name}: x, q, scale and offset must be on one device")
+    if any(t.dtype != torch.float32 for t in tables):
+        raise TypeError(f"{name}: scale and offset must be float32")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: x must be bfloat16 or float32, got {x.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"{name}: out_dtype must be {x.dtype} or float32, got {out_dtype}")
+    if not all(t.is_contiguous() for t in (x, q, *tables)):
+        raise ValueError(f"{name} needs contiguous x, q, scale and offset")
+    if stacked and not 0 <= layer < q.shape[0]:
+        raise IndexError(f"{name}: layer {layer} outside [0, {q.shape[0]})")
+    return d, fp
+
+
 def qmm_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
              group_size: int, n_out: int, layer: Optional[int] = None,
              out_dtype=None) -> torch.Tensor:
@@ -39,41 +95,19 @@ def qmm_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     ``layer``, a stacked [L, D, Fp]; ``scale`` matches with D/g rows."""
     global LAUNCHES
     out_dtype = out_dtype or x.dtype
-    stacked = layer is not None
-    if q.dim() != (3 if stacked else 2) or scale.dim() != q.dim():
-        raise ValueError(f"carrier rank {q.dim()} does not match layer={layer}")
-    d, fp = q.shape[-2], q.shape[-1]
-    m = x.shape[0]
-    if x.dim() != 2 or x.shape[1] != d:
-        raise ValueError(f"x {tuple(x.shape)} does not contract with q {tuple(q.shape)}")
-    if d % group_size or scale.shape[-2] != d // group_size or scale.shape[-1] != fp:
-        raise ValueError("scale shape does not match the carrier")
-    if not 0 < n_out <= fp:
-        raise ValueError(f"n_out {n_out} outside (0, {fp}]")
+    d, fp = _check("qmm_int8", x, q, scale, None, 1, group_size, n_out, layer, out_dtype)
     if x.device.type == "cpu":
-        ql = q[layer] if stacked else q
-        sl = scale[layer] if stacked else scale
+        ql = q[layer] if layer is not None else q
+        sl = scale[layer] if layer is not None else scale
         return qmm_int8_plain(x, ql, sl, group_size, n_out, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"qmm_int8 runs on cuda or cpu tensors, not {x.device}")
-    if q.device != x.device or scale.device != x.device:
-        raise ValueError("x, q and scale must be on one device")
-    if q.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError(f"q must be int8 and scale float32, got {q.dtype}/{scale.dtype}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
-    if out_dtype not in (x.dtype, torch.float32):
-        raise TypeError(f"out_dtype must be {x.dtype} or float32, got {out_dtype}")
-    if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("qmm_int8 needs contiguous x, q and scale")
-    if stacked and not 0 <= layer < q.shape[0]:
-        raise IndexError(f"layer {layer} outside [0, {q.shape[0]})")
-    out = torch.empty((m, n_out), dtype=out_dtype, device=x.device)
-    if m == 0:
+    if q.dtype != torch.int8:
+        raise TypeError(f"qmm_int8: q must be int8, got {q.dtype}")
+    out = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
+    if x.shape[0] == 0:
         return out
     err = _build.lib().ff_qmm_int8(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, d, fp, n_out, group_size, int(layer or 0),
+        x.shape[0], d, fp, n_out, group_size, int(layer or 0),
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.float32),
         _build.stream_ptr(x.device),
     )
@@ -82,13 +116,42 @@ def qmm_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     return out
 
 
+def qmm_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor, *,
+             group_size: int, n_out: int, layer: Optional[int] = None,
+             out_dtype=None) -> torch.Tensor:
+    """x [M, D] @ dequant(q[layer]) -> [M, n_out] for the planar INT4
+    carrier: ``q`` [D/2, Fp] uint8 (or a stacked [L, D/2, Fp] with
+    ``layer``), ``scale`` and ``offset`` [(L,) D/g, Fp] f32."""
+    global LAUNCHES_INT4
+    out_dtype = out_dtype or x.dtype
+    d, fp = _check("qmm_int4", x, q, scale, offset, 2, group_size, n_out, layer, out_dtype)
+    if x.device.type == "cpu":
+        pick = (lambda t: t[layer]) if layer is not None else (lambda t: t)
+        return qmm_int4_plain(x, pick(q), pick(scale), pick(offset), group_size, n_out,
+                              out_dtype)
+    if q.dtype != torch.uint8:
+        raise TypeError(f"qmm_int4: q must be uint8, got {q.dtype}")
+    out = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
+    if x.shape[0] == 0:
+        return out
+    err = _build.lib().ff_qmm_int4(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
+        x.shape[0], d, fp, n_out, group_size, int(layer or 0),
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+        _build.stream_ptr(x.device),
+    )
+    _build.check(err, "qmm_int4")
+    LAUNCHES_INT4 += 1
+    return out
+
+
 def quant_matmul(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = None,
                  out_dtype=None) -> torch.Tensor:
     """x @ dequantize(qa) (or of layer ``layer`` of a stacked carrier).
 
     The contraction axes of ``x`` are its last ``qa.contract_dims`` axes; the
-    output gets the unit's out shape. INT8 goes through ``qmm_int8``; INT4 has
-    its plain path on the CPU and no CUDA kernel yet.
+    output gets the unit's out shape. INT8 goes through ``qmm_int8``, INT4
+    through ``qmm_int4``.
     """
     cdims = qa.contract_dims
     d = qa.d_contract
@@ -98,18 +161,13 @@ def quant_matmul(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = 
     unit = qa.shape[qa.batch_dims:]
     out_shape = unit[cdims:]
     lead = x.shape[: x.dim() - cdims]
-    xb = x.reshape(math.prod(lead), d)
-    odt = out_dtype or x.dtype
+    xb = x.reshape(math.prod(lead), d).contiguous()
+    kw = dict(group_size=qa.group_size, n_out=qa.d_rest, layer=layer,
+              out_dtype=out_dtype or x.dtype)
     if qa.bits == 8:
-        out = qmm_int8(xb.contiguous(), qa.q, qa.scale, group_size=qa.group_size,
-                       n_out=qa.d_rest, layer=layer, out_dtype=odt)
-    elif x.device.type == "cpu":
-        unit_qa = qa if layer is None else QuantizedArray(
-            qa.q[layer], qa.scale[layer], qa.offset[layer], qa.bits, qa.group_size,
-            qa.shape, qa.batch_dims, qa.contract_dims, qa.dtype, qa.rest_pad)
-        w = dequantize(unit_qa).reshape(d, -1).to(x.dtype)
-        out = torch.matmul(xb.float(), w.float()).to(odt)
+        out = qmm_int8(xb, qa.q, qa.scale, **kw)
+    elif qa.bits == 4:
+        out = qmm_int4(xb, qa.q, qa.scale, qa.offset, **kw)
     else:
-        raise NotImplementedError(
-            "the INT4 quant-matmul kernel is not ported yet (slice 2 of the port)")
+        raise ValueError(f"no quant-matmul for {qa.bits}-bit carriers")
     return out.reshape(*lead, *out_shape)

@@ -69,6 +69,21 @@ def filtered_logits(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
     return torch.where(scaled >= thresh, masked, neg_inf)
 
 
+def target_probs(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
+    """Per-row sampling distribution [B, V] (f32) under ``cfg``.
+
+    Greedy rows get a one-hot at the argmax: under stochastic speculative
+    verification a one-hot target accepts exactly the argmax path and its
+    renormalized residual stays the same one-hot, so the sampling walk
+    reproduces the greedy walk with no special casing.
+    """
+    greedy = (cfg.temperature <= 0.0)[:, None]
+    soft = torch.softmax(filtered_logits(logits.float(), cfg), dim=-1)
+    onehot = torch.nn.functional.one_hot(
+        torch.argmax(logits, dim=-1), logits.shape[-1]).to(torch.float32)
+    return torch.where(greedy, onehot, soft)
+
+
 def sample(
     logits: torch.Tensor,  # [B, V] f32
     key: int,

@@ -1,9 +1,11 @@
-"""User-facing serving API: ``LLM`` (port of ``flexflow_tpu/serve.py``,
-incremental decoding on one device).
+"""User-facing serving API: ``LLM`` and ``SSM`` (port of
+``flexflow_tpu/serve.py``: incremental decoding, and tree-speculative
+decoding with one draft model, on one device).
 
 ``LLM(model_dir).compile(...)`` loads a local HuggingFace model directory and
-builds the engine and scheduler; ``generate(prompts)`` tokenizes, serves
-through ``RequestManager.generate`` and detokenizes. The tokenizer is
+builds the engine and scheduler; with ``ssms=[SSM(draft_dir)]`` it builds a
+``SpecEngine`` and a fused, pipelined ``SpecRequestManager`` instead.
+``generate(prompts)`` tokenizes, serves and detokenizes. The tokenizer is
 imported lazily (``transformers``). Runs on ``cuda`` unless ``device`` names
 another device.
 """
@@ -19,6 +21,8 @@ from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
+from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
 from flexflow_tpu_torch.utils import hf_weights
 
 _DTYPES = {
@@ -52,25 +56,57 @@ class LLM:
         self.model_dir = model_dir
         self.dtype = _DTYPES[data_type]
         self.quant_bits = {"int8": 8, "int4": 4, None: None}[quantization]
-        if self.quant_bits == 4 and self.device.type == "cuda":
-            raise NotImplementedError(
-                "INT4 serving on CUDA needs the INT4 quant-matmul kernel, which "
-                "arrives in slice 2 of the port")
         self.output_file = output_file
         self.spec = hf_weights.load_spec(model_dir)
         self.params = None
         self.tokenizer = None
-        self.rm: Optional[RequestManager] = None
+        self.rm: Optional[Union[RequestManager, SpecRequestManager]] = None
+        self._ssms: List["SSM"] = []
 
-    def compile(self, *, max_requests_per_batch: int = 8, max_seq_length: int = 256,
-                max_tokens_per_batch: Optional[int] = None) -> None:
-        """Load the weights and build the engine and the scheduler."""
-        if max_tokens_per_batch is None:
-            max_tokens_per_batch = 128
-        _, self.params = hf_weights.load_params(
+    def register_ssm(self, ssm: "SSM") -> None:
+        """Register a draft model for speculative decoding."""
+        self._ssms.append(ssm)
+
+    def _load_params(self):
+        _, params = hf_weights.load_params(
             self.model_dir, self.spec, dtype=self.dtype, quantize_bits=self.quant_bits,
             quantize_group_size=_ffconfig.quantization_group_size, device=self.device)
+        return params
+
+    def compile(self, *, max_requests_per_batch: int = 8, max_seq_length: int = 256,
+                max_tokens_per_batch: Optional[int] = None, beam_width: int = 3,
+                beam_depth: int = 4, ssms: Sequence["SSM"] = (),
+                merge_ssm_trees: bool = False) -> None:
+        """Load the weights and build the engine and the scheduler: the
+        incremental ``RequestManager``, or with one registered draft model
+        (``ssms``) the speculative ``SpecRequestManager`` (fused, and
+        pipelined over a horizon of ``spec_horizon`` iterations)."""
+        for ssm in ssms:
+            self.register_ssm(ssm)
+        if len(self._ssms) > 1 or merge_ssm_trees:
+            raise NotImplementedError(
+                "several draft models and merged trees (MultiSSMSpecManager, "
+                "serving/tree_merge.py) are not in the port yet: ROADMAP.md Queue A item 11b")
+        if max_tokens_per_batch is None:
+            max_tokens_per_batch = 128
+        self.params = self._load_params()
         self._load_tokenizer()
+        if self._ssms:
+            ssm = self._ssms[0]
+            # never let the per-request speculation margin (horizon x
+            # (tree + 1)) take more than about a quarter of the context
+            tree = tree_size(beam_width, beam_depth)
+            spec_horizon = max(1, min(_ffconfig.spec_horizon,
+                                      max_seq_length // (4 * (tree + 1))))
+            engine = SpecEngine(
+                self.spec, self.params, ssm.spec, ssm._load_params(),
+                beam_width=beam_width, beam_depth=beam_depth,
+                max_requests_per_batch=max_requests_per_batch, max_seq_len=max_seq_length,
+                cache_dtype=self.dtype, device=self.device)
+            self.rm = SpecRequestManager(engine, fused=True, spec_horizon=spec_horizon,
+                                         pipelined=spec_horizon > 1,
+                                         pipeline_depth=_ffconfig.pipeline_depth)
+            return
         engine = InferenceEngine(
             self.spec, self.params,
             max_requests_per_batch=max_requests_per_batch,
@@ -122,3 +158,12 @@ class LLM:
                             f"{r.decoding_steps}) latency({r.latency_ms:.3f}) "
                             f"ttft({r.ttft_ms:.3f})\n")
         return results
+
+
+class SSM(LLM):
+    """A small speculative (draft) model, registered with ``LLM.compile(ssms=...)``."""
+
+    def __init__(self, model_dir: str, *, data_type: str = "bfloat16",
+                 quantization: Optional[str] = None, device=None):
+        super().__init__(model_dir, data_type=data_type, quantization=quantization,
+                         device=device)

@@ -1,0 +1,497 @@
+"""Tree-based speculative decoding (SpecInfer): draft tree + token-tree
+verification (port of ``flexflow_tpu/serving/speculative.py``, one draft).
+
+- draft phase: beam-tree expansion on the small model (``build_draft_phase``).
+  The root step runs the draft's cached forward on the last committed token
+  (T=1: the decode-attention kernel); each depth then runs the W beam tips
+  against the cache plus the tree so far, kept in a small ``[L, B, tree, KH,
+  D]`` buffer (``extra_kv``), followed by BeamTopK expansion.
+- verify: one cached forward of the verifier over the whole tree under its
+  ancestor mask, returning the tree's K/V instead of writing the cache. On
+  the card its attention is the decode-attention kernel's tree form, so each
+  node gets the bits incremental decoding would give it.
+- accept: the greedy walk along the verifier's argmax choices (lossless
+  against incremental greedy decoding) or the stochastic walk of
+  ``spec_sampling``.
+- commit: the accepted columns of both buffers are written into both caches
+  at ``[lens, lens + depth + 1)``.
+
+Tree layout: slot 0 is the root (last committed token); slot
+``1 + (d - 1) * W + w`` is beam w at depth d.
+
+The JAX package chains a horizon of iterations as one XLA program with
+staged KV buffers, an optimization barrier and donated caches. PyTorch runs
+eagerly: here a horizon of n iterations is n fused steps issued without a
+host sync. Lens, roots and produced tokens stay device tensors until
+``fetch``, each iteration's tree K/V lives in its own buffer, and the caches
+are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from flexflow_tpu_torch.config import config as _ffconfig
+from flexflow_tpu_torch.device import resolve_device
+from flexflow_tpu_torch.models import decoder
+from flexflow_tpu_torch.models.decoder import KVCache, to_device
+from flexflow_tpu_torch.ops import sampling as sampling_lib
+from flexflow_tpu_torch.ops.sampling import SamplingConfig
+from flexflow_tpu_torch.serving.engine import _params_to, _round_up_pow2
+from flexflow_tpu_torch.serving.spec_sampling import tree_sample_walk
+from flexflow_tpu_torch.specs import ModelSpec
+
+# Reference caps: beam width <= 3, depth <= 8, tree <= 64 tokens.
+MAX_SPEC_TREE_TOKEN_NUM = 64
+
+
+def tree_size(width: int, depth: int) -> int:
+    return 1 + width * depth
+
+
+def make_depths_vec(width: int, depth: int, device=None) -> torch.Tensor:
+    """Per-tree-slot depth [tree] int32: slot 0 = 0; 1+(d-1)*W+w = d."""
+    depths = torch.zeros(tree_size(width, depth), dtype=torch.int32, device=device)
+    for d in range(1, depth + 1):
+        depths[1 + (d - 1) * width: 1 + d * width] = d
+    return depths
+
+
+def _log_softmax_topk(logits: torch.Tensor, k: int):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    vals, idx = torch.topk(logp, k, dim=-1)
+    return vals, idx.to(torch.int32)
+
+
+def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int):
+    """The draft-tree expansion as a function ``draft_phase(ssm_params,
+    ssm_cache, cache_lens, roots, window=None) -> (tree_tokens [B, T],
+    tree_parents [B, T], anc_self [B, T, T], (buf_k, buf_v) [L, B, T, KH,
+    D])``. The tree K/V stays in the buffers; the draft cache is not
+    written."""
+    w, dmax = width, depth
+    tree = tree_size(w, dmax)
+
+    def draft_phase(ssm_params, ssm_cache: KVCache, cache_lens, roots, window=None):
+        b = cache_lens.shape[0]
+        dev = cache_lens.device
+        depths_vec = make_depths_vec(w, dmax, dev)
+        cdt = ssm_cache.k.dtype
+        logits, (k0, v0) = decoder.forward_cached(
+            ssm_spec, ssm_params, roots[:, None], ssm_cache, cache_lens,
+            write_cache=False)
+        shape = (ssm_spec.num_layers, b, tree, ssm_spec.num_kv_heads, ssm_spec.head_dim)
+        buf_k = torch.zeros(shape, dtype=cdt, device=dev)
+        buf_v = torch.zeros(shape, dtype=cdt, device=dev)
+        buf_k[:, :, 0:1] = k0
+        buf_v[:, :, 0:1] = v0
+        beam_logp, beam_tokens = _log_softmax_topk(logits[:, 0], w)
+
+        anc = torch.zeros((b, w, tree), dtype=torch.bool, device=dev)
+        anc[:, :, 0] = True
+        tree_tokens = torch.zeros((b, tree), dtype=torch.int32, device=dev)
+        tree_tokens[:, 0] = roots
+        tree_parents = torch.full((b, tree), -1, dtype=torch.int32, device=dev)
+        abs_parents = torch.zeros((b, w), dtype=torch.int32, device=dev)
+        eye_w = torch.eye(w, dtype=torch.bool, device=dev)[None].expand(b, w, w)
+        ex_pos = cache_lens[:, None] + depths_vec[None, :]
+        slots = torch.arange(tree, device=dev)
+
+        for d in range(1, dmax + 1):
+            base = 1 + (d - 1) * w
+            tree_tokens[:, base:base + w] = beam_tokens
+            tree_parents[:, base:base + w] = abs_parents
+            positions = (cache_lens + d)[:, None].expand(b, w).to(torch.int32)
+            logits, (kd, vd) = decoder.forward_cached(
+                ssm_spec, ssm_params, beam_tokens, ssm_cache, cache_lens,
+                positions=positions, tree_mask=eye_w, extra_kv=(buf_k, buf_v),
+                extra_mask=anc, extra_positions=ex_pos, write_cache=False,
+                attn_window=window)
+            buf_k[:, :, base:base + w] = kd
+            buf_v[:, :, base:base + w] = vd
+            if d == dmax:
+                break
+            self_slots = base + torch.arange(w, device=dev)
+            anc_self = anc | (slots[None, None, :] == self_slots[None, :, None])
+            cand_logp, cand_tok = _log_softmax_topk(logits, w)  # [B, W, W]
+            total = beam_logp[:, :, None] + cand_logp
+            beam_logp, flat_idx = torch.topk(total.reshape(b, w * w), w, dim=-1)
+            parents = flat_idx // w
+            beam_tokens = torch.gather(cand_tok.reshape(b, w * w), 1, flat_idx)
+            anc = torch.gather(anc_self, 1, parents[:, :, None].expand(b, w, tree))
+            abs_parents = (base + parents).to(torch.int32)
+
+        # ancestor matrix from the parents (parent < child)
+        anc_self = torch.zeros((b, tree, tree), dtype=torch.bool, device=dev)
+        anc_self[:, 0, 0] = True
+        rows = torch.arange(b, device=dev)
+        for c in range(1, tree):
+            row = anc_self[rows, tree_parents[:, c].long().clamp(min=0)]  # a copy
+            row[:, c] = True
+            anc_self[:, c] = row
+        return tree_tokens, tree_parents, anc_self, (buf_k, buf_v)
+
+    return draft_phase
+
+
+def commit_from_buffer(cache: KVCache, cache_lens: torch.Tensor, buf_k: torch.Tensor,
+                       buf_v: torch.Tensor, path_slots: torch.Tensor) -> KVCache:
+    """Write the accepted tree columns ``path_slots`` [B, n] of the buffers
+    [L, B, T, KH, D] into the cache at [lens, lens + n), in place and without
+    a host sync. Columns past S are dropped; junk beyond the accepted count
+    lands past the committed length, where the next iteration overwrites it
+    before anything attends it."""
+    ll, b, _, kh, dh = buf_k.shape
+    n = path_slots.shape[1]
+    s = cache.max_seq_len
+    dev = buf_k.device
+    idx = path_slots.long()[None, :, :, None, None].expand(ll, b, n, kh, dh)
+    pos = cache_lens.long()[:, None] + torch.arange(n, device=dev)[None, :]  # [B, n]
+    valid = pos < s
+    # a column past S writes back the unchanged value at lens - 1, which no
+    # valid column of its row targets
+    safe = torch.where(valid, pos, (cache_lens.long()[:, None] - 1).clamp(0, s - 1))
+    bidx = torch.arange(b, device=dev)[:, None].expand(b, n)
+    keep = valid[:, :, None, None, None]
+    for c, buf in ((cache.k, buf_k), (cache.v, buf_v)):
+        new = torch.gather(buf, 2, idx).permute(1, 2, 0, 3, 4).to(c.dtype)  # [B, n, L, KH, D]
+        c[:, bidx, :, safe] = torch.where(keep, new, c[:, bidx, :, safe])
+    return cache
+
+
+def greedy_accept_walk(expected, tree_tokens, tree_parents, depth: int):
+    """Greedy tree acceptance: walk the tree along the verifier's argmax
+    choices ``expected`` [B, T] (lossless against incremental greedy).
+
+    Returns (produced [B, depth+1], n_acc [B], from_slots [B, T]) int32.
+    """
+    b, tree = tree_tokens.shape
+    dev = tree_tokens.device
+    cur = torch.zeros(b, dtype=torch.long, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    n_acc = torch.ones(b, dtype=torch.int32, device=dev)
+    produced = torch.zeros((b, depth + 1), dtype=torch.int32, device=dev)
+    from_slots = torch.arange(tree, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    for i in range(depth + 1):
+        exp = torch.gather(expected, 1, cur[:, None])[:, 0].to(torch.int32)
+        produced[:, i] = exp
+        if i == depth:
+            break
+        match = (tree_parents == cur[:, None]) & (tree_tokens == exp[:, None])
+        found = match.any(dim=-1) & alive
+        child = torch.argmax(match.to(torch.int32), dim=-1)  # first match
+        from_slots[:, i + 1] = torch.where(found, child.to(torch.int32),
+                                           torch.full_like(n_acc, i + 1))
+        n_acc = n_acc + found.to(torch.int32)
+        cur = torch.where(found, child, cur)
+        alive = found
+    return produced, n_acc, from_slots
+
+
+class SpecEngine:
+    """Draft expansion, tree verification and KV commit for one verifier and
+    one draft model, with both KV caches on one device."""
+
+    def __init__(
+        self,
+        llm_spec: ModelSpec,
+        llm_params,
+        ssm_spec: ModelSpec,
+        ssm_params,
+        *,
+        beam_width: int = 3,
+        beam_depth: int = 8,
+        max_requests_per_batch: int = 8,
+        max_seq_len: int = 256,
+        cache_dtype=torch.bfloat16,
+        device=None,
+    ):
+        if llm_spec.vocab_size != ssm_spec.vocab_size:
+            raise ValueError("the verifier and the draft need one vocabulary")
+        t = tree_size(beam_width, beam_depth)
+        if t > MAX_SPEC_TREE_TOKEN_NUM:
+            raise ValueError(f"tree {t} exceeds the cap {MAX_SPEC_TREE_TOKEN_NUM}")
+        self.device = resolve_device(device)
+        self.llm_spec, self.ssm_spec = llm_spec, ssm_spec
+        llm_params = _params_to(llm_params, self.device)
+        ssm_params = _params_to(ssm_params, self.device)
+        if _ffconfig.fuse_qkv:
+            # draft and verifier flip together, so decode, draft expansion
+            # and tree verification stay mutually consistent
+            llm_params = decoder.fuse_qkv_params(llm_spec, llm_params)
+            ssm_params = decoder.fuse_qkv_params(ssm_spec, ssm_params)
+        self.llm_params, self.ssm_params = llm_params, ssm_params
+        self.width, self.depth, self.tree = beam_width, beam_depth, t
+        self.max_requests = max_requests_per_batch
+        self.max_seq_len = max_seq_len
+        self.llm_cache = decoder.init_kv_cache(
+            llm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
+        self.ssm_cache = decoder.init_kv_cache(
+            ssm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
+        self._draft_phase = build_draft_phase(ssm_spec, beam_width, beam_depth)
+        self._depths = make_depths_vec(beam_width, beam_depth, self.device)
+
+    # ------------------------------------------------------------------
+    # host-facing helpers
+    # ------------------------------------------------------------------
+
+    def _h(self, x, dtype=np.int32) -> torch.Tensor:
+        """Host value -> device tensor (pinned, non-blocking copy)."""
+        return to_device(x, self.device, dtype)
+
+    def fetch(self, x) -> np.ndarray:
+        """Device -> host (waits for the device)."""
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def _scfg(self, scfg: SamplingConfig) -> SamplingConfig:
+        return SamplingConfig(
+            temperature=self._h(scfg.temperature, np.float32),
+            top_p=self._h(scfg.top_p, np.float32), top_k=self._h(scfg.top_k, np.int32))
+
+    def attn_window_bucket(self, max_len: int):
+        """Cache-read window: a power of two from 128 covering ``max_len``,
+        None once it reaches the full cache. ``max_len`` must bound every
+        active slot's committed length when the step runs (pipelined callers
+        add in-flight iterations x (depth + 1))."""
+        w = _round_up_pow2(max(int(max_len), 1), 128)
+        return None if w >= self.max_seq_len else w
+
+    def apply_slot_overrides(self, lens_dev, roots_dev, mask, new_lens, new_roots):
+        """Merge host-side admissions into the device lens/roots feedback."""
+        m = self._h(mask, np.bool_)
+        return (torch.where(m, self._h(new_lens), lens_dev),
+                torch.where(m, self._h(new_roots), roots_dev))
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+
+    def prefill_both_batch(self, prompts, slots, key: Optional[int] = None,
+                           scfg: Optional[SamplingConfig] = None):
+        """Admit several requests into both caches (one causal forward of
+        each model through the flash-prefill kernel, each layer's K/V written
+        into the slots); returns the [NB] first tokens as host ints, greedy
+        unless ``scfg`` ([NB] fields) and ``key`` are given."""
+        nb = len(prompts)
+        bucket = min(_round_up_pow2(max(len(p) for p in prompts), 16), self.max_seq_len)
+        padded = np.zeros((nb, bucket), np.int32)
+        lengths = np.zeros((nb,), np.int32)
+        for i, p in enumerate(prompts):
+            if len(p) > self.max_seq_len:
+                raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {self.max_seq_len}")
+            padded[i, :len(p)] = p
+            lengths[i] = len(p)
+        tokens, lens_d = self._h(padded), self._h(lengths)
+        positions = torch.arange(bucket, dtype=torch.int32, device=self.device)[None].expand(
+            nb, bucket)
+        starts = np.zeros(nb, np.int64)
+
+        def sink_into(cache):
+            def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows
+                decoder.commit_kv_windows(
+                    cache.k[layer:layer + 1], cache.v[layer:layer + 1],
+                    k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
+                    v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
+            return sink
+
+        with torch.no_grad():
+            last, _ = decoder.forward(
+                self.llm_spec, self.llm_params, tokens, positions, lengths=lens_d,
+                flash=True, kv_sink=sink_into(self.llm_cache), logits_at=lens_d - 1)
+            decoder.forward(
+                self.ssm_spec, self.ssm_params, tokens, positions, lengths=lens_d,
+                flash=True, kv_sink=sink_into(self.ssm_cache), logits_at=lens_d - 1)
+            if scfg is None:
+                toks = torch.argmax(last, dim=-1)
+            else:
+                toks = sampling_lib.sample(last, key, self._scfg(scfg))
+        return [int(t) for t in self.fetch(toks)]
+
+    # ------------------------------------------------------------------
+    # stepwise path: draft tree, verify and commit as three host calls
+    # ------------------------------------------------------------------
+
+    def draft_tree(self, cache_lens, root_tokens):
+        """Expand the draft tree for every slot, writing the draft's tree K/V
+        into its cache at [lens, lens + tree). Returns host arrays
+        (tree_tokens [B, T], tree_parents [B, T], tree_depths [T])."""
+        lens_np = np.asarray(cache_lens, np.int32)
+        b, w, dmax, t = len(lens_np), self.width, self.depth, self.tree
+        lens = self._h(lens_np)
+        s = self.max_seq_len
+        tree_tokens = np.zeros((b, t), np.int32)
+        tree_parents = np.full((b, t), -1, np.int32)
+        tree_tokens[:, 0] = root_tokens
+        with torch.no_grad():
+            logits, _ = decoder.forward_cached(
+                self.ssm_spec, self.ssm_params, self._h(root_tokens)[:, None],
+                self.ssm_cache, lens, write_start=lens_np)
+            beam_logp, beam_tokens = _log_softmax_topk(logits[:, 0], w)
+            anc = torch.zeros((b, w, t), dtype=torch.bool, device=self.device)
+            anc[:, :, 0] = True
+            kv_pos = torch.arange(s, device=self.device)[None, None, :]
+            committed = kv_pos < lens[:, None, None]
+            rel = kv_pos - lens[:, None, None]
+            in_tree = (rel >= 0) & (rel < t)
+            rel_c = rel.clamp(0, t - 1).expand(b, w, s)
+            eye_w = torch.eye(w, dtype=torch.bool, device=self.device)[None].expand(b, w, w)
+            for d in range(1, dmax + 1):
+                base = 1 + (d - 1) * w
+                tree_tokens[:, base:base + w] = self.fetch(beam_tokens)
+                if d > 1:
+                    tree_parents[:, base:base + w] = 1 + (d - 2) * w + self.fetch(parents)
+                else:
+                    tree_parents[:, base:base + w] = 0
+                # the last depth runs too, so its draft K/V is in the cache
+                # (stepwise commit compacts it like every other slot)
+                kv_mask = committed | (torch.gather(anc, 2, rel_c) & in_tree)
+                logits, _ = decoder.forward_cached(
+                    self.ssm_spec, self.ssm_params, beam_tokens, self.ssm_cache, lens,
+                    positions=(lens + d)[:, None].expand(b, w).to(torch.int32),
+                    kv_mask=kv_mask, tree_mask=eye_w, write_start=lens_np + base)
+                if d == dmax:
+                    break
+                self_slots = base + torch.arange(w, device=self.device)
+                anc_self = anc | (torch.arange(t, device=self.device)[None, None, :]
+                                  == self_slots[None, :, None])
+                cand_logp, cand_tok = _log_softmax_topk(logits, w)
+                total = beam_logp[:, :, None] + cand_logp
+                beam_logp, flat_idx = torch.topk(total.reshape(b, w * w), w, dim=-1)
+                parents = flat_idx // w
+                beam_tokens = torch.gather(cand_tok.reshape(b, w * w), 1, flat_idx)
+                anc = torch.gather(anc_self, 1, parents[:, :, None].expand(b, w, t))
+        return tree_tokens, tree_parents, self.fetch(self._depths)
+
+    def verify(self, cache_lens, tree_tokens, tree_parents, tree_depths) -> np.ndarray:
+        """Verifier over the tree (its K/V written at [lens, lens + T));
+        returns the greedy argmax per tree slot [B, T] on the host."""
+        lens_np = np.asarray(cache_lens, np.int32)
+        b, t = tree_tokens.shape
+        anc = np.zeros((b, t, t), bool)
+        anc[:, np.arange(t), np.arange(t)] = True
+        for s in range(1, t):
+            p = tree_parents[:, s]
+            ok = p >= 0
+            anc[ok, s] |= anc[ok, p[ok]]
+        depths = np.asarray(tree_depths)
+        if depths.ndim == 1:
+            depths = np.broadcast_to(depths[None, :], (b, t))
+        with torch.no_grad():
+            logits, _ = decoder.forward_cached(
+                self.llm_spec, self.llm_params, self._h(tree_tokens), self.llm_cache,
+                self._h(lens_np), positions=self._h(lens_np[:, None] + depths),
+                tree_mask=self._h(anc, np.bool_), write_start=lens_np)
+            return self.fetch(torch.argmax(logits, dim=-1))
+
+    def commit(self, cache_lens, from_slots) -> None:
+        """Compact the accepted tree slots of both caches:
+        ``cache[lens + i] <- cache[lens + from_slots[b, i]]`` for i < T
+        (identity past the accepted count)."""
+        lens_np = np.asarray(cache_lens, np.int32)
+        fs = self._h(from_slots).long()
+        b, t = fs.shape
+        lens = self._h(lens_np).long()
+        bidx = torch.arange(b, device=self.device)[:, None].expand(b, t)
+        with torch.no_grad():
+            for cache in (self.llm_cache, self.ssm_cache):
+                src = torch.clamp(lens[:, None] + fs, max=cache.max_seq_len - 1)
+                # [B, T, L, KH, D] -> [L, B, KH, T, D] update windows
+                gk = cache.k[:, bidx, :, src].permute(2, 0, 3, 1, 4)
+                gv = cache.v[:, bidx, :, src].permute(2, 0, 3, 1, 4)
+                decoder.commit_kv_windows(cache.k, cache.v, gk, gv, lens_np)
+
+    # ------------------------------------------------------------------
+    # fused path: draft, verify, accept and commit without a host sync
+    # ------------------------------------------------------------------
+
+    def _verify_reg(self, cache_lens, tree_tokens, anc_self):
+        """Tree verification without cache writes: logits [B, T, V] and the
+        tree's K/V [L, B, T, KH, D]. Its attention reads only the committed
+        positions (the tree form of the decode-attention kernel), so it takes
+        no cache-read window."""
+        positions = cache_lens[:, None] + self._depths[None, :]
+        return decoder.forward_cached(
+            self.llm_spec, self.llm_params, tree_tokens, self.llm_cache, cache_lens,
+            positions=positions.to(torch.int32), tree_mask=anc_self, write_cache=False)
+
+    def _fused_iteration(self, lens, roots, walk: Callable, window=None):
+        """One speculative iteration on device tensors: returns (produced
+        [B, depth+1], n_acc [B], lens + n_acc, next roots)."""
+        tree_tokens, tree_parents, anc_self, ssm_buf = self._draft_phase(
+            self.ssm_params, self.ssm_cache, lens, roots, window)
+        logits, llm_buf = self._verify_reg(lens, tree_tokens, anc_self)
+        produced, n_acc, from_slots = walk(logits, tree_tokens, tree_parents)
+        path = from_slots[:, :self.depth + 1]
+        commit_from_buffer(self.llm_cache, lens, *llm_buf, path)
+        commit_from_buffer(self.ssm_cache, lens, *ssm_buf, path)
+        next_roots = torch.gather(produced, 1, (n_acc - 1).long()[:, None])[:, 0]
+        return produced, n_acc, lens + n_acc, next_roots
+
+    def _greedy_walk(self, logits, tree_tokens, tree_parents):
+        expected = torch.argmax(logits, dim=-1)
+        return greedy_accept_walk(expected, tree_tokens, tree_parents, self.depth)
+
+    def _sample_walk(self, key: int, scfg: SamplingConfig):
+        """A walk that verifies stochastically against each slot's target
+        distribution (``scfg`` fields [B] on the device)."""
+        def walk(logits, tree_tokens, tree_parents):
+            b, t, v = logits.shape
+            rep = SamplingConfig(*(torch.repeat_interleave(f, t) for f in scfg))
+            p_tree = sampling_lib.target_probs(logits.reshape(b * t, v), rep).reshape(b, t, v)
+            return tree_sample_walk(p_tree, tree_tokens, tree_parents, key,
+                                    width=self.width, depth=self.depth)
+        return walk
+
+    def _horizon(self, lens, roots, n: int, walks: Sequence[Callable], window=None):
+        produced, n_acc = [], []
+        with torch.no_grad():
+            for i in range(n):
+                p, a, lens, roots = self._fused_iteration(lens, roots, walks[i], window)
+                produced.append(p)
+                n_acc.append(a)
+        return torch.stack(produced), torch.stack(n_acc), lens, roots
+
+    def fused_step(self, cache_lens, root_tokens, window=None) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative iteration; returns host (produced [B, depth+1],
+        n_acc [B]) with both caches committed."""
+        p, a, _, _ = self._horizon(self._h(cache_lens), self._h(root_tokens), 1,
+                                   [self._greedy_walk], window)
+        return self.fetch(p[0]), self.fetch(a[0])
+
+    def fused_step_n(self, cache_lens, root_tokens, n: int,
+                     window=None) -> Tuple[np.ndarray, np.ndarray]:
+        """n chained iterations; returns host (produced [n, B, depth+1],
+        n_acc [n, B])."""
+        p, a, _, _ = self.fused_step_n_async(self._h(cache_lens), self._h(root_tokens), n,
+                                             window)
+        return self.fetch(p), self.fetch(a)
+
+    def fused_step_n_async(self, lens_dev, roots_dev, n: int, window=None):
+        """n chained iterations on device lens/roots, issued without a host
+        sync; returns device (produced [n, B, depth+1], n_acc [n, B],
+        lens_out [B], roots_out [B])."""
+        return self._horizon(lens_dev, roots_dev, n, [self._greedy_walk] * n, window)
+
+    def fused_sample_step(self, cache_lens, root_tokens, key: int,
+                          scfg: SamplingConfig) -> Tuple[np.ndarray, np.ndarray]:
+        """One iteration with stochastic verification; greedy slots
+        (temperature <= 0) walk exactly as ``fused_step``."""
+        p, a = self.fused_sample_step_n(cache_lens, root_tokens, key, scfg, 1)
+        return p[0], a[0]
+
+    def fused_sample_step_n(self, cache_lens, root_tokens, key: int, scfg: SamplingConfig,
+                            n: int, window=None) -> Tuple[np.ndarray, np.ndarray]:
+        p, a, _, _ = self.fused_sample_step_n_async(
+            self._h(cache_lens), self._h(root_tokens), key, scfg, n, window)
+        return self.fetch(p), self.fetch(a)
+
+    def fused_sample_step_n_async(self, lens_dev, roots_dev, key: int, scfg: SamplingConfig,
+                                  n: int, window=None):
+        """Pipelined sampling horizon (see ``fused_step_n_async``); iteration
+        i draws from ``fold_in(key, i)``."""
+        sc = self._scfg(scfg)
+        walks = [self._sample_walk(sampling_lib.fold_in(key, i), sc) for i in range(n)]
+        return self._horizon(lens_dev, roots_dev, n, walks, window)

@@ -17,6 +17,8 @@ from flexflow_tpu_torch.ops.kernels import quant_matmul as t_qm
 from flexflow_tpu_torch.quant import quantize_params
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
+from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+from flexflow_tpu_torch.serving.speculative import SpecEngine
 from flexflow_tpu_torch.specs import ModelSpec
 
 pytestmark = pytest.mark.cuda
@@ -56,6 +58,57 @@ def test_qmm_int8_kernel_matches_plain(cuda, d, fp, n_out, g, m):
     assert (got32 - want32).abs().max() <= 1e-5 * want32.abs().max()
 
 
+def _int4_carrier(gen, layers, d, fp, g):
+    """A random planar INT4 carrier: packed bytes, positive scales and
+    offsets of either sign (any byte value is a valid pair of nibbles)."""
+    q = torch.randint(0, 256, (layers, d // 2, fp), generator=gen, device=gen.device,
+                      dtype=torch.uint8)
+    s = torch.rand((layers, d // g, fp), generator=gen, device=gen.device) * 0.01
+    o = (torch.rand((layers, d // g, fp), generator=gen, device=gen.device) - 0.5) * 0.1
+    return q, s, o
+
+
+@pytest.mark.parametrize("d,fp,n_out,g,m", [
+    (512, 200, 190, 128, 33),  # F not a multiple of 16: plain loads fill the ring
+    (512, 256, 256, 64, 40),  # cp.async ring, 128x128 tiling
+    (512, 256, 250, 32, 5),  # groups shorter than the 128-deep decode chunk
+    (400, 96, 96, 25, 20),  # an odd group size; chunks straddle D/2
+    (100, 40, 33, 5, 7),  # D not a multiple of 8
+])
+def test_qmm_int4_kernel_matches_plain(cuda, d, fp, n_out, g, m):
+    """bf16: within 1% of the output magnitude; each row bitwise equal to a
+    1-row call (the 16-row tiling); f32 x: 1e-5 relative."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, s, o = _int4_carrier(gen, 2, d, fp, g)
+    x = torch.randn((m, d), generator=gen, device=cuda)
+    xb = x.to(torch.bfloat16)
+    kw = dict(group_size=g, n_out=n_out, layer=1)
+    got = t_qm.qmm_int4(xb, q, s, o, **kw)
+    want = t_qm.qmm_int4_plain(xb, q[1], s[1], o[1], g, n_out, torch.bfloat16)
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+    for r in (0, m // 2, m - 1):
+        one = t_qm.qmm_int4(xb[r:r + 1].contiguous(), q, s, o, **kw)
+        assert torch.equal(one[0], got[r])
+    got32 = t_qm.qmm_int4(x, q, s, o, **kw)
+    want32 = t_qm.qmm_int4_plain(x, q[1], s[1], o[1], g, n_out, torch.float32)
+    assert (got32 - want32).abs().max() <= 1e-5 * want32.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qmm_int4_identity_probe(cuda, dtype):
+    """One-hot rows of x give back the dequantized weight's rows bitwise (the
+    weight rounded once to x's dtype), in both half-planes: the multiply and
+    the add of the dequantization round apart, as in the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    d, fp, g = 256, 160, 32
+    q, s, o = _int4_carrier(gen, 1, d, fp, g)
+    w = t_qm.int4_weight(q[0], s[0], o[0], g).to(dtype)
+    rows = [0, 1, 127, 128, 129, 255]
+    eye = torch.eye(d, device=cuda, dtype=dtype)[rows].contiguous()
+    got = t_qm.qmm_int4(eye, q, s, o, group_size=g, n_out=fp, layer=0)
+    assert torch.equal(got, w[rows])
+
+
 def test_decode_attention_kernel_matches_plain(cuda):
     """f32: atol 1e-4 (fast exp, summation order)."""
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -66,6 +119,62 @@ def test_decode_attention_kernel_matches_plain(cuda):
     got = t_da.decode_attention(*args, lens)
     want = t_da.decode_attention_plain(*args, lens)
     assert (got - want).abs().max() <= 1e-4
+
+
+def _tree(gen, b, width, depth):
+    """Random trees in the speculative layout (slot 0 the root, slot
+    1 + (d-1) * W + w beam w at depth d): parents and the ancestor mask."""
+    t = 1 + width * depth
+    parents = torch.full((b, t), -1, dtype=torch.long)
+    parents[:, 1:1 + width] = 0
+    for d in range(2, depth + 1):
+        base, prev = 1 + (d - 1) * width, 1 + (d - 2) * width
+        parents[:, base:base + width] = prev + torch.randint(0, width, (b, width), generator=gen)
+    anc = torch.zeros((b, t, t), dtype=torch.bool)
+    for c in range(t):
+        anc[:, c, c] = True
+        if c:
+            anc[:, c] |= anc[torch.arange(b), parents[:, c]]
+    return parents, anc
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tree_attention_matches_plain_and_incremental_bits(cuda, dtype):
+    """The tree form against its plain version (bf16: one output rounding
+    plus 2^-12 of sum p|v|, as decode attention; f32: 1e-4), and each node
+    bitwise equal to the one-token call after its ancestors were committed
+    into the cache (what incremental decoding computes)."""
+    g = torch.Generator().manual_seed(6)
+    b, h, kh, s, d, width, depth = 3, 8, 2, 80, 64, 3, 4
+    t = 1 + width * depth
+    _, anc = _tree(g, b, width, depth)
+    lens = torch.tensor([0, 17, 60], dtype=torch.int32)
+    q, kn, vn = (torch.randn(sh, generator=g).to(dtype)
+                 for sh in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d)))
+    kc, vc = (torch.randn((b, kh, s, d), generator=g).to(dtype) for _ in range(2))
+    dev = [x.to(cuda) for x in (q, kc, vc, kn, vn, lens, anc)]
+    got = t_da.tree_attention(*dev)
+    want = t_da.tree_attention_plain(*dev)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        pv = t_da.tree_attention_plain(dev[0].float(), dev[1].float(), dev[2].float().abs(),
+                                       dev[3].float(), dev[4].float().abs(), dev[5], dev[6])
+        assert (err <= 2.0 ** -7 * want.float().abs() + 2.0 ** -12 * pv).all()
+    else:
+        assert err.max() <= 1e-4
+    for bi in range(b):
+        for c in range(t):
+            path = anc[bi, c].nonzero()[:, 0].tolist()  # ancestors ascending, then c
+            n = int(lens[bi])
+            ck, cv = kc[bi:bi + 1].clone(), vc[bi:bi + 1].clone()
+            for j, a in enumerate(path[:-1]):  # commit the ancestors at n, n+1, ...
+                ck[0, :, n + j] = kn[bi, a]
+                cv[0, :, n + j] = vn[bi, a]
+            one = t_da.decode_attention(
+                q[bi:bi + 1, c].to(cuda), ck.to(cuda), cv.to(cuda), kn[bi:bi + 1, c].to(cuda),
+                vn[bi:bi + 1, c].to(cuda),
+                torch.tensor([n + len(path) - 1], dtype=torch.int32, device=cuda))
+            assert torch.equal(one[0], got[bi, c])
 
 
 def test_flash_prefill_kernel_matches_plain(cuda):
@@ -123,9 +232,70 @@ def test_f32_serving_on_cuda_matches_cpu(cuda, bits):
     assert all(len(t) == 12 for t in outs["cpu"])
 
 
+def test_f32_int4_speculative_serving_on_cuda_matches_cpu(cuda):
+    """A tiny f32 INT4 verifier with a smaller draft, served speculatively
+    (fused, pipelined horizon 2) through the kernels, gives the CPU path's
+    greedy tokens exactly; the INT4 kernel, decode attention (the draft's
+    root step) and flash prefill all launch."""
+    llm = ModelSpec(arch="LlamaForCausalLM", vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=4, num_kv_heads=2, head_dim=32, intermediate_size=256,
+                    max_position_embeddings=128, norm_eps=1e-5)
+    ssm = ModelSpec(arch="LlamaForCausalLM", vocab_size=256, hidden_size=64, num_layers=2,
+                    num_heads=2, num_kv_heads=1, head_dim=32, intermediate_size=128,
+                    max_position_embeddings=128, norm_eps=1e-5)
+    lp = quantize_params(llm, t_params.init_params(llm, 0, torch.float32, "cpu"), bits=4,
+                         group_size=32, compute_dtype=torch.float32)
+    sp = t_params.init_params(ssm, 1, torch.float32, "cpu")
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 40)), [7] * 12]
+    outs = {}
+    before = (t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES)
+    for dev in ("cpu", cuda):
+        engine = SpecEngine(llm, lp, ssm, sp, beam_width=2, beam_depth=3,
+                            max_requests_per_batch=2, max_seq_len=112,
+                            cache_dtype=torch.float32, device=dev)
+        rm = SpecRequestManager(engine, fused=True, spec_horizon=2, pipelined=True)
+        outs[str(dev)] = [r.output_tokens
+                          for r in rm.generate(prompts, GenerationConfig(max_new_tokens=12))]
+    assert outs["cuda"] == outs["cpu"]
+    assert all(len(t) == 12 for t in outs["cpu"])
+    after = (t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+
+
+def test_bf16_int4_speculative_serving_equals_incremental_on_cuda(cuda):
+    """bf16 activations, INT4 verifier: tree verification through the
+    kernels gives incremental decoding's tokens exactly (row-invariant
+    quant-matmul, and tree attention repeating the one-token arithmetic)."""
+    llm = ModelSpec(arch="LlamaForCausalLM", vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=4, num_kv_heads=2, head_dim=32, intermediate_size=256,
+                    max_position_embeddings=256, norm_eps=1e-5)
+    ssm = ModelSpec(arch="LlamaForCausalLM", vocab_size=256, hidden_size=64, num_layers=2,
+                    num_heads=2, num_kv_heads=1, head_dim=32, intermediate_size=128,
+                    max_position_embeddings=256, norm_eps=1e-5)
+    lp = quantize_params(llm, t_params.init_params(llm, 2, torch.bfloat16, cuda), bits=4,
+                         group_size=32, compute_dtype=torch.bfloat16)
+    sp = t_params.init_params(ssm, 3, torch.bfloat16, cuda)
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 40)), [7] * 12, [200, 3]]
+    cfg = GenerationConfig(max_new_tokens=24)
+    incr = RequestManager(InferenceEngine(llm, lp, max_requests_per_batch=4, max_seq_len=192,
+                                          cache_dtype=torch.bfloat16, device=cuda),
+                          decode_horizon=4, pipelined=True)
+    try:
+        want = [r.output_tokens for r in incr.generate(prompts, cfg)]
+    finally:
+        incr.close()
+    engine = SpecEngine(llm, lp, ssm, sp, beam_width=3, beam_depth=4, max_requests_per_batch=4,
+                        max_seq_len=192, cache_dtype=torch.bfloat16, device=cuda)
+    rm = SpecRequestManager(engine, fused=True, spec_horizon=2, pipelined=True)
+    got = [r.output_tokens for r in rm.generate(prompts, cfg)]
+    assert got == want
+
+
 def test_wrappers_count_launches(cuda):
-    before = (t_qm.LAUNCHES, t_da.LAUNCHES, t_fp.LAUNCHES)
+    before = (t_qm.LAUNCHES, t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES)
     test_flash_prefill_kernel_matches_plain(cuda)
     test_decode_attention_kernel_matches_plain(cuda)
-    assert (t_da.LAUNCHES, t_fp.LAUNCHES) == (before[1] + 1, before[2] + 1)
+    test_qmm_int4_identity_probe(cuda, torch.float32)
+    assert (t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES) == (
+        before[1] + 1, before[2] + 1, before[3] + 1)
     assert t_qm.LAUNCHES == before[0]

@@ -17,7 +17,12 @@ PORT_MODULES = [
     "flexflow_tpu_torch.models.params",
     "flexflow_tpu_torch.serving.engine",
     "flexflow_tpu_torch.serving.request_manager",
+    "flexflow_tpu_torch.serving.speculative",
+    "flexflow_tpu_torch.serving.spec_sampling",
+    "flexflow_tpu_torch.serving.spec_manager",
+    "flexflow_tpu_torch.inference.spec_infer",
     "flexflow_tpu_torch.utils.hf_weights",
+    "flexflow_tpu_torch.utils.spec_pair",
     "flexflow_tpu_torch.ops.kernels._build",
     "flexflow_tpu_torch.ops.kernels.quant_matmul",
     "flexflow_tpu_torch.ops.kernels.decode_attention",

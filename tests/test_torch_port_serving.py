@@ -69,7 +69,7 @@ def test_greedy_tokens_equal_jax(kh, bits, horizon, pipelined):
 
 def test_chunked_prefill_and_int4_equal_jax():
     """Chunked prefill (8-token budget) through the plain cached path, and
-    the INT4 format's CPU path (the INT4 kernel is not ported yet)."""
+    the INT4 format through qmm_int4's plain version (CPU tensors)."""
     js, jparams, ts, tparams = _models(2, 4)
     want = _serve(True, js, jparams, 4, True, max_tokens_per_batch=8)
     got = _serve(False, ts, tparams, 4, True, max_tokens_per_batch=8)
