@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --only build,kernels --reps 5
     python3 chip_smoke.py --only card,build,spec
+    python3 chip_smoke.py --only card,build,variants
 
 Phases, in order; any failure exits non-zero:
 
@@ -18,15 +19,24 @@ Phases, in order; any failure exits non-zero:
               dequantized weight (identity probe). Times each kernel, its plain
               version and one PyTorch library call with CUDA events, and
               computes the kernel's bound from this run's shapes.
-4. crosscheck — a 2-layer decoder at full 7B width, INT8 and INT4: prefill
+4. variants — the quant-kernel tuning path
+              (``flexflow_tpu_torch.benchmarks.tune_int4_variants.run``) at
+              D=4096, F=11008, B=8, group 128: the six dequant-matmul design
+              variants at each of its column widths, and qmm_int8 / qmm_int4;
+              every case must pass. Then each variant at each width against
+              its plain version (1% of the output's magnitude) and by its
+              identity probe (one-hot rows of x return the dequantized
+              weight's rows, rounded to bf16, bitwise), and the plain version
+              and one PyTorch library call timed beside it.
+5. crosscheck — a 2-layer decoder at full 7B width, INT8 and INT4: prefill
               and 8 decode steps through the kernels on the GPU against the
               plain versions on the CPU (same weights, same tokens).
-5. serve    — LLaMA-2-7B INT8 (32 layers, random weights from seed 0):
+6. serve    — LLaMA-2-7B INT8 (32 layers, random weights from seed 0):
               InferenceEngine + RequestManager(decode_horizon=16, pipelined)
               serve 8 requests; every request must finish and every kernel's
               launch count must rise. Prints decode tok/s, mean TTFT and peak
               memory beside the card's name and power limit.
-6. spec     — token-tree speculative serving: a LLaMA-2-7B INT4 verifier
+7. spec     — token-tree speculative serving: a LLaMA-2-7B INT4 verifier
               (group 128) that block-embeds a 160M-class bf16 draft (both from
               seed 0), SpecEngine + SpecRequestManager (width 3, depth 4,
               fused, pipelined over LLM.compile's spec_horizon) serve the same
@@ -36,7 +46,7 @@ Phases, in order; any failure exits non-zero:
               must exceed 1, and each request's first 20 tokens must equal the
               incremental run's. Prints both runs' decode tok/s, mean TTFT and
               peak memory, and the mean verified tokens per step.
-7. profile  — (only with ``--profile``) one 16-step decode horizon and one
+8. profile  — (only with ``--profile``) one 16-step decode horizon and one
               batched prefill of the served model, and one 8-iteration
               speculative horizon of the spec phase, under ``torch.profiler``:
               host dispatch time, wall time, device busy share and the
@@ -53,15 +63,13 @@ import argparse
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 import time
 
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# the H100's memory rate and L2 size are tune_quant_kernel's PEAK and L2_BYTES
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-L2_BYTES = 50 * 2**20
-PHASES = ("card", "build", "kernels", "crosscheck", "serve", "spec", "profile")
+PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "spec", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -85,28 +93,14 @@ def require(cond: bool, what: str) -> None:
         raise PhaseError(what)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Mean device time in ms of ``fn()`` over ``reps`` launches (CUDA events,
+    ``tune_quant_kernel.op_time``)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from flexflow_tpu_torch.benchmarks.tune_quant_kernel import op_time
+
+    return op_time(lambda _: fn(), [None], reps, torch.device("cuda"), warmup) * 1e3
 
 
 def attn_within(got, want, pv_abs, p_rel: float):
@@ -124,7 +118,9 @@ def attn_within(got, want, pv_abs, p_rel: float):
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    from flexflow_tpu_torch.benchmarks.tune_quant_kernel import PEAK
+
+    t_bytes = nbytes / PEAK * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -133,6 +129,11 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # kernel phases
 # ---------------------------------------------------------------------------
 
+# the dequant-matmul design variants (ops/kernels/qmm_variants.py) and the
+# lines of their TPU kernel bodies
+VARIANT_LINES = {"i8_group": 40, "i4_floor": 52, "i4_3dot": 84, "i4_and": 122,
+                 "i4_and_bigdot": 159, "i4_and_2dot": 184}
+VARIANTS = tuple(VARIANT_LINES)
 REPLACES = {
     "qmm_int8": "flexflow_tpu/ops/pallas/quant_matmul.py:46 (_int8_kernel) and :181 "
                 "(_int8_kernel_idx), calls :163 / :304",
@@ -140,12 +141,15 @@ REPLACES = {
                 "(_int4_kernel_idx), calls :163 / :304",
     "decode_attention": "flexflow_tpu/ops/pallas/decode_attention.py:54 (kernel), call :106",
     "flash_prefill": "flexflow_tpu/ops/pallas/flash_prefill.py:34 (_kernel), call :139",
+    **{name: f"benchmarks/tune_int4_variants.py:{line} (_{name}_kernel), call :227 (_call :211)"
+       for name, line in VARIANT_LINES.items()},
 }
 SOURCES = {
     "qmm_int8": "flexflow_tpu_torch/csrc/quant_matmul.cu",
     "qmm_int4": "flexflow_tpu_torch/csrc/quant_matmul.cu",
     "decode_attention": "flexflow_tpu_torch/csrc/decode_attention.cu",
     "flash_prefill": "flexflow_tpu_torch/csrc/flash_prefill.cu",
+    **{name: "flexflow_tpu_torch/csrc/qmm_variants.cu" for name in VARIANTS},
 }
 
 
@@ -181,6 +185,7 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
     the weights rotating past L2."""
     import torch
 
+    from flexflow_tpu_torch.benchmarks.tune_quant_kernel import n_copies
     from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
     from flexflow_tpu_torch.quant.weight_only import dequantize, quantize
 
@@ -236,7 +241,7 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
     for name, cshape, f, group, mrows in shapes:
         d = math.prod(cshape)
         # enough stacked layers that the rotating weight stream exceeds L2
-        n_layers = max(2, math.ceil(3 * L2_BYTES / _weight_bytes(bits, d, f, group)))
+        n_layers = n_copies(_weight_bytes(bits, d, f, group), dev)
         w = torch.randn((n_layers, *cshape, f), generator=gen, device=dev) * (2.0 / (d + f)) ** 0.5
         qa = quantize(w, bits, group, batch_dims=1, contract_dims=len(cshape))
         require(qa.group_size == group, f"{name}: group {qa.group_size} != {group}")
@@ -485,6 +490,78 @@ def flash_prefill_phase(reps: int, records: list) -> None:
             f"bound {b_ms:.4f} ms ({b_by})")
 
 
+def variants_phase(reps: int, records: list) -> dict:
+    """The quant-kernel tuning path at its full shape, with the launch counts
+    set to 0 just before and read just after; then, on the tuning run's own
+    x and carriers, each variant at each column width against its plain
+    version and by its identity probe, timed beside its plain version and
+    ``torch.matmul`` on the pre-dequantized bf16 weight (both rotating past
+    L2, as the tuning run's kernel times do)."""
+    import torch
+
+    from flexflow_tpu_torch.benchmarks import tune_int4_variants as tv
+    from flexflow_tpu_torch.benchmarks import tune_quant_kernel as tq
+    from flexflow_tpu_torch.ops.kernels import qmm_variants as qv
+    from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+    from flexflow_tpu_torch.quant.weight_only import dequantize
+
+    d, f, b, g = 4096, 11008, 8, 128
+    dev = torch.device("cuda")
+    _launches(reset=True)
+    cases, data = tv.run(d, f, b, g, device=dev, reps=reps)
+    torch.cuda.synchronize()
+    launches = _launches()
+    failed = [r["name"] for r in cases if not r["ok"]]
+    require(not failed, f"tuning cases failed: {failed}")
+    for name in VARIANTS:
+        require(launches[name] > 0, f"{name} was never launched by the tuning path")
+
+    x, qa, rot = data["x"], data["qa"], data["rot"]
+    weight = {8: (qa[8].q.float() * torch.repeat_interleave(qa[8].scale, g, dim=0))[:, :f],
+              4: qm.int4_weight(qa[4].q, qa[4].scale, qa[4].offset, g)[:, :f]}
+    idx = [0, d // 2 - 1, d // 2, d - 1]
+    eye = torch.zeros((len(idx), d), device=dev, dtype=torch.bfloat16)
+    eye[torch.arange(len(idx)), idx] = 1
+    lib_ms, plain_ms = {}, {}
+    for bits in (8, 4):
+        w_lib = [dequantize(c) for c in rot[bits][:tq.n_copies(d * f * 2, dev)]]
+        lib_ms[bits] = tq.op_time(lambda w: torch.matmul(x, w), w_lib, reps, dev) * 1e3
+        del w_lib
+    nbytes = {bits: x.numel() * 2 + _weight_bytes(bits, d, f, g) + b * f * 2 for bits in (8, 4)}
+    for r in cases:
+        name, cols, bits = r["variant"], r["cols"], r["bits"]
+        if cols is None:
+            continue
+        label = f"{name} cols={cols} B={b} {d}x{f} g={g}"
+        got = qv.variant(name, x, qa[bits], cols)
+        want = qv.plain(name, x, qa[bits])
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        # 1% of the output's magnitude: the same products summed in another
+        # order in f32, then one bf16 rounding
+        require(bool(torch.isfinite(got).all()) and err <= 1e-2 * scale,
+                f"{label}: max|err| {err} > 1e-2 * {scale}")
+        require(torch.equal(qv.variant(name, eye, qa[bits], cols),
+                            weight[bits][idx].to(torch.bfloat16)),
+                f"{label}: identity probe differs from the dequantized weight")
+        if name not in plain_ms:
+            plain_ms[name] = tq.op_time(lambda c: qv.plain(name, x, c), rot[bits],
+                                        max(2, reps // 4), dev, warmup=1) * 1e3
+        b_ms, b_by = bound(nbytes[bits], 2.0 * b * d * f, PEAK_BF16_FLOPS)
+        ms = r["seconds"] * 1e3
+        records.append(dict(name=f"{name}[cols={cols} B={b} {d}x{f} g={g}]", kernel=name,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms[name], bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms[bits]))
+        log(f"  {label}: err {err:.3g} (tol {1e-2 * scale:.3g}), identity probe bitwise; "
+            f"kernel {ms:.4f} ms plain {plain_ms[name]:.4f} ms cuBLAS-bf16 {lib_ms[bits]:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    out = dict(launches=launches, cases={r["name"]: r["seconds"] * 1e3 for r in cases})
+    log(f"  launches during the tuning run: {json.dumps(launches)}")
+    del data, qa, rot, weight
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # model phases
 # ---------------------------------------------------------------------------
@@ -641,12 +718,14 @@ def _launches(reset: bool = False) -> dict:
     """Every kernel wrapper's launch count (set to 0 first with ``reset``)."""
     from flexflow_tpu_torch.ops.kernels import decode_attention as da
     from flexflow_tpu_torch.ops.kernels import flash_prefill as fp
+    from flexflow_tpu_torch.ops.kernels import qmm_variants as qv
     from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
 
     if reset:
         qm.LAUNCHES = qm.LAUNCHES_INT4 = da.LAUNCHES = fp.LAUNCHES = 0
+        qv.LAUNCHES.update(dict.fromkeys(qv.LAUNCHES, 0))
     return {"qmm_int8": qm.LAUNCHES, "qmm_int4": qm.LAUNCHES_INT4,
-            "decode_attention": da.LAUNCHES, "flash_prefill": fp.LAUNCHES}
+            "decode_attention": da.LAUNCHES, "flash_prefill": fp.LAUNCHES, **qv.LAUNCHES}
 
 
 def _prompts(vocab_size: int):
@@ -843,7 +922,9 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    from flexflow_tpu_torch.benchmarks import tune_quant_kernel as tq
+
+    card = tq.card(torch.device("cuda"))
     log(card)  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -866,6 +947,10 @@ def main(argv=None) -> int:
         decode_attention_phase(args.reps, records)
         log("[kernels] flash_prefill")
         flash_prefill_phase(args.reps, records)
+    if "variants" in phases:
+        log("[variants] quant-kernel tuning path: six dequant-matmul variants x "
+            "column widths, qmm_int8 / qmm_int4, B=8 4096x11008 g=128")
+        summary["variants"] = variants_phase(args.reps, records)
     if "crosscheck" in phases:
         for bits in (8, 4):
             log(f"[crosscheck] 2-layer LLaMA-2-7B-width INT{bits}, GPU kernels vs CPU plain")
@@ -878,8 +963,10 @@ def main(argv=None) -> int:
             "8 requests, fused and pipelined")
         summary["spec"] = spec_phase(card, "profile" in phases)
 
-    # each path's launches, counted from 0 over its served run
-    launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0) for p in ("serve", "spec"))
+    # each path's launches, counted from 0 over its run: the served runs for
+    # the serving kernels, the tuning run for the variants
+    launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0)
+                       for p in (("variants",) if k in VARIANTS else ("serve", "spec")))
                 for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],

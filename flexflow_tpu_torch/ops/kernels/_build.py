@@ -40,6 +40,9 @@ SIGNATURES = {
     "ff_qmm_int4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
     "ff_decode_attention": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
     "ff_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "ff_qmm_v_i8_group": [_P] * 4 + [_I] * 6 + [_P],
+    **{f"ff_qmm_v_{v}": [_P] * 5 + [_I] * 6 + [_P]
+       for v in ("i4_floor", "i4_3dot", "i4_and", "i4_and_bigdot", "i4_and_2dot")},
 }
 
 _lock = threading.Lock()

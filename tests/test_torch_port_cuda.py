@@ -13,8 +13,10 @@ import torch
 from flexflow_tpu_torch.models import params as t_params
 from flexflow_tpu_torch.ops.kernels import decode_attention as t_da
 from flexflow_tpu_torch.ops.kernels import flash_prefill as t_fp
+from flexflow_tpu_torch.ops.kernels import qmm_variants as t_qv
 from flexflow_tpu_torch.ops.kernels import quant_matmul as t_qm
 from flexflow_tpu_torch.quant import quantize_params
+from flexflow_tpu_torch.quant.weight_only import quantize
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
@@ -107,6 +109,38 @@ def test_qmm_int4_identity_probe(cuda, dtype):
     eye = torch.eye(d, device=cuda, dtype=dtype)[rows].contiguous()
     got = t_qm.qmm_int4(eye, q, s, o, group_size=g, n_out=fp, layer=0)
     assert torch.equal(got, w[rows])
+
+
+@pytest.mark.parametrize("name", t_qv.VARIANTS)
+@pytest.mark.parametrize("d,f,g,b", [
+    (4096, 11008, 128, 8),  # LLaMA-2-7B's MLP at decode rows (carrier padded to 11264)
+    (1000, 190, 20, 5),  # F not a multiple of 16 and g of 8: plain loads fill the ring
+    (1024, 256, 256, 19),  # groups longer than a 128-row step; two 16-row tiles of x
+], ids=["7b", "unaligned", "long-groups"])
+def test_qmm_variant_matches_plain_and_probe(cuda, name, d, f, g, b):
+    """Each column width: within 1% of the output's magnitude of the plain
+    version (the same products summed in another order, one bf16 rounding),
+    and one-hot rows of x (both planar halves) return the dequantized
+    weight's rows rounded to bf16, bitwise; one launch counted per call."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    bits = 8 if name == "i8_group" else 4
+    qa = quantize(torch.randn((d, f), generator=gen, device=cuda) * 0.02, bits, g)
+    assert qa.group_size == g
+    x = torch.randn((b, d), generator=gen, device=cuda).to(torch.bfloat16)
+    want = t_qv.plain(name, x, qa)
+    if bits == 8:
+        w = qa.q.float() * torch.repeat_interleave(qa.scale, g, dim=0)
+    else:
+        w = t_qm.int4_weight(qa.q, qa.scale, qa.offset, g)
+    rows = [0, d // 2 - 1, d // 2, d - 1]
+    eye = torch.eye(d, device=cuda, dtype=torch.bfloat16)[rows].contiguous()
+    for cols in (16, 32, 64, 128):
+        before = t_qv.LAUNCHES[name]
+        got = t_qv.variant(name, x, qa, cols)
+        assert got.shape == (b, f) and got.dtype == torch.bfloat16
+        assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+        assert torch.equal(t_qv.variant(name, eye, qa, cols), w[rows, :f].to(torch.bfloat16))
+        assert t_qv.LAUNCHES[name] == before + 2
 
 
 def test_decode_attention_kernel_matches_plain(cuda):

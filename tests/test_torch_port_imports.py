@@ -27,6 +27,9 @@ PORT_MODULES = [
     "flexflow_tpu_torch.ops.kernels.quant_matmul",
     "flexflow_tpu_torch.ops.kernels.decode_attention",
     "flexflow_tpu_torch.ops.kernels.flash_prefill",
+    "flexflow_tpu_torch.ops.kernels.qmm_variants",
+    "flexflow_tpu_torch.benchmarks.tune_quant_kernel",
+    "flexflow_tpu_torch.benchmarks.tune_int4_variants",
 ]
 # "import jax", "from jax.x import", "import flexflow_tpu", "from flexflow_tpu.x
 # import" — but not the port's own flexflow_tpu_torch
