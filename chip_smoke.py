@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only build,kernels --reps 5
     python3 chip_smoke.py --only card,build,spec
     python3 chip_smoke.py --only card,build,variants
+    python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
 
@@ -16,9 +17,16 @@ Phases, in order; any failure exits non-zero:
               shapes, with the tolerance stated beside each check; quant-matmul
               rows (qmm_int8 and qmm_int4) must be bitwise independent of the
               row count, and qmm_int4's one-hot rows must give back the
-              dequantized weight (identity probe). Times each kernel, its plain
-              version and one PyTorch library call with CUDA events, and
-              computes the kernel's bound from this run's shapes.
+              dequantized weight (identity probe) in every regime. wgu also runs
+              at each regime's edge rows (16, 17, 128, 129, the prefill
+              threshold - 1 and the threshold), and the tiled and two-pass
+              prefills side by side around the threshold; each timed qmm row
+              logs its regime. Times each kernel, its plain version and one
+              PyTorch library call (device time: CUDA events around calls
+              queued while the device waits), and computes the kernel's bound
+              from this run's shapes. ``--parent DIR`` builds an earlier
+              checkout's quant_matmul.cu beside this one, times it beside each
+              qmm row and holds every INT8 output bitwise equal to it.
 4. variants — the quant-kernel tuning path
               (``flexflow_tpu_torch.benchmarks.tune_int4_variants.run``) at
               D=4096, F=11008, B=8, group 128: the six dequant-matmul design
@@ -178,11 +186,87 @@ def _weight_bytes(bits: int, d: int, f: int, g: int) -> int:
     return (d * f if bits == 8 else d * f // 2) + (1 if bits == 8 else 2) * (d // g) * f * 4
 
 
-def qmm_phase(bits: int, reps: int, records: list) -> None:
+def build_parent(root: str):
+    """Build an earlier checkout's ``flexflow_tpu_torch/csrc/quant_matmul.cu``
+    (``root``) alone into a library of its own and load it beside this one.
+    Its entry points take no scratch pointer:
+    ``ff_qmm_int8(x, q, scale, out, M, D, Fp, n_out, g, layer, x_bf16, out_f32,
+    stream)`` and ``ff_qmm_int4`` with ``offset`` after ``scale``."""
+    import ctypes
+    import hashlib
+    import subprocess
+    from pathlib import Path
+
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    src = Path(root) / "flexflow_tpu_torch" / "csrc" / "quant_matmul.cu"
+    out = _build.BUILD_ROOT / f"parent-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libqmm_parent.so"
+    if not lib.exists():
+        run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(src), "-o",
+                              str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        require(run.returncode == 0, f"building {src} failed:\n{run.stdout}")
+    handle = ctypes.CDLL(str(lib))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    handle.ff_qmm_int8.argtypes = [P] * 4 + [I] * 5 + [L, I, I, P]
+    handle.ff_qmm_int4.argtypes = [P] * 5 + [I] * 5 + [L, I, I, P]
+    handle.ff_qmm_int8.restype = handle.ff_qmm_int4.restype = ctypes.c_int
+    return handle
+
+
+def _qmm_parent(plib, qa, x, layer=None, out_dtype=None):
+    """The earlier kernel (``build_parent``) on carrier ``qa``."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    od = out_dtype or x.dtype
+    out = torch.empty((x.shape[0], qa.d_rest), dtype=od, device=x.device)
+    tables = [qa.scale] + ([qa.offset] if qa.bits == 4 else [])
+    fn = plib.ff_qmm_int8 if qa.bits == 8 else plib.ff_qmm_int4
+    err = fn(x.data_ptr(), qa.q.data_ptr(), *[t.data_ptr() for t in tables], out.data_ptr(),
+             x.shape[0], x.shape[1], qa.q.shape[-1], qa.d_rest, qa.group_size, int(layer or 0),
+             int(x.dtype == torch.bfloat16), int(od == torch.float32),
+             _build.stream_ptr(x.device))
+    _build.check(err, "earlier qmm")
+    return out
+
+
+def threshold_sweep(qm, qa, d: int, n_layers: int, gen, kname: str) -> None:
+    """The fused 128x128 tiling against the two-pass prefill on one carrier
+    at row counts around the threshold (same bits: checked), 5 launches
+    each, the layers rotating."""
+    import torch
+
+    thr = qm.PREFILL_ROWS
+    it = iter(range(10 ** 9))
+    try:
+        for m in (129, 192, 256, 512, 1024):
+            x = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
+            t = {}
+            outs = {}
+            for path, rows_from in (("tiled", 10 ** 9), ("two-pass", 0)):
+                qm.PREFILL_ROWS = rows_from
+                outs[path] = _qmm(qm, qa, x, 0)
+                t[path] = time_ms(lambda: _qmm(qm, qa, x, next(it) % n_layers), 5)
+            require(torch.equal(outs["tiled"], outs["two-pass"]),
+                    f"{kname}: tiled and two-pass differ at m={m}")
+            log(f"  {kname} threshold sweep m={m}: tiled {t['tiled']:.4f} ms, two-pass "
+                f"{t['two-pass']:.4f} ms (bitwise equal)")
+    finally:
+        qm.PREFILL_ROWS = thr
+
+
+def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
     """One quant-matmul kernel (``qmm_int8`` or ``qmm_int4``) at LLaMA-2-7B's
     fused carriers and the lm_head: against its plain version, rows bitwise
     independent of the row count, (INT4) the identity probe, and timed with
-    the weights rotating past L2."""
+    the weights rotating past L2; wgu also at each regime's edge rows, and
+    the tiled and two-pass prefill side by side around the threshold. With
+    ``parent`` (an earlier kernel from ``build_parent``) each timed row also
+    times it, and INT8 outputs must equal its outputs bitwise."""
     import torch
 
     from flexflow_tpu_torch.benchmarks.tune_quant_kernel import n_copies
@@ -192,22 +276,28 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
     kname = f"qmm_int{bits}"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(bits)
-    # rows: one decode slot, 8 decode slots, (INT4) 8 slots x the 13-token
-    # tree of width 3 and depth 4, and a 8192-row prefill
-    rows = (1, 8, 8192) if bits == 8 else (1, 8, 104, 8192)
+    thr = qm.PREFILL_ROWS
+    # rows: one decode slot, 8 decode slots, 8 slots x the 13-token tree of
+    # width 3 and depth 4, and a 8192-row prefill; wgu also at each regime's
+    # edges (16 | 17, 128 | 129, the prefill threshold - 1 | threshold)
+    rows = (1, 8, 104, 8192)
+    edges = (16, 17, 128, 129, thr - 1, thr)
     # (name, contraction shape, out width, group size, rows) of LLaMA-2-7B's
     # fused carriers; INT8's wgu again at group 64 (quantization_group_size=64),
     # whose groups are shorter than the decode tiling's 128-deep chunk
     shapes = [("wqkv", (4096,), 3 * 4096, 128, rows),
               ("wo", (32, 128), 4096, 128, rows),
-              ("wgu", (4096,), 2 * 11008, 128, rows),
+              ("wgu", (4096,), 2 * 11008, 128, tuple(sorted(rows + edges))),
               ("wd", (11008,), 4096, 128, rows)]
     if bits == 8:
         shapes.append(("wgu", (4096,), 2 * 11008, 64, (8, 8192)))
+    log(f"  prefill threshold {thr} rows: from it a bf16 call dequantizes into a [D, Fp] bf16 "
+        f"scratch (peak {4096 * 32256 * 2} bytes, the lm_head's 4096 x 32256 carrier)")
 
     def check(name, qa, x, layer, out_dtype, rel):
         """Kernel against plain on x; rows 0 and m-1 bitwise equal to 1-row
-        calls. Returns (max|err|, output magnitude)."""
+        calls; INT8 bitwise equal to the earlier kernel where one is loaded.
+        Returns (max|err|, output magnitude)."""
         got = _qmm(qm, qa, x, layer, out_dtype)
         want = _qmm_plain(qm, qa, x, layer, out_dtype)
         err = (got.float() - want.float()).abs().max().item()
@@ -218,7 +308,27 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
             one = _qmm(qm, qa, x[r:r + 1].contiguous(), layer, out_dtype)
             require(torch.equal(one[0], got[r]),
                     f"{kname} {name}: row {r} of a {x.shape[0]}-row call differs from a 1-row call")
+        if parent is not None:
+            old = _qmm_parent(parent, qa, x, layer, out_dtype)
+            diff = (old.float() - got.float()).abs().max().item()
+            if bits == 8:
+                require(torch.equal(old, got), f"{kname} {name} m={x.shape[0]}: differs from the "
+                                               f"earlier kernel by up to {diff}")
+            log(f"  {kname} {name} m={x.shape[0]}: max |new - earlier kernel| {diff:.3g}")
         return err, scale
+
+    def identity_probe(label, qa, m):
+        """INT4 identity probe through the regime of an m-row call: one-hot
+        rows of x (both half-planes) padded with zero rows up to m give back
+        the dequantized weight's rows bitwise, f32 and rounded to bf16."""
+        d = qa.q.shape[-2] * 2
+        w1 = qm.int4_weight(qa.q[1], qa.scale[1], qa.offset[1], qa.group_size)[:, :qa.d_rest]
+        idx = [0, d // 2 - 1, d // 2, d - 1]
+        for dt in ((torch.float32, torch.bfloat16) if m == len(idx) else (torch.bfloat16,)):
+            eye = torch.zeros((max(m, len(idx)), d), device=dev, dtype=dt)
+            eye[torch.arange(len(idx)), idx] = 1
+            require(torch.equal(_qmm(qm, qa, eye, 1)[:len(idx)], w1[idx].to(dt)),
+                    f"{kname} {label} m={m}: identity probe ({dt}) differs from the weight")
 
     def timed(name, qa, x, n_layers, w_lib, out_dtype, err, tol):
         m, d = x.shape
@@ -235,8 +345,13 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
         b_ms, b_by = bound(nbytes, 2.0 * m * d * f, PEAK_BF16_FLOPS)
         records.append(dict(name=f"{kname}[{name} m={m}]", kernel=kname, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"  {kname} {name} m={m:5d}: err {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms cuBLAS-bf16 {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        earlier = ""
+        if parent is not None:  # the earlier kernel, timed in this same run
+            old_ms = time_ms(lambda: _qmm_parent(parent, qa, x, pick(), out_dtype), reps)
+            earlier = f" earlier {old_ms:.4f} ms"
+        log(f"  {kname} {name} m={m:5d} [{qm.regime(m, d, qa.q.shape[-1], bits)}]: err {err:.3g} "
+            f"(tol {tol:.3g}) kernel {ms:.4f} ms{earlier} plain {plain_ms:.4f} ms "
+            f"cuBLAS-bf16 {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
 
     for name, cshape, f, group, mrows in shapes:
         d = math.prod(cshape)
@@ -258,16 +373,10 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
         err32, _ = check(label + " f32", qa, x32, 1, torch.float32, 1e-5)
         probe = ""
         if bits == 4:
-            # identity probe: one-hot rows of x (both half-planes) give back
-            # the dequantized weight's rows bitwise, f32 and rounded to bf16
-            w1 = qm.int4_weight(qa.q[1], qa.scale[1], qa.offset[1], qa.group_size)[:, :f]
-            idx = [0, d // 2 - 1, d // 2, d - 1]
-            for dt in (torch.float32, torch.bfloat16):
-                eye = torch.zeros((len(idx), d), device=dev, dtype=dt)
-                eye[torch.arange(len(idx)), idx] = 1
-                require(torch.equal(_qmm(qm, qa, eye, 1), w1[idx].to(dt)),
-                        f"{kname} {label}: identity probe ({dt}) differs from the weight")
-            probe = "; identity probe bitwise (f32, bf16)"
+            probe_rows = sorted({4, *mrows} - {8192})  # each regime (8192 takes the threshold's)
+            for m in probe_rows:
+                identity_probe(label, qa, m)
+            probe = f"; identity probe bitwise (f32, bf16) at m = {probe_rows}"
         log(f"  {kname} {label} f32 x, m=8: err {err32:.3g}{probe}")
         for m in mrows:
             x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -275,6 +384,8 @@ def qmm_phase(bits: int, reps: int, records: list) -> None:
             # bf16 products in f32 in different orders, then round to bf16
             err, scale = check(label, qa, x, 0, torch.bfloat16, 1e-2)
             timed(label, qa, x, n_layers, w_lib, torch.bfloat16, err, 1e-2 * scale)
+        if name == "wgu" and group == 128:
+            threshold_sweep(qm, qa, d, n_layers, gen, kname)
         del w_lib, qa
         torch.cuda.empty_cache()
 
@@ -907,6 +1018,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add the profile phase (traces the serve and spec phases run)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier quant_matmul.cu: built beside this one, timed "
+                         "beside each qmm row, INT8 held bitwise equal to it")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p] + (["profile"] if args.profile else [])
     unknown = set(phases) - set(PHASES)
@@ -937,12 +1051,19 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build]   {line.strip()}")
 
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = build_parent(args.parent)
+        log(f"[build] earlier quant_matmul.cu from {args.parent} built and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+
     records: list = []
     summary: dict = {}
     if "kernels" in phases:
         for bits in (8, 4):
             log(f"[kernels] qmm_int{bits}")
-            qmm_phase(bits, args.reps, records)
+            qmm_phase(bits, args.reps, records, parent)
         log("[kernels] decode_attention")
         decode_attention_phase(args.reps, records)
         log("[kernels] flash_prefill")

@@ -39,6 +39,7 @@ from flexflow_tpu_torch.quant.weight_only import QuantizedArray, dequantize, qua
 
 PEAK = 3.35e12  # bytes/s: H100 SXM HBM3
 L2_BYTES = 50 * 2**20
+SLEEP_CYCLES_PER_S = 2e9  # cycles of torch.cuda._sleep per second at or above the H100's clock
 RELERR_LIMIT = 1e-2  # of max |ref|: one bf16 rounding of w and of the output, with room
 
 
@@ -64,14 +65,27 @@ def op_time(fn, operands: list, reps: int, device: torch.device, warmup: int = 2
         for i in range(reps):
             fn(operands[i % len(operands)])
         return (time.perf_counter() - t0) / reps
+    # device time, not the host's launch rate: the device sleeps while the
+    # host queues every timed call, so the calls run back to back (retried
+    # with a longer sleep if the device woke before the queue was full)
     torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(operands[i % len(operands)])
-    end.record()
+    t0 = time.perf_counter()
+    fn(operands[0])
+    per_call = time.perf_counter() - t0
     torch.cuda.synchronize(device)
+    for attempt in range(4):
+        sleep_s = 2.0 ** attempt * (2 * reps * per_call + 1e-3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        start.record()
+        for i in range(reps):
+            fn(operands[i % len(operands)])
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize(device)
+        if queued_in_time:
+            break
     return start.elapsed_time(end) / reps / 1e3
 
 

@@ -10,6 +10,15 @@ layer index: the kernel offsets into the stacked buffer, so no layer is
 copied out (the GPU form of ``quant_matmul_indexed``). There is no
 eligibility gate: the kernel takes every shape. Each row's result is bitwise
 independent of the row count of the call.
+
+With bf16 x the kernel has regimes by row count (:func:`regime`): ``decode``
+(M <= 16) and ``verify`` (M <= 128) stream each column slab's weights once
+through a fused dequant + tensor-core kernel; ``tiled`` (up to
+``PREFILL_ROWS``) is that kernel over 128x128 tiles; ``two-pass`` (from
+``PREFILL_ROWS`` rows) dequantizes the carrier once into a bf16 [D, Fp]
+scratch that the wrapper allocates, then runs a bf16 GEMM pass. All of them
+sum each output element in the same order, so the regime never changes a
+bit. One call counts one launch whatever the regime.
 """
 
 from __future__ import annotations
@@ -24,6 +33,36 @@ from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 
 LAUNCHES = 0  # qmm_int8 kernel launches of this process (plain-version calls not counted)
 LAUNCHES_INT4 = 0  # qmm_int4 kernel launches
+PREFILL_ROWS = 192  # bf16 calls with at least this many rows take the two-pass prefill
+
+
+def regime(m: int, d: int, fp: int, bits: int, x_bf16: bool = True,
+           aligned: bool = True) -> str:
+    """The kernel regime a call of ``m`` rows takes on carrier ``d`` x ``fp``
+    (``aligned``: every pointer 16-byte aligned). Unaligned rows are filled
+    with plain loads, in the decode tiling up to 16 rows and the 128x128 one
+    above."""
+    if not x_bf16:
+        return "f32-fma"
+    vec = aligned and (d // (2 if bits == 4 else 1)) % 8 == 0 and fp % 16 == 0
+    if not vec:
+        return "plain-loads-16" if m <= 16 else "plain-loads-128"
+    if m <= 16:
+        return "decode"
+    if m <= 128:
+        return "verify"
+    return "two-pass" if m >= PREFILL_ROWS else "tiled"
+
+
+def _scratch(x: torch.Tensor, d: int, fp: int, bits: int, *carrier) -> Optional[torch.Tensor]:
+    """The two-pass prefill's bf16 [D, Fp] scratch, or None for the other
+    regimes (the kernel allocates nothing). A layer of a stacked carrier is
+    as aligned as the carrier when Fp % 16 == 0, which every aligned regime
+    needs."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *carrier))
+    if regime(x.shape[0], d, fp, bits, x.dtype == torch.bfloat16, aligned) != "two-pass":
+        return None
+    return torch.empty((d, fp), dtype=torch.bfloat16, device=x.device)
 
 
 def qmm_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -105,9 +144,11 @@ def qmm_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
     if x.shape[0] == 0:
         return out
+    scratch = _scratch(x, d, fp, 8, q, scale)
     err = _build.lib().ff_qmm_int8(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        x.shape[0], d, fp, n_out, group_size, int(layer or 0),
+        None if scratch is None else scratch.data_ptr(), x.shape[0], d, fp, n_out, group_size,
+        int(layer or 0),
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.float32),
         _build.stream_ptr(x.device),
     )
@@ -134,9 +175,11 @@ def qmm_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, offset: torc
     out = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
     if x.shape[0] == 0:
         return out
+    scratch = _scratch(x, d, fp, 4, q, scale, offset)
     err = _build.lib().ff_qmm_int4(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
-        x.shape[0], d, fp, n_out, group_size, int(layer or 0),
+        None if scratch is None else scratch.data_ptr(), x.shape[0], d, fp, n_out, group_size,
+        int(layer or 0),
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.float32),
         _build.stream_ptr(x.device),
     )

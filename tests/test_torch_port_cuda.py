@@ -34,16 +34,29 @@ def cuda():
     return torch.device("cuda")
 
 
+_T = t_qm.PREFILL_ROWS
+# each regime and its edges on a small carrier: decode (M <= 16), verify
+# (M <= 128), the tiled kernel (below the prefill threshold), the two-pass
+# prefill (from it); 32-column slabs, and 64-column ones from 8448 columns
+_REGIME_CASES = [
+    (512, 256, 256, 128, 1), (512, 256, 256, 128, 16), (512, 256, 256, 128, 17),
+    (512, 256, 250, 128, 104), (512, 256, 256, 128, 128), (512, 256, 256, 128, 129),
+    (512, 256, 256, 64, _T - 1), (512, 256, 240, 64, _T),
+    (256, 8448, 8448, 128, 8), (256, 8448, 8400, 128, 104),
+]
+
+
 @pytest.mark.parametrize("d,fp,n_out,g,m", [
     (512, 200, 190, 128, 33),  # F not a multiple of 16: plain loads fill the ring
-    (512, 256, 256, 128, 40),  # cp.async ring, 128x128 tiling
+    (512, 256, 256, 128, 40),  # cp.async ring, verify tiling
     (520, 96, 96, 8, 5),  # D not a multiple of the chunk, groups of 8 rows
     (576, 128, 128, 64, 40),  # groups shorter than the 128-deep decode chunk
     (100, 40, 33, 25, 20),  # D not a multiple of 8, an odd group size
+    *_REGIME_CASES,
 ])
 def test_qmm_int8_kernel_matches_plain(cuda, d, fp, n_out, g, m):
     """bf16: within 1% of the output magnitude; each row bitwise equal to a
-    1-row call (which takes the 16-row tiling); f32 x: 1e-5 relative."""
+    1-row call (which takes the decode regime); f32 x: 1e-5 relative."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randint(-127, 128, (2, d, fp), generator=gen, device=cuda, dtype=torch.int8)
     s = torch.rand((2, d // g, fp), generator=gen, device=cuda) * 0.01
@@ -72,14 +85,15 @@ def _int4_carrier(gen, layers, d, fp, g):
 
 @pytest.mark.parametrize("d,fp,n_out,g,m", [
     (512, 200, 190, 128, 33),  # F not a multiple of 16: plain loads fill the ring
-    (512, 256, 256, 64, 40),  # cp.async ring, 128x128 tiling
+    (512, 256, 256, 64, 40),  # cp.async ring, verify tiling
     (512, 256, 250, 32, 5),  # groups shorter than the 128-deep decode chunk
-    (400, 96, 96, 25, 20),  # an odd group size; chunks straddle D/2
+    (400, 96, 96, 25, 20),  # an odd group size; D/2 not a multiple of the chunk
     (100, 40, 33, 5, 7),  # D not a multiple of 8
+    *_REGIME_CASES,
 ])
 def test_qmm_int4_kernel_matches_plain(cuda, d, fp, n_out, g, m):
     """bf16: within 1% of the output magnitude; each row bitwise equal to a
-    1-row call (the 16-row tiling); f32 x: 1e-5 relative."""
+    1-row call (the decode regime); f32 x: 1e-5 relative."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, s, o = _int4_carrier(gen, 2, d, fp, g)
     x = torch.randn((m, d), generator=gen, device=cuda)
@@ -109,6 +123,44 @@ def test_qmm_int4_identity_probe(cuda, dtype):
     eye = torch.eye(d, device=cuda, dtype=dtype)[rows].contiguous()
     got = t_qm.qmm_int4(eye, q, s, o, group_size=g, n_out=fp, layer=0)
     assert torch.equal(got, w[rows])
+
+
+@pytest.mark.parametrize("m", [6, 17, 129, _T], ids=["decode", "verify", "tiled", "two-pass"])
+def test_qmm_int4_identity_probe_each_regime(cuda, m):
+    """The identity probe through each regime: one-hot rows (both
+    half-planes) padded with zero rows up to m give back the weight's rows
+    rounded to bf16, bitwise (the other half-plane adds an exact 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    d, fp, g = 512, 256, 64
+    q, s, o = _int4_carrier(gen, 2, d, fp, g)
+    w = t_qm.int4_weight(q[1], s[1], o[1], g).to(torch.bfloat16)
+    rows = [0, 1, 255, 256, 257, 511]
+    eye = torch.zeros((m, d), device=cuda, dtype=torch.bfloat16)
+    eye[torch.arange(len(rows)), rows] = 1
+    got = t_qm.qmm_int4(eye, q, s, o, group_size=g, n_out=fp, layer=1)
+    assert torch.equal(got[:len(rows)], w[rows])
+    assert not got[len(rows):].any()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmm_two_pass_stacked_layer_equals_unstacked(cuda, bits):
+    """Layer 2 of a stacked carrier through the two-pass prefill gives the
+    bits of an unstacked copy of that layer (the layer offset reaches the
+    dequantization pass)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    d, fp, g, m = 512, 256, 128, _T
+    assert t_qm.regime(m, d, fp, bits) == "two-pass"
+    x = torch.randn((m, d), generator=gen, device=cuda).to(torch.bfloat16)
+    if bits == 8:
+        q = torch.randint(-127, 128, (3, d, fp), generator=gen, device=cuda, dtype=torch.int8)
+        s = torch.rand((3, d // g, fp), generator=gen, device=cuda) * 0.01
+        got = t_qm.qmm_int8(x, q, s, group_size=g, n_out=fp, layer=2)
+        want = t_qm.qmm_int8(x, q[2].clone(), s[2].clone(), group_size=g, n_out=fp)
+    else:
+        q, s, o = _int4_carrier(gen, 3, d, fp, g)
+        got = t_qm.qmm_int4(x, q, s, o, group_size=g, n_out=fp, layer=2)
+        want = t_qm.qmm_int4(x, q[2].clone(), s[2].clone(), o[2].clone(), group_size=g, n_out=fp)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name", t_qv.VARIANTS)

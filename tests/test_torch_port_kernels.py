@@ -97,6 +97,28 @@ def test_qmm_int8_checks_shapes():
         t_qm.qmm_int8(torch.zeros((2, 64)), q, s, group_size=64, n_out=32, layer=0)
 
 
+_T = t_qm.PREFILL_ROWS
+
+
+@pytest.mark.parametrize("m,d,fp,bits,want", [
+    (1, 4096, 22016, 8, "decode"), (16, 4096, 22016, 4, "decode"),
+    (17, 4096, 22016, 8, "verify"), (128, 11008, 4096, 4, "verify"),
+    (129, 4096, 22016, 8, "tiled"), (_T - 1, 4096, 22016, 4, "tiled"),
+    (_T, 4096, 22016, 8, "two-pass"), (8192, 11008, 4096, 4, "two-pass"),
+    (8192, 1001, 304, 8, "plain-loads-128"),  # D not a multiple of 8
+    (8, 1000, 300, 8, "plain-loads-16"),  # Fp not a multiple of 16
+    (8192, 1004, 304, 4, "plain-loads-128"),  # D/2 not a multiple of 8
+])
+def test_qmm_regime_by_rows_and_shape(m, d, fp, bits, want):
+    """The kernel regime each bf16 call takes: by row count (decode up to 16,
+    verify up to 128, the tiled kernel below the prefill threshold, the
+    two-pass prefill from it) when rows can be loaded 16 bytes at a time."""
+    assert t_qm.regime(m, d, fp, bits) == want
+    assert t_qm.regime(m, d, fp, bits, x_bf16=False) == "f32-fma"
+    if want in ("decode", "verify", "tiled", "two-pass"):
+        assert t_qm.regime(m, d, fp, bits, aligned=False).startswith("plain-loads")
+
+
 @pytest.mark.parametrize("kh", [4, 1, 8])  # GQA, MQA, MHA (h=8)
 def test_decode_attention_plain_matches_pallas(kh):
     """f32, atol 2e-5 (same f32 softmax; summation order differs)."""
