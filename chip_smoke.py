@@ -24,9 +24,15 @@ Phases, in order; any failure exits non-zero:
               logs its regime. Times each kernel, its plain version and one
               PyTorch library call (device time: CUDA events around calls
               queued while the device waits), and computes the kernel's bound
-              from this run's shapes. ``--parent DIR`` builds an earlier
-              checkout's quant_matmul.cu beside this one, times it beside each
-              qmm row and holds every INT8 output bitwise equal to it.
+              from this run's shapes; flash_prefill is timed at the 7B shape,
+              at the served prefills' shapes (the verifier's 32 heads and
+              the draft's 6 at the served prompts' lengths) and with every
+              row full, SDPA-causal's own work. ``--parent DIR``
+              builds each of an earlier checkout's quant_matmul.cu and
+              flash_prefill.cu that exists beside this one and times it
+              beside each of its rows; every INT8 qmm output must equal it
+              bitwise, and the earlier flash_prefill is held to the same
+              limit against the plain version as this one.
 4. variants — the quant-kernel tuning path
               (``flexflow_tpu_torch.benchmarks.tune_int4_variants.run``) at
               D=4096, F=11008, B=8, group 128: the six dequant-matmul design
@@ -58,7 +64,8 @@ Phases, in order; any failure exits non-zero:
               batched prefill of the served model, and one 8-iteration
               speculative horizon of the spec phase, under ``torch.profiler``:
               host dispatch time, wall time, device busy share and the
-              device time of the top kernels.
+              device time of the top 12 kernels and of every kernel of the
+              port below them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -71,12 +78,15 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import sys
 import time
 
 # the H100's memory rate and L2 size are tune_quant_kernel's PEAK and L2_BYTES
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
+PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "spec", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
@@ -186,12 +196,15 @@ def _weight_bytes(bits: int, d: int, f: int, g: int) -> int:
     return (d * f if bits == 8 else d * f // 2) + (1 if bits == 8 else 2) * (d // g) * f * 4
 
 
-def build_parent(root: str):
-    """Build an earlier checkout's ``flexflow_tpu_torch/csrc/quant_matmul.cu``
-    (``root``) alone into a library of its own and load it beside this one.
-    Its entry points take no scratch pointer:
-    ``ff_qmm_int8(x, q, scale, out, M, D, Fp, n_out, g, layer, x_bf16, out_f32,
-    stream)`` and ``ff_qmm_int4`` with ``offset`` after ``scale``."""
+def build_parent(root: str) -> dict:
+    """Build each of an earlier checkout's (``root``) ``quant_matmul.cu`` and
+    ``flash_prefill.cu`` (under ``flexflow_tpu_torch/csrc``) that exists into a
+    library of its own, one nvcc each, started together, and load it beside
+    this one. Returns {"quant_matmul": handle, "flash_prefill": handle} for the
+    sources found. The earlier quant-matmul's entry points take no scratch
+    pointer: ``ff_qmm_int8(x, q, scale, out, M, D, Fp, n_out, g, layer,
+    x_bf16, out_f32, stream)`` and ``ff_qmm_int4`` with ``offset`` after
+    ``scale``; ``ff_flash_prefill`` has this tree's signature."""
     import ctypes
     import hashlib
     import subprocess
@@ -199,21 +212,37 @@ def build_parent(root: str):
 
     from flexflow_tpu_torch.ops.kernels import _build
 
-    src = Path(root) / "flexflow_tpu_torch" / "csrc" / "quant_matmul.cu"
-    out = _build.BUILD_ROOT / f"parent-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libqmm_parent.so"
-    if not lib.exists():
-        run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(src), "-o",
-                              str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-        require(run.returncode == 0, f"building {src} failed:\n{run.stdout}")
-    handle = ctypes.CDLL(str(lib))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    handle.ff_qmm_int8.argtypes = [P] * 4 + [I] * 5 + [L, I, I, P]
-    handle.ff_qmm_int4.argtypes = [P] * 5 + [I] * 5 + [L, I, I, P]
-    handle.ff_qmm_int8.restype = handle.ff_qmm_int4.restype = ctypes.c_int
-    return handle
+    entries = {
+        "quant_matmul": {"ff_qmm_int8": [P] * 4 + [I] * 5 + [L, I, I, P],
+                         "ff_qmm_int4": [P] * 5 + [I] * 5 + [L, I, I, P]},
+        "flash_prefill": {"ff_flash_prefill": _build.SIGNATURES["ff_flash_prefill"]},
+    }
+    builds = {}
+    for name in entries:
+        src = Path(root) / "flexflow_tpu_torch" / "csrc" / f"{name}.cu"
+        if not src.exists():
+            continue
+        out = _build.BUILD_ROOT / f"parent-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}"
+        out.mkdir(parents=True, exist_ok=True)
+        lib = out / f"lib{name}_parent.so"
+        proc = None if lib.exists() else subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(src), "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds[name] = (src, lib, proc)
+    require(bool(builds), f"{root} holds no flexflow_tpu_torch/csrc/quant_matmul.cu or "
+                          f"flash_prefill.cu")
+    handles = {}
+    for name, (src, lib, proc) in builds.items():
+        if proc is not None:
+            log_text, _ = proc.communicate()
+            require(proc.returncode == 0, f"building {src} failed:\n{log_text}")
+        handle = ctypes.CDLL(str(lib))
+        for fn, argtypes in entries[name].items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+        handles[name] = handle
+    return handles
 
 
 def _qmm_parent(plib, qa, x, layer=None, out_dtype=None):
@@ -231,6 +260,22 @@ def _qmm_parent(plib, qa, x, layer=None, out_dtype=None):
              int(x.dtype == torch.bfloat16), int(od == torch.float32),
              _build.stream_ptr(x.device))
     _build.check(err, "earlier qmm")
+    return out
+
+
+def _flash_parent(plib, q, k, v, lens):
+    """The earlier flash-prefill kernel (``build_parent``) on q [B, S, H, D]
+    and k/v [B, S, KH, D]."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    out = torch.empty_like(q)
+    b, s, h, d = q.shape
+    err = plib.ff_flash_prefill(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                                out.data_ptr(), b, s, h, k.shape[2], d, 1.0 / math.sqrt(d),
+                                int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    _build.check(err, "earlier flash_prefill")
     return out
 
 
@@ -545,7 +590,12 @@ def decode_attention_phase(reps: int, records: list) -> None:
         f"bound {b_ms:.4f} ms ({b_by})")
 
 
-def flash_prefill_phase(reps: int, records: list) -> None:
+def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
+    """K6 against its plain version (and, with ``parent``, the earlier kernel
+    against the same limit) at LLaMA-2-7B heads, GQA, MQA and f32; timed at
+    the 7B shape, at the served prefills' shapes (the verifier's and the
+    draft's heads at the served prompts' lengths) and with every row full,
+    where SDPA-causal does the kernel's own work."""
     import torch
     import torch.nn.functional as F
 
@@ -554,37 +604,62 @@ def flash_prefill_phase(reps: int, records: list) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
+    served = list(PROMPT_LENS)
+    # (label, B, S, H, KH, D, dtype, lens, timed)
     cases = [
-        (8, 1024, 32, 32, 128, bf16, [1024, 900, 700, 512, 300, 128, 64, 17], True),
-        (2, 200, 32, 8, 128, bf16, [200, 77], False),  # GQA, S not a tile multiple
-        (2, 256, 16, 1, 64, bf16, [256, 5], False),  # MQA
-        (2, 300, 32, 32, 128, f32, [300, 150], False),  # --full-precision
+        ("", 8, 1024, 32, 32, 128, bf16, [1024, 900, 700, 512, 300, 128, 64, 17], True),
+        ("", 2, 200, 32, 8, 128, bf16, [200, 77], False),  # GQA, S not a tile multiple
+        ("", 2, 256, 16, 1, 64, bf16, [256, 5], False),  # MQA
+        ("", 2, 300, 32, 32, 128, f32, [300, 150], False),  # --full-precision
+        # the served prefills: the serve phase's 8 x 1024 bucket, and the
+        # spec phase's draft (6 heads) on the same prompts
+        (" serve", 8, 1024, 32, 32, 128, bf16, served, True),
+        (" draft", 8, 1024, 6, 6, 128, bf16, served, True),
+        # every row full: SDPA-causal's work equals the kernel's
+        (" full", 8, 1024, 32, 32, 128, bf16, [1024] * 8, True),
     ]
-    for b, s, h, kh, d, dt, lens_l, timed in cases:
+    for label, b, s, h, kh, d, dt, lens_l, timed in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
 
         q, k, v = rnd(b, s, h, d), rnd(b, s, kh, d), rnd(b, s, kh, d)
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        got = fp.flash_prefill(q, k, v, lens)
         want = fp.flash_prefill_plain(q, k, v, lens)
         if dt == bf16:
             # bf16 probabilities in P.V: each p rounds by at most 2^-9, so
             # 2^-8 of sum p|v| is twice their worst case; plus the output rounding
             pv = fp.flash_prefill_plain(q.float(), k.float(), v.float().abs(), lens)
-            err, ratio = attn_within(got, want, pv, 2.0 ** -8)
-            del pv
             tol = "2^-7|want| + 2^-8 sum p|v|"
+
+            def within(got):
+                return attn_within(got, want, pv, 2.0 ** -8)
         else:  # fast exp and summation order only
-            err = (got - want).abs().max().item()
-            ratio, tol = err / 1e-4, "1e-4"
-        require(ratio <= 1, f"flash_prefill B{b} S{s} H{h} KH{kh} {dt}: max|err| {err}, "
-                            f"{ratio:.3g} x the limit {tol}")
-        log(f"  flash_prefill B={b} S={s} H={h} KH={kh} D={d} {str(dt)[6:]}: err {err:.3g} "
-            f"({ratio:.3g} x the limit {tol})")
+            tol = "1e-4"
+
+            def within(got):
+                err = (got - want).abs().max().item()
+                return err, err / 1e-4
+        what = f"flash_prefill{label} B={b} S={s} H={h} KH={kh} D={d} {str(dt)[6:]}"
+        kernels = [("kernel", lambda: fp.flash_prefill(q, k, v, lens))]
+        if parent is not None:
+            kernels.append(("earlier kernel", lambda: _flash_parent(parent, q, k, v, lens)))
+        errs = {}
+        for who, fn in kernels:
+            got = fn()
+            require(bool(torch.isfinite(got).all()), f"{what}: {who} output not finite")
+            errs[who] = within(got)
+            require(errs[who][1] <= 1, f"{what}: {who} max|err| {errs[who][0]}, "
+                                       f"{errs[who][1]:.3g} x the limit {tol}")
+        err, ratio = errs["kernel"]
+        earlier = ""
+        if parent is not None:
+            earlier = f" [earlier kernel {errs['earlier kernel'][0]:.3g}]"
+        log(f"  {what}: err {err:.3g} ({ratio:.3g} x the limit {tol}){earlier}")
         if not timed:
             continue
-        ms = time_ms(lambda: fp.flash_prefill(q, k, v, lens), reps)
+        ms = time_ms(kernels[0][1], reps)
+        if parent is not None:
+            earlier = f" [earlier kernel {time_ms(kernels[1][1], reps):.4f} ms]"
         plain_ms = time_ms(lambda: fp.flash_prefill_plain(q, k, v, lens), max(2, reps // 4), 1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps)
@@ -594,11 +669,13 @@ def flash_prefill_phase(reps: int, records: list) -> None:
         valid = sum(min(n, s) for n in lens_l)
         nbytes = (valid * (h + 2 * kh) * d + b * s * h * d) * 2 + 4 * b
         b_ms, b_by = bound(nbytes, 4.0 * h * d * pairs, PEAK_BF16_FLOPS)
-        records.append(dict(name=f"flash_prefill[B={b} S={s} H={h} KH={kh} D={d} bf16]",
-                            kernel="flash_prefill", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"    kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA-causal {lib_ms:.4f} ms "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        name = f"B={b} S={s} H={h} KH={kh} D={d} bf16" + (f" lens={label.strip()}" if label else "")
+        records.append(dict(name=f"flash_prefill[{name}]", kernel="flash_prefill",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms))
+        log(f"    kernel {ms:.4f} ms{earlier} plain {plain_ms:.4f} ms SDPA-causal {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.2f}x) bound {b_ms:.4f} ms ({b_by})")
+        torch.cuda.empty_cache()
 
 
 def variants_phase(reps: int, records: list) -> dict:
@@ -785,7 +862,9 @@ def _trace(runs) -> dict:
         dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                   if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
         busy_ms = sum(dev_us.values()) / 1e3
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+        ranked = sorted(dev_us.items(), key=lambda kv: -kv[1])
+        # the top 12, and every kernel of the port's below them
+        top = ranked[:12] + [kv for kv in ranked[12:] if any(n in kv[0] for n in PORT_KERNELS)]
         out[name] = dict(host_dispatch_ms=t_host * 1e3, wall_ms=t_wall * 1e3,
                          per_step_ms=t_wall * 1e3 / steps, device_busy_ms=busy_ms,
                          device_busy_share=busy_ms / (t_wall * 1e3),
@@ -844,7 +923,7 @@ def _prompts(vocab_size: int):
     import numpy as np
 
     rng = np.random.default_rng(5)
-    return [rng.integers(3, vocab_size, n).tolist() for n in (600, 400, 256, 128, 100, 64, 32, 17)]
+    return [rng.integers(3, vocab_size, n).tolist() for n in PROMPT_LENS]
 
 
 def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
@@ -1019,8 +1098,9 @@ def main(argv=None) -> int:
                     help="add the profile phase (traces the serve and spec phases run)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of an earlier quant_matmul.cu: built beside this one, timed "
-                         "beside each qmm row, INT8 held bitwise equal to it")
+                    help="a checkout holding an earlier quant_matmul.cu and/or flash_prefill.cu: "
+                         "each built beside this one and timed beside its rows; INT8 qmm held "
+                         "bitwise equal to it, flash_prefill to the same limit as this one")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p] + (["profile"] if args.profile else [])
     unknown = set(phases) - set(PHASES)
@@ -1047,27 +1127,32 @@ def main(argv=None) -> int:
     _build.lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'})")
+    entry = ""  # the kernel (mangled, past its file's namespace) each ptxas line is about
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", line.split("'")[1])[:80]
+        elif "registers" in line or "spill" in line:
+            log(f"[build]   {entry}: {line.strip()}")
+        elif line.startswith("=="):
             log(f"[build]   {line.strip()}")
 
-    parent = None
+    parent = {}
     if args.parent:
         t0 = time.perf_counter()
         parent = build_parent(args.parent)
-        log(f"[build] earlier quant_matmul.cu from {args.parent} built and loaded in "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[build] earlier {', '.join(f'{n}.cu' for n in parent)} from {args.parent} built "
+            f"and loaded in {time.perf_counter() - t0:.1f} s")
 
     records: list = []
     summary: dict = {}
     if "kernels" in phases:
         for bits in (8, 4):
             log(f"[kernels] qmm_int{bits}")
-            qmm_phase(bits, args.reps, records, parent)
+            qmm_phase(bits, args.reps, records, parent.get("quant_matmul"))
         log("[kernels] decode_attention")
         decode_attention_phase(args.reps, records)
         log("[kernels] flash_prefill")
-        flash_prefill_phase(args.reps, records)
+        flash_prefill_phase(args.reps, records, parent.get("flash_prefill"))
     if "variants" in phases:
         log("[variants] quant-kernel tuning path: six dequant-matmul variants x "
             "column widths, qmm_int8 / qmm_int4, B=8 4096x11008 g=128")

@@ -5,8 +5,10 @@ Query position i of row b attends key positions j <= i with j < lengths[b];
 f32 softmax, ``scale = 1/sqrt(D)``, GQA groups folded into the kernel's query
 rows. Rows at or past their length come out as zeros (the JAX kernel lets
 them attend the valid prefix instead; nothing reads those rows). The kernel
-takes bf16 (tensor cores) or float32 (the full-precision path, head_dim <=
-128); the plain version takes any float dtype.
+takes bf16 (tensor cores; head_dim a multiple of 16 up to 256) or float32
+(the full-precision path, head_dim <= 128); the plain version takes any
+float dtype. The bf16 kernel reads q/k/v in 16-byte chunks, so a view that
+starts off a 16-byte boundary is copied first.
 """
 
 from __future__ import annotations
@@ -71,6 +73,9 @@ def flash_prefill(
         raise ValueError(f"unsupported head_dim {d} / group size {h // kh} for {q.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, lengths)):
         raise ValueError("flash_prefill needs contiguous inputs")
+    if b * s == 0:  # nothing to compute: no launch
+        return torch.empty_like(q)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     err = _build.lib().ff_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -263,20 +263,67 @@ def test_tree_attention_matches_plain_and_incremental_bits(cuda, dtype):
             assert torch.equal(one[0], got[bi, c])
 
 
-def test_flash_prefill_kernel_matches_plain(cuda):
+_BF16, _F32 = torch.bfloat16, torch.float32
+# (B, S, H, KH, D, dtype, lengths): the kernel's edges - rows of length 0
+# and 1, S not a multiple of the 64-position tile, GQA groups of 4, 8 and
+# 64 (one position a tile), each instantiated head dim (32, 64, 128, 256)
+# and one that runs zero-padded on the next (80), and a 2048-position row
+# (32 K/V tiles through the ring)
+_FLASH_CASES = {
+    "gqa4-s150-d64": (2, 150, 8, 2, 64, _BF16, [150, 61]),
+    "len0-len1": (3, 70, 4, 4, 128, _BF16, [0, 1, 70]),
+    "len0-len1-f32": (3, 70, 4, 4, 64, _F32, [0, 1, 70]),
+    "s100-d128": (2, 100, 8, 8, 128, _BF16, [100, 99]),
+    "g4-s77": (2, 77, 16, 4, 128, _BF16, [77, 40]),
+    "g8-s90": (2, 90, 32, 4, 64, _BF16, [90, 33]),
+    "g64-s40": (1, 40, 64, 1, 64, _BF16, [40]),
+    "d32": (2, 70, 4, 2, 32, _BF16, [70, 9]),
+    "d80": (2, 100, 4, 4, 80, _BF16, [100, 50]),
+    "d256": (2, 130, 4, 2, 256, _BF16, [130, 65]),
+    "s2048": (1, 2048, 4, 4, 128, _BF16, [2048]),
+}
+
+
+@pytest.mark.parametrize("case", list(_FLASH_CASES), ids=list(_FLASH_CASES))
+def test_flash_prefill_kernel_matches_plain(cuda, case):
     """bf16, per element: one output rounding (2^-7 of |want|) plus twice the
-    worst case of bf16 probabilities in P.V (2^-8 of sum p|v|)."""
+    worst case of bf16 probabilities in P.V (2^-8 of sum p|v|); f32: atol
+    1e-4 (fast exp, summation order). Rows at or past their length are
+    zeros, and nothing is NaN."""
+    b, s, h, kh, d, dtype, lens_l = _FLASH_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(2)
-    b, s, h, kh, d = 2, 150, 8, 2, 64
-    q = torch.randn((b, s, h, d), generator=g, device=cuda).to(torch.bfloat16)
-    k = torch.randn((b, s, kh, d), generator=g, device=cuda).to(torch.bfloat16)
-    v = torch.randn((b, s, kh, d), generator=g, device=cuda).to(torch.bfloat16)
-    lens = torch.tensor([150, 61], dtype=torch.int32, device=cuda)
+    q = torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, kh, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, kh, d), generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
     got = t_fp.flash_prefill(q, k, v, lens)
     want = t_fp.flash_prefill_plain(q, k, v, lens)
-    pv = t_fp.flash_prefill_plain(q.float(), k.float(), v.float().abs(), lens)
-    lim = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * pv
-    assert ((got.float() - want.float()).abs() <= lim).all()
+    assert bool(torch.isfinite(got).all())
+    for i, n in enumerate(lens_l):
+        assert not got[i, n:].any()
+    err = (got.float() - want.float()).abs()
+    if dtype == _BF16:
+        pv = t_fp.flash_prefill_plain(q.float(), k.float(), v.float().abs(), lens)
+        assert (err <= 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * pv).all()
+    else:
+        assert err.max() <= 1e-4
+
+
+def test_flash_prefill_kernel_takes_misaligned_views(cuda):
+    """q/k/v views that start 2 bytes past a 16-byte boundary (copied by the
+    wrapper) give the aligned inputs' output bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, s, h, d = 2, 70, 4, 64
+
+    def shifted():
+        flat = torch.randn(b * s * h * d + 1, generator=g, device=cuda).to(_BF16)
+        return flat[1:].view(b, s, h, d)
+
+    q, k, v = shifted(), shifted(), shifted()
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    lens = torch.tensor([70, 31], dtype=torch.int32, device=cuda)
+    got = t_fp.flash_prefill(q, k, v, lens)
+    assert torch.equal(got, t_fp.flash_prefill(q.clone(), k.clone(), v.clone(), lens))
 
 
 def test_flash_prefill_kernel_f32_matches_plain(cuda):
@@ -379,7 +426,7 @@ def test_bf16_int4_speculative_serving_equals_incremental_on_cuda(cuda):
 
 def test_wrappers_count_launches(cuda):
     before = (t_qm.LAUNCHES, t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES)
-    test_flash_prefill_kernel_matches_plain(cuda)
+    test_flash_prefill_kernel_matches_plain(cuda, "gqa4-s150-d64")
     test_decode_attention_kernel_matches_plain(cuda)
     test_qmm_int4_identity_probe(cuda, torch.float32)
     assert (t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES) == (

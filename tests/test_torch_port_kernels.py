@@ -169,3 +169,24 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     t_fp.flash_prefill(torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 2, 16)),
                        torch.zeros((1, 4, 2, 16)), torch.tensor([3], dtype=torch.int32))
     assert (t_qm.LAUNCHES, t_da.LAUNCHES, t_fp.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("lens_l", [[0, 1], [1, 80]])
+def test_flash_prefill_plain_short_rows_match_pallas(lens_l):
+    """Rows of length 0 and 1, S = 80 (not a multiple of the kernel's 64-row
+    tile), GQA: f32, atol 2e-5 on rows below each length; the rest are
+    zeros and nothing is NaN."""
+    r = _rng(6)
+    b, s, h, kh, d = 2, 80, 4, 2, 16
+    q = r.standard_normal((b, s, h, d)).astype(np.float32)
+    k = r.standard_normal((b, s, kh, d)).astype(np.float32)
+    v = r.standard_normal((b, s, kh, d)).astype(np.float32)
+    lens = np.array(lens_l, np.int32)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lens), block_q=64, block_k=128, interpret=True))
+    got = t_fp.flash_prefill(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                             torch.tensor(lens)).numpy()
+    assert np.isfinite(got).all()
+    for i, n in enumerate(lens_l):
+        np.testing.assert_allclose(got[i, :n], want[i, :n], atol=2e-5, rtol=1e-4)
+        assert not got[i, n:].any()
