@@ -27,12 +27,16 @@ Phases, in order; any failure exits non-zero:
               from this run's shapes; flash_prefill is timed at the 7B shape,
               at the served prefills' shapes (the verifier's 32 heads and
               the draft's 6 at the served prompts' lengths) and with every
-              row full, SDPA-causal's own work. ``--parent DIR``
-              builds each of an earlier checkout's quant_matmul.cu and
-              flash_prefill.cu that exists beside this one and times it
+              row full, SDPA-causal's own work; decode_attention at the
+              7B shape, the served decode's lengths, one 4096-position
+              request and the verify's tree, each rotating through caches
+              past the L2. ``--parent DIR`` builds each of an earlier
+              checkout's quant_matmul.cu, flash_prefill.cu and
+              decode_attention.cu that exists beside this one and times it
               beside each of its rows; every INT8 qmm output must equal it
-              bitwise, and the earlier flash_prefill is held to the same
-              limit against the plain version as this one.
+              bitwise, and the earlier flash_prefill and decode_attention
+              are held to the same limits against the plain versions as
+              this tree's.
 4. variants — the quant-kernel tuning path
               (``flexflow_tpu_torch.benchmarks.tune_int4_variants.run``) at
               D=4096, F=11008, B=8, group 128: the six dequant-matmul design
@@ -197,14 +201,17 @@ def _weight_bytes(bits: int, d: int, f: int, g: int) -> int:
 
 
 def build_parent(root: str) -> dict:
-    """Build each of an earlier checkout's (``root``) ``quant_matmul.cu`` and
-    ``flash_prefill.cu`` (under ``flexflow_tpu_torch/csrc``) that exists into a
-    library of its own, one nvcc each, started together, and load it beside
-    this one. Returns {"quant_matmul": handle, "flash_prefill": handle} for the
-    sources found. The earlier quant-matmul's entry points take no scratch
-    pointer: ``ff_qmm_int8(x, q, scale, out, M, D, Fp, n_out, g, layer,
-    x_bf16, out_f32, stream)`` and ``ff_qmm_int4`` with ``offset`` after
-    ``scale``; ``ff_flash_prefill`` has this tree's signature."""
+    """Build each of an earlier checkout's (``root``) ``quant_matmul.cu``,
+    ``flash_prefill.cu`` and ``decode_attention.cu`` (under
+    ``flexflow_tpu_torch/csrc``) that exists into a library of its own, one
+    nvcc each, started together, and load it beside this one. Returns
+    {"quant_matmul": handle, ...} for the sources found. The earlier
+    quant-matmul's entry points take no scratch pointer: ``ff_qmm_int8(x, q,
+    scale, out, M, D, Fp, n_out, g, layer, x_bf16, out_f32, stream)`` and
+    ``ff_qmm_int4`` with ``offset`` after ``scale``; ``ff_flash_prefill`` has
+    this tree's signature; the earlier ``ff_decode_attention`` takes no
+    workspace or chunk: ``(q, k_cache, v_cache, k_new, v_new, lens, idx, nx,
+    self, out, B, NT, H, KH, S, D, scale, is_bf16, stream)``."""
     import ctypes
     import hashlib
     import subprocess
@@ -212,11 +219,12 @@ def build_parent(root: str) -> dict:
 
     from flexflow_tpu_torch.ops.kernels import _build
 
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     entries = {
         "quant_matmul": {"ff_qmm_int8": [P] * 4 + [I] * 5 + [L, I, I, P],
                          "ff_qmm_int4": [P] * 5 + [I] * 5 + [L, I, I, P]},
         "flash_prefill": {"ff_flash_prefill": _build.SIGNATURES["ff_flash_prefill"]},
+        "decode_attention": {"ff_decode_attention": [P] * 10 + [I] * 6 + [F, I, P]},
     }
     builds = {}
     for name in entries:
@@ -230,8 +238,8 @@ def build_parent(root: str) -> dict:
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(src), "-o", str(lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         builds[name] = (src, lib, proc)
-    require(bool(builds), f"{root} holds no flexflow_tpu_torch/csrc/quant_matmul.cu or "
-                          f"flash_prefill.cu")
+    require(bool(builds), f"{root} holds none of flexflow_tpu_torch/csrc/{{"
+                          f"{','.join(entries)}}}.cu")
     handles = {}
     for name, (src, lib, proc) in builds.items():
         if proc is not None:
@@ -463,7 +471,44 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
     torch.cuda.empty_cache()
 
 
-def decode_attention_phase(reps: int, records: list) -> None:
+def _decode_parent(plib, q, kc, vc, kn, vn, lens, index=None):
+    """The earlier decode-attention kernel (``build_parent``): the one-token
+    form on q [B, H, D], or the tree form on q [B, T, H, D] with ``index``
+    (``tree_index``)."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    out = torch.empty_like(q)
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    nt = q.shape[1] if q.dim() == 4 else 1
+    ptrs = [x.data_ptr() for x in index] if index is not None else [None] * 3
+    err = plib.ff_decode_attention(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        lens.data_ptr(), *ptrs, out.data_ptr(), b, nt, h, kc.shape[1], kc.shape[2], d,
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    _build.check(err, "earlier decode_attention")
+    return out
+
+
+def _cache_copies(kc, vc):
+    """(k, v) cache pairs whose rotation streams past 3x the L2: ``(kc, vc)``
+    and clones of it."""
+    import torch
+
+    from flexflow_tpu_torch.benchmarks.tune_quant_kernel import n_copies
+
+    n = n_copies(2 * kc.numel() * kc.element_size(), torch.device("cuda"))
+    return [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
+
+
+def decode_attention_phase(reps: int, records: list, parent=None) -> None:
+    """K5 against its plain version in both forms (and, with ``parent``, the
+    earlier kernel against the same limit), at LLaMA-2-7B heads, GQA, MQA,
+    f32 and lengths at the chunk's edges; each tree node checked bitwise
+    against the one-token call after its ancestors were committed. Timed at
+    the 7B shape, the served decode's lengths, one long request and the
+    speculative verify's tree, each rotating through caches past the L2."""
     import torch
     import torch.nn.functional as F
 
@@ -471,56 +516,105 @@ def decode_attention_phase(reps: int, records: list) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    # (B, H, KH, S, D, dtype, lens, timed): LLaMA-2-7B MHA decode, plus GQA / MQA
+    bf16, f32 = torch.bfloat16, torch.float32
+    c = da.CHUNK
+    # (label, B, H, KH, S, D, dtype, lens, timed): LLaMA-2-7B MHA decode at
+    # lengths 1024..0, at the served decode's lengths (the served prompts
+    # plus ~32 generated tokens) and one 4096-position request; GQA, MQA,
+    # f32, and lengths at the chunk's edges at D = 256 with groups of 16
     cases = [
-        (8, 32, 32, 1024, 128, torch.bfloat16, [1024, 1000, 777, 600, 512, 300, 100, 0], True),
-        (8, 32, 32, 1024, 128, torch.float32, [1024, 1000, 777, 600, 512, 300, 100, 0], False),
-        (4, 32, 8, 512, 128, torch.bfloat16, [512, 64, 1, 300], False),
-        (4, 16, 1, 512, 64, torch.bfloat16, [500, 0, 17, 512], False),
+        ("", 8, 32, 32, 1024, 128, bf16, [1024, 1000, 777, 600, 512, 300, 100, 0], True),
+        (" serve", 8, 32, 32, 1024, 128, bf16, [632, 432, 288, 160, 132, 96, 64, 49], True),
+        (" long", 1, 32, 32, 4096, 128, bf16, [4096], True),
+        ("", 8, 32, 32, 1024, 128, f32, [1024, 1000, 777, 600, 512, 300, 100, 0], False),
+        ("", 4, 32, 8, 512, 128, bf16, [512, 64, 1, 300], False),
+        ("", 4, 16, 1, 512, 64, bf16, [500, 0, 17, 512], False),
+        (" edges", 5, 64, 4, 200, 256, bf16, [c - 1, c, c + 1, 0, 1], False),
     ]
-    for b, h, kh, s, d, dt, lens_l, timed in cases:
+    tol_bf16 = "2^-7|want| + 2^-12 sum p|v|"
+
+    def within(got, want, pv):
+        if got.dtype == bf16:
+            # f32 softmax and P.V (fast exp, summation order): 2^-12 of
+            # sum p|v|, far above their error, plus the output rounding
+            return attn_within(got, want, pv, 2.0 ** -12)
+        err = (got - want).abs().max().item()  # fast exp and summation order only
+        return err, err / 1e-4
+
+    def held(what, fns, want, pv):
+        """Each (who, fn) output against ``want``; returns {who: (err, ratio)}."""
+        errs = {}
+        for who, fn in fns:
+            got = fn()
+            require(bool(torch.isfinite(got).all()), f"{what}: {who} output not finite")
+            errs[who] = within(got, want, pv)
+            require(errs[who][1] <= 1, f"{what}: {who} max|err| {errs[who][0]}, "
+                                       f"{errs[who][1]:.3g} x the limit")
+        return errs
+
+    def report(what, errs, tol, extra=""):
+        err, ratio = errs["kernel"]
+        earlier = (f" [earlier kernel {errs['earlier kernel'][0]:.3g}]"
+                   if "earlier kernel" in errs else "")
+        log(f"  {what}: err {err:.3g} ({ratio:.3g} x the limit {tol}){earlier}{extra}")
+
+    def timed(name, fns, plain, lib, nbytes, flops, err):
+        ms = time_ms(fns[0][1], reps)
+        earlier = ""
+        if len(fns) > 1:
+            earlier = f" [earlier kernel {time_ms(fns[1][1], reps):.4f} ms]"
+        plain_ms = time_ms(plain, max(2, reps // 4), 1)
+        lib_ms = time_ms(lib, reps)
+        b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+        records.append(dict(name=f"decode_attention[{name}]", kernel="decode_attention",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms))
+        log(f"    kernel {ms:.4f} ms{earlier} plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.2f}x) bound {b_ms:.4f} ms ({b_by})")
+
+    for label, b, h, kh, s, d, dt, lens_l, is_timed in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
 
         q, kc, vc = rnd(b, h, d), rnd(b, kh, s, d), rnd(b, kh, s, d)
         ks, vs = rnd(b, kh, d), rnd(b, kh, d)
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        got = da.decode_attention(q, kc, vc, ks, vs, lens)
         want = da.decode_attention_plain(q, kc, vc, ks, vs, lens)
-        if dt == torch.bfloat16:
-            # f32 softmax and P.V (fast exp, summation order): 2^-12 of
-            # sum p|v|, far above their error, plus the output rounding
+        pv = None
+        if dt == bf16:
             pv = da.decode_attention_plain(q.float(), kc.float(), vc.float().abs(),
                                            ks.float(), vs.float().abs(), lens)
-            err, ratio = attn_within(got, want, pv, 2.0 ** -12)
-            tol = "2^-7|want| + 2^-12 sum p|v|"
-        else:  # fast exp and summation order only
-            err = (got - want).abs().max().item()
-            ratio, tol = err / 1e-4, "1e-4"
-        require(ratio <= 1, f"decode_attention B{b} H{h} KH{kh} {dt}: max|err| {err}, "
-                            f"{ratio:.3g} x the limit {tol}")
-        log(f"  decode_attention B={b} H={h} KH={kh} S={s} D={d} {str(dt)[6:]}: err {err:.3g} "
-            f"({ratio:.3g} x the limit {tol})")
-        if not timed:
+        caches = _cache_copies(kc, vc) if is_timed else [(kc, vc)]
+        it = iter(range(10 ** 9))
+
+        def nxt():
+            return caches[next(it) % len(caches)]
+
+        fns = [("kernel", lambda: da.decode_attention(q, *nxt(), ks, vs, lens))]
+        if parent is not None:
+            fns.append(("earlier kernel",
+                        lambda: _decode_parent(parent, q, *nxt(), ks, vs, lens)))
+        what = f"decode_attention{label} B={b} H={h} KH={kh} S={s} D={d} {str(dt)[6:]}"
+        errs = held(what, fns, want, pv)
+        report(what, errs, tol_bf16 if dt == bf16 else "1e-4")
+        del want, pv
+        if not is_timed:
             continue
-        ms = time_ms(lambda: da.decode_attention(q, kc, vc, ks, vs, lens), reps)
-        plain_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, ks, vs, lens), reps)
         # yardstick: SDPA over [cache | self] with the length mask
-        k_all = torch.cat([kc, ks[:, :, None]], dim=2)
-        v_all = torch.cat([vc, vs[:, :, None]], dim=2)
+        alls = [(torch.cat([k, ks[:, :, None]], dim=2), torch.cat([v, vs[:, :, None]], dim=2))
+                for k, v in caches]
         pos = torch.arange(s + 1, device=dev)
         mask = ((pos[None] < lens[:, None]) | (pos[None] == s))[:, None, None, :]
         q4 = q[:, :, None]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k_all, v_all,
-                                                                attn_mask=mask), reps)
         tot = int(sum(min(max(x, 0), s) for x in lens_l))
         nbytes = (2 * tot * kh * d + 2 * q.numel() + 2 * ks.numel()) * q.element_size() + 4 * b
-        b_ms, b_by = bound(nbytes, 4.0 * h * d * (tot + b), PEAK_F32_FLOPS)
-        records.append(dict(name=f"decode_attention[B={b} H={h} KH={kh} S={s} D={d} bf16]",
-                            kernel="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"    kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        timed(f"B={b} H={h} KH={kh} S={s} D={d} bf16" + (f" lens={label.strip()}" if label else ""),
+              fns, lambda: da.decode_attention_plain(q, *nxt(), ks, vs, lens),
+              lambda: F.scaled_dot_product_attention(q4, *alls[next(it) % len(alls)],
+                                                     attn_mask=mask),
+              nbytes, 4.0 * h * d * (tot + b), errs["kernel"][0])
+        del caches, alls
+        torch.cuda.empty_cache()
 
     # the tree form at the speculative verify's shape: 8 slots x the 13-node
     # tree of width 3 and depth 4, LLaMA-2-7B heads, random parents
@@ -533,61 +627,69 @@ def decode_attention_phase(reps: int, records: list) -> None:
         parents[:, base:base + width] = prev + torch.randint(0, width, (b, width),
                                                              generator=cpu_gen)
     anc = torch.eye(t, dtype=torch.bool).repeat(b, 1, 1)
-    for c in range(1, t):
-        anc[:, c] |= anc[torch.arange(b), parents[:, c]]
+    for cc in range(1, t):
+        anc[:, cc] |= anc[torch.arange(b), parents[:, cc]]
     anc = anc.to(dev)
-    lens_l = [600, 400, 256, 128, 100, 64, 32, 17]
+    lens_l = list(PROMPT_LENS)
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
     q, kn, vn = rnd(b, t, h, d), rnd(b, t, kh, d), rnd(b, t, kh, d)
     kc, vc = rnd(b, kh, s, d), rnd(b, kh, s, d)
-    got = da.tree_attention(q, kc, vc, kn, vn, lens, anc)
+    index = da.tree_index(anc)
     want = da.tree_attention_plain(q, kc, vc, kn, vn, lens, anc)
     pv = da.tree_attention_plain(q.float(), kc.float(), vc.float().abs(), kn.float(),
                                  vn.float().abs(), lens, anc)
-    err, ratio = attn_within(got, want, pv, 2.0 ** -12)
-    del pv
-    tol = "2^-7|want| + 2^-12 sum p|v|"
-    require(ratio <= 1, f"tree attention: max|err| {err}, {ratio:.3g} x the limit {tol}")
+    caches = _cache_copies(kc, vc)
+    it = iter(range(10 ** 9))
+
+    def nxt():
+        return caches[next(it) % len(caches)]
+
+    fns = [("kernel", lambda: da.tree_attention(q, *nxt(), kn, vn, lens, anc, index=index))]
+    if parent is not None:
+        fns.append(("earlier kernel",
+                    lambda: _decode_parent(parent, q, *nxt(), kn, vn, lens, index)))
+    what = f"decode_attention tree B={b} T={t} H={h} KH={kh} S={s} D={d} bfloat16"
+    errs = held(what, fns, want, pv)
+    del want, pv
+    got = da.tree_attention(q, kc, vc, kn, vn, lens, anc)
     # each node bitwise equal to the one-token call after its ancestors were
-    # committed into the cache at lens, lens + 1, ... (incremental decoding)
-    for bi, c in ((0, 0), (0, t - 1), (5, 1 + width), (7, t - 2)):
-        path = anc[bi, c].nonzero()[:, 0].tolist()
+    # committed into the cache at lens, lens + 1, ... (incremental decoding):
+    # every node of slots 0 and 5, and two of slot 7
+    nodes = [(0, cc) for cc in range(t)] + [(5, cc) for cc in range(t)] + [(7, 1), (7, t - 2)]
+    for bi, cc in nodes:
+        path = anc[bi, cc].nonzero()[:, 0].tolist()
         n = lens_l[bi]
         ck, cv = kc[bi:bi + 1].clone(), vc[bi:bi + 1].clone()
         for j, a in enumerate(path[:-1]):
             ck[0, :, n + j] = kn[bi, a]
             cv[0, :, n + j] = vn[bi, a]
-        one = da.decode_attention(q[bi:bi + 1, c].contiguous(), ck, cv,
-                                  kn[bi:bi + 1, c].contiguous(), vn[bi:bi + 1, c].contiguous(),
+        one = da.decode_attention(q[bi:bi + 1, cc].contiguous(), ck, cv,
+                                  kn[bi:bi + 1, cc].contiguous(), vn[bi:bi + 1, cc].contiguous(),
                                   torch.tensor([n + len(path) - 1], dtype=torch.int32,
                                                device=dev))
-        require(torch.equal(one[0], got[bi, c]),
-                f"tree attention: slot {bi} node {c} differs from the one-token call")
-    log(f"  decode_attention tree B={b} T={t} H={h} KH={kh} S={s} D={d} bfloat16: err {err:.3g} "
-        f"({ratio:.3g} x the limit {tol}); 4 nodes bitwise equal to one-token calls")
-    ms = time_ms(lambda: da.tree_attention(q, kc, vc, kn, vn, lens, anc), reps)
-    plain_ms = time_ms(lambda: da.tree_attention_plain(q, kc, vc, kn, vn, lens, anc), reps)
+        require(torch.equal(one[0], got[bi, cc]),
+                f"tree attention: slot {bi} node {cc} differs from the one-token call")
+    report(what, errs, tol_bf16, f"; {len(nodes)} nodes bitwise equal to one-token calls")
     # yardstick: SDPA over [cache | tree] with the joint mask
-    k_all, v_all = torch.cat([kc, kn.transpose(1, 2)], dim=2), torch.cat([vc, vn.transpose(1, 2)], 2)
+    alls = [(torch.cat([k, kn.transpose(1, 2)], dim=2), torch.cat([v, vn.transpose(1, 2)], 2))
+            for k, v in caches]
     pos = torch.arange(s, device=dev)
     mask = torch.cat([(pos[None, None] < lens[:, None, None]).expand(b, t, s), anc], dim=-1)[:, None]
     qt = q.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k_all, v_all, attn_mask=mask),
-                     reps)
     # bytes: the valid cache rows once, q, the tree's K/V and the output;
     # operations: 4 per (query head, element, attended column)
     cols = sum(t * n for n in lens_l) + int(anc.sum())
     nbytes = (2 * sum(lens_l) * kh * d + 2 * q.numel() + 2 * kn.numel()) * 2 + 4 * b
-    b_ms, b_by = bound(nbytes, 4.0 * h * d * cols, PEAK_F32_FLOPS)
-    records.append(dict(name=f"decode_attention[tree B={b} T={t} H={h} KH={kh} S={s} D={d} bf16]",
-                        kernel="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    log(f"    kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    timed(f"tree B={b} T={t} H={h} KH={kh} S={s} D={d} bf16", fns,
+          lambda: da.tree_attention_plain(q, *nxt(), kn, vn, lens, anc),
+          lambda: F.scaled_dot_product_attention(qt, *alls[next(it) % len(alls)], attn_mask=mask),
+          nbytes, 4.0 * h * d * cols, errs["kernel"][0])
+    del caches, alls
+    torch.cuda.empty_cache()
 
 
 def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
@@ -1098,9 +1200,10 @@ def main(argv=None) -> int:
                     help="add the profile phase (traces the serve and spec phases run)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout holding an earlier quant_matmul.cu and/or flash_prefill.cu: "
-                         "each built beside this one and timed beside its rows; INT8 qmm held "
-                         "bitwise equal to it, flash_prefill to the same limit as this one")
+                    help="a checkout holding an earlier quant_matmul.cu, flash_prefill.cu and/or "
+                         "decode_attention.cu: each built beside this one and timed beside its "
+                         "rows; INT8 qmm held bitwise equal to it, the attention kernels to the "
+                         "same limits as this tree's")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p] + (["profile"] if args.profile else [])
     unknown = set(phases) - set(PHASES)
@@ -1150,7 +1253,7 @@ def main(argv=None) -> int:
             log(f"[kernels] qmm_int{bits}")
             qmm_phase(bits, args.reps, records, parent.get("quant_matmul"))
         log("[kernels] decode_attention")
-        decode_attention_phase(args.reps, records)
+        decode_attention_phase(args.reps, records, parent.get("decode_attention"))
         log("[kernels] flash_prefill")
         flash_prefill_phase(args.reps, records, parent.get("flash_prefill"))
     if "variants" in phases:

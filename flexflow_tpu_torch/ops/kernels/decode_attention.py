@@ -14,6 +14,13 @@ says so. Along a tree path the kernel repeats, bit for bit, the arithmetic of
 ``decode_attention`` after the path's tokens were committed one by one, so a
 tree-verified token gets incremental decoding's bits. The JAX package leaves
 this masked attention to XLA; here it is the kernel's second form.
+
+On the card a call launches two kernels (``csrc/decode_attention.cu``): one
+block per (chunk of ``CHUNK`` virtual positions, KV head, slot) writes the
+partial softmax state of each query row it holds (the slot's token, or its
+tree's nodes) to a workspace, and a second kernel merges a row's chunks in
+chunk order. The chunk count and the workspace's shape come from the shapes
+alone (:func:`plan`): no call reads ``cache_lens`` on the host.
 """
 
 from __future__ import annotations
@@ -25,8 +32,23 @@ import torch
 from flexflow_tpu_torch.ops.attention import NEG_INF, split_cached_attention
 from flexflow_tpu_torch.ops.kernels import _build
 
-LAUNCHES = 0  # kernel launches of this process, both forms
+LAUNCHES = 0  # calls that launched the kernels, both forms (two kernels a call)
 _HEAD_DIMS = (32, 64, 96, 128, 160, 192, 256)
+# virtual positions a block attends: the C side refuses any other value
+CHUNK = 64
+
+
+def plan(q: torch.Tensor, k_cache: torch.Tensor):
+    """(chunks per row, workspace shape) of a launch, from the shapes of q
+    ([B, H, D], or [B, T, H, D] for the tree form) and the cache [B, KH, S, D]
+    alone. A row's virtual positions are its committed ones, at most T - 1
+    in-flight ancestors and the token itself: at most S + T of them. The
+    workspace holds, for each (query row, head, chunk), the chunk's f32
+    accumulator [D] then its running max and sum."""
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    nt = q.shape[1] if q.dim() == 4 else 1
+    chunks = -(-(k_cache.shape[2] + nt) // CHUNK)
+    return chunks, (b * nt, h, chunks, d + 2)
 
 
 def decode_attention_plain(q, k_cache, v_cache, k_self, v_self, cache_lens):
@@ -146,12 +168,17 @@ def _launch(name, q, k_cache, v_cache, k_new, v_new, cache_lens, index, nt):
         raise ValueError(f"{name} needs contiguous inputs")
     b, kh, s = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
     h = q.shape[-2]
+    # 16-byte copies: a view that starts off a 16-byte boundary is copied
+    q, k_cache, v_cache, k_new, v_new = (x if x.data_ptr() % 16 == 0 else x.clone()
+                                         for x in tensors)
     out = torch.empty_like(q)
+    _, ws_shape = plan(q, k_cache)
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
     ptrs = [x.data_ptr() for x in extra] if extra else [None, None, None]
     err = _build.lib().ff_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), cache_lens.data_ptr(), *ptrs, out.data_ptr(),
-        b, nt, h, kh, s, d, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        v_new.data_ptr(), cache_lens.data_ptr(), *ptrs, out.data_ptr(), ws.data_ptr(),
+        b, nt, h, kh, s, d, CHUNK, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         _build.stream_ptr(q.device),
     )
     _build.check(err, name)

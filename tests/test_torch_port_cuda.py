@@ -35,6 +35,7 @@ def cuda():
 
 
 _T = t_qm.PREFILL_ROWS
+_BF16, _F32 = torch.bfloat16, torch.float32
 # each regime and its edges on a small carrier: decode (M <= 16), verify
 # (M <= 128), the tiled kernel (below the prefill threshold), the two-pass
 # prefill (from it); 32-column slabs, and 64-column ones from 8448 columns
@@ -195,16 +196,105 @@ def test_qmm_variant_matches_plain_and_probe(cuda, name, d, f, g, b):
         assert t_qv.LAUNCHES[name] == before + 2
 
 
-def test_decode_attention_kernel_matches_plain(cuda):
-    """f32: atol 1e-4 (fast exp, summation order)."""
+_C = t_da.CHUNK
+# (B, H, KH, S, D, dtype, lengths): rows of length 0, 1 and at the chunk's
+# edges (C - 1, C, C + 1: the token itself the last of a chunk or the first
+# of the next), a 4096-position row (65 chunks), every head dim, GQA groups
+# of 4, 8 and 16, MQA, bf16 and f32
+_DECODE_CASES = {
+    "f32-g4-d64": (3, 8, 2, 100, 64, _F32, [0, 37, 100]),
+    "edges-bf16": (6, 8, 8, 200, 128, _BF16, [0, 1, _C - 1, _C, _C + 1, 200]),
+    "edges-f32": (6, 8, 8, 200, 128, _F32, [0, 1, _C - 1, _C, _C + 1, 200]),
+    "s4096": (1, 4, 4, 4096, 128, _BF16, [4096]),
+    **{f"d{d}": (2, 4, 2, 130, d, _BF16, [130, _C]) for d in t_da._HEAD_DIMS},
+    "d256-f32": (2, 4, 2, 130, 256, _F32, [_C + 1, 3]),
+    "g4": (2, 16, 4, 150, 128, _BF16, [150, _C - 1]),
+    "g8": (2, 32, 4, 150, 128, _BF16, [2 * _C, 9]),
+    "g16": (2, 32, 2, 150, 64, _F32, [150, 0]),
+    "mqa": (2, 16, 1, 150, 128, _BF16, [_C + 1, 1]),
+    "mqa-g32-f32": (1, 32, 1, 300, 64, _F32, [300]),
+}
+
+
+@pytest.mark.parametrize("case", list(_DECODE_CASES), ids=list(_DECODE_CASES))
+def test_decode_attention_kernel_matches_plain(cuda, case):
+    """bf16, per element: one output rounding (2^-7 of |want|) plus 2^-12 of
+    sum p|v| (f32 softmax and P.V: fast exp, summation order); f32: atol
+    1e-4 (fast exp, summation order). One launch counted per call."""
+    b, h, kh, s, d, dtype, lens_l = _DECODE_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(1)
-    b, h, kh, s, d = 3, 8, 2, 100, 64
-    args = [torch.randn(sh, generator=g, device=cuda)
+    args = [torch.randn(sh, generator=g, device=cuda).to(dtype)
             for sh in ((b, h, d), (b, kh, s, d), (b, kh, s, d), (b, kh, d), (b, kh, d))]
-    lens = torch.tensor([0, 37, 100], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    before = t_da.LAUNCHES
     got = t_da.decode_attention(*args, lens)
+    assert t_da.LAUNCHES == before + 1
     want = t_da.decode_attention_plain(*args, lens)
-    assert (got - want).abs().max() <= 1e-4
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs()
+    if dtype == _BF16:
+        a = [x.float() for x in args]
+        pv = t_da.decode_attention_plain(a[0], a[1], a[2].abs(), a[3], a[4].abs(), lens)
+        assert (err <= 2.0 ** -7 * want.float().abs() + 2.0 ** -12 * pv).all()
+    else:
+        assert err.max() <= 1e-4
+
+
+def test_decode_attention_takes_misaligned_views(cuda):
+    """q and cache views that start 2 bytes past a 16-byte boundary (copied
+    by the wrapper) give the aligned inputs' output bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, h, s, d = 2, 4, 90, 64
+
+    def shifted(*shape):
+        flat = torch.randn(torch.Size(shape).numel() + 1, generator=g, device=cuda).to(_BF16)
+        return flat[1:].view(*shape)
+
+    args = [shifted(b, h, d), shifted(b, h, s, d), shifted(b, h, s, d), shifted(b, h, d),
+            shifted(b, h, d)]
+    assert all(x.data_ptr() % 16 for x in args)
+    lens = torch.tensor([90, _C + 3], dtype=torch.int32, device=cuda)
+    got = t_da.decode_attention(*args, lens)
+    assert torch.equal(got, t_da.decode_attention(*[x.clone() for x in args], lens))
+
+
+def test_decode_attention_refuses_another_chunk(cuda):
+    """The C side checks the wrapper's copy of the chunk size and refuses a
+    launch with another one (cudaErrorInvalidValue)."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    b, h, s, d = 1, 2, 8, 32
+    q = torch.zeros((b, h, d), device=cuda)
+    kc = torch.zeros((b, h, s, d), device=cuda)
+    lens = torch.zeros((b,), dtype=torch.int32, device=cuda)
+    _, ws_shape = t_da.plan(q, kc)
+    ws = torch.empty(ws_shape, device=cuda)
+    out = torch.empty_like(q)
+    err = _build.lib().ff_decode_attention(
+        q.data_ptr(), kc.data_ptr(), kc.data_ptr(), q.data_ptr(), q.data_ptr(),
+        lens.data_ptr(), None, None, None, out.data_ptr(), ws.data_ptr(), b, 1, h, h, s, d,
+        _C + 1, 1.0, 0, _build.stream_ptr(cuda))
+    assert err == 1  # cudaErrorInvalidValue
+
+
+def test_decode_attention_captures_in_cuda_graph(cuda):
+    """A call captured in a CUDA graph (no host read of cache_lens, the
+    workspace allocated from the graph's pool) replays with new lengths
+    and gives the eager call's bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, h, kh, s, d = 4, 8, 8, 300, 128
+    args = [torch.randn(sh, generator=g, device=cuda).to(_BF16)
+            for sh in ((b, h, d), (b, kh, s, d), (b, kh, s, d), (b, kh, d), (b, kh, d))]
+    lens = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=cuda)
+    t_da.decode_attention(*args, lens)  # warm up: the kernels built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = t_da.decode_attention(*args, lens)
+    lens.copy_(torch.tensor([300, 0, _C, 129], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, t_da.decode_attention(*args, lens))
 
 
 def _tree(gen, b, width, depth):
@@ -224,17 +314,24 @@ def _tree(gen, b, width, depth):
     return parents, anc
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_tree_attention_matches_plain_and_incremental_bits(cuda, dtype):
+@pytest.mark.parametrize("dtype,h,kh,d", [
+    (torch.bfloat16, 8, 2, 64), (torch.float32, 8, 2, 64),
+    # GQA groups of 8 and MQA: a block holds fewer than all 13 nodes of a slot
+    (torch.bfloat16, 16, 2, 128), (torch.float32, 16, 1, 64),
+], ids=["bf16", "f32", "g8-d128-bf16", "mqa-g16-f32"])
+def test_tree_attention_matches_plain_and_incremental_bits(cuda, dtype, h, kh, d):
     """The tree form against its plain version (bf16: one output rounding
     plus 2^-12 of sum p|v|, as decode attention; f32: 1e-4), and each node
     bitwise equal to the one-token call after its ancestors were committed
-    into the cache (what incremental decoding computes)."""
+    into the cache (what incremental decoding computes), also where a
+    node's path crosses a chunk boundary."""
     g = torch.Generator().manual_seed(6)
-    b, h, kh, s, d, width, depth = 3, 8, 2, 80, 64, 3, 4
+    b, s, width, depth = 5, 136, 3, 4
     t = 1 + width * depth
     _, anc = _tree(g, b, width, depth)
-    lens = torch.tensor([0, 17, 60], dtype=torch.int32)
+    # slots 3 and 4: a depth-4 path from C - 2 (or 2C - 3) crosses a chunk
+    # boundary, the token itself on the far side
+    lens = torch.tensor([0, 17, 60, _C - 2, 2 * _C - 3], dtype=torch.int32)
     q, kn, vn = (torch.randn(sh, generator=g).to(dtype)
                  for sh in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d)))
     kc, vc = (torch.randn((b, kh, s, d), generator=g).to(dtype) for _ in range(2))
@@ -263,7 +360,6 @@ def test_tree_attention_matches_plain_and_incremental_bits(cuda, dtype):
             assert torch.equal(one[0], got[bi, c])
 
 
-_BF16, _F32 = torch.bfloat16, torch.float32
 # (B, S, H, KH, D, dtype, lengths): the kernel's edges - rows of length 0
 # and 1, S not a multiple of the 64-position tile, GQA groups of 4, 8 and
 # 64 (one position a tile), each instantiated head dim (32, 64, 128, 256)
@@ -427,7 +523,7 @@ def test_bf16_int4_speculative_serving_equals_incremental_on_cuda(cuda):
 def test_wrappers_count_launches(cuda):
     before = (t_qm.LAUNCHES, t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES)
     test_flash_prefill_kernel_matches_plain(cuda, "gqa4-s150-d64")
-    test_decode_attention_kernel_matches_plain(cuda)
+    test_decode_attention_kernel_matches_plain(cuda, "f32-g4-d64")
     test_qmm_int4_identity_probe(cuda, torch.float32)
     assert (t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES) == (
         before[1] + 1, before[2] + 1, before[3] + 1)

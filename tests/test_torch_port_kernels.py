@@ -190,3 +190,29 @@ def test_flash_prefill_plain_short_rows_match_pallas(lens_l):
     for i, n in enumerate(lens_l):
         np.testing.assert_allclose(got[i, :n], want[i, :n], atol=2e-5, rtol=1e-4)
         assert not got[i, n:].any()
+
+
+@pytest.mark.parametrize("q_shape,cache_shape,want", [
+    # served INT8 / INT4 decode: 8 slots, LLaMA-2-7B heads, 1024 positions
+    ((8, 32, 128), (8, 32, 1024, 128), (17, (8, 32, 17, 130))),
+    # the speculative verify's tree: 8 slots x 13 nodes
+    ((8, 13, 32, 128), (8, 32, 1024, 128), (17, (104, 32, 17, 130))),
+    # the 160M draft's root step: 6 heads
+    ((8, 6, 128), (8, 6, 1024, 128), (17, (8, 6, 17, 130))),
+    # one 4096-position request; GQA at a small head dim
+    ((1, 32, 128), (1, 32, 4096, 128), (65, (1, 32, 65, 130))),
+    ((2, 3, 16, 64), (2, 4, 61, 64), (1, (6, 16, 1, 66))),
+], ids=["decode", "tree", "draft", "long", "gqa-short"])
+def test_decode_attention_plan_from_shapes(q_shape, cache_shape, want):
+    """The launch plan (chunks per row, workspace shape) of the served
+    shapes, from meta tensors, which hold no values: the plan reads shapes
+    only, never cache_lens. Every virtual position a row can have (at most
+    S committed, T - 1 ancestors and the token itself) lies in a chunk, and
+    the last chunk is needed by some row."""
+    q = torch.empty(q_shape, device="meta")
+    cache = torch.empty(cache_shape, device="meta")
+    chunks, ws_shape = t_da.plan(q, cache)
+    assert (chunks, ws_shape) == want
+    nt = q_shape[1] if len(q_shape) == 4 else 1
+    positions = cache_shape[2] + nt
+    assert (chunks - 1) * t_da.CHUNK < positions <= chunks * t_da.CHUNK
