@@ -52,8 +52,12 @@ Phases, in order; any failure exits non-zero:
 6. serve    — LLaMA-2-7B INT8 (32 layers, random weights from seed 0):
               InferenceEngine + RequestManager(decode_horizon=16, pipelined)
               serve 8 requests; every request must finish and every kernel's
-              launch count must rise. Prints decode tok/s, mean TTFT and peak
-              memory beside the card's name and power limit.
+              launch count must rise. Every greedy decode step is a replay of
+              the engine's captured CUDA graph (replays must equal the served
+              steps). Then one 16-step horizon, replayed, must give the
+              uncaptured body's tokens and cache bitwise from the same state.
+              Prints decode tok/s, mean TTFT, peak memory, graphs captured,
+              capture ms and replays beside the card's name and power limit.
 7. spec     — token-tree speculative serving: a LLaMA-2-7B INT4 verifier
               (group 128) that block-embeds a 160M-class bf16 draft (both from
               seed 0), SpecEngine + SpecRequestManager (width 3, depth 4,
@@ -62,11 +66,17 @@ Phases, in order; any failure exits non-zero:
               Every request must finish, qmm_int4, flash_prefill and
               decode_attention must launch, the mean verified tokens per step
               must exceed 1, and each request's first 20 tokens must equal the
-              incremental run's. Prints both runs' decode tok/s, mean TTFT and
-              peak memory, and the mean verified tokens per step.
-8. profile  — (only with ``--profile``) one 16-step decode horizon and one
-              batched prefill of the served model, and one 8-iteration
-              speculative horizon of the spec phase, under ``torch.profiler``:
+              incremental run's. Both runs serve every greedy horizon as
+              replays of captured graphs (one per draft window bucket for
+              the speculative engine), and one 8-iteration speculative
+              horizon, replayed, must give the uncaptured iterations' outputs
+              and caches bitwise from the same state. Prints both runs'
+              decode tok/s, mean TTFT, peak memory, graphs, capture ms and
+              replays, and the mean verified tokens per step.
+8. profile  — (only with ``--profile``) one 16-step decode horizon (replayed,
+              then uncaptured) and one batched prefill of the served model,
+              and one 8-iteration speculative horizon of the spec phase
+              (replayed, then uncaptured), under ``torch.profiler``:
               host dispatch time, wall time, device busy share and the
               device time of the top 12 kernels and of every kernel of the
               port below them.
@@ -993,6 +1003,8 @@ def profile_phase(engine, prompts) -> dict:
     toks = np.zeros(b, np.int32)
     return _trace([
         ("decode_horizon_16", lambda: engine.decode_horizon_async(lens, toks, 0, greedy, 16), 16),
+        ("decode_horizon_16_uncaptured",
+         lambda: engine.greedy_horizon_async(lens, toks, 16, replay=False), 16),
         ("prefill_8x1024",
          lambda: engine.prefill_batch_to_slots_async(prompts, list(range(b)), 0, greedy), 1),
     ])
@@ -1000,10 +1012,15 @@ def profile_phase(engine, prompts) -> dict:
 
 def spec_profile(engine, prompts) -> dict:
     """Where a speculative iteration's time goes: one horizon of 8 fused
-    iterations (draft tree, tree verify, walk, two commits) on 8 slots."""
+    iterations (draft tree, tree verify, walk, two commits) on 8 slots,
+    replayed and then uncaptured."""
     lens = engine._h([len(p) for p in prompts])
     roots = engine._h([1] * len(prompts))
-    return _trace([("spec_horizon_8", lambda: engine.fused_step_n_async(lens, roots, 8), 8)])
+    return _trace([
+        ("spec_horizon_8", lambda: engine.fused_step_n_async(lens, roots, 8), 8),
+        ("spec_horizon_8_uncaptured",
+         lambda: engine.greedy_horizon_async(lens, roots, 8, replay=False), 8),
+    ])
 
 
 def _launches(reset: bool = False) -> dict:
@@ -1042,6 +1059,8 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _launches(reset=True)
+    graphs = rm.engine.graphs
+    replays0 = graphs.replays
     steps0 = rm.total_decoding_steps
     t_start = time.monotonic()
     reqs = rm.generate(prompts, GenerationConfig(max_new_tokens=max_new))
@@ -1053,6 +1072,11 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
                 f"{path} request {r.guid}: state {r.state}, {len(r.output_tokens)} tokens")
         require(all(0 <= t < vocab_size for t in r.output_tokens),
                 f"{path} request {r.guid}: token outside the vocabulary")
+    # every greedy step (an incremental step, or a speculative iteration) of
+    # the run was a replay of a captured graph
+    require(graphs.replays - replays0 == rm.total_decoding_steps - steps0,
+            f"{path}: {graphs.replays - replays0} replays for "
+            f"{rm.total_decoding_steps - steps0} steps")
     first = max(r.profile.first_token_time for r in reqs)
     decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
     return reqs, dict(
@@ -1060,17 +1084,49 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
         decode_tok_s=decode_tokens / (t_end - first),
         mean_ttft_ms=1e3 * float(np.mean([r.profile.ttft for r in reqs])),
         wall_s=t_end - t_start, steps=rm.total_decoding_steps - steps0,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, launches=launches,
+        graphs=len(graphs.graphs), capture_ms=graphs.capture_ms,
+        replays=graphs.replays - replays0)
 
 
 def _log_served(what: str, out: dict, card: str) -> None:
     log(f"  {what}: {out['requests']} requests, {out['tokens']} tokens in {out['wall_s']:.3f} s: "
         f"decode {out['decode_tok_s']:.1f} tok/s, mean TTFT {out['mean_ttft_ms']:.1f} ms, "
-        f"{out['steps']} steps, peak memory {out['peak_mem_gib']:.2f} GiB [{card}]")
+        f"{out['steps']} steps, peak memory {out['peak_mem_gib']:.2f} GiB allocated, "
+        f"{out['peak_reserved_gib']:.2f} GiB reserved [{card}]")
+    log(f"  {what}: {out['graphs']} CUDA graphs captured in {out['capture_ms']:.1f} ms "
+        f"(warm-ups included), {out['replays']} replays in the run")
     log(f"  launches during the {what} run: {json.dumps(out['launches'])}")
 
 
+def _replay_check(what: str, run, caches) -> None:
+    """``run(replay)`` uncaptured, then replayed from the same state (the
+    caches put back in between): its outputs and the caches it wrote must
+    be bitwise equal."""
+    import torch
+
+    saved = [c.clone() for c in caches]
+    want = [x.clone() for x in run(False)]
+    torch.cuda.synchronize()
+    want_caches = [c.clone() for c in caches]
+    for c, x in zip(caches, saved):
+        c.copy_(x)
+    got = run(True)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{what}: replayed outputs differ from the uncaptured body's")
+    require(all(torch.equal(c, w) for c, w in zip(caches, want_caches)),
+            f"{what}: the replayed horizon's cache differs from the uncaptured body's")
+    require(any(not torch.equal(c, x) for c, x in zip(caches, saved)),
+            f"{what}: the horizon wrote nothing into the cache")
+    log(f"  {what}: replayed outputs and cache bitwise equal to the uncaptured body's")
+    del saved, want_caches
+    torch.cuda.empty_cache()
+
+
 def serve_phase(card: str, with_profile: bool) -> dict:
+    import numpy as np
     import torch
 
     from flexflow_tpu_torch.serving.engine import InferenceEngine
@@ -1089,7 +1145,13 @@ def serve_phase(card: str, with_profile: bool) -> dict:
     rm = RequestManager(engine, decode_horizon=16, pipelined=True)
     prompts = _prompts(spec.vocab_size)
     try:
-        _, out = _served(rm, prompts, 64, spec.vocab_size, "serve")
+        reqs, out = _served(rm, prompts, 64, spec.vocab_size, "serve")
+        lens = np.array([len(p) for p in prompts], np.int32)
+        # not the served tokens, so the horizon writes other K/V than the run did
+        toks = np.array([(r.output_tokens[0] + 1) % spec.vocab_size for r in reqs], np.int32)
+        _replay_check("decode horizon (16 steps, 8 slots)",
+                      lambda replay: [engine.greedy_horizon_async(lens, toks, 16, replay=replay)],
+                      list(engine.cache))
         if with_profile:
             log("[profile] one decode horizon and one batched prefill of the served model")
             out["profile"] = profile_phase(engine, prompts)
@@ -1151,6 +1213,11 @@ def spec_phase(card: str, with_profile: bool) -> dict:
     spec_reqs, out = _served(rm, prompts, 64, vspec.vocab_size, "spec", warm=managers[0])
     out.update(spec_horizon=horizon, pipeline_depth=rm.pipeline_depth,
                mean_verified_tokens_per_step=rm.mean_verified_tokens_per_step)
+    lens = engine._h([len(p) for p in prompts])
+    roots = engine._h([(r.output_tokens[0] + 1) % vspec.vocab_size for r in spec_reqs])
+    _replay_check(f"speculative horizon ({horizon} iterations, 8 slots)",
+                  lambda replay: engine.greedy_horizon_async(lens, roots, horizon, replay=replay),
+                  [*engine.llm_cache, *engine.ssm_cache])
     if with_profile:
         log("[profile] one 8-iteration horizon of the speculative engine")
         out["profile"] = spec_profile(engine, prompts)

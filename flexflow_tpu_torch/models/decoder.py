@@ -359,6 +359,22 @@ def _window_index(starts: HostInts, t: int, s: int, device):
     return tuple(to_device(a, device, np.int64) for a in (bi, pos[bi, ti], ti))
 
 
+def device_window(cache_lens: torch.Tensor, t: int, s: int):
+    """Device-side indices of the windows [lens[b], lens[b] + t) of a cache of
+    S positions, with no host read: (slot [B, t], position [B, t], keep
+    [B, t]). A column at or past S is not kept and is aimed at lens[b] - 1,
+    which no kept column of its row targets, so writing the old value back
+    there drops it. Needs t <= S."""
+    if t > s:
+        raise ValueError(f"a window of {t} columns does not fit a cache of {s} positions")
+    lens = cache_lens.long()[:, None]
+    pos = lens + torch.arange(t, device=cache_lens.device)[None, :]
+    keep = pos < s
+    safe = torch.where(keep, pos, (lens - 1).clamp(0, s - 1))
+    slots = torch.arange(cache_lens.shape[0], device=cache_lens.device)[:, None].expand(-1, t)
+    return slots, safe, keep
+
+
 def forward_cached(
     spec: ModelSpec,
     params: Params,
@@ -369,7 +385,7 @@ def forward_cached(
     positions: Optional[torch.Tensor] = None,  # [B, T]; default lens + arange(T)
     tree_mask: Optional[torch.Tensor] = None,  # [B, T, T] among in-flight tokens
     kv_mask: Optional[torch.Tensor] = None,  # [B, T, S] over the existing cache
-    write_start: Optional[HostInts] = None,  # [B] window start (default lens)
+    write_start: Optional[HostInts] = None,  # [B] host window start; None: lens
     write_cache: bool = True,  # False: return the new KV instead
     logits_at: Optional[torch.Tensor] = None,  # [B] one position per row
     extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [L, B, E, KH, D] x2
@@ -381,9 +397,12 @@ def forward_cached(
     cache)`` with the cache updated in place, or ``(logits, (k_new, v_new))``
     stacked [L, B, T, KH, D] when ``write_cache=False``.
 
-    ``write_start`` is taken on the host (a numpy array or list) so the
-    window writes need no device round trip; a tensor is copied to the host.
-    Columns past S are dropped.
+    The new K/V land at ``[write_start, write_start + T)``. By default the
+    window starts at ``cache_lens`` and its indices are computed on the
+    device (``device_window``), so the step reads nothing on the host and a
+    CUDA graph can capture it. A host ``write_start`` (a numpy array or
+    list; the chunked prefill and the stepwise draft and verify) builds the
+    indices on the host instead. Columns past S are dropped either way.
 
     ``extra_kv`` / ``extra_mask`` put further K/V columns (earlier tree
     depths during draft expansion) in front of the in-flight tokens: the
@@ -405,10 +424,9 @@ def forward_cached(
 
     if write_cache:
         if write_start is None:
-            write_start = cache_lens
-        if isinstance(write_start, torch.Tensor):
-            write_start = write_start.cpu().numpy()
-        widx = _window_index(write_start, t, s, dev)
+            dwin = device_window(cache_lens, t, s)
+        else:
+            widx = _window_index(write_start, t, s, dev)
     window = attn_window if attn_window is not None and attn_window < s else s
     if kv_mask is not None:
         kv_mask = kv_mask[..., :window]
@@ -458,7 +476,12 @@ def forward_cached(
                     new_mask=joint_mask, kv_mask=kv_mask, q_positions=positions,
                     new_positions=joint_positions, slopes=slopes,
                     logit_softcap=spec.attn_logit_softcap)
-            if write_cache:
+            if write_cache and write_start is None:
+                slots, pos, keep = dwin
+                keep = keep[:, :, None, None]
+                ck_l[slots, :, pos] = torch.where(keep, kc, ck_l[slots, :, pos])
+                cv_l[slots, :, pos] = torch.where(keep, vc, cv_l[slots, :, pos])
+            elif write_cache:
                 if widx is not None:
                     bi, pi, ti = widx
                     ck_l[bi, :, pi] = kc[bi, ti]

@@ -8,12 +8,21 @@ PyTorch runs eagerly, so the JAX engine's jitted programs become methods:
   into the admitted slots, first token sampled;
 - chunked prefill: prompt chunks through ``forward_cached`` against the
   slot's cache rows;
-- decode and the decode horizon: n single-token steps in a Python loop. Each
-  step writes its K/V into the cache in place and step i attends over the
-  ``cache_lens + i`` committed positions through the decode-attention
-  kernel, so JAX's ``[L, B, n, KH, D]`` staging buffers and ``extra_kv`` are
-  not needed. The cast to the cache dtype before attention keeps this equal
-  to JAX's staged form.
+- decode and the decode horizon (``decode_n_fn``'s counterpart): n
+  single-token steps. Each step writes its K/V into the cache in place at
+  the device lengths and step i attends over the ``cache_lens + i``
+  committed positions through the decode-attention kernel, so JAX's
+  ``[L, B, n, KH, D]`` staging buffers and ``extra_kv`` are not needed. The
+  cast to the cache dtype before attention keeps this equal to JAX's staged
+  form.
+
+A greedy step is one body over static device buffers (tokens and lengths,
+updated in place; ``serving/graphs.py``). On the card it is captured in a
+CUDA graph at the first greedy horizon, and every greedy horizon, ``decode``
+included, is n replays of it, each replay's tokens copied out into a fresh
+``[n, B]`` tensor. On the CPU the same body runs n times uncaptured. A
+horizon with a sampled slot (temperature > 0) is not captured: it runs its
+steps eagerly (``ops/sampling.sample`` reads the temperatures on the host).
 
 Host values (lengths, slots) travel to the device through pinned,
 non-blocking copies, and sampled tokens stay on the device until ``fetch``,
@@ -34,6 +43,7 @@ from flexflow_tpu_torch.models.decoder import to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
+from flexflow_tpu_torch.serving.graphs import StepGraphs
 from flexflow_tpu_torch.specs import ModelSpec
 
 
@@ -79,6 +89,11 @@ class InferenceEngine:
         self.min_prefill_bucket = min_prefill_bucket
         self.cache = decoder.init_kv_cache(
             spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
+        # the greedy step's static buffers and, on the card, its graph
+        self._lens = torch.zeros(max_requests_per_batch, dtype=torch.int32, device=self.device)
+        self._tokens = torch.zeros_like(self._lens)
+        self.graphs = (StepGraphs(self.device)
+                       if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------
 
@@ -200,12 +215,6 @@ class InferenceEngine:
     # decode
     # ------------------------------------------------------------------
 
-    def _step(self, lens: np.ndarray, tokens: torch.Tensor, key: int, scfg):
-        logits, _ = decoder.forward_cached(
-            self.spec, self.params, tokens[:, None], self.cache,
-            to_device(lens, self.device), write_start=lens)
-        return self._sample(logits[:, 0], key, scfg)
-
     def _tokens_in(self, tokens) -> torch.Tensor:
         if isinstance(tokens, torch.Tensor):
             return tokens.to(device=self.device, dtype=torch.int32)
@@ -214,10 +223,7 @@ class InferenceEngine:
     def decode(self, cache_lens, tokens, key: int, scfg: SamplingConfig,
                adapter_ids=None) -> np.ndarray:
         """One decode step for every slot; returns [B] host tokens."""
-        self._no_lora(adapter_ids)
-        with torch.no_grad():
-            out = self._step(np.asarray(cache_lens, np.int32), self._tokens_in(tokens), key, scfg)
-        return self.fetch(out)
+        return self.decode_horizon(cache_lens, tokens, key, scfg, 1, adapter_ids)[0]
 
     def decode_horizon(self, cache_lens, tokens, key: int, scfg: SamplingConfig,
                        n: int, adapter_ids=None) -> np.ndarray:
@@ -227,19 +233,65 @@ class InferenceEngine:
 
     def decode_horizon_async(self, cache_lens, tokens, key: int, scfg: SamplingConfig,
                              n: int, adapter_ids=None) -> torch.Tensor:
-        """Dispatch n decode steps (each feeds its sampled tokens to the
-        next); returns the [n, B] device tokens without waiting.
+        """Dispatch n decode steps (each feeds its tokens to the next);
+        returns the [n, B] device tokens without waiting.
 
         Step i writes its K/V at ``cache_lens + i`` and attends the
-        positions below that."""
+        positions below that. Greedy horizons replay the captured step on
+        the card; a horizon with a sampled slot runs eagerly."""
         self._no_lora(adapter_ids)
         lens = np.asarray(cache_lens, np.int32)
-        toks = self._tokens_in(tokens)
+        if self._greedy_only(scfg):
+            return self.greedy_horizon_async(lens, tokens, n,
+                                             replay=self.device.type == "cuda")
+        lens_d, toks = to_device(lens, self.device), self._tokens_in(tokens)
         out = torch.empty((n, lens.shape[0]), dtype=torch.int32, device=self.device)
+        scfg_d = self._scfg(scfg)
         with torch.no_grad():
             for i in range(n):
-                toks = self._step(lens + i, toks, sampling_lib.fold_in(key, i), scfg)
+                logits, _ = decoder.forward_cached(
+                    self.spec, self.params, toks[:, None], self.cache, lens_d)
+                toks = sampling_lib.sample(logits[:, 0], sampling_lib.fold_in(key, i), scfg_d)
+                lens_d = lens_d + 1
                 out[i] = toks
+        return out
+
+    def _greedy_body(self, _key=None) -> None:
+        """One greedy step on the static buffers, in place: K/V written at
+        the lengths, the argmax tokens into the token buffer, lengths + 1."""
+        logits, _ = decoder.forward_cached(
+            self.spec, self.params, self._tokens[:, None], self.cache, self._lens)
+        self._tokens.copy_(torch.argmax(logits[:, 0], dim=-1))
+        self._lens.add_(1)
+
+    def _load(self, lens: np.ndarray, tokens) -> None:
+        self._lens.copy_(to_device(lens, self.device))
+        self._tokens.copy_(self._tokens_in(tokens))
+
+    def greedy_horizon_async(self, cache_lens, tokens, n: int, *, replay: bool) -> torch.Tensor:
+        """n greedy steps from (``cache_lens``, ``tokens``); returns a fresh
+        [n, B] device tensor, row i copied out right after step i. With
+        ``replay`` (the card's only served path) each step is a replay of
+        the captured body, captured here first if it is not yet; without,
+        the body runs eagerly (the CPU's path, and the yardstick the card's
+        replays are held against)."""
+        lens = np.asarray(cache_lens, np.int32)
+        if lens.shape != (self.max_requests,):
+            raise ValueError(f"cache_lens must be [{self.max_requests}], got {lens.shape}")
+        if replay and self.graphs is None:
+            raise ValueError("replaying a captured step needs an engine on a CUDA device")
+        out = torch.empty((n, self.max_requests), dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            if replay and not self.graphs.graphs:
+                self._load(lens, tokens)
+                self.graphs.capture(self._greedy_body, None)
+            self._load(lens, tokens)
+            for i in range(n):
+                if replay:
+                    self.graphs.replay(None)
+                else:
+                    self._greedy_body()
+                out[i] = self._tokens
         return out
 
     @staticmethod

@@ -20,16 +20,23 @@ Tree layout: slot 0 is the root (last committed token); slot
 ``1 + (d - 1) * W + w`` is beam w at depth d.
 
 The JAX package chains a horizon of iterations as one XLA program with
-staged KV buffers, an optimization barrier and donated caches. PyTorch runs
-eagerly: here a horizon of n iterations is n fused steps issued without a
-host sync. Lens, roots and produced tokens stay device tensors until
-``fetch``, each iteration's tree K/V lives in its own buffer, and the caches
-are updated in place.
+staged KV buffers, an optimization barrier and donated caches
+(``fused_step_n_fn``). Here a greedy iteration is one body over static
+device buffers (lens and roots in, produced tokens and accepted counts out,
+lens and roots advanced in place; ``serving/graphs.py``). On the card it is
+captured at the first greedy horizon in one CUDA graph per draft attention
+window (``window_buckets``), and every greedy horizon is n replays, each
+replay's outputs copied out into fresh ``[n, ...]`` tensors. On the CPU the
+same body runs n times uncaptured. A horizon with a sampled slot is not
+captured: its iterations are issued eagerly, without a host sync
+(``spec_sampling`` seeds one generator per row on the host). Lens, roots
+and produced tokens stay device tensors until ``fetch``, each iteration's
+tree K/V lives in its own buffer, and the caches are updated in place.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +48,7 @@ from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.serving.engine import _params_to, _round_up_pow2
+from flexflow_tpu_torch.serving.graphs import StepGraphs
 from flexflow_tpu_torch.serving.spec_sampling import tree_sample_walk
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -146,19 +154,12 @@ def commit_from_buffer(cache: KVCache, cache_lens: torch.Tensor, buf_k: torch.Te
     before anything attends it."""
     ll, b, _, kh, dh = buf_k.shape
     n = path_slots.shape[1]
-    s = cache.max_seq_len
-    dev = buf_k.device
     idx = path_slots.long()[None, :, :, None, None].expand(ll, b, n, kh, dh)
-    pos = cache_lens.long()[:, None] + torch.arange(n, device=dev)[None, :]  # [B, n]
-    valid = pos < s
-    # a column past S writes back the unchanged value at lens - 1, which no
-    # valid column of its row targets
-    safe = torch.where(valid, pos, (cache_lens.long()[:, None] - 1).clamp(0, s - 1))
-    bidx = torch.arange(b, device=dev)[:, None].expand(b, n)
-    keep = valid[:, :, None, None, None]
+    slots, pos, keep = decoder.device_window(cache_lens, n, cache.max_seq_len)
+    keep = keep[:, :, None, None, None]
     for c, buf in ((cache.k, buf_k), (cache.v, buf_v)):
         new = torch.gather(buf, 2, idx).permute(1, 2, 0, 3, 4).to(c.dtype)  # [B, n, L, KH, D]
-        c[:, bidx, :, safe] = torch.where(keep, new, c[:, bidx, :, safe])
+        c[:, slots, :, pos] = torch.where(keep, new, c[:, slots, :, pos])
     return cache
 
 
@@ -233,6 +234,14 @@ class SpecEngine:
             ssm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
         self._draft_phase = build_draft_phase(ssm_spec, beam_width, beam_depth)
         self._depths = make_depths_vec(beam_width, beam_depth, self.device)
+        # the greedy iteration's static buffers and, on the card, its graphs
+        b, i32 = max_requests_per_batch, torch.int32
+        self._lens = torch.zeros(b, dtype=i32, device=self.device)
+        self._roots = torch.zeros(b, dtype=i32, device=self.device)
+        self._produced = torch.zeros((b, beam_depth + 1), dtype=i32, device=self.device)
+        self._n_acc = torch.zeros(b, dtype=i32, device=self.device)
+        self.graphs = (StepGraphs(self.device)
+                       if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------
     # host-facing helpers
@@ -258,6 +267,15 @@ class SpecEngine:
         add in-flight iterations x (depth + 1))."""
         w = _round_up_pow2(max(int(max_len), 1), 128)
         return None if w >= self.max_seq_len else w
+
+    def window_buckets(self):
+        """Every value ``attn_window_bucket`` can return: the powers of two
+        from 128 below ``max_seq_len``, then None. One graph each."""
+        out, w = [], 128
+        while w < self.max_seq_len:
+            out.append(w)
+            w *= 2
+        return out + [None]
 
     def apply_slot_overrides(self, lens_dev, roots_dev, mask, new_lens, new_roots):
         """Merge host-side admissions into the device lens/roots feedback."""
@@ -445,21 +463,11 @@ class SpecEngine:
                                     width=self.width, depth=self.depth)
         return walk
 
-    def _horizon(self, lens, roots, n: int, walks: Sequence[Callable], window=None):
-        produced, n_acc = [], []
-        with torch.no_grad():
-            for i in range(n):
-                p, a, lens, roots = self._fused_iteration(lens, roots, walks[i], window)
-                produced.append(p)
-                n_acc.append(a)
-        return torch.stack(produced), torch.stack(n_acc), lens, roots
-
     def fused_step(self, cache_lens, root_tokens, window=None) -> Tuple[np.ndarray, np.ndarray]:
         """One speculative iteration; returns host (produced [B, depth+1],
         n_acc [B]) with both caches committed."""
-        p, a, _, _ = self._horizon(self._h(cache_lens), self._h(root_tokens), 1,
-                                   [self._greedy_walk], window)
-        return self.fetch(p[0]), self.fetch(a[0])
+        p, a = self.fused_step_n(cache_lens, root_tokens, 1, window)
+        return p[0], a[0]
 
     def fused_step_n(self, cache_lens, root_tokens, n: int,
                      window=None) -> Tuple[np.ndarray, np.ndarray]:
@@ -470,10 +478,60 @@ class SpecEngine:
         return self.fetch(p), self.fetch(a)
 
     def fused_step_n_async(self, lens_dev, roots_dev, n: int, window=None):
-        """n chained iterations on device lens/roots, issued without a host
-        sync; returns device (produced [n, B, depth+1], n_acc [n, B],
-        lens_out [B], roots_out [B])."""
-        return self._horizon(lens_dev, roots_dev, n, [self._greedy_walk] * n, window)
+        """n chained greedy iterations on device lens/roots, issued without a
+        host sync (replays of the captured iteration on the card); returns
+        device (produced [n, B, depth+1], n_acc [n, B], lens_out [B],
+        roots_out [B])."""
+        return self.greedy_horizon_async(lens_dev, roots_dev, n, window,
+                                         replay=self.device.type == "cuda")
+
+    def _greedy_body(self, window) -> None:
+        """One greedy iteration on the static buffers, in place."""
+        p, a, lens, roots = self._fused_iteration(self._lens, self._roots, self._greedy_walk,
+                                                  window)
+        self._produced.copy_(p)
+        self._n_acc.copy_(a)
+        self._lens.copy_(lens)
+        self._roots.copy_(roots)
+
+    def greedy_horizon_async(self, lens_dev, roots_dev, n: int, window=None, *, replay: bool):
+        """n greedy iterations from device (``lens_dev``, ``roots_dev``);
+        returns fresh device tensors (produced [n, B, depth+1], n_acc
+        [n, B], lens_out [B], roots_out [B]), iteration i's copied out right
+        after it. With ``replay`` (the card's only served path) each
+        iteration replays the graph of ``window``, every window's graph
+        captured here first if none is yet; without, the body runs eagerly
+        (the CPU's path, and the yardstick the card's replays are held
+        against)."""
+        if window is not None and window >= self.max_seq_len:
+            window = None
+        if replay and self.graphs is None:
+            raise ValueError("replaying a captured iteration needs an engine on a CUDA device")
+        if replay and window not in self.window_buckets():
+            raise ValueError(f"window {window} is not one of {self.window_buckets()}")
+        b = self.max_requests
+        produced = torch.empty((n, b, self.depth + 1), dtype=torch.int32, device=self.device)
+        n_acc = torch.empty((n, b), dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            if replay and not self.graphs.graphs:
+                for w in self.window_buckets():
+                    self._load(lens_dev, roots_dev)
+                    self.graphs.capture(self._greedy_body, w)
+            self._load(lens_dev, roots_dev)
+            for i in range(n):
+                if replay:
+                    self.graphs.replay(window)
+                else:
+                    self._greedy_body(window)
+                produced[i] = self._produced
+                n_acc[i] = self._n_acc
+        return produced, n_acc, self._lens.clone(), self._roots.clone()
+
+    def _load(self, lens_dev, roots_dev) -> None:
+        if lens_dev.shape != (self.max_requests,) or roots_dev.shape != (self.max_requests,):
+            raise ValueError(f"lens and roots must be [{self.max_requests}]")
+        self._lens.copy_(lens_dev)
+        self._roots.copy_(roots_dev)
 
     def fused_sample_step(self, cache_lens, root_tokens, key: int,
                           scfg: SamplingConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -490,8 +548,14 @@ class SpecEngine:
 
     def fused_sample_step_n_async(self, lens_dev, roots_dev, key: int, scfg: SamplingConfig,
                                   n: int, window=None):
-        """Pipelined sampling horizon (see ``fused_step_n_async``); iteration
-        i draws from ``fold_in(key, i)``."""
+        """Pipelined sampling horizon (see ``fused_step_n_async``), issued
+        eagerly; iteration i draws from ``fold_in(key, i)``."""
         sc = self._scfg(scfg)
-        walks = [self._sample_walk(sampling_lib.fold_in(key, i), sc) for i in range(n)]
-        return self._horizon(lens_dev, roots_dev, n, walks, window)
+        lens, roots, produced, n_acc = lens_dev, roots_dev, [], []
+        with torch.no_grad():
+            for i in range(n):
+                walk = self._sample_walk(sampling_lib.fold_in(key, i), sc)
+                p, a, lens, roots = self._fused_iteration(lens, roots, walk, window)
+                produced.append(p)
+                n_acc.append(a)
+        return torch.stack(produced), torch.stack(n_acc), lens, roots

@@ -7,6 +7,10 @@ This file imports nothing of JAX. ``python3 chip_smoke.py`` checks the same
 kernels at LLaMA-2-7B shapes.
 """
 
+import gc
+import weakref
+
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +21,7 @@ from flexflow_tpu_torch.ops.kernels import qmm_variants as t_qv
 from flexflow_tpu_torch.ops.kernels import quant_matmul as t_qm
 from flexflow_tpu_torch.quant import quantize_params
 from flexflow_tpu_torch.quant.weight_only import quantize
+from flexflow_tpu_torch.serving import graphs
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
@@ -528,3 +533,174 @@ def test_wrappers_count_launches(cuda):
     assert (t_qm.LAUNCHES_INT4, t_da.LAUNCHES, t_fp.LAUNCHES) == (
         before[1] + 1, before[2] + 1, before[3] + 1)
     assert t_qm.LAUNCHES == before[0]
+
+
+# ---------------------------------------------------------------------------
+# the serving horizons as CUDA-graph replays (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+_TINY = dict(arch="LlamaForCausalLM", vocab_size=256, hidden_size=128, num_layers=2,
+             num_heads=4, num_kv_heads=2, head_dim=32, intermediate_size=256,
+             max_position_embeddings=512, norm_eps=1e-5)
+_DRAFT = dict(_TINY, hidden_size=64, num_heads=2, num_kv_heads=1, intermediate_size=128)
+
+
+def _tiny_params(spec, seed, dtype, bits, device):
+    params = t_params.init_params(spec, seed, dtype, device)
+    if bits:
+        params = quantize_params(spec, params, bits=bits, group_size=32, compute_dtype=dtype)
+    return params
+
+
+def _fill_cache(cache, seed):
+    g = torch.Generator(device=cache.k.device).manual_seed(seed)
+    for c in cache:
+        c.copy_(torch.randn(c.shape, generator=g, device=c.device))
+
+
+def _decode_engine(cuda, dtype, bits, s=160):
+    spec = ModelSpec(**_TINY)
+    eng = InferenceEngine(spec, _tiny_params(spec, 0, dtype, bits, cuda), max_requests_per_batch=4,
+                          max_seq_len=s, cache_dtype=dtype, device=cuda)
+    _fill_cache(eng.cache, 1)
+    return eng
+
+
+def _restore(cache, saved):
+    for c, x in zip(cache, saved):
+        c.copy_(x)
+
+
+@pytest.mark.parametrize("dtype,bits", [(_F32, None), (_BF16, 8), (_BF16, 4)],
+                         ids=["f32", "bf16-int8", "bf16-int4"])
+def test_captured_decode_horizon_equals_uncaptured(cuda, dtype, bits):
+    """Replays of the captured greedy step give the uncaptured body's tokens
+    and cache bitwise, n = 1, 2 and 16, with slots that cross K5's
+    64-position chunk edge and one whose last step writes position S - 1."""
+    eng = _decode_engine(cuda, dtype, bits)
+    s = eng.max_seq_len
+    toks = [3, 17, 101, 250]
+    for n in (1, 2, 16):
+        lens = [60, 63, 130, s - n]
+        saved = tuple(c.clone() for c in eng.cache)
+        want = eng.greedy_horizon_async(lens, toks, n, replay=False)
+        want_cache = tuple(c.clone() for c in eng.cache)
+        _restore(eng.cache, saved)
+        got = eng.greedy_horizon_async(lens, toks, n, replay=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert all(torch.equal(c, w) for c, w in zip(eng.cache, want_cache))
+        assert not torch.equal(want_cache[0], saved[0])
+    assert list(eng.graphs.graphs) == [None] and eng.graphs.replays == 19
+
+
+def _spec_engine(cuda, s=512):
+    llm, ssm = ModelSpec(**_TINY), ModelSpec(**_DRAFT)
+    eng = SpecEngine(llm, _tiny_params(llm, 2, _BF16, 4, cuda), ssm,
+                     _tiny_params(ssm, 3, _BF16, None, cuda), beam_width=3, beam_depth=4,
+                     max_requests_per_batch=4, max_seq_len=s, cache_dtype=_BF16, device=cuda)
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 70)), [7] * 12, [200, 3]]
+    first = eng.prefill_both_batch(prompts, [0, 1, 2, 3])
+    return eng, eng._h([len(p) for p in prompts]), eng._h(first)
+
+
+def test_captured_spec_iterations_equal_uncaptured(cuda):
+    """Three replayed greedy iterations under two window buckets (128 and
+    the full cache) give the uncaptured iterations' produced tokens, counts,
+    lens, roots and both caches bitwise; every bucket is captured once."""
+    eng, lens, roots = _spec_engine(cuda)
+    for window in (128, None):
+        saved = [c.clone() for cache in (eng.llm_cache, eng.ssm_cache) for c in cache]
+        want = eng.greedy_horizon_async(lens, roots, 3, window, replay=False)
+        want_caches = [c.clone() for cache in (eng.llm_cache, eng.ssm_cache) for c in cache]
+        _restore([*eng.llm_cache, *eng.ssm_cache], saved)
+        got = eng.greedy_horizon_async(lens, roots, 3, window, replay=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(c, w) for c, w in
+                   zip([*eng.llm_cache, *eng.ssm_cache], want_caches))
+        assert (want[1] >= 1).all()
+    assert list(eng.graphs.graphs) == eng.window_buckets() == [128, 256, None]
+    assert eng.graphs.replays == 6
+
+
+def test_step_bodies_read_nothing_on_the_host(cuda):
+    """One eager run of each captured body under sync debug mode "error":
+    no host read (``.item()``, ``.cpu()``, ``nonzero``...) on the path."""
+    eng = _decode_engine(cuda, _BF16, 8)
+    eng._load(np.array([60, 63, 130, 5], np.int32), [3, 17, 101, 250])
+    spec, lens, roots = _spec_engine(cuda)
+    spec._load(lens, roots)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            eng._greedy_body()
+            spec._greedy_body(128)
+            spec._greedy_body(None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_replays_count_the_eager_launches(cuda):
+    """After capture, n replays add to every launch counter what n
+    uncaptured steps add (decode: qmm_int4 and decode_attention; spec:
+    qmm_int4, both K5 forms)."""
+    def growth(fn):
+        before = graphs.launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+
+    eng = _decode_engine(cuda, _BF16, 4)
+    lens, toks = [60, 63, 130, 5], [3, 17, 101, 250]
+    eng.greedy_horizon_async(lens, toks, 1, replay=True)  # captures
+    eager = growth(lambda: eng.greedy_horizon_async(lens, toks, 3, replay=False))
+    replayed = growth(lambda: eng.greedy_horizon_async(lens, toks, 3, replay=True))
+    # 4 fused projections x 2 layers + the lm_head; one K5 call a layer
+    assert replayed == eager and eager[1] == 3 * 9 and eager[2] == 3 * 2
+    spec, lens, roots = _spec_engine(cuda)
+    spec.greedy_horizon_async(lens, roots, 1, None, replay=True)  # captures
+    eager = growth(lambda: spec.greedy_horizon_async(lens, roots, 3, None, replay=False))
+    replayed = growth(lambda: spec.greedy_horizon_async(lens, roots, 3, None, replay=True))
+    assert replayed == eager and eager[1] > 0 and eager[2] > 0
+
+
+def test_pipelined_horizon_tokens_survive_the_next_replay(cuda):
+    """A horizon's returned tokens are its own copy: replaying the next
+    horizon (fed from them, as the pipelined manager does) leaves them as
+    the uncaptured body gave them."""
+    eng = _decode_engine(cuda, _BF16, 8)
+    lens, toks = np.array([60, 63, 130, 5], np.int32), [3, 17, 101, 250]
+    saved = tuple(c.clone() for c in eng.cache)
+    want = eng.greedy_horizon_async(lens, toks, 4, replay=False).clone()
+    _restore(eng.cache, saved)
+    first = eng.greedy_horizon_async(lens, toks, 4, replay=True)
+    second = eng.greedy_horizon_async(lens + 4, first[-1], 4, replay=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and second.shape == (4, 4)
+
+
+def test_engines_with_graphs_free_their_memory_without_gc(cuda):
+    """An engine that has captured its graphs is freed, weights, cache and
+    graph pool, as soon as the last reference goes: no reference cycle
+    holds it until a garbage collection."""
+    gc.collect()
+    gc.disable()
+    try:
+        eng = _decode_engine(cuda, _BF16, 8)
+        eng.greedy_horizon_async([60, 63, 130, 5], [3, 17, 101, 250], 2, replay=True)
+        spec, lens, roots = _spec_engine(cuda)
+        spec.greedy_horizon_async(lens, roots, 2, None, replay=True)
+        torch.cuda.synchronize()
+        caches = [c.numel() * c.element_size()
+                  for e in (eng.cache, spec.llm_cache, spec.ssm_cache) for c in e]
+        held = torch.cuda.memory_allocated()
+        refs = [weakref.ref(eng), weakref.ref(spec)]
+        del eng, spec, lens, roots
+        assert all(r() is None for r in refs)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() <= held - sum(caches)
+    finally:
+        gc.enable()
