@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only build,kernels --reps 5
     python3 chip_smoke.py --only card,build,spec
     python3 chip_smoke.py --only card,build,variants
+    python3 chip_smoke.py --only card,build,mixtral
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -73,13 +74,36 @@ Phases, in order; any failure exits non-zero:
               and caches bitwise from the same state. Prints both runs'
               decode tok/s, mean TTFT, peak memory, graphs, capture ms and
               replays, and the mean verified tokens per step.
-8. profile  — (only with ``--profile``) one 16-step decode horizon (replayed,
+8. mixtral  — Mixtral-8x7B (the published config.json's widths through
+              ``from_hf_config``: 32 layers, 8 experts top-2, GQA 32/8 heads,
+              dense MoE form). First a 2-layer model at that width, INT8,
+              a prefill of 4 requests and 2 decode steps through the kernels
+              on the GPU against the plain versions on the CPU: the top-2
+              routing of every token at every layer equal except for tokens
+              whose 2nd-vs-3rd routing-probability margin lies within twice
+              the observed probability error (counted and reported); logits
+              within 5% of their magnitude and greedy tokens equal where
+              decided, on the rows before any token whose routing flipped. Then all 32 layers in INT8 (group 128),
+              random weights from seed 0 built by the streaming quantized
+              init (no bf16 tree), served as in ``serve``: every request
+              finishes, every greedy step is a replay, launches equal the
+              predicted per-step counts (per forward one qmm_int8 call for
+              wqkv, wo and each expert's 3 projections a layer, plus the
+              lm_head; one decode_attention call a layer a decode step, one
+              flash_prefill call a layer a prefill), and one replayed 16-step
+              horizon equals the uncaptured body bitwise. Then one batched
+              prefill of the same prompts with the dense and with the ragged
+              MoE form, timed; their logits at each request's last prompt
+              position must agree by the cross-check's rule. Prints the
+              init time, decode tok/s, mean TTFT, peak memory, graphs and
+              replays.
+9. profile  — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
-              and one 8-iteration speculative horizon of the spec phase
-              (replayed, then uncaptured), under ``torch.profiler``:
-              host dispatch time, wall time, device busy share and the
-              device time of the top 12 kernels and of every kernel of the
-              port below them.
+              one 8-iteration speculative horizon of the spec phase
+              (replayed, then uncaptured), and the mixtral phase's decode
+              horizon and prefill, under ``torch.profiler``: host dispatch
+              time, wall time, device busy share and the device time of the
+              top 12 kernels and of every kernel of the port below them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -101,7 +125,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
-PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "spec", "profile")
+PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "spec", "mixtral",
+          "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -110,6 +135,16 @@ LLAMA2_7B = dict(
     max_position_embeddings=4096, norm_eps=1e-5, rope_theta=10000.0,
     bos_token_id=1, eos_token_id=None,
 )
+# the published config.json of mistralai/Mixtral-8x7B-v0.1 (the fields the
+# spec reads); random weights, so no end-of-sequence token stops a request
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"], "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8, "num_experts_per_tok": 2,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+    "sliding_window": None, "tie_word_embeddings": False, "bos_token_id": 1,
+    "eos_token_id": None,
+}
 
 
 class PhaseError(RuntimeError):
@@ -354,6 +389,13 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
               ("wd", (11008,), 4096, 128, rows)]
     if bits == 8:
         shapes.append(("wgu", (4096,), 2 * 11008, 64, (8, 8192)))
+        # Mixtral-8x7B's expert projections (wg / wu, and wd) at a decode
+        # step's 8 rows, a ragged expert group of the served prefill (its
+        # 1597 valid rows x top-2 / 8 experts, ~400), a group of the full
+        # 8 x 1024 bucket (2048) and the dense form's prefill (8192)
+        moe_rows = (8, 400, 2048, 8192)
+        shapes += [("expert wg|wu", (4096,), 14336, 128, moe_rows),
+                   ("expert wd", (14336,), 4096, 128, moe_rows)]
     log(f"  prefill threshold {thr} rows: from it a bf16 call dequantizes into a [D, Fp] bf16 "
         f"scratch (peak {4096 * 32256 * 2} bytes, the lm_head's 4096 x 32256 carrier)")
 
@@ -517,8 +559,9 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
     earlier kernel against the same limit), at LLaMA-2-7B heads, GQA, MQA,
     f32 and lengths at the chunk's edges; each tree node checked bitwise
     against the one-token call after its ancestors were committed. Timed at
-    the 7B shape, the served decode's lengths, one long request and the
-    speculative verify's tree, each rotating through caches past the L2."""
+    the 7B shape, the served decode's lengths (LLaMA-2-7B's heads and
+    Mixtral-8x7B's GQA), one long request and the speculative verify's
+    tree, each rotating through caches past the L2."""
     import torch
     import torch.nn.functional as F
 
@@ -530,11 +573,14 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
     c = da.CHUNK
     # (label, B, H, KH, S, D, dtype, lens, timed): LLaMA-2-7B MHA decode at
     # lengths 1024..0, at the served decode's lengths (the served prompts
-    # plus ~32 generated tokens) and one 4096-position request; GQA, MQA,
-    # f32, and lengths at the chunk's edges at D = 256 with groups of 16
+    # plus ~32 generated tokens), Mixtral-8x7B's GQA (32 query heads on 8
+    # KV heads) at the same lengths, and one 4096-position request; GQA,
+    # MQA, f32, and lengths at the chunk's edges at D = 256 with groups of 16
+    served = [632, 432, 288, 160, 132, 96, 64, 49]
     cases = [
         ("", 8, 32, 32, 1024, 128, bf16, [1024, 1000, 777, 600, 512, 300, 100, 0], True),
-        (" serve", 8, 32, 32, 1024, 128, bf16, [632, 432, 288, 160, 132, 96, 64, 49], True),
+        (" serve", 8, 32, 32, 1024, 128, bf16, served, True),
+        (" serve", 8, 32, 8, 1024, 128, bf16, served, True),
         (" long", 1, 32, 32, 4096, 128, bf16, [4096], True),
         ("", 8, 32, 32, 1024, 128, f32, [1024, 1000, 777, 600, 512, 300, 100, 0], False),
         ("", 4, 32, 8, 512, 128, bf16, [512, 64, 1, 300], False),
@@ -621,7 +667,7 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
         timed(f"B={b} H={h} KH={kh} S={s} D={d} bf16" + (f" lens={label.strip()}" if label else ""),
               fns, lambda: da.decode_attention_plain(q, *nxt(), ks, vs, lens),
               lambda: F.scaled_dot_product_attention(q4, *alls[next(it) % len(alls)],
-                                                     attn_mask=mask),
+                                                     attn_mask=mask, enable_gqa=h != kh),
               nbytes, 4.0 * h * d * (tot + b), errs["kernel"][0])
         del caches, alls
         torch.cuda.empty_cache()
@@ -705,9 +751,9 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
 def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
     """K6 against its plain version (and, with ``parent``, the earlier kernel
     against the same limit) at LLaMA-2-7B heads, GQA, MQA and f32; timed at
-    the 7B shape, at the served prefills' shapes (the verifier's and the
-    draft's heads at the served prompts' lengths) and with every row full,
-    where SDPA-causal does the kernel's own work."""
+    the 7B shape, at the served prefills' shapes (the verifier's, Mixtral's
+    GQA and the draft's heads at the served prompts' lengths) and with every
+    row full, where SDPA-causal does the kernel's own work."""
     import torch
     import torch.nn.functional as F
 
@@ -723,9 +769,11 @@ def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
         ("", 2, 200, 32, 8, 128, bf16, [200, 77], False),  # GQA, S not a tile multiple
         ("", 2, 256, 16, 1, 64, bf16, [256, 5], False),  # MQA
         ("", 2, 300, 32, 32, 128, f32, [300, 150], False),  # --full-precision
-        # the served prefills: the serve phase's 8 x 1024 bucket, and the
-        # spec phase's draft (6 heads) on the same prompts
+        # the served prefills: the serve phase's 8 x 1024 bucket, the
+        # mixtral phase's (GQA, 8 KV heads), and the spec phase's draft
+        # (6 heads) on the same prompts
         (" serve", 8, 1024, 32, 32, 128, bf16, served, True),
+        (" serve", 8, 1024, 32, 8, 128, bf16, served, True),
         (" draft", 8, 1024, 6, 6, 128, bf16, served, True),
         # every row full: SDPA-causal's work equals the kernel's
         (" full", 8, 1024, 32, 32, 128, bf16, [1024] * 8, True),
@@ -774,7 +822,8 @@ def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
             earlier = f" [earlier kernel {time_ms(kernels[1][1], reps):.4f} ms]"
         plain_ms = time_ms(lambda: fp.flash_prefill_plain(q, k, v, lens), max(2, reps // 4), 1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                enable_gqa=h != kh), reps)
         pairs = sum(n * (n + 1) // 2 for n in lens_l)
         # the valid q/k/v rows are read (no row at or past its length is
         # loaded); every output row is written
@@ -1259,6 +1308,310 @@ def spec_phase(card: str, with_profile: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Mixtral-8x7B (MoE)
+# ---------------------------------------------------------------------------
+
+
+def mixtral_spec(num_layers=None, impl: str = "dense"):
+    """Mixtral-8x7B's spec as ``from_hf_config`` gives it (the dense MoE
+    form), with ``num_layers`` and the MoE form ``impl`` if given."""
+    from flexflow_tpu_torch.specs import from_hf_config
+
+    spec = from_hf_config(MIXTRAL_8X7B)
+    return dataclasses.replace(spec, num_layers=num_layers or spec.num_layers,
+                               moe=dataclasses.replace(spec.moe, impl=impl))
+
+
+def moe_launches_per_forward(spec) -> int:
+    """qmm_int8 calls in one forward of a MoE model with fused wq|wk|wv:
+    wqkv, wo and 3 per expert a layer, and the lm_head."""
+    return spec.num_layers * (2 + 3 * spec.moe.num_experts) + 1
+
+
+class RoutingLog:
+    """Records every ``ops/moe.route_topk`` call's routing probabilities
+    and chosen experts (on the host) while active."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from flexflow_tpu_torch.ops import moe
+
+        self._orig = orig = moe.route_topk
+
+        def route(logits, top_k):
+            w, i = orig(logits, top_k)
+            self.calls.append((torch.softmax(logits.float(), dim=-1).cpu(), i.cpu()))
+            return w, i
+
+        moe.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        from flexflow_tpu_torch.ops import moe
+
+        moe.route_topk = self._orig
+
+
+def routing_rule(gpu_calls, cpu_calls, rows, n_layers: int) -> dict:
+    """The routing comparison of two runs' ``RoutingLog``s. ``rows[c]`` maps
+    call c's row indices to token ids (None: a padding row, skipped);
+    calls go layer by layer. A token is clean at a layer if its top-k set
+    agreed at every earlier layer. Per layer, the observed probability
+    error is the largest |p_gpu - p_cpu| over clean tokens whose sets agree
+    there; a token is excluded where it is clean and the CPU's 2nd-vs-3rd
+    probability margin is within twice that error. Every token not
+    excluded must agree at every layer. Returns the excluded and the
+    flipped token ids (a flipped token's sets differ at some layer) and the
+    observed errors."""
+    import torch
+
+    layers = [[] for _ in range(n_layers)]  # per layer: (token, p_gpu, p_cpu, agree)
+    for c, ((pg, ig), (pc, ic)) in enumerate(zip(gpu_calls, cpu_calls)):
+        agree = (ig.sort(-1).values == ic.sort(-1).values).all(-1)
+        for r, tok in enumerate(rows[c // n_layers]):
+            if tok is not None:
+                layers[c % n_layers].append((tok, pg[r], pc[r], bool(agree[r])))
+    clean = {tok for tok, *_ in layers[0]}
+    excluded, flipped, errs = set(), set(), []
+    for per in layers:
+        ok = [(t, g, c) for t, g, c, a in per if t in clean and a]
+        err = max(((g - c).abs().max().item() for _, g, c in ok), default=0.0)
+        errs.append(err)
+        for tok, g, c, a in per:
+            if tok not in clean:
+                continue
+            top3 = torch.topk(c, 3).values
+            if top3[1] - top3[2] <= 2 * err:
+                excluded.add(tok)
+            elif not a:
+                raise PhaseError(f"routing differs for token {tok} with a 2nd-vs-3rd margin "
+                                 f"{(top3[1] - top3[2]).item():.3g} > 2 x the observed error "
+                                 f"{err:.3g}")
+            if not a:
+                flipped.add(tok)
+        clean -= {t for t, _, _, a in per if not a}
+    return dict(routed_tokens=len(layers[0]), excluded=sorted(excluded), flipped=sorted(flipped),
+                prob_err_per_layer=errs)
+
+
+def logits_rule(g, c, keep, what: str) -> dict:
+    """The cross-check's logit rule on rows ``keep``: max |err| within 5% of
+    the CPU logits' magnitude, and greedy tokens equal wherever the CPU's
+    top-2 margin exceeds twice the observed error."""
+    import torch
+
+    g, c = g[keep], c[keep]
+    require(g.numel() > 0, f"{what}: every logits row left out")
+    require(bool(torch.isfinite(g).all()), f"{what}: logits not finite")
+    err = (g - c).abs().max().item()
+    scale = c.abs().max().item()
+    tol = 5e-2 * scale
+    require(err <= tol, f"{what}: logits max|err| {err} > {tol}")
+    top2 = torch.topk(c, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = g.argmax(-1) == c.argmax(-1)
+    require(bool(agree[decided].all()),
+            f"{what}: greedy tokens disagree at decided positions: {agree.tolist()}")
+    return dict(max_abs_err=err, tol=tol, tokens_equal=int(agree.sum()),
+                tokens=int(agree.numel()), decided=int(decided.sum()))
+
+
+def crosscheck_mixtral(dev=None, spec=None, steps: int = 2) -> dict:
+    """2 layers at full Mixtral-8x7B width, INT8 group 128 (streaming init,
+    seed 1): a prefill of 4 requests and ``steps`` teacher-forced decode
+    steps through the kernels on ``dev`` against the plain versions on the
+    CPU, holding both the logits and every token's routing
+    (``routing_rule``)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import _params_to
+
+    dev = dev or torch.device("cuda")
+    spec = spec or mixtral_spec(num_layers=2)
+    gpu = decoder.fuse_qkv_params(spec, params_lib.init_quantized_params(
+        spec, torch.Generator(device=dev).manual_seed(1), bits=8, group_size=128,
+        dtype=torch.bfloat16, device=dev))
+    cpu = _params_to(gpu, torch.device("cpu"))
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    lens = np.array([20, 13, 27, 9], np.int32)
+    nb, t, s_max = len(lens), 32, 64
+    toks = np.zeros((nb, t), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(3, spec.vocab_size, n)
+    sides = (("gpu", dev, gpu), ("cpu", torch.device("cpu"), cpu))
+    caches, logits, routes = {}, {}, {}
+    for name, d, params in sides:
+        cache = decoder.init_kv_cache(spec, nb, s_max, torch.bfloat16, d)
+        ln = torch.as_tensor(lens, device=d)
+        with torch.no_grad(), RoutingLog() as rec:
+            lg, (k, v) = decoder.forward(
+                spec, params, torch.as_tensor(toks, device=d),
+                torch.arange(t, dtype=torch.int32, device=d)[None].expand(nb, t), lengths=ln,
+                flash=True, return_kv=True, logits_at=ln - 1)
+        decoder.commit_kv_windows(cache.k, cache.v, k.permute(0, 1, 3, 2, 4),
+                                  v.permute(0, 1, 3, 2, 4), [0] * nb)
+        caches[name], logits[name], routes[name] = cache, [lg.float().cpu()], rec.calls
+    # token ids: (request, position); the dense form routes the padding too
+    rows = [[(b, p) if p < lens[b] else None for b in range(nb) for p in range(t)]]
+    cur = logits["gpu"][0].argmax(-1)  # the GPU's greedy tokens drive both sides
+    for i in range(steps):
+        for name, d, params in sides:
+            with torch.no_grad(), RoutingLog() as rec:
+                lg, _ = decoder.forward_cached(
+                    spec, params, cur[:, None].to(d), caches[name],
+                    torch.as_tensor(lens + i, device=d), write_start=lens + i)
+            logits[name].append(lg[:, 0].float().cpu())
+            routes[name] += rec.calls
+        rows.append([(b, int(lens[b]) + i) for b in range(nb)])
+        cur = logits["gpu"][-1].argmax(-1)
+    routing = routing_rule(routes["gpu"], routes["cpu"], rows, spec.num_layers)
+    log(f"  cross-check Mixtral-width INT8 (2 layers), routing of {routing['routed_tokens']} "
+        f"tokens x {spec.num_layers} layers: {len(routing['flipped'])} tokens with a differing "
+        f"top-2 set, {len(routing['excluded'])} near-ties excluded from the routing check, "
+        f"probability error per layer {[f'{e:.3g}' for e in routing['prob_err_per_layer']]}; "
+        f"flipped (request, position): {routing['flipped']}")
+    g, c = torch.stack(logits["gpu"]), torch.stack(logits["cpu"])  # [steps + 1, B, V]
+    require(g.shape == (steps + 1, nb, spec.vocab_size), f"logits shaped {tuple(g.shape)}")
+    # a flipped token's FFN output differs wholesale, and the logits at its
+    # position and past it (through attention) follow: those rows are left out
+    positions = [[int(lens[b]) - 1 + i for b in range(nb)] for i in range(steps + 1)]
+    keep = torch.tensor([[not any(b == fb and p <= pos for fb, p in routing["flipped"])
+                          for b, pos in enumerate(row)] for row in positions])
+    out = logits_rule(g, c, keep, "mixtral cross-check")
+    out.update(routing, excluded=len(routing["excluded"]), flipped=len(routing["flipped"]),
+               logit_rows_excluded=int((~keep).sum()), seconds=time.perf_counter() - t0)
+    log(f"  cross-check logits: max|err| {out['max_abs_err']:.4g} (tol {out['tol']:.4g}); greedy "
+        f"tokens equal {out['tokens_equal']}/{out['tokens']} ({out['decided']} beyond the error "
+        f"margin); {out['logit_rows_excluded']} of {keep.numel()} logit rows left out after a "
+        f"flipped token; {out['seconds']:.1f} s")
+    del gpu, cpu, caches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_forms(engine, prompts) -> dict:
+    """One batched prefill of ``prompts`` (the served 8 x 1024 bucket)
+    through ``decoder.forward`` with the dense and with the ragged MoE form
+    on the engine's weights, each timed on the host clock around a
+    synchronised call (the ragged form run once before, untimed); their
+    logits at each request's last prompt position must agree by the
+    cross-check's rule."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+
+    dev = engine.device
+    b = len(prompts)
+    bucket = max(engine.prefill_bucket(len(p)) for p in prompts)
+    toks = np.zeros((b, bucket), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tok = torch.as_tensor(toks, device=dev)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    pos = torch.arange(bucket, dtype=torch.int32, device=dev)[None].expand(b, bucket)
+    specs = {"dense": engine.spec,
+             "ragged": dataclasses.replace(engine.spec, moe=dataclasses.replace(
+                 engine.spec.moe, impl="ragged"))}
+
+    def run(form):
+        with torch.no_grad():
+            return decoder.forward(specs[form], engine.params, tok, pos, lengths=lens,
+                                   flash=True, logits_at=lens - 1)[0].float()
+
+    run("ragged")
+    out, ms = {}, {}
+    for form in ("dense", "ragged"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[form] = run(form)
+        torch.cuda.synchronize()
+        ms[form] = (time.perf_counter() - t0) * 1e3
+    rule = logits_rule(out["ragged"].cpu(), out["dense"].cpu(), slice(None),
+                       "ragged vs dense prefill")
+    rule.update(dense_ms=ms["dense"], ragged_ms=ms["ragged"], bucket=[b, bucket],
+                bitwise_equal=bool(torch.equal(out["dense"], out["ragged"])))
+    log(f"  batched prefill {b}x{bucket}: dense {ms['dense']:.1f} ms, ragged {ms['ragged']:.1f} ms "
+        f"(host clock, synchronised); logits at the last prompt positions max|err| "
+        f"{rule['max_abs_err']:.4g} (tol {rule['tol']:.4g}), bitwise equal: {rule['bitwise_equal']}")
+    return rule
+
+
+def mixtral_phase(card: str, with_profile: bool) -> dict:
+    """Mixtral-8x7B INT8 at full width and depth: the cross-check, the
+    streaming init, the served run with its predicted launch counts, one
+    replayed horizon against the uncaptured body, and the dense and ragged
+    prefills."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+
+    out = {"crosscheck": crosscheck_mixtral()}
+    dev = torch.device("cuda")
+    spec = mixtral_spec()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = params_lib.init_quantized_params(
+        spec, torch.Generator(device=dev).manual_seed(0), bits=8, group_size=128,
+        dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  weights: random Mixtral-8x7B INT8 (group 128), streaming init in {out['init_s']:.1f} s: "
+        f"{out['weights_gib']:.2f} GiB held, {out['init_peak_gib']:.2f} GiB peak allocated [{card}]")
+    engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev)
+    del params
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    prompts = _prompts(spec.vocab_size)
+    try:
+        reqs, served = _served(rm, prompts, 64, spec.vocab_size, "mixtral")
+        out.update(served)
+        n, steps = spec.num_layers, served["replays"]
+        prefills = served["launches"]["flash_prefill"] // n
+        want = {"qmm_int8": moe_launches_per_forward(spec) * (steps + prefills),
+                "decode_attention": n * steps, "flash_prefill": n * prefills}
+        got = {k: served["launches"][k] for k in want}
+        require(prefills >= 1 and got == want,
+                f"mixtral launches {got} != the predicted {want} ({steps} decode steps, "
+                f"{prefills} prefills)")
+        out["predicted_launches"] = want
+        lens = np.array([len(p) for p in prompts], np.int32)
+        toks = np.array([(r.output_tokens[0] + 1) % spec.vocab_size for r in reqs], np.int32)
+        _replay_check("mixtral decode horizon (16 steps, 8 slots)",
+                      lambda replay: [engine.greedy_horizon_async(lens, toks, 16, replay=replay)],
+                      list(engine.cache))
+        out["prefill_forms"] = prefill_forms(engine, prompts)
+        if with_profile:
+            log("[profile] one decode horizon and one batched prefill of Mixtral-8x7B INT8")
+            out["profile"] = profile_phase(engine, prompts)
+    finally:
+        rm.close()
+    out["card"] = card
+    _log_served("mixtral", out, card)
+    log(f"  launches as predicted: {moe_launches_per_forward(spec)} qmm_int8 a forward, "
+        f"{spec.num_layers} decode_attention a decode step, {spec.num_layers} flash_prefill a "
+        f"prefill [{card}]")
+    del engine, rm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -1293,7 +1646,7 @@ def main(argv=None) -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {'cached' if _build.build_seconds is None else f'{_build.build_seconds:.1f} s'})")
@@ -1315,6 +1668,14 @@ def main(argv=None) -> int:
 
     records: list = []
     summary: dict = {}
+    phase_s = {"build": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+
+    def lap(name):  # seconds since the last lap, under the phase's name
+        nonlocal t0
+        phase_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     if "kernels" in phases:
         for bits in (8, 4):
             log(f"[kernels] qmm_int{bits}")
@@ -1323,26 +1684,37 @@ def main(argv=None) -> int:
         decode_attention_phase(args.reps, records, parent.get("decode_attention"))
         log("[kernels] flash_prefill")
         flash_prefill_phase(args.reps, records, parent.get("flash_prefill"))
+        lap("kernels")
     if "variants" in phases:
         log("[variants] quant-kernel tuning path: six dequant-matmul variants x "
             "column widths, qmm_int8 / qmm_int4, B=8 4096x11008 g=128")
         summary["variants"] = variants_phase(args.reps, records)
+        lap("variants")
     if "crosscheck" in phases:
         for bits in (8, 4):
             log(f"[crosscheck] 2-layer LLaMA-2-7B-width INT{bits}, GPU kernels vs CPU plain")
             summary[f"crosscheck_int{bits}"] = crosscheck_phase(bits)
+        lap("crosscheck")
     if "serve" in phases:
         log("[serve] LLaMA-2-7B INT8, 8 requests, decode_horizon=16, pipelined")
         summary["serve"] = serve_phase(card, "profile" in phases)
+        lap("serve")
     if "spec" in phases:
         log("[spec] LLaMA-2-7B INT4 verifier + 160M-class draft, tree width 3 depth 4, "
             "8 requests, fused and pipelined")
         summary["spec"] = spec_phase(card, "profile" in phases)
+        lap("spec")
+    if "mixtral" in phases:
+        log("[mixtral] Mixtral-8x7B INT8 (32 layers, 8 experts top-2), 8 requests, "
+            "decode_horizon=16, pipelined; the 2-layer cross-check first")
+        summary["mixtral"] = mixtral_phase(card, "profile" in phases)
+        lap("mixtral")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels, the tuning run for the variants
     launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0)
-                       for p in (("variants",) if k in VARIANTS else ("serve", "spec")))
+                       for p in (("variants",) if k in VARIANTS
+                                 else ("serve", "spec", "mixtral")))
                 for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],
@@ -1351,6 +1723,10 @@ def main(argv=None) -> int:
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
         for r in records
     ]
+    summary["phase_seconds"] = phase_s
+    log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.1f} s, the build "
+        f"included; seconds per phase {json.dumps({k: round(v, 1) for k, v in phase_s.items()})} "
+        f"[{card}]")
     log(json.dumps({"summary": summary, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

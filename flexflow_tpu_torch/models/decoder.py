@@ -1,10 +1,18 @@
-"""Spec-driven decoder-only transformer (port of ``flexflow_tpu/models/decoder.py``,
-dense path).
+"""Spec-driven decoder-only transformer (port of ``flexflow_tpu/models/decoder.py``:
+the dense path and the MoE FFN).
 
 Parameters are the JAX package's dict layout with every per-layer leaf
 stacked on a leading [num_layers, ...] axis; the layer ``scan`` becomes a
 Python loop. A quantized stacked projection reaches the quant-matmul kernel
-with a layer index into the stacked carrier (no per-layer copy).
+with a layer index into the stacked carrier (no per-layer copy); a MoE
+layer's experts ([L, E, ...] stacks) with a layer and an expert index.
+
+The MoE FFN (``_moe_mlp``) routes in f32 at full precision and runs the
+form ``spec.moe.impl`` names (``ops/moe.py``): ``dense`` (JAX's default,
+every expert on every row; static shapes) or ``ragged`` (sort-based
+dispatch, group sizes read on the host). JAX routes every row of a padded
+prefill; the ragged form here drops the rows at or past ``lengths`` (their
+FFN output is zero), which no valid row can see.
 
 Two modes, as in JAX:
 
@@ -29,7 +37,6 @@ the per-layer K/V ``[L, B, T, KH, D]``.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -37,6 +44,7 @@ import torch
 
 from flexflow_tpu_torch.ops import activations as act_lib
 from flexflow_tpu_torch.ops import attention as attn_lib
+from flexflow_tpu_torch.ops import moe as moe_lib
 from flexflow_tpu_torch.ops import norms, rotary
 from flexflow_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
@@ -44,7 +52,7 @@ from flexflow_tpu_torch.ops.kernels.decode_attention import (
     tree_index,
 )
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
-from flexflow_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -86,15 +94,6 @@ def to_device(x, device: Union[str, torch.device], dtype=np.int32) -> torch.Tens
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class LayerQuant:
-    """Layer ``layer`` of a stacked [L, ...] QuantizedArray: the kernel reads
-    it straight from the stacked buffer."""
-
-    qa: QuantizedArray
-    layer: int
 
 
 def _norm(spec: ModelSpec, h, scale, bias):
@@ -171,9 +170,29 @@ def fuse_qkv_params(spec: ModelSpec, params: Params) -> Params:
     return {**params, "layers": layers}
 
 
-def _mlp(spec: ModelSpec, p: Params, h):
+def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
+    """Mixtral's sparse MoE FFN (JAX ``_moe_mlp``): an f32 router, then the
+    dense or the ragged form of ``ops/moe.py``. ``valid`` [B, T] marks the
+    rows the ragged form computes (None: every row)."""
+    b, t, d = h.shape
+    x = h.reshape(b * t, d)
+    # every row through one router GEMM in both forms, so a row's routing
+    # never depends on which rows the ragged form keeps
+    router_logits = torch.tensordot(x.float(), p["router"].float(), dims=1)  # [N, E]
+    rows = None
+    if spec.moe.impl == "ragged" and valid is not None:
+        rows = valid.reshape(-1).nonzero()[:, 0]
+        x, router_logits = x[rows], router_logits[rows]
+    ffn = moe_lib.moe_ffn_ragged if spec.moe.impl == "ragged" else moe_lib.moe_ffn_dense
+    out = ffn(x, router_logits, p["wg"], p["wu"], p["wd"], spec.moe.top_k)
+    if rows is not None:
+        out = torch.zeros_like(h).reshape(b * t, d).index_copy_(0, rows, out)
+    return out.reshape(b, t, d)
+
+
+def _mlp(spec: ModelSpec, p: Params, h, valid=None):
     if spec.moe is not None:
-        raise NotImplementedError("MoE FFNs are not in the port yet")
+        return _moe_mlp(spec, p, h, valid)
     if spec.act == "silu_gate":
         if "wgu" in p:
             gate, up = torch.chunk(_linear(h, p["wgu"]), 2, dim=-1)
@@ -202,8 +221,9 @@ def _attn_out(spec: ModelSpec, p: Params, a):
     return out.to(a.dtype)
 
 
-def _layer(spec: ModelSpec, p: Params, h, attend):
-    """One decoder layer; ``attend(q, k, v) -> attn_out`` is injected."""
+def _layer(spec: ModelSpec, p: Params, h, attend, valid=None):
+    """One decoder layer; ``attend(q, k, v) -> attn_out`` is injected.
+    ``valid`` [B, T] marks the rows a ragged MoE FFN computes."""
     if spec.parallel_attn:
         ln_attn = _norm(spec, h, p["ln1_scale"], p.get("ln1_bias"))
         if spec.num_ln_in_parallel_attn == 2:
@@ -211,23 +231,24 @@ def _layer(spec: ModelSpec, p: Params, h, attend):
         else:
             ln_mlp = ln_attn
         a = attend(*_qkv(spec, p, ln_attn))
-        return h + _attn_out(spec, p, a) + _mlp(spec, p, ln_mlp)
+        return h + _attn_out(spec, p, a) + _mlp(spec, p, ln_mlp, valid)
     if spec.pre_norm:
         a = attend(*_qkv(spec, p, _norm(spec, h, p["ln1_scale"], p.get("ln1_bias"))))
         h = h + _attn_out(spec, p, a)
-        return h + _mlp(spec, p, _norm(spec, h, p["ln2_scale"], p.get("ln2_bias")))
+        return h + _mlp(spec, p, _norm(spec, h, p["ln2_scale"], p.get("ln2_bias")), valid)
     a = attend(*_qkv(spec, p, h))
     h = _norm(spec, h + _attn_out(spec, p, a), p["ln1_scale"], p.get("ln1_bias"))
-    return _norm(spec, h + _mlp(spec, p, h), p["ln2_scale"], p.get("ln2_bias"))
+    return _norm(spec, h + _mlp(spec, p, h, valid), p["ln2_scale"], p.get("ln2_bias"))
 
 
 def _layer_params(layers: Params, i: int) -> Params:
-    """Layer i's view: plain leaves indexed, quantized stacks as LayerQuant."""
+    """Layer i's view: plain leaves indexed, quantized stacks ([L, ...], or
+    [L, E, ...] experts) as LayerQuant."""
     out = {}
     for k, v in layers.items():
         if isinstance(v, QuantizedArray):
-            if v.batch_dims != 1:
-                raise NotImplementedError(f"{k}: expected a [L, ...] stacked carrier")
+            if v.batch_dims not in (1, 2):
+                raise ValueError(f"{k}: expected a [L, ...] or [L, E, ...] stacked carrier")
             out[k] = LayerQuant(v, i)
         else:
             out[k] = v[i]
@@ -314,8 +335,10 @@ def forward(
     use_flash = flash and slopes is None and spec.attn_logit_softcap is None
 
     mask = positions[:, None, :] <= positions[:, :, None]  # [B, T, T]
+    valid = None
     if lengths is not None:
-        mask = mask & (torch.arange(t, device=dev)[None, None, :] < lengths[:, None, None])
+        valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]  # [B, T]
+        mask = mask & valid[:, None, :]
     flens = (lengths if lengths is not None
              else torch.full((b,), t, device=dev)).to(torch.int32)
 
@@ -335,7 +358,7 @@ def forward(
     ks, vs = [], []
     for i in range(spec.num_layers):
         kvs = []
-        h = _layer(spec, _layer_params(params["layers"], i), h, attend)
+        h = _layer(spec, _layer_params(params["layers"], i), h, attend, valid)
         (k, v), = kvs
         if kv_sink is not None:
             kv_sink(i, k, v)

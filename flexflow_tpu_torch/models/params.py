@@ -1,89 +1,198 @@
-"""Parameter dicts: random init, HuggingFace import, and carry-over from the
-JAX package (port of ``flexflow_tpu/models/params.py``, LLaMA converter only).
+"""Parameter dicts: random init, HuggingFace import, a streaming quantized
+build, and carry-over from the JAX package (port of
+``flexflow_tpu/models/params.py``).
 
 Layout matches the JAX package: torch ``nn.Linear.weight`` [out, in] becomes
 [in, ...out] (contraction on the leading axis), and every per-layer leaf is
-stacked on a leading [num_layers, ...] axis.
+stacked on a leading [num_layers, ...] axis. A MoE layer adds ``router``
+[L, D, E] and expert stacks ``wg`` / ``wu`` [L, E, D, F], ``wd`` [L, E, F, D].
+
+``build_params`` assembles the stacked leaves layer by layer and, with
+``bits``, quantizes each layer's slab as it comes into a carrier allocated
+once: the full-precision tree never exists. The HF loader's quantize-on-load
+and ``init_quantized_params`` (random weights for a model whose
+full-precision tree does not fit the card, e.g. Mixtral-8x7B) go through it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.quant.weight_only import QuantizedArray
+from flexflow_tpu_torch.quant.weight_only import QuantizedArray, layer_quant_layout, quantize
 from flexflow_tpu_torch.specs import ModelSpec
 
 Params = Dict[str, Any]
+# a leaf's init: "ones", "zeros", or (fan_in, fan_out) of a Glorot normal draw
+Init = Union[str, Tuple[int, int]]
+
+
+def _leaves(spec: ModelSpec) -> Tuple[Dict[str, Tuple[tuple, Init]], Dict[str, Tuple[tuple, Init]]]:
+    """(per-layer leaves, top-level leaves) as name -> (shape, init), a
+    per-layer shape without its [L] axis, in the order they are drawn."""
+    d, hh, kh, dh, f = (spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim,
+                        spec.intermediate_size)
+    layer: Dict[str, Tuple[tuple, Init]] = {
+        "ln1_scale": ((d,), "ones"),
+        "ln2_scale": ((d,), "ones"),
+        "wq": ((d, hh, dh), (d, hh * dh)),
+        "wk": ((d, kh, dh), (d, kh * dh)),
+        "wv": ((d, kh, dh), (d, kh * dh)),
+        "wo": ((hh, dh, d), (hh * dh, d)),
+    }
+    layernorm_bias = spec.norm == "layernorm" and spec.norm_bias
+    if layernorm_bias:
+        layer["ln1_bias"] = layer["ln2_bias"] = ((d,), "zeros")
+    if spec.qkv_bias:
+        layer["bq"] = ((hh, dh), "zeros")
+        layer["bk"] = layer["bv"] = ((kh, dh), "zeros")
+    if spec.attn_out_bias:
+        layer["bo"] = ((d,), "zeros")
+    if spec.moe is not None:
+        e = spec.moe.num_experts
+        layer["router"] = ((d, e), (d, e))
+        layer["wg"] = ((e, d, f), (d, f))
+        layer["wu"] = ((e, d, f), (d, f))
+        layer["wd"] = ((e, f, d), (f, d))
+    else:
+        if spec.act == "silu_gate":
+            layer["wg"] = ((d, f), (d, f))
+        layer["wu"] = ((d, f), (d, f))
+        layer["wd"] = ((f, d), (f, d))
+        if spec.mlp_bias:
+            layer["bu"] = ((f,), "zeros")
+            layer["bd"] = ((d,), "zeros")
+    top: Dict[str, Tuple[tuple, Init]] = {
+        "embed_tokens": ((spec.vocab_size, d), (spec.vocab_size, d)),
+        "final_norm_scale": ((d,), "ones"),
+    }
+    if layernorm_bias:
+        top["final_norm_bias"] = ((d,), "zeros")
+    if spec.pos == "learned":
+        top["embed_pos"] = ((spec.max_position_embeddings + spec.learned_pos_offset, d),
+                            (spec.max_position_embeddings, d))
+    if not spec.tie_word_embeddings:
+        top["lm_head"] = ((d, spec.vocab_size), (d, spec.vocab_size))
+    return layer, top
+
+
+def _maker(generator: Union[int, torch.Generator], dtype, device):
+    """make(shape, init): a leaf drawn in order from one ``torch.Generator``
+    (Glorot normal in float32, then cast to ``dtype``; ones; zeros)."""
+    if isinstance(generator, int):
+        generator = torch.Generator(device=device).manual_seed(generator)
+
+    def make(shape, init: Init) -> torch.Tensor:
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        fan_in, fan_out = init
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (w * float(np.sqrt(2.0 / (fan_in + fan_out)))).to(dtype)
+
+    return make
 
 
 def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device="cpu") -> Params:
-    """Random-initialized parameters (Glorot normal for matmuls, ones for
-    norm scales), drawn in order from one ``torch.Generator``."""
+    """Random-initialized parameters (Glorot normal for matmuls and the MoE
+    router, ones for norm scales, zeros for biases), each whole [L, ...]
+    leaf drawn in order from one ``torch.Generator``."""
     device = torch.device(device)
-    if isinstance(generator, int):
-        generator = torch.Generator(device=device).manual_seed(generator)
+    make = _maker(generator, dtype, device)
+    layer_leaves, top_leaves = _leaves(spec)
+    layers = {n: make((spec.num_layers, *shape), init) for n, (shape, init) in layer_leaves.items()}
+    params = {n: make(shape, init) for n, (shape, init) in top_leaves.items()}
+    params["layers"] = layers
+    return params
 
-    def glorot(shape, fan_in, fan_out):
-        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-        return (w * float(np.sqrt(2.0 / (fan_in + fan_out)))).to(dtype)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+def init_quantized_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0, *,
+                          bits: int = 8, group_size: int = 128, dtype=torch.bfloat16,
+                          device="cpu") -> Params:
+    """Random-initialized parameters with every matmul weight quantized as
+    it is drawn (``quantize_params``' layout): ``init_params``'
+    distributions, drawn layer by layer and leaf by leaf, so peak memory is
+    the carriers plus one layer's float32 slab of one leaf (2 GB for one
+    Mixtral-8x7B expert projection) instead of the full-precision tree.
+    The port's counterpart of ``bench_70b.py``'s ``_init_quantized_streaming``."""
+    device = torch.device(device)
+    make = _maker(generator, torch.float32, device)
+    layer_leaves, top_leaves = _leaves(spec)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def layer(_i):
+        for name, (shape, init) in layer_leaves.items():
+            yield name, make(shape, init)
 
-    d, hh, kh, dh, f, ll = (spec.hidden_size, spec.num_heads, spec.num_kv_heads,
-                            spec.head_dim, spec.intermediate_size, spec.num_layers)
-    if spec.moe is not None:
-        raise NotImplementedError("MoE models are not in the port yet")
-    layers: Params = {
-        "ln1_scale": ones((ll, d)),
-        "ln2_scale": ones((ll, d)),
-        "wq": glorot((ll, d, hh, dh), d, hh * dh),
-        "wk": glorot((ll, d, kh, dh), d, kh * dh),
-        "wv": glorot((ll, d, kh, dh), d, kh * dh),
-        "wo": glorot((ll, hh, dh, d), hh * dh, d),
-    }
-    if spec.norm == "layernorm" and spec.norm_bias:
-        layers["ln1_bias"] = zeros((ll, d))
-        layers["ln2_bias"] = zeros((ll, d))
-    if spec.qkv_bias:
-        layers["bq"] = zeros((ll, hh, dh))
-        layers["bk"] = zeros((ll, kh, dh))
-        layers["bv"] = zeros((ll, kh, dh))
-    if spec.attn_out_bias:
-        layers["bo"] = zeros((ll, d))
-    if spec.act == "silu_gate":
-        layers["wg"] = glorot((ll, d, f), d, f)
-    layers["wu"] = glorot((ll, d, f), d, f)
-    layers["wd"] = glorot((ll, f, d), f, d)
-    if spec.mlp_bias:
-        layers["bu"] = zeros((ll, f))
-        layers["bd"] = zeros((ll, d))
+    top = {n: make(shape, init) for n, (shape, init) in top_leaves.items()}
+    return build_params(spec, top, layer, dtype=dtype, device=device, bits=bits,
+                        group_size=group_size)
 
-    params: Params = {
-        "embed_tokens": glorot((spec.vocab_size, d), spec.vocab_size, d),
-        "layers": layers,
-        "final_norm_scale": ones((d,)),
-    }
-    if spec.norm == "layernorm" and spec.norm_bias:
-        params["final_norm_bias"] = zeros((d,))
-    if spec.pos == "learned":
-        params["embed_pos"] = glorot(
-            (spec.max_position_embeddings + spec.learned_pos_offset, d),
-            spec.max_position_embeddings, d)
-    if not spec.tie_word_embeddings:
-        params["lm_head"] = glorot((d, spec.vocab_size), d, spec.vocab_size)
+
+def _leaf(x, device, dtype) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype if x.is_floating_point() else x.dtype)
+    return params_from_numpy(x, device, dtype)
+
+
+def _carrier(qa: QuantizedArray, num_layers: int, device) -> QuantizedArray:
+    """An empty [L, ...] stacked carrier for per-layer carriers like ``qa``."""
+    def empty(t):
+        return None if t is None else torch.empty((num_layers, *t.shape), dtype=t.dtype,
+                                                  device=device)
+
+    return QuantizedArray(
+        q=empty(qa.q), scale=empty(qa.scale), offset=empty(qa.offset), bits=qa.bits,
+        group_size=qa.group_size, shape=(num_layers, *qa.shape), batch_dims=qa.batch_dims + 1,
+        contract_dims=qa.contract_dims, dtype=qa.dtype, rest_pad=qa.rest_pad)
+
+
+def build_params(spec: ModelSpec, top: Mapping[str, Any],
+                 layer: Callable[[int], Iterable[Tuple[str, Any]]], *, dtype, device,
+                 bits: Optional[int] = None, group_size: int = 128) -> Params:
+    """The decoder's parameters on ``device``, built one layer at a time.
+
+    ``layer(i)`` yields layer i's ``(name, slab)`` pairs (numpy arrays or
+    tensors, without the [L] axis); each slab is cast to ``dtype`` and
+    written into its [L, ...] leaf, allocated at layer 0. With ``bits`` a
+    slab that ``quantize_params`` would quantize is quantized on its own and
+    written into a stacked carrier instead, byte for byte what quantizing
+    the whole stacked leaf gives. ``top`` holds the other leaves (the
+    lm_head quantized whole with ``bits``)."""
+    device = torch.device(device)
+    n_layers = spec.num_layers
+    layers: Params = {}
+    for i in range(n_layers):
+        for name, slab in layer(i):
+            t = _leaf(slab, device, dtype)
+            layout = layer_quant_layout(name, t.dim() + 1) if bits else None
+            if layout is None:
+                if name not in layers:
+                    layers[name] = torch.empty((n_layers, *t.shape), dtype=t.dtype, device=device)
+                layers[name][i] = t
+                continue
+            qa = quantize(t, bits, group_size, batch_dims=layout[0] - 1,
+                          contract_dims=layout[1], compute_dtype=dtype)
+            del t
+            if name not in layers:
+                layers[name] = _carrier(qa, n_layers, device)
+            c = layers[name]
+            c.q[i] = qa.q
+            c.scale[i] = qa.scale
+            if qa.offset is not None:
+                c.offset[i] = qa.offset
+    params = {k: _leaf(v, device, dtype) for k, v in top.items()}
+    if bits and "lm_head" in params:
+        params["lm_head"] = quantize(params["lm_head"], bits, group_size, compute_dtype=dtype)
+    params["layers"] = layers
     return params
 
 
 # ---------------------------------------------------------------------------
-# HF state-dict import
+# HF state-dict import: per architecture, (top-level leaves, one layer's leaves)
 # ---------------------------------------------------------------------------
 
 
@@ -91,6 +200,19 @@ def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().float().numpy()
     return np.asarray(x)
+
+
+class _SD:
+    """State-dict accessor: tensors as numpy arrays."""
+
+    def __init__(self, sd: Mapping[str, Any]):
+        self.sd = sd
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.sd
+
+    def get(self, name: str) -> np.ndarray:
+        return _np(self.sd[name])
 
 
 def _lin(w: np.ndarray) -> np.ndarray:
@@ -103,53 +225,204 @@ def _heads(w: np.ndarray, n: int, dh: int) -> np.ndarray:
     return np.ascontiguousarray(w.reshape(n, dh, -1).transpose(2, 0, 1))
 
 
-def _convert_llama(spec: ModelSpec, sd: Mapping[str, Any]) -> Params:
+def _in_heads(w: np.ndarray) -> np.ndarray:
+    """[n, dh, in] rows of a fused projection -> ours [in, n, dh]."""
+    return np.ascontiguousarray(w.transpose(2, 0, 1))
+
+
+def _llama_top(spec: ModelSpec, s: _SD) -> Params:
+    top = {"embed_tokens": s.get("model.embed_tokens.weight"),
+           "final_norm_scale": s.get("model.norm.weight")}
+    if not spec.tie_word_embeddings and "lm_head.weight" in s:
+        top["lm_head"] = _lin(s.get("lm_head.weight"))
+    return top
+
+
+def _llama_attn(spec: ModelSpec, s: _SD, p: str) -> Params:
     d, hh, kh, dh = spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim
-
-    def get(name):
-        return _np(sd[name])
-
-    layers = []
-    for i in range(spec.num_layers):
-        p = f"model.layers.{i}."
-        layer = {
-            "ln1_scale": get(p + "input_layernorm.weight"),
-            "ln2_scale": get(p + "post_attention_layernorm.weight"),
-            "wq": _heads(get(p + "self_attn.q_proj.weight"), hh, dh),
-            "wk": _heads(get(p + "self_attn.k_proj.weight"), kh, dh),
-            "wv": _heads(get(p + "self_attn.v_proj.weight"), kh, dh),
-            "wo": get(p + "self_attn.o_proj.weight").T.reshape(hh, dh, d),
-            "wg": _lin(get(p + "mlp.gate_proj.weight")),
-            "wu": _lin(get(p + "mlp.up_proj.weight")),
-            "wd": _lin(get(p + "mlp.down_proj.weight")),
-        }
-        if spec.qkv_bias:
-            layer["bq"] = get(p + "self_attn.q_proj.bias").reshape(hh, dh)
-            layer["bk"] = get(p + "self_attn.k_proj.bias").reshape(kh, dh)
-            layer["bv"] = get(p + "self_attn.v_proj.bias").reshape(kh, dh)
-        layers.append(layer)
-    params: Params = {
-        "embed_tokens": get("model.embed_tokens.weight"),
-        "layers": {k: np.stack([l[k] for l in layers]) for k in layers[0]},
-        "final_norm_scale": get("model.norm.weight"),
+    out = {
+        "ln1_scale": s.get(p + "input_layernorm.weight"),
+        "ln2_scale": s.get(p + "post_attention_layernorm.weight"),
+        "wq": _heads(s.get(p + "self_attn.q_proj.weight"), hh, dh),
+        "wk": _heads(s.get(p + "self_attn.k_proj.weight"), kh, dh),
+        "wv": _heads(s.get(p + "self_attn.v_proj.weight"), kh, dh),
+        "wo": s.get(p + "self_attn.o_proj.weight").T.reshape(hh, dh, d),
     }
-    if not spec.tie_word_embeddings and "lm_head.weight" in sd:
-        params["lm_head"] = _lin(get("lm_head.weight"))
-    return params
+    if spec.qkv_bias:
+        out["bq"] = s.get(p + "self_attn.q_proj.bias").reshape(hh, dh)
+        out["bk"] = s.get(p + "self_attn.k_proj.bias").reshape(kh, dh)
+        out["bv"] = s.get(p + "self_attn.v_proj.bias").reshape(kh, dh)
+    return out
 
 
-_CONVERTERS = {"LlamaForCausalLM": _convert_llama}
+def _llama_layer(spec: ModelSpec, s: _SD, i: int) -> Params:
+    p = f"model.layers.{i}."
+    return {**_llama_attn(spec, s, p),
+            "wg": _lin(s.get(p + "mlp.gate_proj.weight")),
+            "wu": _lin(s.get(p + "mlp.up_proj.weight")),
+            "wd": _lin(s.get(p + "mlp.down_proj.weight"))}
 
 
-def convert_hf_state_dict(spec: ModelSpec, sd: Mapping[str, Any],
-                          dtype=torch.float32, device="cpu") -> Params:
-    """HuggingFace state dict -> the decoder's parameter dict (LLaMA family;
-    the other architectures' converters are not ported yet)."""
-    try:
-        conv = _CONVERTERS[spec.arch]
-    except KeyError:
-        raise NotImplementedError(f"no converter for {spec.arch} in the port yet") from None
-    return params_from_numpy(conv(spec, sd), device=device, dtype=dtype)
+def _mixtral_layer(spec: ModelSpec, s: _SD, i: int) -> Params:
+    p = f"model.layers.{i}."
+    m = p + "block_sparse_moe."
+    experts = range(spec.moe.num_experts)
+    return {**_llama_attn(spec, s, p),
+            "router": _lin(s.get(m + "gate.weight")),
+            "wg": np.stack([_lin(s.get(m + f"experts.{j}.w1.weight")) for j in experts]),
+            "wu": np.stack([_lin(s.get(m + f"experts.{j}.w3.weight")) for j in experts]),
+            "wd": np.stack([_lin(s.get(m + f"experts.{j}.w2.weight")) for j in experts])}
+
+
+def _opt_top(spec: ModelSpec, s: _SD) -> Params:
+    top = {"embed_tokens": s.get("model.decoder.embed_tokens.weight"),
+           "embed_pos": s.get("model.decoder.embed_positions.weight")}
+    if "model.decoder.final_layer_norm.weight" in s:
+        top["final_norm_scale"] = s.get("model.decoder.final_layer_norm.weight")
+        top["final_norm_bias"] = s.get("model.decoder.final_layer_norm.bias")
+    if not spec.tie_word_embeddings and "lm_head.weight" in s:
+        top["lm_head"] = _lin(s.get("lm_head.weight"))
+    return top
+
+
+def _opt_layer(spec: ModelSpec, s: _SD, i: int) -> Params:
+    d, hh, dh = spec.hidden_size, spec.num_heads, spec.head_dim
+    p = f"model.decoder.layers.{i}."
+    return {
+        "ln1_scale": s.get(p + "self_attn_layer_norm.weight"),
+        "ln1_bias": s.get(p + "self_attn_layer_norm.bias"),
+        "ln2_scale": s.get(p + "final_layer_norm.weight"),
+        "ln2_bias": s.get(p + "final_layer_norm.bias"),
+        "wq": _heads(s.get(p + "self_attn.q_proj.weight"), hh, dh),
+        "bq": s.get(p + "self_attn.q_proj.bias").reshape(hh, dh),
+        "wk": _heads(s.get(p + "self_attn.k_proj.weight"), hh, dh),
+        "bk": s.get(p + "self_attn.k_proj.bias").reshape(hh, dh),
+        "wv": _heads(s.get(p + "self_attn.v_proj.weight"), hh, dh),
+        "bv": s.get(p + "self_attn.v_proj.bias").reshape(hh, dh),
+        "wo": s.get(p + "self_attn.out_proj.weight").T.reshape(hh, dh, d),
+        "bo": s.get(p + "self_attn.out_proj.bias"),
+        "wu": _lin(s.get(p + "fc1.weight")),
+        "bu": s.get(p + "fc1.bias"),
+        "wd": _lin(s.get(p + "fc2.weight")),
+        "bd": s.get(p + "fc2.bias"),
+    }
+
+
+def _falcon_top(spec: ModelSpec, s: _SD) -> Params:
+    top = {"embed_tokens": s.get("transformer.word_embeddings.weight"),
+           "final_norm_scale": s.get("transformer.ln_f.weight"),
+           "final_norm_bias": s.get("transformer.ln_f.bias")}
+    if "lm_head.weight" in s:
+        top["lm_head"] = _lin(s.get("lm_head.weight"))
+    return top
+
+
+def _falcon_layer(spec: ModelSpec, s: _SD, i: int) -> Params:
+    d, hh, kh, dh = spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim
+    new_arch = spec.num_ln_in_parallel_attn == 2
+    p = f"transformer.h.{i}."
+    qkv = s.get(p + "self_attention.query_key_value.weight")  # [(..), d]
+    if new_arch:  # interleaved per kv group: [KH, q_per_kv + 2, Dh, d]
+        g = spec.q_per_kv
+        w = qkv.reshape(kh, g + 2, dh, d)
+        wq, wk, wv = w[:, :g].reshape(kh * g, dh, d), w[:, g], w[:, g + 1]
+    elif kh == 1:
+        wq = qkv[: hh * dh].reshape(hh, dh, d)
+        wk = qkv[hh * dh: (hh + 1) * dh].reshape(1, dh, d)
+        wv = qkv[(hh + 1) * dh:].reshape(1, dh, d)
+    else:
+        w = qkv.reshape(hh, 3, dh, d)
+        wq, wk, wv = w[:, 0], w[:, 1], w[:, 2]
+    layer = {
+        "wq": _in_heads(wq), "wk": _in_heads(wk), "wv": _in_heads(wv),
+        "wo": s.get(p + "self_attention.dense.weight").T.reshape(hh, dh, d),
+        "wu": _lin(s.get(p + "mlp.dense_h_to_4h.weight")),
+        "wd": _lin(s.get(p + "mlp.dense_4h_to_h.weight")),
+    }
+    if new_arch:
+        layer.update(ln1_scale=s.get(p + "ln_attn.weight"), ln1_bias=s.get(p + "ln_attn.bias"),
+                     ln2_scale=s.get(p + "ln_mlp.weight"), ln2_bias=s.get(p + "ln_mlp.bias"))
+    else:
+        layer.update(ln1_scale=s.get(p + "input_layernorm.weight"),
+                     ln1_bias=s.get(p + "input_layernorm.bias"))
+    return layer
+
+
+def _mpt_top(spec: ModelSpec, s: _SD) -> Params:
+    return {"embed_tokens": s.get("transformer.wte.weight"),
+            "final_norm_scale": s.get("transformer.norm_f.weight")}
+
+
+def _mpt_layer(spec: ModelSpec, s: _SD, i: int) -> Params:
+    d, hh, dh = spec.hidden_size, spec.num_heads, spec.head_dim
+    p = f"transformer.blocks.{i}."
+    qkv = s.get(p + "attn.Wqkv.weight")  # [3d, d] fused q|k|v
+    return {
+        "ln1_scale": s.get(p + "norm_1.weight"),
+        "ln2_scale": s.get(p + "norm_2.weight"),
+        "wq": _in_heads(qkv[:d].reshape(hh, dh, d)),
+        "wk": _in_heads(qkv[d: 2 * d].reshape(hh, dh, d)),
+        "wv": _in_heads(qkv[2 * d:].reshape(hh, dh, d)),
+        "wo": s.get(p + "attn.out_proj.weight").T.reshape(hh, dh, d),
+        "wu": _lin(s.get(p + "ffn.up_proj.weight")),
+        "wd": _lin(s.get(p + "ffn.down_proj.weight")),
+    }
+
+
+def _gptbigcode_top(spec: ModelSpec, s: _SD) -> Params:
+    return {"embed_tokens": s.get("transformer.wte.weight"),
+            "embed_pos": s.get("transformer.wpe.weight"),
+            "final_norm_scale": s.get("transformer.ln_f.weight"),
+            "final_norm_bias": s.get("transformer.ln_f.bias")}
+
+
+def _gptbigcode_layer(spec: ModelSpec, s: _SD, i: int) -> Params:
+    d, hh, kh, dh = spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim
+    p = f"transformer.h.{i}."
+    cattn_w = s.get(p + "attn.c_attn.weight")  # [d + 2*kh*dh, d]
+    cattn_b = s.get(p + "attn.c_attn.bias")
+    kv = d + kh * dh
+    return {
+        "ln1_scale": s.get(p + "ln_1.weight"),
+        "ln1_bias": s.get(p + "ln_1.bias"),
+        "ln2_scale": s.get(p + "ln_2.weight"),
+        "ln2_bias": s.get(p + "ln_2.bias"),
+        "wq": _in_heads(cattn_w[:d].reshape(hh, dh, d)),
+        "bq": cattn_b[:d].reshape(hh, dh),
+        "wk": _in_heads(cattn_w[d:kv].reshape(kh, dh, d)),
+        "bk": cattn_b[d:kv].reshape(kh, dh),
+        "wv": _in_heads(cattn_w[kv:].reshape(kh, dh, d)),
+        "bv": cattn_b[kv:].reshape(kh, dh),
+        "wo": s.get(p + "attn.c_proj.weight").T.reshape(hh, dh, d),
+        "bo": s.get(p + "attn.c_proj.bias"),
+        "wu": _lin(s.get(p + "mlp.c_fc.weight")),
+        "bu": s.get(p + "mlp.c_fc.bias"),
+        "wd": _lin(s.get(p + "mlp.c_proj.weight")),
+        "bd": s.get(p + "mlp.c_proj.bias"),
+    }
+
+
+_CONVERTERS = {
+    "LlamaForCausalLM": (_llama_top, _llama_layer),
+    "MixtralForCausalLM": (_llama_top, _mixtral_layer),
+    "OPTForCausalLM": (_opt_top, _opt_layer),
+    "FalconForCausalLM": (_falcon_top, _falcon_layer),
+    "MPTForCausalLM": (_mpt_top, _mpt_layer),
+    "GPTBigCodeForCausalLM": (_gptbigcode_top, _gptbigcode_layer),
+}
+
+
+def convert_hf_state_dict(spec: ModelSpec, sd: Mapping[str, Any], dtype=torch.float32,
+                          device="cpu", *, bits: Optional[int] = None,
+                          group_size: int = 128) -> Params:
+    """HuggingFace state dict -> the decoder's parameters on ``device``, for
+    every architecture the JAX package converts (LLaMA, Mixtral, OPT,
+    Falcon, MPT, GPTBigCode), one layer at a time (``build_params``); with
+    ``bits`` every matmul weight is quantized as its layer is converted."""
+    top, layer = _CONVERTERS[spec.arch]
+    s = _SD(sd)
+    return build_params(spec, top(spec, s), lambda i: layer(spec, s, i).items(), dtype=dtype,
+                        device=device, bits=bits, group_size=group_size)
 
 
 # ---------------------------------------------------------------------------

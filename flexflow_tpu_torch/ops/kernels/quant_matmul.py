@@ -7,7 +7,9 @@
 rounded in f32, no fused multiply-add). Both accumulate in f32 and give an
 output in x's dtype or f32. A stacked ``[L, ...]`` carrier is addressed by a
 layer index: the kernel offsets into the stacked buffer, so no layer is
-copied out (the GPU form of ``quant_matmul_indexed``). There is no
+copied out (the GPU form of ``quant_matmul_indexed``); a MoE expert stack
+``[L, E, ...]`` by a layer and an expert index, at the flat index
+``l * E + e``. There is no
 eligibility gate: the kernel takes every shape. Each row's result is bitwise
 independent of the row count of the call.
 
@@ -23,6 +25,7 @@ bit. One call counts one launch whatever the regime.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -188,29 +191,53 @@ def qmm_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, offset: torc
     return out
 
 
+@dataclasses.dataclass
+class LayerQuant:
+    """Layer ``layer`` of a stacked [L, ...] QuantizedArray (of a [L, E, ...]
+    expert stack, the layer's [E, ...] experts): the kernel reads it straight
+    from the stacked buffer."""
+
+    qa: QuantizedArray
+    layer: int
+
+
 def quant_matmul(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = None,
-                 out_dtype=None) -> torch.Tensor:
-    """x @ dequantize(qa) (or of layer ``layer`` of a stacked carrier).
+                 expert: Optional[int] = None, out_dtype=None) -> torch.Tensor:
+    """x @ dequantize(qa) (or of layer ``layer`` of a stacked carrier, and of
+    expert ``expert`` of that layer in a ``[L, E, D, Fp]`` expert stack).
 
     The contraction axes of ``x`` are its last ``qa.contract_dims`` axes; the
     output gets the unit's out shape. INT8 goes through ``qmm_int8``, INT4
-    through ``qmm_int4``.
+    through ``qmm_int4``. An expert stack is addressed as its ``[L*E, D, Fp]``
+    view at the flat index ``layer * E + expert`` (no copy).
     """
     cdims = qa.contract_dims
     d = qa.d_contract
-    bd = 1 if layer is not None else 0
+    bd = (layer is not None) + (expert is not None)
     if qa.q.dim() - 2 != bd:
         raise ValueError(f"carrier has {qa.q.dim() - 2} batch dims, expected {bd}")
+    q, scale, offset, index = qa.q, qa.scale, qa.offset, layer
+    if expert is not None:
+        if layer is None:
+            raise ValueError("an expert index needs a layer index")
+        n_exp = q.shape[1]
+        if not 0 <= expert < n_exp:
+            raise IndexError(f"expert {expert} outside [0, {n_exp})")
+
+        def flat(t):  # a view: a copy of a [L, E, ...] stack would be gigabytes
+            return None if t is None else t.view(-1, *t.shape[2:])
+
+        q, scale, offset, index = flat(q), flat(scale), flat(offset), layer * n_exp + expert
     unit = qa.shape[qa.batch_dims:]
     out_shape = unit[cdims:]
     lead = x.shape[: x.dim() - cdims]
     xb = x.reshape(math.prod(lead), d).contiguous()
-    kw = dict(group_size=qa.group_size, n_out=qa.d_rest, layer=layer,
+    kw = dict(group_size=qa.group_size, n_out=qa.d_rest, layer=index,
               out_dtype=out_dtype or x.dtype)
     if qa.bits == 8:
-        out = qmm_int8(xb, qa.q, qa.scale, **kw)
+        out = qmm_int8(xb, q, scale, **kw)
     elif qa.bits == 4:
-        out = qmm_int4(xb, qa.q, qa.scale, qa.offset, **kw)
+        out = qmm_int4(xb, q, scale, offset, **kw)
     else:
         raise ValueError(f"no quant-matmul for {qa.bits}-bit carriers")
     return out.reshape(*lead, *out_shape)

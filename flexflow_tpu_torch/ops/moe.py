@@ -1,0 +1,92 @@
+"""Mixture-of-experts FFN (port of ``flexflow_tpu/ops/moe.py`` and of the
+dense branch of ``_moe_mlp`` in ``flexflow_tpu/models/decoder.py``).
+
+Routing is softmax in f32, top-k, renormalize (HF Mixtral's gate). Two forms
+compute the SwiGLU experts, with the same results:
+
+- ``moe_ffn_dense``: every expert on every token, combined by the routing
+  weights (zero for unrouted experts). Static shapes and no host read, so a
+  decode step that runs it can be captured in a CUDA graph. E / top_k times
+  the routed FLOPs.
+- ``moe_ffn_ragged``: a stable sort by expert, one group of rows per expert,
+  a weighted scatter-add back (JAX's ``lax.ragged_dot`` dispatch). The
+  group sizes are read on the host, one read per call.
+
+Both loop over the experts and call the quant-matmul with an expert index on
+quantized stacks, so no ``[N, E, F]`` tensor is ever built. Each combines in
+float32 and rounds to the activation dtype once. Every routed row gets the
+same bits in both forms: the quant-matmul's rows do not depend on how many
+rows a call carries, and a token's top-2 contributions are added in expert
+order onto zero either way.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from flexflow_tpu_torch.ops import activations as act_lib
+from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
+from flexflow_tpu_torch.quant.weight_only import QuantizedArray
+
+Experts = Union[torch.Tensor, QuantizedArray, LayerQuant]
+
+
+def route_topk(router_logits: torch.Tensor, top_k: int):
+    """Softmax -> top-k -> renormalize. Returns (weights [N, K] f32,
+    expert ids [N, K], highest weight first)."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    topw, topi = torch.topk(probs, top_k, dim=-1, sorted=True)
+    return topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def expert_matmul(x: torch.Tensor, w: Experts, e: int) -> torch.Tensor:
+    """x [N, D] @ expert ``e`` of ``w``: a plain [E, D, F] tensor, an
+    [E, D, F] QuantizedArray, or a layer of a [L, E, D, F] quantized stack."""
+    if isinstance(w, LayerQuant):
+        return quant_matmul(x, w.qa, layer=w.layer, expert=e)
+    if isinstance(w, QuantizedArray):
+        return quant_matmul(x, w, layer=e)
+    return torch.matmul(x, w[e])
+
+
+def _swiglu_expert(x, wg, wu, wd, e: int) -> torch.Tensor:
+    inner = act_lib.sigmoid_silu_multi(expert_matmul(x, wg, e), expert_matmul(x, wu, e))
+    return expert_matmul(inner, wd, e)
+
+
+def moe_ffn_dense(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu: Experts,
+                  wd: Experts, top_k: int) -> torch.Tensor:
+    """x [N, D], router logits [N, E] -> [N, D]: every expert on every row,
+    weighted by the routing (zero where a row is not routed)."""
+    topw, topi = route_topk(router_logits, top_k)
+    combine = torch.zeros(router_logits.shape, dtype=torch.float32,
+                          device=x.device).scatter_(-1, topi, topw)  # [N, E]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(router_logits.shape[-1]):
+        out += _swiglu_expert(x, wg, wu, wd, e).float() * combine[:, e:e + 1]
+    return out.to(x.dtype)
+
+
+def moe_ffn_ragged(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu: Experts,
+                   wd: Experts, top_k: int) -> torch.Tensor:
+    """x [N, D], router logits [N, E] -> [N, D]: each expert on the rows
+    routed to it (sort-based dispatch), weighted scatter-add back."""
+    n_exp = router_logits.shape[-1]
+    topw, topi = route_topk(router_logits, top_k)
+    flat_expert = topi.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    token_idx = order // top_k
+    x_sorted = x[token_idx]
+    w_sorted = topw.reshape(-1)[order]
+    sizes = torch.bincount(flat_expert, minlength=n_exp).tolist()  # the host read
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    start = 0
+    for e, size in enumerate(sizes):
+        if size:
+            rows = slice(start, start + size)
+            y = _swiglu_expert(x_sorted[rows], wg, wu, wd, e)
+            out.index_add_(0, token_idx[rows], y.float() * w_sorted[rows, None])
+        start += size
+    return out.to(x.dtype)

@@ -208,14 +208,28 @@ def as_array(w) -> torch.Tensor:
     return w
 
 
-_QUANT_2D = {"wg", "wu", "wd"}  # per-layer [L, D, F]
+_QUANT_2D = {"wg", "wu", "wd"}  # per-layer [L, D, F], or [L, E, D, F] experts
 _QUANT_HEADS = {"wq", "wk", "wv"}  # per-layer [L, D, H, Dh] (contract D)
+
+
+def layer_quant_layout(name: str, ndim: int) -> Optional[Tuple[int, int]]:
+    """(batch_dims, contract_dims) with which ``quantize_params`` quantizes
+    the stacked layer leaf ``name`` of ``ndim`` dims, or None if it stays
+    full precision."""
+    if name in _QUANT_HEADS:
+        return 1, 1
+    if name == "wo":
+        return 1, 2
+    if name in _QUANT_2D:
+        return ndim - 2, 1
+    return None
 
 
 def quantize_params(spec, params, bits: int = 8, group_size: int = 128,
                     compute_dtype=torch.bfloat16):
     """Quantize every matmul weight of a decoder params dict: the lm_head and
-    the per-layer projections (norms and embeddings stay full precision)."""
+    the per-layer projections (norms, embeddings and a MoE router stay full
+    precision)."""
     del spec
     out = dict(params)
     if "lm_head" in params:
@@ -223,14 +237,9 @@ def quantize_params(spec, params, bits: int = 8, group_size: int = 128,
                                   compute_dtype=compute_dtype)
     layers = dict(params["layers"])
     for name, leaf in params["layers"].items():
-        if name in _QUANT_HEADS:
-            layers[name] = quantize(leaf, bits, group_size, batch_dims=1,
-                                    contract_dims=1, compute_dtype=compute_dtype)
-        elif name == "wo":
-            layers[name] = quantize(leaf, bits, group_size, batch_dims=1,
-                                    contract_dims=2, compute_dtype=compute_dtype)
-        elif name in _QUANT_2D:
-            layers[name] = quantize(leaf, bits, group_size, batch_dims=leaf.ndim - 2,
-                                    contract_dims=1, compute_dtype=compute_dtype)
+        layout = layer_quant_layout(name, leaf.ndim)
+        if layout is not None:
+            layers[name] = quantize(leaf, bits, group_size, batch_dims=layout[0],
+                                    contract_dims=layout[1], compute_dtype=compute_dtype)
     out["layers"] = layers
     return out

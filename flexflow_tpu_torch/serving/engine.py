@@ -23,6 +23,11 @@ included, is n replays of it, each replay's tokens copied out into a fresh
 ``[n, B]`` tensor. On the CPU the same body runs n times uncaptured. A
 horizon with a sampled slot (temperature > 0) is not captured: it runs its
 steps eagerly (``ops/sampling.sample`` reads the temperatures on the host).
+Nor is any horizon of a model whose MoE FFN is the ``ragged`` form: its
+expert group sizes are read on the host every layer, so such an engine
+captures nothing and runs every horizon eagerly on the card. The ``dense``
+MoE form (``from_hf_config``'s) has static shapes and is captured like a
+dense FFN.
 
 Host values (lengths, slots) travel to the device through pinned,
 non-blocking copies, and sampled tokens stay on the device until ``fetch``,
@@ -92,8 +97,9 @@ class InferenceEngine:
         # the greedy step's static buffers and, on the card, its graph
         self._lens = torch.zeros(max_requests_per_batch, dtype=torch.int32, device=self.device)
         self._tokens = torch.zeros_like(self._lens)
+        ragged_moe = spec.moe is not None and spec.moe.impl == "ragged"
         self.graphs = (StepGraphs(self.device)
-                       if self.device.type == "cuda" else None)
+                       if self.device.type == "cuda" and not ragged_moe else None)
 
     # ------------------------------------------------------------------
 
@@ -238,12 +244,12 @@ class InferenceEngine:
 
         Step i writes its K/V at ``cache_lens + i`` and attends the
         positions below that. Greedy horizons replay the captured step on
-        the card; a horizon with a sampled slot runs eagerly."""
+        the card; a horizon with a sampled slot, or of an engine that
+        captures nothing (CPU, ragged MoE), runs eagerly."""
         self._no_lora(adapter_ids)
         lens = np.asarray(cache_lens, np.int32)
         if self._greedy_only(scfg):
-            return self.greedy_horizon_async(lens, tokens, n,
-                                             replay=self.device.type == "cuda")
+            return self.greedy_horizon_async(lens, tokens, n, replay=self.graphs is not None)
         lens_d, toks = to_device(lens, self.device), self._tokens_in(tokens)
         out = torch.empty((n, lens.shape[0]), dtype=torch.int32, device=self.device)
         scfg_d = self._scfg(scfg)
@@ -279,7 +285,8 @@ class InferenceEngine:
         if lens.shape != (self.max_requests,):
             raise ValueError(f"cache_lens must be [{self.max_requests}], got {lens.shape}")
         if replay and self.graphs is None:
-            raise ValueError("replaying a captured step needs an engine on a CUDA device")
+            raise ValueError("replaying a captured step needs an engine on a CUDA device "
+                             "whose step has static shapes (not a ragged MoE)")
         out = torch.empty((n, self.max_requests), dtype=torch.int32, device=self.device)
         with torch.no_grad():
             if replay and not self.graphs.graphs:

@@ -212,6 +212,9 @@ class SpecEngine:
     ):
         if llm_spec.vocab_size != ssm_spec.vocab_size:
             raise ValueError("the verifier and the draft need one vocabulary")
+        if llm_spec.moe is not None or ssm_spec.moe is not None:
+            raise NotImplementedError(
+                "a MoE verifier or draft under SpecEngine is not in the port yet (ROADMAP.md)")
         t = tree_size(beam_width, beam_depth)
         if t > MAX_SPEC_TREE_TOKEN_NUM:
             raise ValueError(f"tree {t} exceeds the cap {MAX_SPEC_TREE_TOKEN_NUM}")

@@ -101,12 +101,13 @@ def load_params(
     device="cpu",
 ):
     """Load a local HF model dir into the decoder params on ``device``, with
-    optional weight-only quantize-on-load (4 or 8 bits)."""
+    optional weight-only quantize-on-load (4 or 8 bits). Layers are read,
+    converted and (with ``quantize_bits``) quantized one at a time, so a
+    quantized load never holds the full-precision tree on the device; the
+    carriers are byte for byte those of ``quantize_params`` on the whole
+    converted tree."""
     spec = spec or load_spec(model_dir)
-    params = params_lib.convert_hf_state_dict(spec, LazyStateDict(model_dir), dtype, device)
-    if quantize_bits:
-        from flexflow_tpu_torch.quant import quantize_params
-
-        params = quantize_params(spec, params, bits=quantize_bits,
-                                 group_size=quantize_group_size, compute_dtype=dtype)
+    params = params_lib.convert_hf_state_dict(
+        spec, LazyStateDict(model_dir), dtype, device, bits=quantize_bits,
+        group_size=quantize_group_size)
     return spec, params

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU,
+and the serving paths that run them (LLaMA and Mixtral).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (a kernel has no CPU mode). On a GPU machine without JAX, run them without
@@ -20,13 +21,13 @@ from flexflow_tpu_torch.ops.kernels import flash_prefill as t_fp
 from flexflow_tpu_torch.ops.kernels import qmm_variants as t_qv
 from flexflow_tpu_torch.ops.kernels import quant_matmul as t_qm
 from flexflow_tpu_torch.quant import quantize_params
-from flexflow_tpu_torch.quant.weight_only import quantize
+from flexflow_tpu_torch.quant.weight_only import QuantizedArray, quantize
 from flexflow_tpu_torch.serving import graphs
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
 from flexflow_tpu_torch.serving.speculative import SpecEngine
-from flexflow_tpu_torch.specs import ModelSpec
+from flexflow_tpu_torch.specs import ModelSpec, MoESpec
 
 pytestmark = pytest.mark.cuda
 
@@ -704,3 +705,94 @@ def test_engines_with_graphs_free_their_memory_without_gc(cuda):
         assert torch.cuda.memory_allocated() <= held - sum(caches)
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# Mixtral (MoE): the expert-indexed quant-matmul and the captured MoE step
+# ---------------------------------------------------------------------------
+
+_TINY_MOE = dict(_TINY, arch="MixtralForCausalLM", moe=MoESpec(num_experts=4, top_k=2))
+
+
+def test_qmm_int8_expert_index_matches_plain(cuda):
+    """quant_matmul(layer=l, expert=e) on an [L, E, D, F] INT8 stack, in the
+    decode, verify and two-pass regimes: within 1% of the output's magnitude
+    of the plain version on the same slab, and bitwise equal to the kernel
+    on that expert's slab copied out as a carrier of its own (so the flat
+    offset l * E + e lands on the right bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    d, f = 512, 384
+    stack = quantize(torch.randn((2, 3, d, f), generator=gen, device=cuda) * 0.05, 8, 128,
+                     batch_dims=2)
+    for m in (8, 40, _T + 8):
+        x = torch.randn((m, d), generator=gen, device=cuda).to(_BF16)
+        for layer, e in ((0, 0), (1, 2), (0, 2), (1, 0)):
+            got = t_qm.quant_matmul(x, stack, layer=layer, expert=e)
+            want = t_qm.qmm_int8_plain(x, stack.q[layer, e], stack.scale[layer, e], 128, f, _BF16)
+            assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+            own = QuantizedArray(stack.q[layer, e].clone(), stack.scale[layer, e].clone(), None,
+                                 8, 128, (d, f), 0, 1, _BF16, stack.rest_pad)
+            assert torch.equal(got, t_qm.quant_matmul(x, own))
+
+
+def _moe_engine(cuda, impl="dense"):
+    spec = ModelSpec(**{**_TINY_MOE, "moe": MoESpec(num_experts=4, top_k=2, impl=impl)})
+    return InferenceEngine(spec, _tiny_params(spec, 0, _BF16, 8, cuda), max_requests_per_batch=4,
+                           max_seq_len=160, cache_dtype=_BF16, device=cuda)
+
+
+def test_captured_mixtral_decode_horizon_equals_uncaptured(cuda):
+    """Replays of the captured greedy step of a dense-MoE model (bf16, INT8
+    group 32) give the uncaptured body's tokens and cache bitwise; replays
+    count the eager launches: per step 2 + 3 x 4 qmm_int8 calls a layer plus
+    the lm_head, one decode_attention call a layer."""
+    eng = _moe_engine(cuda)
+    _fill_cache(eng.cache, 1)
+    lens, toks = [60, 63, 130, 5], [3, 17, 101, 250]
+    for n in (1, 16):
+        saved = tuple(c.clone() for c in eng.cache)
+        want = eng.greedy_horizon_async(lens, toks, n, replay=False)
+        want_cache = tuple(c.clone() for c in eng.cache)
+        _restore(eng.cache, saved)
+        got = eng.greedy_horizon_async(lens, toks, n, replay=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert all(torch.equal(c, w) for c, w in zip(eng.cache, want_cache))
+    before = graphs.launch_counts()
+    eng.greedy_horizon_async(lens, toks, 3, replay=True)
+    grown = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+    assert grown == (3 * (2 * (2 + 3 * 4) + 1), 0, 3 * 2, 0)
+
+
+def test_mixtral_step_body_reads_nothing_on_the_host(cuda):
+    """The dense MoE step under sync debug mode "error": no host read."""
+    eng = _moe_engine(cuda)
+    eng._load(np.array([60, 63, 130, 5], np.int32), [3, 17, 101, 250])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            eng._greedy_body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_ragged_mixtral_serves_eagerly_with_the_dense_tokens(cuda):
+    """A ragged-MoE engine captures nothing and serves every horizon
+    eagerly; its greedy tokens (bf16, INT8) equal the dense form's, whose
+    horizons are replays."""
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 40)), [7] * 12]
+    outs = {}
+    for impl in ("dense", "ragged"):
+        eng = _moe_engine(cuda, impl)
+        rm = RequestManager(eng, decode_horizon=4, pipelined=True)
+        try:
+            outs[impl] = [r.output_tokens
+                          for r in rm.generate(prompts, GenerationConfig(max_new_tokens=12))]
+        finally:
+            rm.close()
+        assert (eng.graphs is None) == (impl == "ragged")
+        if impl == "dense":
+            assert eng.graphs.replays > 0
+    assert outs["ragged"] == outs["dense"]

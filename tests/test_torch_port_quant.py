@@ -42,6 +42,7 @@ CASES = [  # shape, batch_dims, contract_dims, group_size
     ((1024, 600), 0, 1, 128),  # rest_pad: d >= 1024, F >= 512 -> pad to 1024
     ((2, 1024, 520), 1, 1, 128),
     ((48, 40), 0, 1, 128),  # group size shrinks to divide d (or d/2)
+    ((2, 3, 128, 96), 2, 1, 32),  # MoE experts [L, E, D, F]
 ]
 
 
