@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only card,build,spec
     python3 chip_smoke.py --only card,build,variants
     python3 chip_smoke.py --only card,build,mixtral
+    python3 chip_smoke.py --only card,build,lora
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -97,13 +98,35 @@ Phases, in order; any failure exits non-zero:
               position must agree by the cross-check's rule. Prints the
               init time, decode tok/s, mean TTFT, peak memory, graphs and
               replays.
-9. profile  — (only with ``--profile``) one 16-step decode horizon (replayed,
+9. lora     — multi-adapter LoRA serving: first a 2-layer LLaMA-2-7B-width
+              INT8 model with 4 adapters, a prefill of 4 requests routed
+              [0, 3, -1, 1] and 8 teacher-forced decode steps through the
+              kernels on the GPU against the plain versions on the CPU
+              (logits within 5% of their magnitude, greedy tokens equal where
+              decided); on every adapter row the LoRA logits differ from the
+              GPU's no-LoRA logits by more than 10x that error, and the -1
+              row's equal them bitwise. Then LLaMA-2-7B INT8 (32 layers,
+              random weights from seed 0) serves the serve phase's 8 requests
+              without adapters, and again with 4 adapters at rank 16, alpha
+              32 on q, k, v, o, gate, up and down (HF PEFT's "all-linear"),
+              bf16, A and B from seed 0, the requests routed [0, 1, 2, 3, 0,
+              1, -1, -1], over the same weight tensors: every request
+              finishes, every greedy step is a replay, qmm_int8,
+              decode_attention and flash_prefill launch, the -1 requests'
+              tokens equal the no-adapter run's, and one replayed 16-step
+              horizon equals the uncaptured body bitwise. Prints both runs'
+              decode tok/s, mean TTFT and peak memory, and the adapters'
+              bytes and build time.
+10. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
-              (replayed, then uncaptured), and the mixtral phase's decode
-              horizon and prefill, under ``torch.profiler``: host dispatch
-              time, wall time, device busy share and the device time of the
-              top 12 kernels and of every kernel of the port below them.
+              (replayed, then uncaptured), the mixtral phase's decode
+              horizon and prefill, and the lora phase's decode horizon with
+              and without adapters (replayed), under ``torch.profiler``: host
+              dispatch time, wall time, device busy share and the device
+              time of the top 12 kernels and of every kernel of the port
+              below them; for LoRA also the adapters' device time (the busy
+              time the adapters add) and the kernels that grew most.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -126,7 +149,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "spec", "mixtral",
-          "profile")
+          "lora", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -145,6 +168,12 @@ MIXTRAL_8X7B = {
     "sliding_window": None, "tie_word_embeddings": False, "bos_token_id": 1,
     "eos_token_id": None,
 }
+
+
+# the lora phase's adapters: HF PEFT's target_modules="all-linear" for a LLaMA
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+LORA_IDS = [0, 1, 2, 3, 0, 1, -1, -1]  # the served requests' adapters (-1: none)
+LORA_B_STD = 0.02  # B's draw: a delta about a sixth of a projection's output
 
 
 class PhaseError(RuntimeError):
@@ -999,10 +1028,11 @@ def crosscheck_phase(bits: int) -> dict:
     return out
 
 
-def _trace(runs) -> dict:
+def _trace(runs, keep_all: bool = False) -> dict:
     """Each (name, fn, steps) run once to warm up, once timed on the host
     (dispatch, then wall after a sync) and once under ``torch.profiler``:
-    device busy share and the device time of the top kernels."""
+    device busy share and the device time of the top kernels (of every
+    kernel, under ``kernels_ms``, with ``keep_all``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1030,6 +1060,8 @@ def _trace(runs) -> dict:
                          per_step_ms=t_wall * 1e3 / steps, device_busy_ms=busy_ms,
                          device_busy_share=busy_ms / (t_wall * 1e3),
                          top_kernels_ms={k: v / 1e3 for k, v in top})
+        if keep_all:
+            out[name]["kernels_ms"] = {k: v / 1e3 for k, v in dev_us.items()}
         log(f"  {name}: host dispatch {t_host * 1e3:.2f} ms, wall {t_wall * 1e3:.2f} ms "
             f"({t_wall * 1e3 / steps:.3f} ms/step), device busy {busy_ms:.2f} ms "
             f"({100 * busy_ms / (t_wall * 1e3):.1f}%)")
@@ -1094,11 +1126,12 @@ def _prompts(vocab_size: int):
     return [rng.integers(3, vocab_size, n).tolist() for n in PROMPT_LENS]
 
 
-def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
+def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, adapters=None):
     """Warm up on one short request (through ``warm``, a scheduler on the
     same engine, or ``rm``), set the launch counts to 0, serve ``prompts``
-    and read the counts. Every request must finish with ``max_new`` tokens
-    from the vocabulary. Returns (requests, stats)."""
+    (request i through LoRA adapter ``adapters[i]``; default none) and read
+    the counts. Every request must finish with ``max_new`` tokens from the
+    vocabulary. Returns (requests, stats)."""
     import numpy as np
     import torch
 
@@ -1112,7 +1145,10 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None):
     replays0 = graphs.replays
     steps0 = rm.total_decoding_steps
     t_start = time.monotonic()
-    reqs = rm.generate(prompts, GenerationConfig(max_new_tokens=max_new))
+    guids = [rm.register_request(p, GenerationConfig(max_new_tokens=max_new, adapter_id=a))
+             for p, a in zip(prompts, adapters or [-1] * len(prompts))]
+    rm.run_until_idle()
+    reqs = [rm.get_request(g) for g in guids]
     torch.cuda.synchronize()
     t_end = time.monotonic()
     launches = _launches()
@@ -1612,6 +1648,223 @@ def mixtral_phase(card: str, with_profile: bool) -> dict:
     return out
 
 
+def _lora_adapters(spec, n: int, device, seed: int):
+    """``n`` LoRA adapters at rank 16, alpha 32 on the seven projections,
+    bf16, A and B both drawn from one seeded generator (B non-zero, so
+    every adapter acts). Returns (stacks, config)."""
+    import torch
+
+    from flexflow_tpu_torch.peft.lora import LoraConfig, init_lora_params
+
+    cfg = LoraConfig(rank=16, alpha=32.0, target_modules=LORA_TARGETS)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lora = init_lora_params(spec, cfg, n, gen, torch.bfloat16, device)
+    for ab in lora.values():
+        ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device=device) * LORA_B_STD)
+    return lora, cfg
+
+
+def crosscheck_lora(steps: int = 8) -> dict:
+    """2 layers at full 7B width, INT8, 4 adapters (seeds 1 and 2): a
+    prefill of 4 requests routed [0, 3, -1, 1] and ``steps`` decode steps,
+    teacher-forced by the GPU's LoRA tokens, through the kernels on the GPU
+    with and without the adapters and through the plain versions on the CPU
+    with them."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
+    from flexflow_tpu_torch.serving.engine import _params_to
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    t0 = time.perf_counter()
+    dev, host = torch.device("cuda"), torch.device("cpu")
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": 2})
+    gpu = decoder.fuse_qkv_params(spec, _quant_params(spec, 1, dev))
+    cpu = _params_to(gpu, host)
+    lora, cfg = _lora_adapters(spec, 4, dev, 2)
+    ids = [0, 3, -1, 1]
+    scale = lora_scaling(cfg)
+    sides = {"gpu": (dev, gpu, route_lora(lora)),
+             "cpu": (host, cpu, route_lora(_params_to(lora, host))),
+             "base": (dev, gpu, None)}
+    rng = np.random.default_rng(4)
+    lens = np.array([20, 13, 27, 9], np.int32)
+    nb, t, s_max = len(lens), 32, 64
+    toks = np.zeros((nb, t), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(3, spec.vocab_size, n)
+
+    def routing(name):
+        d, _, routed = sides[name]
+        return {} if routed is None else dict(
+            lora=routed, adapter_ids=torch.tensor(ids, device=d), lora_scale=scale)
+
+    caches, logits = {}, {}
+    for name, (d, params, _) in sides.items():
+        cache = decoder.init_kv_cache(spec, nb, s_max, torch.bfloat16, d)
+        ln = torch.as_tensor(lens, device=d)
+        with torch.no_grad():
+            lg, (k, v) = decoder.forward(
+                spec, params, torch.as_tensor(toks, device=d),
+                torch.arange(t, dtype=torch.int32, device=d)[None].expand(nb, t), lengths=ln,
+                flash=True, return_kv=True, logits_at=ln - 1, **routing(name))
+        decoder.commit_kv_windows(cache.k, cache.v, k.permute(0, 1, 3, 2, 4),
+                                  v.permute(0, 1, 3, 2, 4), [0] * nb)
+        caches[name], logits[name] = cache, [lg.float().cpu()]
+    cur = logits["gpu"][0].argmax(-1)
+    for i in range(steps):
+        for name, (d, params, _) in sides.items():
+            with torch.no_grad():
+                lg, _ = decoder.forward_cached(
+                    spec, params, cur[:, None].to(d), caches[name],
+                    torch.as_tensor(lens + i, device=d), write_start=lens + i, **routing(name))
+            logits[name].append(lg[:, 0].float().cpu())
+        cur = logits["gpu"][-1].argmax(-1)
+    g, c, b = (torch.stack(logits[n]) for n in ("gpu", "cpu", "base"))  # [steps + 1, B, V]
+    require(g.shape == (steps + 1, nb, spec.vocab_size), f"logits shaped {tuple(g.shape)}")
+    out = logits_rule(g, c, slice(None), "lora cross-check")
+    acts = [(g[:, r] - b[:, r]).abs().max().item() for r in range(nb)]
+    for r, a in enumerate(ids):
+        if a >= 0:
+            require(acts[r] > 10 * out["max_abs_err"],
+                    f"lora cross-check: adapter {a}'s row moves the logits by {acts[r]:.4g}, not "
+                    f"above 10 x the GPU-CPU error {out['max_abs_err']:.4g}")
+        else:
+            require(torch.equal(g[:, r], b[:, r]),
+                    "lora cross-check: the -1 row's logits differ from the no-LoRA forward's")
+    out.update(adapter_ids=ids, lora_minus_base=acts, seconds=time.perf_counter() - t0)
+    log(f"  cross-check LoRA (2 layers, 4 adapters, rows {ids}, {steps} steps): logits max|err| "
+        f"{out['max_abs_err']:.4g} (tol {out['tol']:.4g}); greedy tokens equal "
+        f"{out['tokens_equal']}/{out['tokens']} ({out['decided']} beyond the error margin); "
+        f"max|LoRA - base| per row {[f'{a:.4g}' for a in acts]} (the -1 row bitwise equal); "
+        f"{out['seconds']:.1f} s")
+    del gpu, cpu, caches, sides, lora
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_trace(engine, prompts, adapters) -> dict:
+    """One replayed 16-step decode horizon and one batched prefill of
+    ``prompts`` on ``engine``, the 8 rows routed to ``adapters`` (None: no
+    adapter), traced (``_trace``) with every kernel's device time kept
+    under ``kernels_ms``; keyed by "decode_horizon_16" and "prefill_8x1024"."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.sampling import SamplingConfig
+
+    b = engine.max_requests
+    greedy = SamplingConfig(np.zeros(b, np.float32), np.ones(b, np.float32),
+                            np.zeros(b, np.int32))
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros(b, np.int32)
+    tag = "lora" if adapters else "base"
+    runs = _trace([
+        (f"{tag} decode_horizon_16",
+         lambda: engine.decode_horizon_async(lens, toks, 0, greedy, 16, adapter_ids=adapters), 16),
+        (f"{tag} prefill_8x1024",
+         lambda: engine.prefill_batch_to_slots_async(prompts, list(range(b)), 0, greedy,
+                                                     adapter_ids=adapters), 1),
+    ], keep_all=True)
+    return {k.split(" ")[1]: v for k, v in runs.items()}
+
+
+def lora_phase(card: str, with_profile: bool) -> dict:
+    """LoRA serving at full LLaMA-2-7B width, INT8: the cross-check, the
+    no-adapter run, the adapter run over the same weight tensors, the -1
+    requests against the no-adapter run, one replayed horizon against the
+    uncaptured body."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    out = {"crosscheck": crosscheck_lora()}
+    dev = torch.device("cuda")
+    spec = ModelSpec(**LLAMA2_7B)
+    kw = dict(max_requests_per_batch=8, max_seq_len=1024, max_tokens_per_batch=0,
+              cache_dtype=torch.bfloat16, device=dev)
+    base = InferenceEngine(spec, _quant_params(spec, 0, dev), **kw)
+    rm = RequestManager(base, decode_horizon=16, pipelined=True)
+    prompts = _prompts(spec.vocab_size)
+    try:
+        base_reqs, out["base"] = _served(rm, prompts, 64, spec.vocab_size, "lora base")
+        if with_profile:
+            log("[profile] one decode horizon and one batched prefill without adapters")
+            out["base"]["profile"] = lora_trace(base, prompts, None)
+    finally:
+        rm.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lora, cfg = _lora_adapters(spec, 4, dev, 0)
+    torch.cuda.synchronize()
+    out["adapters_build_s"] = time.perf_counter() - t0
+    out["adapters_bytes"] = sum(x.numel() * x.element_size() for ab in lora.values()
+                                for x in ab.values())
+    # the base engine's fused weight tensors, shared: fusing them again is a no-op
+    engine = InferenceEngine(spec, base.params, lora=lora, lora_config=cfg, **kw)
+    out["routed_bytes"] = sum(x.numel() * x.element_size()
+                              for part in (engine.lora.a, engine.lora.b) for x in part.values())
+    del lora, base, rm
+    torch.cuda.empty_cache()
+    log(f"  adapters: 4 x rank 16 on {len(LORA_TARGETS)} projections x {spec.num_layers} layers, "
+        f"{out['adapters_bytes'] / 2**20:.1f} MiB in bf16, built in "
+        f"{out['adapters_build_s']:.3f} s; the engine's routing layout (float32) "
+        f"{out['routed_bytes'] / 2**20:.1f} MiB [{card}]")
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, served = _served(rm, prompts, 64, spec.vocab_size, "lora", adapters=LORA_IDS)
+        out.update(served)
+        for i, a in enumerate(LORA_IDS):
+            if a < 0:
+                require(reqs[i].output_tokens == base_reqs[i].output_tokens,
+                        f"lora: request {i} (no adapter) differs from the no-adapter run's tokens")
+        out["adapter_requests_changed"] = sum(
+            reqs[i].output_tokens != base_reqs[i].output_tokens
+            for i, a in enumerate(LORA_IDS) if a >= 0)
+        require(out["adapter_requests_changed"] > 0,
+                "lora: every adapter request gave the no-adapter run's tokens")
+        lens = np.array([len(p) for p in prompts], np.int32)
+        toks = np.array([(r.output_tokens[0] + 1) % spec.vocab_size for r in reqs], np.int32)
+        _replay_check("lora decode horizon (16 steps, 8 slots)",
+                      lambda replay: [engine.greedy_horizon_async(lens, toks, 16, replay=replay,
+                                                                  adapter_ids=LORA_IDS)],
+                      list(engine.cache))
+        if with_profile:
+            log("[profile] one decode horizon and one batched prefill with the adapters")
+            out["profile"] = prof = lora_trace(engine, prompts, LORA_IDS)
+            for what, run in prof.items():
+                base_run = out["base"]["profile"][what]
+                grown = {k: v - base_run["kernels_ms"].get(k, 0.0)
+                         for k, v in run.pop("kernels_ms").items()}
+                base_run.pop("kernels_ms")
+                lora_ms = run["device_busy_ms"] - base_run["device_busy_ms"]
+                run.update(lora_device_ms=lora_ms,
+                           lora_device_share=lora_ms / run["device_busy_ms"],
+                           grown_kernels_ms=dict(sorted(grown.items(), key=lambda kv: -kv[1])[:8]))
+                log(f"  the adapters' device time in the {what}: {lora_ms:.2f} ms of "
+                    f"{run['device_busy_ms']:.2f} ms busy ({100 * run['lora_device_share']:.1f}%) "
+                    f"[{card}]; the kernels that grew most:")
+                for k, v in run["grown_kernels_ms"].items():
+                    log(f"    {v:9.3f} ms  {k[:100]}")
+    finally:
+        rm.close()
+    for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+        require(out["launches"][k] > 0, f"{k} was never launched while serving with adapters")
+    out["card"] = card
+    _log_served("lora base (no adapters)", out["base"], card)
+    _log_served("lora (4 adapters)", out, card)
+    log(f"  lora: requests without an adapter equal the no-adapter run's tokens; "
+        f"{out['adapter_requests_changed']} of 6 adapter requests changed tokens; LoRA / base "
+        f"decode tok/s {out['decode_tok_s'] / out['base']['decode_tok_s']:.3f} [{card}]")
+    del engine, rm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -1709,12 +1962,18 @@ def main(argv=None) -> int:
             "decode_horizon=16, pipelined; the 2-layer cross-check first")
         summary["mixtral"] = mixtral_phase(card, "profile" in phases)
         lap("mixtral")
+    if "lora" in phases:
+        log("[lora] LLaMA-2-7B INT8 with 4 LoRA adapters (rank 16, all seven projections), "
+            "8 requests routed " + str(LORA_IDS) + ", decode_horizon=16, pipelined; the "
+            "2-layer cross-check first")
+        summary["lora"] = lora_phase(card, "profile" in phases)
+        lap("lora")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels, the tuning run for the variants
     launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0)
                        for p in (("variants",) if k in VARIANTS
-                                 else ("serve", "spec", "mixtral")))
+                                 else ("serve", "spec", "mixtral", "lora")))
                 for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],

@@ -29,6 +29,15 @@ Two modes, as in JAX:
   that layer's attention (JAX returns an updated cache instead; each layer
   reads only its own cache, so the results agree).
 
+LoRA (JAX ``_apply_lora``): with ``lora`` (the routing layout of
+``peft/lora.route_lora``) and ``adapter_ids`` [B] (-1: no adapter) on the
+device, each targeted projection gets its row's adapter delta, computed in
+float32 and cast once to the projection's dtype, after the fused carriers
+are split (wq, wk, wv from ``wqkv``; wg, wu from ``wgu``) and on wo and wd.
+A MoE FFN gets none, as in JAX. A row routed to -1 keeps the projection's
+output bit for bit. The routing reads nothing on the host, so a CUDA graph
+captures it.
+
 KV cache layout: ``[L, B, KH, S, D]`` — one contiguous D-row per position
 for coalesced reads on the GPU (JAX keeps ``[L, B, KH, D, S]`` for the TPU's
 (8, 128) tiling). Public shapes stay as in JAX: logits ``[B, T, V]`` f32 and
@@ -53,6 +62,7 @@ from flexflow_tpu_torch.ops.kernels.decode_attention import (
 )
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
+from flexflow_tpu_torch.peft.lora import RoutedLora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -115,14 +125,35 @@ def _linear(x, w, b=None):
     return out.to(x.dtype)
 
 
+def _apply_lora(p: Params, mod: str, x, out):
+    """``out`` plus module ``mod``'s routed LoRA delta: ``x @ a`` over every
+    adapter, weighted by the scale on each row's own adapter and by 0 on
+    the others, ``@ b``, in float32, cast once to ``out``'s dtype. Rows
+    routed to -1 keep ``out`` bit for bit. ``p["_lora"]`` holds the layer's
+    (a [D_in, N*r], b [N*r, D_out]) per module (keyed by module name: fused
+    carriers hold no wq...wu)."""
+    lora = p.get("_lora")
+    if lora is None or mod not in lora:
+        return out
+    a, b = lora[mod]
+    bsz = out.shape[0]
+    xa = torch.matmul(x.reshape(bsz, -1, a.shape[0]).float(), a) * p["_lora_weight"]
+    delta = torch.matmul(xa, b).reshape(out.shape).to(out.dtype)
+    keep = p["_lora_keep"].reshape((bsz,) + (1,) * (out.dim() - 1))
+    return torch.where(keep, out + delta, out)
+
+
 def _qkv(spec: ModelSpec, p: Params, h):
     """h [B,T,D] -> q [B,T,H,Dh], k/v [B,T,KH,Dh]."""
     if "wqkv" in p:
         out = _linear(h, p["wqkv"], p.get("bqkv"))
         hh, kh = spec.num_heads, spec.num_kv_heads
-        return torch.split(out, [hh, kh, kh], dim=-2)
-    return (_linear(h, p["wq"], p.get("bq")), _linear(h, p["wk"], p.get("bk")),
-            _linear(h, p["wv"], p.get("bv")))
+        q, k, v = torch.split(out, [hh, kh, kh], dim=-2)
+    else:
+        q, k, v = (_linear(h, p["wq"], p.get("bq")), _linear(h, p["wk"], p.get("bk")),
+                   _linear(h, p["wv"], p.get("bv")))
+    hf = h.float() if "_lora" in p else h  # one cast for the three deltas
+    return _apply_lora(p, "wq", hf, q), _apply_lora(p, "wk", hf, k), _apply_lora(p, "wv", hf, v)
 
 
 def fuse_qkv_params(spec: ModelSpec, params: Params) -> Params:
@@ -198,13 +229,16 @@ def _mlp(spec: ModelSpec, p: Params, h, valid=None):
             gate, up = torch.chunk(_linear(h, p["wgu"]), 2, dim=-1)
         else:
             gate, up = _linear(h, p["wg"]), _linear(h, p["wu"])
-        inner = act_lib.sigmoid_silu_multi(gate, up)
+        hf = h.float() if "_lora" in p else h  # one cast for both deltas
+        inner = act_lib.sigmoid_silu_multi(_apply_lora(p, "wg", hf, gate),
+                                           _apply_lora(p, "wu", hf, up))
     else:
-        inner = act_lib.get_activation(spec.act)(_linear(h, p["wu"], p.get("bu")))
+        inner = act_lib.get_activation(spec.act)(
+            _apply_lora(p, "wu", h, _linear(h, p["wu"], p.get("bu"))))
     out = _linear(inner, p["wd"])
     if p.get("bd") is not None:
         out = out + p["bd"]
-    return out.to(h.dtype)
+    return _apply_lora(p, "wd", inner, out.to(h.dtype))
 
 
 def _attn_out(spec: ModelSpec, p: Params, a):
@@ -218,7 +252,7 @@ def _attn_out(spec: ModelSpec, p: Params, a):
         out = torch.einsum("bthd,hdo->bto", a, wo)
     if p.get("bo") is not None:
         out = out + p["bo"]
-    return out.to(a.dtype)
+    return _apply_lora(p, "wo", a, out.to(a.dtype))
 
 
 def _layer(spec: ModelSpec, p: Params, h, attend, valid=None):
@@ -253,6 +287,31 @@ def _layer_params(layers: Params, i: int) -> Params:
         else:
             out[k] = v[i]
     return out
+
+
+def _lora_routing(lora: Optional[RoutedLora], adapter_ids: Optional[torch.Tensor],
+                  scale: float) -> Optional[Params]:
+    """A forward's routing state, on the device: the weight [B, 1, N*r] of
+    every adapter column for each row (the scale on the row's own adapter,
+    0 elsewhere: JAX's one-hot times the scale) and the rows that have one."""
+    if lora is None:
+        return None
+    if adapter_ids is None:
+        raise ValueError("lora needs adapter_ids ([B], -1 for no adapter)")
+    ids = adapter_ids.long()
+    cols = torch.arange(lora.num_adapters * lora.rank, device=ids.device) // lora.rank
+    return {"_lora_weight": (ids[:, None] == cols[None]).float()[:, None] * scale,
+            "_lora_keep": ids >= 0}
+
+
+def _layer_view(params: Params, i: int, lora: Optional[RoutedLora],
+                routing: Optional[Params]) -> Params:
+    """Layer i's parameters, with its adapter weights and the routing when
+    the forward has LoRA."""
+    p = _layer_params(params["layers"], i)
+    if routing is not None:
+        p.update(routing, _lora={m: (lora.a[m][i], lora.b[m][i]) for m in lora.a})
+    return p
 
 
 def _embed(spec: ModelSpec, params: Params, tokens, positions):
@@ -320,6 +379,9 @@ def forward(
     flash: bool = False,  # caller asserts positions == arange (prefill)
     kv_sink: Optional[Callable[[int, torch.Tensor, torch.Tensor], None]] = None,
     logits_at: Optional[torch.Tensor] = None,  # [B] one position per row
+    lora: Optional[RoutedLora] = None,
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] adapter per row, -1: none
+    lora_scale: float = 1.0,
 ):
     """Self-attention forward (prefill). Returns ``(logits, kv)``.
 
@@ -343,6 +405,7 @@ def forward(
              else torch.full((b,), t, device=dev)).to(torch.int32)
 
     rope = _rope_tables(spec, positions)
+    routing = _lora_routing(lora, adapter_ids, lora_scale)
 
     def attend(q, k, v):
         q, k = _maybe_rope(q, k, rope)
@@ -358,7 +421,7 @@ def forward(
     ks, vs = [], []
     for i in range(spec.num_layers):
         kvs = []
-        h = _layer(spec, _layer_params(params["layers"], i), h, attend, valid)
+        h = _layer(spec, _layer_view(params, i, lora, routing), h, attend, valid)
         (k, v), = kvs
         if kv_sink is not None:
             kv_sink(i, k, v)
@@ -415,6 +478,9 @@ def forward_cached(
     extra_mask: Optional[torch.Tensor] = None,  # [B, T, E] mask over extra_kv
     extra_positions: Optional[torch.Tensor] = None,  # [B, E] abs positions (alibi)
     attn_window: Optional[int] = None,  # attend only cache[..., :attn_window, :]
+    lora: Optional[RoutedLora] = None,
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] adapter per row, -1: none
+    lora_scale: float = 1.0,
 ):
     """Cached decode / chunk / tree forward. Returns ``(logits [B, T, V] f32,
     cache)`` with the cache updated in place, or ``(logits, (k_new, v_new))``
@@ -472,6 +538,7 @@ def forward_cached(
     tidx = (tree_index(tree_mask)
             if use_kernel and tree_mask is not None and dev.type == "cuda" else None)
     rope = _rope_tables(spec, positions)
+    routing = _lora_routing(lora, adapter_ids, lora_scale)
 
     new_k, new_v = [], []
     for i in range(spec.num_layers):
@@ -514,7 +581,7 @@ def forward_cached(
                 new_v.append(vc)
             return out
 
-        h = _layer(spec, _layer_params(params["layers"], i), h, attend)
+        h = _layer(spec, _layer_view(params, i, lora, routing), h, attend)
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
     logits = _unembed(spec, params, h)

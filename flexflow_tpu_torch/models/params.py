@@ -476,6 +476,19 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     return t.to(device)
 
 
+def lora_from_numpy(tree, device="cpu", dtype=torch.float32):
+    """Turn the JAX package's LoRA adapter stacks ({module: {"a": [L, N,
+    D_in, r], "b": [L, N, r, D_out]}}, numpy leaves) into the port's tensors
+    on ``device``, cast to ``dtype`` (bf16 leaves widened exactly first, as
+    ``params_from_numpy`` does)."""
+    out = {}
+    for mod, ab in tree.items():
+        if set(ab) != {"a", "b"} or np.ndim(ab["a"]) != 4 or np.ndim(ab["b"]) != 4:
+            raise ValueError(f"{mod}: expected {{'a': [L, N, D_in, r], 'b': [L, N, r, D_out]}}")
+        out[mod] = params_from_numpy(dict(ab), device, dtype)
+    return out
+
+
 def kv_cache_from_numpy(k, v, device="cpu", dtype: Optional[torch.dtype] = None):
     """A JAX ``[L, B, KH, D, S]`` KV cache -> the port's ``[L, B, KH, S, D]``
     :class:`~flexflow_tpu_torch.models.decoder.KVCache`."""

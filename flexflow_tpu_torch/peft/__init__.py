@@ -1,0 +1,12 @@
+"""Parameter-efficient finetuning: LoRA adapters for serving (port of
+``flexflow_tpu/peft``; its finetuning half waits for the training slice)."""
+
+from flexflow_tpu_torch.peft.lora import (  # noqa: F401
+    LoraConfig,
+    RoutedLora,
+    hf_module_to_key,
+    init_lora_params,
+    lora_scaling,
+    merge_lora,
+    route_lora,
+)

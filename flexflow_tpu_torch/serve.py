@@ -5,23 +5,27 @@ decoding with one draft model, on one device).
 ``LLM(model_dir).compile(...)`` loads a local HuggingFace model directory and
 builds the engine and scheduler; with ``ssms=[SSM(draft_dir)]`` it builds a
 ``SpecEngine`` and a fused, pipelined ``SpecRequestManager`` instead.
-``generate(prompts)`` tokenizes, serves and detokenizes. The tokenizer is
-imported lazily (``transformers``). Runs on ``cuda`` unless ``device`` names
-another device.
+``generate(prompts)`` tokenizes, serves and detokenizes. LoRA adapters
+registered before ``compile`` (``register_peft_adapter``) are stacked into
+slots and routed per request (``generate(..., adapter_id=)``). The tokenizer
+is imported lazily (``transformers``). Runs on ``cuda`` unless ``device``
+names another device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
+from flexflow_tpu_torch.peft.lora import (LoraConfig, init_lora_params, load_hf_adapter_config,
+                                         load_hf_adapter_into_slot)
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
-from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+from flexflow_tpu_torch.serving.spec_manager import NO_ADAPTERS, SpecRequestManager
 from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
 from flexflow_tpu_torch.utils import hf_weights
 
@@ -62,10 +66,45 @@ class LLM:
         self.tokenizer = None
         self.rm: Optional[Union[RequestManager, SpecRequestManager]] = None
         self._ssms: List["SSM"] = []
+        self._peft: List[Tuple[LoraConfig, Optional[str]]] = []  # (config, adapter dir or None)
+        self.lora = None
+        self.lora_config: Optional[LoraConfig] = None
 
     def register_ssm(self, ssm: "SSM") -> None:
         """Register a draft model for speculative decoding."""
         self._ssms.append(ssm)
+
+    def register_peft_adapter(self, adapter: Union[str, LoraConfig]) -> int:
+        """Register a LoRA adapter before ``compile``; returns its slot id.
+
+        ``adapter`` is an HF PEFT adapter directory (``adapter_config.json``
+        + ``adapter_model.safetensors``) or a :class:`LoraConfig` for a
+        fresh adapter (B zero: the identity). All adapters share one rank
+        and one set of target modules (one stacked slot layout)."""
+        if isinstance(adapter, LoraConfig):
+            cfg, path = adapter, None
+        else:
+            cfg, path = load_hf_adapter_config(adapter), adapter
+        if self._peft:
+            first = self._peft[0][0]
+            if (cfg.rank, set(cfg.keys())) != (first.rank, set(first.keys())):
+                raise ValueError("all adapters must share rank and target_modules (one stacked "
+                                 f"slot layout): {cfg.rank}, {cfg.keys()} against "
+                                 f"{first.rank}, {first.keys()}")
+        self._peft.append((cfg, path))
+        return len(self._peft) - 1
+
+    def _build_lora(self):
+        """The registered adapters' stacks: fresh ones from a seeded
+        generator, HF PEFT directories loaded into their slots."""
+        self.lora_config = self._peft[0][0]
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        lora = init_lora_params(self.spec, self.lora_config, len(self._peft), gen, self.dtype,
+                                self.device)
+        for slot, (cfg, path) in enumerate(self._peft):
+            if path is not None:
+                load_hf_adapter_into_slot(path, self.spec, lora, slot, cfg)
+        return lora
 
     def _load_params(self):
         _, params = hf_weights.load_params(
@@ -86,7 +125,9 @@ class LLM:
         if len(self._ssms) > 1 or merge_ssm_trees:
             raise NotImplementedError(
                 "several draft models and merged trees (MultiSSMSpecManager, "
-                "serving/tree_merge.py) are not in the port yet: ROADMAP.md Queue A item 11b")
+                "serving/tree_merge.py) are not in the port yet: ROADMAP.md Queue A, A4")
+        if self._ssms and self._peft:
+            raise NotImplementedError(NO_ADAPTERS)
         if max_tokens_per_batch is None:
             max_tokens_per_batch = 128
         self.params = self._load_params()
@@ -107,6 +148,8 @@ class LLM:
                                          pipelined=spec_horizon > 1,
                                          pipeline_depth=_ffconfig.pipeline_depth)
             return
+        if self._peft:
+            self.lora = self._build_lora()
         engine = InferenceEngine(
             self.spec, self.params,
             max_requests_per_batch=max_requests_per_batch,
@@ -115,6 +158,8 @@ class LLM:
                                   if max_tokens_per_batch < max_seq_length else 0),
             cache_dtype=self.dtype,
             device=self.device,
+            lora=self.lora,
+            lora_config=self.lora_config,
         )
         self.rm = RequestManager(
             engine,
@@ -131,14 +176,16 @@ class LLM:
 
     def generate(self, prompts: Union[str, Sequence[str]], *, max_new_tokens: int = 128,
                  temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
+                 adapter_id: int = -1,
                  stop_token_ids: Sequence[int] = ()) -> List[GenerationResult]:
-        """Tokenize, serve, detokenize."""
+        """Tokenize, serve, detokenize; ``adapter_id`` routes the requests
+        through a registered LoRA adapter (-1: the base model)."""
         if self.rm is None:
             raise RuntimeError("call compile() first")
         if isinstance(prompts, str):
             prompts = [prompts]
         cfg = GenerationConfig(max_new_tokens=max_new_tokens, temperature=temperature,
-                               top_p=top_p, top_k=top_k,
+                               top_p=top_p, top_k=top_k, adapter_id=adapter_id,
                                stop_token_ids=tuple(stop_token_ids))
         token_lists = [self.tokenizer(p, return_tensors=None)["input_ids"] for p in prompts]
         reqs = self.rm.generate(token_lists, cfg)

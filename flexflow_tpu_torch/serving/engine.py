@@ -29,6 +29,13 @@ captures nothing and runs every horizon eagerly on the card. The ``dense``
 MoE form (``from_hf_config``'s) has static shapes and is captured like a
 dense FFN.
 
+LoRA (JAX ``engine.py``'s ``lora=`` / ``lora_config=``): the engine holds
+N adapter stacks in the decoder's routing layout (``peft/lora.route_lora``)
+and every forward routes each row to its adapter id (-1: none; batched
+prefill padding rows get -1). The greedy body reads the ids from a static
+device buffer that ``_load`` fills, so a LoRA engine's greedy horizons are
+replays too.
+
 Host values (lengths, slots) travel to the device through pinned,
 non-blocking copies, and sampled tokens stay on the device until ``fetch``,
 so the host runs ahead of the card between horizons.
@@ -47,6 +54,7 @@ from flexflow_tpu_torch.models import decoder
 from flexflow_tpu_torch.models.decoder import to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
+from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 from flexflow_tpu_torch.serving.graphs import StepGraphs
 from flexflow_tpu_torch.specs import ModelSpec
@@ -81,6 +89,8 @@ class InferenceEngine:
         min_prefill_bucket: int = 16,
         cache_dtype=torch.bfloat16,
         device=None,
+        lora=None,  # {mod: {"a": [L, N, D_in, r], "b": [L, N, r, D_out]}}
+        lora_config=None,  # its LoraConfig (alpha / rank gives the scale)
     ):
         self.spec = spec
         self.device = resolve_device(device)
@@ -88,6 +98,9 @@ class InferenceEngine:
         if _ffconfig.fuse_qkv:
             params = decoder.fuse_qkv_params(spec, params)
         self.params = params
+        self.lora = None if lora is None else route_lora(_params_to(lora, self.device))
+        self.lora_scale = lora_scaling(lora_config) if lora is not None and lora_config else 1.0
+        self.num_adapters = 0 if lora is None else self.lora.num_adapters
         self.max_requests = max_requests_per_batch
         self.max_seq_len = max_seq_len
         self.max_tokens_per_batch = max_tokens_per_batch
@@ -97,6 +110,9 @@ class InferenceEngine:
         # the greedy step's static buffers and, on the card, its graph
         self._lens = torch.zeros(max_requests_per_batch, dtype=torch.int32, device=self.device)
         self._tokens = torch.zeros_like(self._lens)
+        # each slot's adapter for the greedy body (None: an engine without adapters)
+        self._adapters = (None if lora is None else
+                          torch.full_like(self._lens, -1, dtype=torch.int64))
         ragged_moe = spec.moe is not None and spec.moe.impl == "ragged"
         self.graphs = (StepGraphs(self.device)
                        if self.device.type == "cuda" and not ragged_moe else None)
@@ -118,6 +134,22 @@ class InferenceEngine:
         if self._greedy_only(scfg):
             return sampling_lib.sample(logits, key, scfg, greedy_only=True)
         return sampling_lib.sample(logits, key, self._scfg(scfg))
+
+    def _adapter_ids(self, adapter_ids: Optional[Sequence[int]], n: int):
+        """``n`` rows' adapter ids (None: every row -1), checked against the
+        adapters held, on the device; None for an engine without adapters."""
+        ids = (np.full(n, -1, np.int64) if adapter_ids is None
+               else np.asarray(adapter_ids, np.int64).reshape(n))
+        if np.any(ids >= self.num_adapters):
+            raise ValueError(f"adapter ids {ids.tolist()}: the engine holds "
+                             f"{self.num_adapters} adapters")
+        return None if self.lora is None else to_device(ids, self.device, np.int64)
+
+    def _routing(self, ids: Optional[torch.Tensor]) -> dict:
+        """The decoder's LoRA arguments for rows routed to ``ids`` (device;
+        None: no adapters)."""
+        return {} if ids is None else dict(lora=self.lora, adapter_ids=ids,
+                                           lora_scale=self.lora_scale)
 
     def fetch(self, x) -> np.ndarray:
         """Device -> host (waits for the device)."""
@@ -141,9 +173,8 @@ class InferenceEngine:
     def prefill_batch_to_slots_async(self, prompts, slots, key: int,
                                      scfg: SamplingConfig, adapter_ids=None):
         """Admit several requests in one forward; returns the [NB] device
-        tokens (first token per admission; padding rows at the end)."""
-        if adapter_ids is not None and any(a >= 0 for a in adapter_ids):
-            raise NotImplementedError("LoRA adapters are not in the port yet")
+        tokens (first token per admission; padding rows at the end).
+        ``adapter_ids``: one LoRA adapter per prompt (-1: none)."""
         real_nb = len(prompts)
         nb = 1
         while nb < real_nb:
@@ -153,6 +184,8 @@ class InferenceEngine:
         padded = np.zeros((nb, bucket), np.int32)
         lengths = np.ones((nb,), np.int32)  # pad rows: 1 dummy token
         slots = list(slots) + [-1] * (nb - real_nb)  # -1: written nowhere
+        adapters = list(adapter_ids) if adapter_ids is not None else [-1] * real_nb
+        routing = self._routing(self._adapter_ids(adapters + [-1] * (nb - real_nb), nb))
         for i, p in enumerate(prompts):
             if len(p) > self.max_seq_len:
                 raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {self.max_seq_len}")
@@ -179,7 +212,7 @@ class InferenceEngine:
         with torch.no_grad():
             logits, _ = decoder.forward(
                 self.spec, self.params, tokens, positions, lengths=lens_d,
-                flash=True, kv_sink=sink, logits_at=lens_d - 1)
+                flash=True, kv_sink=sink, logits_at=lens_d - 1, **routing)
             return self._sample(logits, key, scfg)
 
     def prefill_to_slot_async(self, prompt_tokens, slot: int, key: int,
@@ -192,15 +225,13 @@ class InferenceEngine:
         if self.max_tokens_per_batch and n > self.max_tokens_per_batch:
             return self._chunked_prefill_to_slot(prompt_tokens, slot, key, scfg1, adapter_id)
         return self.prefill_batch_to_slots_async(
-            [prompt_tokens], [slot], key, scfg1,
-            adapter_ids=None if adapter_id < 0 else [adapter_id])[0]
+            [prompt_tokens], [slot], key, scfg1, adapter_ids=[adapter_id])[0]
 
     def _chunked_prefill_to_slot(self, prompt_tokens, slot: int, key: int,
                                  scfg1: SamplingConfig, adapter_id: int = -1):
         """Token-budgeted prefill: chunks of max_tokens_per_batch against the
         slot's own cache rows (written in place)."""
-        if adapter_id >= 0:
-            raise NotImplementedError("LoRA adapters are not in the port yet")
+        routing = self._routing(self._adapter_ids([adapter_id], 1))
         c = self.max_tokens_per_batch
         cache1 = decoder.KVCache(self.cache.k[:, slot:slot + 1], self.cache.v[:, slot:slot + 1])
         n = len(prompt_tokens)
@@ -213,7 +244,7 @@ class InferenceEngine:
                 logits, _ = decoder.forward_cached(
                     self.spec, self.params, to_device(padded, self.device), cache1,
                     to_device([done], self.device), write_start=[done],
-                    logits_at=to_device([m - 1], self.device))
+                    logits_at=to_device([m - 1], self.device), **routing)
                 done += m
             return self._sample(logits, key, scfg1)[0]
 
@@ -245,18 +276,20 @@ class InferenceEngine:
         Step i writes its K/V at ``cache_lens + i`` and attends the
         positions below that. Greedy horizons replay the captured step on
         the card; a horizon with a sampled slot, or of an engine that
-        captures nothing (CPU, ragged MoE), runs eagerly."""
-        self._no_lora(adapter_ids)
+        captures nothing (CPU, ragged MoE), runs eagerly. ``adapter_ids``
+        [B]: each slot's LoRA adapter (None or -1: none)."""
         lens = np.asarray(cache_lens, np.int32)
         if self._greedy_only(scfg):
-            return self.greedy_horizon_async(lens, tokens, n, replay=self.graphs is not None)
+            return self.greedy_horizon_async(lens, tokens, n, replay=self.graphs is not None,
+                                             adapter_ids=adapter_ids)
+        routing = self._routing(self._adapter_ids(adapter_ids, lens.shape[0]))
         lens_d, toks = to_device(lens, self.device), self._tokens_in(tokens)
         out = torch.empty((n, lens.shape[0]), dtype=torch.int32, device=self.device)
         scfg_d = self._scfg(scfg)
         with torch.no_grad():
             for i in range(n):
                 logits, _ = decoder.forward_cached(
-                    self.spec, self.params, toks[:, None], self.cache, lens_d)
+                    self.spec, self.params, toks[:, None], self.cache, lens_d, **routing)
                 toks = sampling_lib.sample(logits[:, 0], sampling_lib.fold_in(key, i), scfg_d)
                 lens_d = lens_d + 1
                 out[i] = toks
@@ -264,18 +297,25 @@ class InferenceEngine:
 
     def _greedy_body(self, _key=None) -> None:
         """One greedy step on the static buffers, in place: K/V written at
-        the lengths, the argmax tokens into the token buffer, lengths + 1."""
+        the lengths (each slot through its adapter in the adapter buffer),
+        the argmax tokens into the token buffer, lengths + 1."""
         logits, _ = decoder.forward_cached(
-            self.spec, self.params, self._tokens[:, None], self.cache, self._lens)
+            self.spec, self.params, self._tokens[:, None], self.cache, self._lens,
+            **self._routing(self._adapters))
         self._tokens.copy_(torch.argmax(logits[:, 0], dim=-1))
         self._lens.add_(1)
 
-    def _load(self, lens: np.ndarray, tokens) -> None:
+    def _load(self, lens: np.ndarray, tokens, adapter_ids=None) -> None:
         self._lens.copy_(to_device(lens, self.device))
         self._tokens.copy_(self._tokens_in(tokens))
+        ids = self._adapter_ids(adapter_ids, self.max_requests)
+        if ids is not None:
+            self._adapters.copy_(ids)
 
-    def greedy_horizon_async(self, cache_lens, tokens, n: int, *, replay: bool) -> torch.Tensor:
-        """n greedy steps from (``cache_lens``, ``tokens``); returns a fresh
+    def greedy_horizon_async(self, cache_lens, tokens, n: int, *, replay: bool,
+                             adapter_ids=None) -> torch.Tensor:
+        """n greedy steps from (``cache_lens``, ``tokens``, each slot through
+        its LoRA adapter in ``adapter_ids``, None: none); returns a fresh
         [n, B] device tensor, row i copied out right after step i. With
         ``replay`` (the card's only served path) each step is a replay of
         the captured body, captured here first if it is not yet; without,
@@ -290,9 +330,9 @@ class InferenceEngine:
         out = torch.empty((n, self.max_requests), dtype=torch.int32, device=self.device)
         with torch.no_grad():
             if replay and not self.graphs.graphs:
-                self._load(lens, tokens)
+                self._load(lens, tokens, adapter_ids)
                 self.graphs.capture(self._greedy_body, None)
-            self._load(lens, tokens)
+            self._load(lens, tokens, adapter_ids)
             for i in range(n):
                 if replay:
                     self.graphs.replay(None)
@@ -300,8 +340,3 @@ class InferenceEngine:
                     self._greedy_body()
                 out[i] = self._tokens
         return out
-
-    @staticmethod
-    def _no_lora(adapter_ids: Optional[Sequence[int]]) -> None:
-        if adapter_ids is not None and np.any(np.asarray(adapter_ids) >= 0):
-            raise NotImplementedError("LoRA adapters are not in the port yet")

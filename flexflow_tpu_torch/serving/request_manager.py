@@ -11,8 +11,10 @@ thread. Outputs are identical either way.
 ``jax.random`` keys become one ``torch.Generator`` that draws a 63-bit step
 key per dispatch (see ``ops/sampling``). The horizon bookkeeping is the
 Python loop of the JAX package (its native scheduler belongs to the JAX
-package). LoRA, co-scheduled finetuning, the per-phase profiler and the
-background serving thread are not in the port yet.
+package). Each slot carries its request's LoRA adapter id (-1: none) into
+every prefill and horizon, as in JAX. Co-scheduled finetuning, the
+per-phase profiler and the background serving thread are not in the port
+yet.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class GenerationConfig:
     top_p: float = 1.0
     top_k: int = 0
     stop_token_ids: Sequence[int] = ()
-    adapter_id: int = -1  # LoRA slot (-1 = base model; no adapters in the port yet)
+    adapter_id: int = -1  # LoRA adapter slot of the engine (-1 = base model)
 
 
 @dataclasses.dataclass
@@ -114,6 +116,7 @@ class RequestManager:
         self._temperature = np.zeros(b, np.float32)
         self._top_p = np.ones(b, np.float32)
         self._top_k = np.zeros(b, np.int32)
+        self._adapter = np.full(b, -1, np.int64)  # each slot's LoRA adapter
         self._gen = torch.Generator().manual_seed(seed)
         self._steps = 0
         self._num_processed = 0
@@ -128,8 +131,9 @@ class RequestManager:
         if len(prompt_tokens) >= self.engine.max_seq_len:
             raise ValueError(f"prompt length {len(prompt_tokens)} >= max_seq_len "
                              f"{self.engine.max_seq_len}")
-        if config.adapter_id >= 0:
-            raise NotImplementedError("LoRA adapters are not in the port yet")
+        if config.adapter_id >= self.engine.num_adapters:
+            raise ValueError(f"adapter_id {config.adapter_id}: the engine holds "
+                             f"{self.engine.num_adapters} adapters")
         req = Request(guid=next(self._guid), prompt_tokens=list(prompt_tokens), config=config)
         req.profile.registration_time = time.monotonic()
         self._requests[req.guid] = req
@@ -138,6 +142,13 @@ class RequestManager:
 
     def get_request(self, guid: int) -> Request:
         return self._requests[guid]
+
+    def register_finetune(self, session) -> None:
+        """Co-scheduled LoRA finetuning (JAX ``register_finetune``) needs a
+        backward pass through the decoder: it comes with the training slice."""
+        raise NotImplementedError(
+            "co-scheduled LoRA finetuning is not in the port yet: it waits for the training "
+            "slice (ROADMAP.md Queue A, A5b)")
 
     def _next_key(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
@@ -162,6 +173,7 @@ class RequestManager:
             self._temperature[slot] = req.config.temperature
             self._top_p[slot] = req.config.top_p
             self._top_k[slot] = req.config.top_k
+            self._adapter[slot] = req.config.adapter_id
             self._log(f"[RM] admit guid={req.guid} slot={slot} "
                       f"prompt_len={len(req.prompt_tokens)}")
             admits.append((slot, req))
@@ -181,7 +193,8 @@ class RequestManager:
             )
             toks = self.engine.prefill_batch_to_slots_async(
                 [np.asarray(r.prompt_tokens, np.int32) for _, r in batched],
-                [s for s, _ in batched], self._next_key(), scfg)
+                [s for s, _ in batched], self._next_key(), scfg,
+                adapter_ids=[r.config.adapter_id for _, r in batched])
             results.extend((s, r, toks[i]) for i, (s, r) in enumerate(batched))
         for slot, req in chunked:
             scfg1 = SamplingConfig(
@@ -190,7 +203,8 @@ class RequestManager:
                 top_k=np.array([req.config.top_k], np.int32),
             )
             results.append((slot, req, self.engine.prefill_to_slot_async(
-                np.asarray(req.prompt_tokens, np.int32), slot, self._next_key(), scfg1)))
+                np.asarray(req.prompt_tokens, np.int32), slot, self._next_key(), scfg1,
+                adapter_id=req.config.adapter_id)))
 
         firsts = torch.stack([t for _, _, t in results])
         if self.pipelined:
@@ -223,6 +237,7 @@ class RequestManager:
         self._slots[slot] = None
         self._cache_lens[slot] = 0
         self._projected[slot] = 0
+        self._adapter[slot] = -1
         self._num_processed += 1
         self._log(f"[Profile] guid({req.guid}) llm_decoding_steps("
                   f"{req.profile.llm_decoding_steps}) latency({req.profile.latency * 1e3:.3f}) "
@@ -301,7 +316,7 @@ class RequestManager:
             self._feedback_overrides = []
             lens = self._cache_lens.copy()
             out_dev = self.engine.decode_horizon_async(
-                lens, tokens_in, self._next_key(), scfg, n)
+                lens, tokens_in, self._next_key(), scfg, n, adapter_ids=self._adapter)
             entries = [(s, self._slots[s]) for s in active]
             for s in active:
                 self._cache_lens[s] += n
@@ -335,10 +350,12 @@ class RequestManager:
         n = self._choose_horizon(active) if self.decode_horizon > 1 else 1
         if n == 1:
             horizon_tokens = self.engine.decode(
-                self._cache_lens, self._tokens, self._next_key(), scfg)[None, :]
+                self._cache_lens, self._tokens, self._next_key(), scfg,
+                adapter_ids=self._adapter)[None, :]
         else:
             horizon_tokens = self.engine.decode_horizon(
-                self._cache_lens, self._tokens, self._next_key(), scfg, n)
+                self._cache_lens, self._tokens, self._next_key(), scfg, n,
+                adapter_ids=self._adapter)
         self._steps += n
         for slot in active:
             req = self._slots[slot]

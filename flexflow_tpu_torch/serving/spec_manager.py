@@ -33,6 +33,12 @@ from flexflow_tpu_torch.serving.request_manager import (
 from flexflow_tpu_torch.serving.speculative import SpecEngine
 
 
+# the JAX package's SpecEngine serves no adapter and drops adapter_id silently
+NO_ADAPTERS = ("LoRA adapters are not served under speculative decoding: the JAX package's "
+               "SpecEngine ignores adapter_id, and the port refuses it instead (ROADMAP.md, "
+               "the port's deliberate differences)")
+
+
 class SpecRequestManager:
     """Continuous-batching scheduler over a SpecEngine."""
 
@@ -110,7 +116,7 @@ class SpecRequestManager:
                 f"prompt length {len(prompt_tokens)} + speculation margin "
                 f"{self._margin()} >= max_seq_len {self.engine.max_seq_len}")
         if config.adapter_id >= 0:
-            raise NotImplementedError("LoRA adapters are not in the port yet")
+            raise NotImplementedError(NO_ADAPTERS)
         req = Request(guid=next(self._guid), prompt_tokens=list(prompt_tokens), config=config)
         req.profile.registration_time = time.monotonic()
         self._requests[req.guid] = req

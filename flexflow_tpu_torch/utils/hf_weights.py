@@ -2,8 +2,9 @@
 
 Safetensors shards are read by a pure-Python reader: an 8-byte little-endian
 header length, a JSON header naming each tensor's dtype, shape and byte range,
-and ``numpy.frombuffer`` over an ``mmap`` of the file. No ``safetensors``
-package is needed. (``pytorch_model*.bin`` shards are not read yet.)
+and ``numpy.frombuffer`` over an ``mmap`` of the file. ``save_safetensors``
+writes the same format. No ``safetensors`` package is needed.
+(``pytorch_model*.bin`` shards are not read yet.)
 """
 
 from __future__ import annotations
@@ -60,6 +61,26 @@ class SafetensorsFile:
 
     def close(self):
         self._mm.close()
+
+
+def save_safetensors(tensors: Dict[str, np.ndarray], path: str) -> None:
+    """Write float32 arrays as one ``.safetensors`` file: the 8-byte header
+    length, the JSON header (space-padded to a multiple of 8 bytes) and the
+    raw little-endian bytes, in name order."""
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        blob = np.ascontiguousarray(tensors[name], dtype="<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(np.shape(tensors[name])),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
 
 
 class LazyStateDict:

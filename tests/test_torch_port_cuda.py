@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU,
-and the serving paths that run them (LLaMA and Mixtral).
+and the serving paths that run them (LLaMA, Mixtral, and LoRA adapters).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (a kernel has no CPU mode). On a GPU machine without JAX, run them without
@@ -15,15 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+from flexflow_tpu_torch.models import decoder as t_decoder
 from flexflow_tpu_torch.models import params as t_params
 from flexflow_tpu_torch.ops.kernels import decode_attention as t_da
 from flexflow_tpu_torch.ops.kernels import flash_prefill as t_fp
 from flexflow_tpu_torch.ops.kernels import qmm_variants as t_qv
 from flexflow_tpu_torch.ops.kernels import quant_matmul as t_qm
+from flexflow_tpu_torch.peft import lora as t_lora
 from flexflow_tpu_torch.quant import quantize_params
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, quantize
 from flexflow_tpu_torch.serving import graphs
 from flexflow_tpu_torch.serving.engine import InferenceEngine
+from flexflow_tpu_torch.serving.engine import _params_to as td_params_to
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
 from flexflow_tpu_torch.serving.speculative import SpecEngine
@@ -796,3 +799,99 @@ def test_ragged_mixtral_serves_eagerly_with_the_dense_tokens(cuda):
         if impl == "dense":
             assert eng.graphs.replays > 0
     assert outs["ragged"] == outs["dense"]
+
+
+# ---------------------------------------------------------------------------
+# LoRA: routed adapters in the served step and on the card's kernels
+# ---------------------------------------------------------------------------
+
+_ALL7 = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def _lora_stacks(spec, n, dtype, device, seed=7):
+    """n adapters at rank 4 on all seven projections, A and B from a seeded
+    generator (B non-zero, so every adapter acts)."""
+    cfg = t_lora.LoraConfig(rank=4, alpha=8.0, target_modules=_ALL7)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lora = t_lora.init_lora_params(spec, cfg, n, gen, dtype, device)
+    for ab in lora.values():
+        ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device=device) * 0.05)
+    return lora, cfg
+
+
+def test_captured_lora_decode_horizon_equals_uncaptured(cuda):
+    """A LoRA engine (bf16, INT8, 3 adapters, slots routed [0, 2, -1, 1]):
+    replays of the captured step give the uncaptured body's tokens and
+    cache bitwise, the body reads nothing on the host, and the -1 slot's
+    tokens equal a no-LoRA engine's on the same weights."""
+    spec = ModelSpec(**_TINY)
+    params = _tiny_params(spec, 0, _BF16, 8, cuda)
+    lora, cfg = _lora_stacks(spec, 3, _BF16, cuda)
+    eng = InferenceEngine(spec, params, max_requests_per_batch=4, max_seq_len=160,
+                          cache_dtype=_BF16, device=cuda, lora=lora, lora_config=cfg)
+    plain = InferenceEngine(spec, eng.params, max_requests_per_batch=4, max_seq_len=160,
+                            cache_dtype=_BF16, device=cuda)
+    _fill_cache(eng.cache, 1)
+    _fill_cache(plain.cache, 1)
+    lens, toks, ids = [60, 63, 130, 5], [3, 17, 101, 250], [0, 2, -1, 1]
+    for n in (1, 16):
+        saved = tuple(c.clone() for c in eng.cache)
+        want = eng.greedy_horizon_async(lens, toks, n, replay=False, adapter_ids=ids)
+        want_cache = tuple(c.clone() for c in eng.cache)
+        _restore(eng.cache, saved)
+        got = eng.greedy_horizon_async(lens, toks, n, replay=True, adapter_ids=ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert all(torch.equal(c, w) for c, w in zip(eng.cache, want_cache))
+        _restore(eng.cache, saved)
+    base = plain.greedy_horizon_async(lens, toks, 16, replay=True)
+    assert torch.equal(got[:, 2], base[:, 2]) and not torch.equal(got, base)
+    eng._load(np.array(lens, np.int32), toks, ids)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            eng._greedy_body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_lora_delta_on_cuda_matches_cpu(cuda):
+    """A float32 prefill and decode step with rows routed [1, -1, 0] through
+    the kernels on the card against the plain path on the CPU: logits and
+    each row's LoRA delta (LoRA minus base logits) within 1e-4 of their
+    magnitude; the -1 row bitwise the card's no-LoRA forward."""
+    spec = ModelSpec(**{**_TINY, "max_position_embeddings": 128})
+    params = _tiny_params(spec, 0, _F32, 8, "cpu")
+    lora, cfg = _lora_stacks(spec, 2, _F32, "cpu")
+    ids = [1, -1, 0]
+    toks = np.random.default_rng(3).integers(0, 256, (3, 24)).astype(np.int32)
+    lens = np.array([24, 17, 9], np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = td_params_to(params, dev)
+        routed = t_lora.route_lora(td_params_to(lora, dev))
+        kw = dict(lora=routed, adapter_ids=torch.tensor(ids, device=dev),
+                  lora_scale=t_lora.lora_scaling(cfg))
+        tok = torch.as_tensor(toks, device=dev)
+        pos = torch.arange(24, dtype=torch.int32, device=dev)[None].expand(3, 24)
+        ln = torch.as_tensor(lens, device=dev)
+        res = []
+        for extra in (kw, {}):
+            cache = t_decoder.init_kv_cache(spec, 3, 64, _F32, dev)
+            with torch.no_grad():
+                lg, (k, v) = t_decoder.forward(spec, p, tok, pos, lengths=ln, flash=True,
+                                               return_kv=True, logits_at=ln - 1, **extra)
+                t_decoder.commit_kv_windows(cache.k, cache.v, k.permute(0, 1, 3, 2, 4),
+                                            v.permute(0, 1, 3, 2, 4), [0, 0, 0])
+                step, _ = t_decoder.forward_cached(spec, p, lg.argmax(-1)[:, None].int(), cache,
+                                                   ln, **extra)
+            res.append(torch.stack([lg, step[:, 0]]))
+        out[str(dev)] = res
+    (gl, gb), (cl, cb) = out["cuda"], out["cpu"]
+    assert (gl.cpu() - cl).abs().max() <= 1e-4 * cl.abs().max()
+    delta_g, delta_c = (gl - gb).cpu(), cl - cb
+    assert (delta_g - delta_c).abs().max() <= 1e-4 * delta_c.abs().max()
+    assert delta_c[:, [0, 2]].abs().max() > 1e-2
+    assert torch.equal(gl[:, 1], gb[:, 1])

@@ -157,5 +157,5 @@ def test_spec_cli_matches_incremental_cli(model_dir, tmp_path, capsys):
     texts = [[line for line in out.splitlines() if not line.startswith("=== guid")]
              for out in (got, want)]
     assert texts[0] == texts[1]
-    with pytest.raises(NotImplementedError, match="11b"):
+    with pytest.raises(NotImplementedError, match="A4"):
         spec_infer.main(argv + ["-ssm-model", model_dir, "-ssm-model", model_dir])
