@@ -238,6 +238,11 @@ class RequestManager:
         self._cache_lens[slot] = 0
         self._projected[slot] = 0
         self._adapter[slot] = -1
+        # a retired slot samples nothing: left at its request's settings it
+        # would keep every later all-greedy horizon off the replay path
+        self._temperature[slot] = 0.0
+        self._top_p[slot] = 1.0
+        self._top_k[slot] = 0
         self._num_processed += 1
         self._log(f"[Profile] guid({req.guid}) llm_decoding_steps("
                   f"{req.profile.llm_decoding_steps}) latency({req.profile.latency * 1e3:.3f}) "

@@ -134,3 +134,42 @@ def test_cli_matches_jax_cli(model_dir, tmp_path, capsys):
     got = capsys.readouterr().out
     assert got.count("=== guid") == 2
     assert _texts(got) == _texts(want)
+
+
+def test_retired_sampled_slot_returns_to_greedy_path():
+    """A sampled request's slot, once retired, samples nothing: the greedy
+    horizons after it go through ``greedy_horizon_async`` (the card's
+    replay path), as does a later all-greedy ``generate`` on the same
+    manager (2 slots, horizon 4, pipelined). Tokens are unaffected."""
+    _, _, ts, tparams = _models(4, None)
+    eng = TEngine(ts, tparams, max_requests_per_batch=2, max_seq_len=64,
+                  cache_dtype=torch.float32, device="cpu")
+    calls = {"greedy": 0, "horizon": 0}
+    greedy, horizon = eng.greedy_horizon_async, eng.decode_horizon_async
+
+    def count_greedy(*a, **kw):
+        calls["greedy"] += 1
+        return greedy(*a, **kw)
+
+    def count_horizon(*a, **kw):
+        calls["horizon"] += 1
+        return horizon(*a, **kw)
+
+    eng.greedy_horizon_async, eng.decode_horizon_async = count_greedy, count_horizon
+    rm = TRM(eng, decode_horizon=4, pipelined=True)
+    try:
+        g = rm.register_request(PROMPTS[0], TGen(max_new_tokens=40))
+        s = rm.register_request(PROMPTS[1], TGen(max_new_tokens=2, temperature=0.8))
+        rm.run_until_idle()
+        assert rm.get_request(s).state == "COMPLETED"
+        assert len(rm.get_request(g).output_tokens) == 40
+        # the first horizon ran beside the sampled slot; the rest are greedy
+        assert calls["greedy"] >= calls["horizon"] - 2 > 0
+        assert rm._temperature.tolist() == [0.0, 0.0]
+        assert rm._top_p.tolist() == [1.0, 1.0] and rm._top_k.tolist() == [0, 0]
+        calls.update(greedy=0, horizon=0)
+        [again] = rm.generate([PROMPTS[0]], TGen(max_new_tokens=40))
+    finally:
+        rm.close()
+    assert calls["greedy"] == calls["horizon"] > 0
+    assert again.output_tokens == rm.get_request(g).output_tokens
