@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only card,build,variants
     python3 chip_smoke.py --only card,build,mixtral
     python3 chip_smoke.py --only card,build,lora
+    python3 chip_smoke.py --only card,build,serve,openai
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -60,7 +61,25 @@ Phases, in order; any failure exits non-zero:
               uncaptured body's tokens and cache bitwise from the same state.
               Prints decode tok/s, mean TTFT, peak memory, graphs captured,
               capture ms and replays beside the card's name and power limit.
-7. spec     — token-tree speculative serving: a LLaMA-2-7B INT4 verifier
+7. openai   — the serving surface: the serve phase's model and manager (built
+              the same way when serve is not selected) behind
+              ``LLM.start_server()`` (a ``LLM`` over that manager and an
+              id-level stand-in tokenizer, "17 402 9" <-> [17, 402, 9]) and
+              the port's OpenAI handler on a loopback ThreadingHTTPServer.
+              One sampled request (temperature 0.8, top_p 0.95, 8 tokens)
+              first; then 8 client threads POST the served prompts as token
+              ids to /v1/completions (greedy, 64 tokens): each answer's tokens
+              must equal the serve run's, usage must count 64, every greedy
+              step must be a replay (so the sampled request's slot returned to
+              the replay path) and qmm_int8, decode_attention and
+              flash_prefill must launch. Then the longest prompt streamed: the
+              deltas must join to its completion text and end with "stop" and
+              [DONE]; a 1024-token prompt and bad JSON must get 400s with the
+              loop alive; the loop must join on stop_server() with no request
+              left RUNNING. Prints the HTTP run's decode tok/s and mean TTFT
+              beside the in-process run's, the time to the first streamed
+              chunk, and the per-op profile of layer 0 (batch 1, 32 tokens).
+8. spec     — token-tree speculative serving: a LLaMA-2-7B INT4 verifier
               (group 128) that block-embeds a 160M-class bf16 draft (both from
               seed 0), SpecEngine + SpecRequestManager (width 3, depth 4,
               fused, pipelined over LLM.compile's spec_horizon) serve the same
@@ -75,7 +94,7 @@ Phases, in order; any failure exits non-zero:
               and caches bitwise from the same state. Prints both runs'
               decode tok/s, mean TTFT, peak memory, graphs, capture ms and
               replays, and the mean verified tokens per step.
-8. mixtral  — Mixtral-8x7B (the published config.json's widths through
+9. mixtral  — Mixtral-8x7B (the published config.json's widths through
               ``from_hf_config``: 32 layers, 8 experts top-2, GQA 32/8 heads,
               dense MoE form). First a 2-layer model at that width, INT8,
               a prefill of 4 requests and 2 decode steps through the kernels
@@ -98,7 +117,7 @@ Phases, in order; any failure exits non-zero:
               position must agree by the cross-check's rule. Prints the
               init time, decode tok/s, mean TTFT, peak memory, graphs and
               replays.
-9. lora     — multi-adapter LoRA serving: first a 2-layer LLaMA-2-7B-width
+10. lora    — multi-adapter LoRA serving: first a 2-layer LLaMA-2-7B-width
               INT8 model with 4 adapters, a prefill of 4 requests routed
               [0, 3, -1, 1] and 8 teacher-forced decode steps through the
               kernels on the GPU against the plain versions on the CPU
@@ -117,7 +136,7 @@ Phases, in order; any failure exits non-zero:
               horizon equals the uncaptured body bitwise. Prints both runs'
               decode tok/s, mean TTFT and peak memory, and the adapters'
               bytes and build time.
-10. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+11. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -148,8 +167,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
-PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "spec", "mixtral",
-          "lora", "profile")
+PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
+          "mixtral", "lora", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -1210,8 +1229,10 @@ def _replay_check(what: str, run, caches) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_phase(card: str, with_profile: bool) -> dict:
-    import numpy as np
+def _llama_serving():
+    """The served model: LLaMA-2-7B INT8 (group 128, random weights from seed
+    0), 8 slots, max_seq_len 1024, decode_horizon 16, pipelined. Returns
+    (spec, engine, request manager, the 8 prompts)."""
     import torch
 
     from flexflow_tpu_torch.serving.engine import InferenceEngine
@@ -1227,8 +1248,18 @@ def serve_phase(card: str, with_profile: bool) -> dict:
     engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
                              max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev)
     del params
-    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
-    prompts = _prompts(spec.vocab_size)
+    return spec, engine, RequestManager(engine, decode_horizon=16, pipelined=True), \
+        _prompts(spec.vocab_size)
+
+
+def serve_phase(card: str, with_profile: bool, hold: dict = None) -> dict:
+    """The served run; with ``hold`` the model, its manager, the prompts and
+    the run's requests and stats are kept there (the openai phase serves
+    them again) instead of freed."""
+    import numpy as np
+    import torch
+
+    spec, engine, rm, prompts = _llama_serving()
     try:
         reqs, out = _served(rm, prompts, 64, spec.vocab_size, "serve")
         lens = np.array([len(p) for p in prompts], np.int32)
@@ -1241,12 +1272,212 @@ def serve_phase(card: str, with_profile: bool) -> dict:
             log("[profile] one decode horizon and one batched prefill of the served model")
             out["profile"] = profile_phase(engine, prompts)
     finally:
-        rm.close()
+        if hold is None:
+            rm.close()
     for k in ("qmm_int8", "decode_attention", "flash_prefill"):
         require(out["launches"][k] > 0, f"{k} was never launched while serving")
     out["card"] = card
     _log_served("served", out, card)
+    if hold is not None:
+        hold.update(spec=spec, rm=rm, prompts=prompts, reqs=reqs, out=out)
     del engine, rm
+    torch.cuda.empty_cache()
+    return out
+
+
+class IdTokenizer:
+    """The openai phase's stand-in tokenizer: text of decimal ids, "17 402 9"
+    <-> [17, 402, 9] (no checkpoint, so no tokenizer, is in the repository).
+    The decode of a prefix is a prefix of the decode of the whole."""
+
+    def __call__(self, text: str, return_tensors=None) -> dict:
+        return {"input_ids": [int(t) for t in text.split()]}
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return " ".join(str(int(t)) for t in ids)
+
+
+def _post(port: int, body, raw: bytes = None):
+    """(status, JSON body) of a POST to the loopback server's /v1/completions."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                 data=raw if raw is not None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _stream(port: int, body) -> tuple:
+    """A streamed completion: (text deltas, finish reasons, the last event,
+    seconds to the first non-empty delta)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0, first, deltas, finishes, last = time.monotonic(), None, [], [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        require(r.headers["Content-Type"].startswith("text/event-stream"),
+                f"stream: content type {r.headers['Content-Type']}")
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            last = line[6:]
+            if last == "[DONE]":
+                continue
+            choice = json.loads(last)["choices"][0]
+            if choice["text"] and first is None:
+                first = time.monotonic() - t0
+            deltas.append(choice["text"])
+            finishes.append(choice["finish_reason"])
+    return deltas, finishes, last, first
+
+
+def openai_phase(card: str, held: dict) -> dict:
+    """The serve phase's model and manager (built here when that phase did
+    not run) behind ``LLM.start_server()`` and the port's OpenAI handler on
+    a loopback ``ThreadingHTTPServer``: one sampled request, then the served
+    traffic from 8 client threads as token-id prompts, one streamed request
+    and two bad ones. Every greedy step is a replay, each request's 64 tokens
+    equal the in-process run's, and the server stops clean."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.inference.entrypoint import openai_server
+    from flexflow_tpu_torch.serve import LLM
+    from flexflow_tpu_torch.utils.profiling import per_op_profile
+
+    if not held:
+        spec, engine, rm, prompts = _llama_serving()
+        reqs, base = _served(rm, prompts, 64, spec.vocab_size, "serve")
+        del engine
+    else:
+        spec, rm, prompts, reqs, base = (held.pop(k) for k in
+                                         ("spec", "rm", "prompts", "reqs", "out"))
+    engine = rm.engine
+
+    class ServedLLM(LLM):
+        """The LLM API over an existing manager and tokenizer."""
+
+        def __init__(self, rm, tokenizer):
+            self.rm, self.tokenizer, self.output_file = rm, tokenizer, ""
+
+    llm = ServedLLM(rm, IdTokenizer())
+    llm.start_server()
+    loop = rm._server_thread
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), openai_server.make_handler(llm, "llama-2-7b"))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    out = {}
+
+    def idle():  # the loop holds no request and no horizon (read from this thread)
+        t_end = time.monotonic() + 60
+        while (rm._inflight_q or any(rm._slots)) and time.monotonic() < t_end:
+            time.sleep(0.001)
+
+    try:
+        # 1. a sampled request first: its slot must not keep later greedy
+        # horizons off the replay path once it retires
+        code, body = _post(port, {"prompt": prompts[-1], "max_tokens": 8,
+                                  "temperature": 0.8, "top_p": 0.95})
+        require(code == 200 and body["usage"]["completion_tokens"] == 8,
+                f"openai: the sampled request got {code} {body}")
+        idle()
+        require(not np.any(rm._temperature > 0), "openai: a retired slot kept its temperature")
+
+        # 2. the served traffic over HTTP, one client thread a prompt
+        _launches(reset=True)
+        replays0, steps0 = engine.graphs.replays, rm.total_decoding_steps
+        guid0 = max(rm._requests)
+        answers = [None] * len(prompts)
+
+        def client(i):
+            answers[i] = _post(port, {"prompt": prompts[i], "max_tokens": 64,
+                                      "temperature": 0})
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        t_start = time.monotonic()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        t_end = time.monotonic()
+        idle()
+        launches = _launches()
+        replays, steps = engine.graphs.replays - replays0, rm.total_decoding_steps - steps0
+        http_reqs = [r for g, r in sorted(rm._requests.items()) if g > guid0]
+        for i, (code, body) in enumerate(answers):
+            require(code == 200, f"openai: request {i} got {code} {body}")
+            got, want = [int(t) for t in body["choices"][0]["text"].split()], reqs[i].output_tokens
+            at = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                      min(len(got), len(want)))
+            require(got == want, f"openai: request {i} (prompt {len(prompts[i])}): tokens differ "
+                                 f"from the in-process run's from position {at}")
+            require(body["usage"]["completion_tokens"] == 64
+                    and body["usage"]["prompt_tokens"] == len(prompts[i]),
+                    f"openai: request {i} usage {body['usage']}")
+        require(replays == steps > 0, f"openai: {replays} replays for {steps} steps")
+        for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+            require(launches[k] > 0, f"openai: {k} was never launched while serving over HTTP")
+        first = max(r.profile.first_token_time for r in http_reqs)
+        out.update(
+            requests=len(http_reqs), tokens=sum(len(r.output_tokens) for r in http_reqs),
+            decode_tok_s=sum(len(r.output_tokens) - 1 for r in http_reqs)
+            / (max(r.profile.finish_time for r in http_reqs) - first),
+            mean_ttft_ms=1e3 * float(np.mean([r.profile.ttft for r in http_reqs])),
+            wall_s=t_end - t_start, steps=steps, replays=replays, launches=launches,
+            admissions=len({r.profile.first_token_time for r in http_reqs}))  # one a prefill
+
+        # 3. the longest prompt streamed: its deltas join to step 2's text
+        deltas, finishes, last, first_s = _stream(port, {"prompt": prompts[0], "max_tokens": 64,
+                                                        "temperature": 0})
+        require("".join(deltas) == answers[0][1]["choices"][0]["text"],
+                "openai: the streamed text differs from the completion's")
+        require(last == "[DONE]" and finishes[-1] == "stop",
+                f"openai: the stream ended with {finishes[-1:]} and {last!r}")
+        out.update(stream_chunks=len([d for d in deltas if d]), stream_first_ms=1e3 * first_s)
+        idle()
+
+        # 4. refusals: an oversize prompt at registration, and bad JSON
+        code, body = _post(port, {"prompt": [5] * 1024, "max_tokens": 4})
+        require(code == 400 and "max_seq_len" in body["error"]["message"],
+                f"openai: a 1024-token prompt got {code} {body}")
+        require(loop.is_alive(), "openai: the serving loop died on an oversize prompt")
+        code, body = _post(port, None, raw=b"{not json")
+        require(code == 400, f"openai: bad JSON got {code} {body}")
+    finally:
+        llm.stop_server()
+        srv.shutdown()
+        srv.server_close()
+    # 5. a clean stop
+    require(rm._server_thread is None and not loop.is_alive(), "openai: the loop did not join")
+    running = [g for g, r in rm._requests.items() if r.state == "RUNNING"]
+    require(not running, f"openai: requests left RUNNING: {running}")
+    rows = per_op_profile(spec, engine.params, batch=1, seq=32)
+    for line in rows:
+        log(f"  {line} [{card}]")
+    rm.close()
+    out.update(card=card, per_op=rows, base=dict(decode_tok_s=base["decode_tok_s"],
+                                                 mean_ttft_ms=base["mean_ttft_ms"]))
+    log(f"  openai: {out['requests']} requests over HTTP, {out['tokens']} tokens in "
+        f"{out['wall_s']:.3f} s, {out['admissions']} admissions: decode "
+        f"{out['decode_tok_s']:.1f} tok/s, mean TTFT {out['mean_ttft_ms']:.1f} ms; in-process "
+        f"run of this call: decode {base['decode_tok_s']:.1f} tok/s, mean TTFT "
+        f"{base['mean_ttft_ms']:.1f} ms [{card}]")
+    log(f"  openai: {out['steps']} steps, {out['replays']} replays; launches "
+        f"{json.dumps(out['launches'])}")
+    log(f"  openai: stream of the {len(prompts[0])}-token prompt: first non-empty chunk after "
+        f"{out['stream_first_ms']:.1f} ms, {out['stream_chunks']} chunks [{card}]")
+    del engine, rm, llm
     torch.cuda.empty_cache()
     return out
 
@@ -1921,6 +2152,7 @@ def main(argv=None) -> int:
 
     records: list = []
     summary: dict = {}
+    held: dict = {}  # the serve phase's model, kept for the openai phase
     phase_s = {"build": time.perf_counter() - t_start}
     t0 = time.perf_counter()
 
@@ -1950,8 +2182,14 @@ def main(argv=None) -> int:
         lap("crosscheck")
     if "serve" in phases:
         log("[serve] LLaMA-2-7B INT8, 8 requests, decode_horizon=16, pipelined")
-        summary["serve"] = serve_phase(card, "profile" in phases)
+        summary["serve"] = serve_phase(card, "profile" in phases,
+                                       held if "openai" in phases else None)
         lap("serve")
+    if "openai" in phases:
+        log("[openai] the served model behind LLM.start_server() and the OpenAI endpoint on "
+            "loopback: 1 sampled request, 8 client threads, 1 stream, 2 refusals")
+        summary["openai"] = openai_phase(card, held)
+        lap("openai")
     if "spec" in phases:
         log("[spec] LLaMA-2-7B INT4 verifier + 160M-class draft, tree width 3 depth 4, "
             "8 requests, fused and pipelined")
@@ -1973,7 +2211,7 @@ def main(argv=None) -> int:
     # the serving kernels, the tuning run for the variants
     launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0)
                        for p in (("variants",) if k in VARIANTS
-                                 else ("serve", "spec", "mixtral", "lora")))
+                                 else ("serve", "openai", "spec", "mixtral", "lora")))
                 for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],

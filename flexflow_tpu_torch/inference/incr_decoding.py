@@ -47,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-offload", "--offload", action="store_true")
     p.add_argument("-offload-reserve-space-size", "--offload-reserve-space-size",
                    type=int, default=0, help="accepted for parity")
-    p.add_argument("--profiling", action="store_true", help="accepted for parity")
+    p.add_argument("--profiling", action="store_true",
+                   help="per-phase wall-time report and per-op profile")
     p.add_argument("-auto-parallelism", "--auto-parallelism", dest="auto_parallel",
                    action="store_true", help="accepted for parity (one device)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -60,7 +61,11 @@ def main(argv=None):
     if max(args.tp, args.pp, args.dp, args.cp) > 1 or args.offload:
         raise SystemExit("parallelism degrees > 1 and --offload are not in the port yet")
 
+    from flexflow_tpu_torch.config import config
     from flexflow_tpu_torch.serve import LLM
+
+    if args.profiling:
+        config.profiling = True
 
     quant = "int4" if args.int4 else ("int8" if args.int8 else None)
     llm = LLM(args.model, data_type="float32" if args.full_precision else "bfloat16",

@@ -45,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--full-precision", action="store_true", help="fp32 weights (default bf16)")
     p.add_argument("--save-peft", dest="save_peft", default="",
                    help="export the finetuned adapter to this dir (with finetuning only)")
-    p.add_argument("--profiling", action="store_true", help="accepted for parity")
+    p.add_argument("--profiling", action="store_true",
+                   help="per-phase wall-time report and per-op profile")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -63,8 +64,12 @@ def main(argv=None):
     if max(args.tp, args.dp) > 1:
         raise SystemExit("parallelism degrees > 1 are not in the port yet")
 
+    from flexflow_tpu_torch.config import config
     from flexflow_tpu_torch.peft.lora import LoraConfig
     from flexflow_tpu_torch.serve import LLM
+
+    if args.profiling:
+        config.profiling = True
 
     llm = LLM(args.model, data_type="float32" if args.full_precision else "bfloat16",
               output_file=args.output_file, device=args.device)

@@ -46,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true")
     p.add_argument("--full-precision", action="store_true",
                    help="fp32 weights (default bf16)")
-    p.add_argument("--profiling", action="store_true", help="accepted for parity")
+    p.add_argument("--profiling", action="store_true",
+                   help="per-phase wall-time report and per-op profile")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -60,7 +61,11 @@ def main(argv=None):
     if max(args.tp, args.pp) > 1:
         raise SystemExit("parallelism degrees > 1 are not in the port yet")
 
+    from flexflow_tpu_torch.config import config
     from flexflow_tpu_torch.serve import LLM, SSM
+
+    if args.profiling:
+        config.profiling = True
 
     quant = "int4" if args.int4 else ("int8" if args.int8 else None)
     dtype = "float32" if args.full_precision else "bfloat16"

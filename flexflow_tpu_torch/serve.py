@@ -7,9 +7,12 @@ builds the engine and scheduler; with ``ssms=[SSM(draft_dir)]`` it builds a
 ``SpecEngine`` and a fused, pipelined ``SpecRequestManager`` instead.
 ``generate(prompts)`` tokenizes, serves and detokenizes. LoRA adapters
 registered before ``compile`` (``register_peft_adapter``) are stacked into
-slots and routed per request (``generate(..., adapter_id=)``). The tokenizer
-is imported lazily (``transformers``). Runs on ``cuda`` unless ``device``
-names another device.
+slots and routed per request (``generate(..., adapter_id=)``).
+``start_server()`` runs the scheduler on a background thread: ``generate``
+then only registers and waits, so concurrent callers share the batch, and
+``generate_stream`` yields text deltas as horizons are fetched. The
+tokenizer is imported lazily (``transformers``). Runs on ``cuda`` unless
+``device`` names another device.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.peft.lora import (LoraConfig, init_lora_params, load_hf_adapter_config,
                                          load_hf_adapter_into_slot)
 from flexflow_tpu_torch.serving.engine import InferenceEngine
-from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
+from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import NO_ADAPTERS, SpecRequestManager
 from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
 from flexflow_tpu_torch.utils import hf_weights
@@ -174,24 +177,33 @@ class LLM:
 
             self.tokenizer = AutoTokenizer.from_pretrained(self.model_dir)
 
-    def generate(self, prompts: Union[str, Sequence[str]], *, max_new_tokens: int = 128,
-                 temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
-                 adapter_id: int = -1,
+    def _token_ids(self, prompt: Union[str, Sequence[int]]) -> List[int]:
+        if isinstance(prompt, str):
+            return self.tokenizer(prompt, return_tensors=None)["input_ids"]
+        return [int(t) for t in prompt]
+
+    def generate(self, prompts: Union[str, Sequence[int], Sequence[Union[str, Sequence[int]]]],
+                 *, max_new_tokens: int = 128, temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, adapter_id: int = -1,
                  stop_token_ids: Sequence[int] = ()) -> List[GenerationResult]:
         """Tokenize, serve, detokenize; ``adapter_id`` routes the requests
-        through a registered LoRA adapter (-1: the base model)."""
+        through a registered LoRA adapter (-1: the base model). A prompt is
+        a string or a list of token ids (served as given; its result's
+        ``prompt`` is their decoded text). With the background server
+        running this only registers and waits."""
         if self.rm is None:
             raise RuntimeError("call compile() first")
-        if isinstance(prompts, str):
+        if isinstance(prompts, str) or (prompts and isinstance(prompts[0], int)):
             prompts = [prompts]
         cfg = GenerationConfig(max_new_tokens=max_new_tokens, temperature=temperature,
                                top_p=top_p, top_k=top_k, adapter_id=adapter_id,
                                stop_token_ids=tuple(stop_token_ids))
-        token_lists = [self.tokenizer(p, return_tensors=None)["input_ids"] for p in prompts]
+        token_lists = [self._token_ids(p) for p in prompts]
         reqs = self.rm.generate(token_lists, cfg)
         results = [
             GenerationResult(
-                guid=req.guid, prompt=prompt,
+                guid=req.guid,
+                prompt=prompt if isinstance(prompt, str) else self.tokenizer.decode(prompt),
                 output_text=self.tokenizer.decode(req.output_tokens, skip_special_tokens=True),
                 output_tokens=list(req.output_tokens),
                 decoding_steps=req.profile.llm_decoding_steps,
@@ -205,6 +217,53 @@ class LLM:
                             f"{r.decoding_steps}) latency({r.latency_ms:.3f}) "
                             f"ttft({r.ttft_ms:.3f})\n")
         return results
+
+    def generate_stream(self, prompt: Union[str, Sequence[int]], *, max_new_tokens: int = 128,
+                        temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
+                        adapter_id: int = -1, stop_token_ids: Sequence[int] = (),
+                        poll_s: float = 0.05):
+        """Register the request and return an iterator of text deltas that
+        the background server decodes (needs ``start_server()``); the
+        deltas join to the whole output text. ``prompt`` is a string or a
+        list of token ids. Registration errors (an oversize prompt) raise
+        here; tokens arrive one fetched horizon at a time, and the iterator
+        raises ``RuntimeError`` when the serving loop died under the
+        request."""
+        if self.rm is None:
+            raise RuntimeError("call compile() first")
+        if self.rm._server_thread is None:
+            raise RuntimeError("generate_stream requires start_server()")
+        cfg = GenerationConfig(max_new_tokens=max_new_tokens, temperature=temperature,
+                               top_p=top_p, top_k=top_k, adapter_id=adapter_id,
+                               stop_token_ids=tuple(stop_token_ids))
+        req = self.rm.get_request(self.rm.register_request(self._token_ids(prompt), cfg))
+        return self._deltas(req, poll_s)
+
+    def _deltas(self, req, poll_s: float):
+        sent = ""
+        while True:
+            done = req.done.wait(timeout=poll_s) or req.done.is_set()
+            text = self.tokenizer.decode(list(req.output_tokens), skip_special_tokens=True)
+            if not done:
+                # a multi-byte character split across byte-fallback tokens
+                # decodes to U+FFFD until its last byte arrives: hold it back
+                while text.endswith("\ufffd"):
+                    text = text[:-1]
+            if len(text) > len(sent) and text.startswith(sent):
+                yield text[len(sent):]
+                sent = text
+            if done:
+                break
+        if req.state == FAILED:
+            raise RuntimeError(f"serving loop failed during generation: {req.error}")
+
+    def start_server(self) -> None:
+        """Start the background serving loop (incremental or speculative)."""
+        self.rm.start_background_server()
+
+    def stop_server(self) -> None:
+        if self.rm is not None:
+            self.rm.stop_server()
 
 
 class SSM(LLM):

@@ -12,14 +12,24 @@ thread. Outputs are identical either way.
 key per dispatch (see ``ops/sampling``). The horizon bookkeeping is the
 Python loop of the JAX package (its native scheduler belongs to the JAX
 package). Each slot carries its request's LoRA adapter id (-1: none) into
-every prefill and horizon, as in JAX. Co-scheduled finetuning, the
-per-phase profiler and the background serving thread are not in the port
+every prefill and horizon, as in JAX.
+
+``start_background_server`` runs ``step()`` on a thread of its own (a 1 ms
+sleep when idle) while other threads register requests and wait on their
+``done`` events; only that thread touches the device. If the loop raises,
+every request not yet done is marked ``FAILED`` with the error and leaves
+its slot, ``generate`` raises, and new registrations are refused until the
+server is stopped or started again (``BackgroundServing``, shared with
+``SpecRequestManager``). ``--profiling`` (``FFConfig.profiling``) times the
+scheduler's phases and prints their report, and the per-op profile once,
+when ``run_until_idle`` drains. Co-scheduled finetuning is not in the port
 yet.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import queue
@@ -30,8 +40,10 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.serving.engine import InferenceEngine
+from flexflow_tpu_torch.utils.profiling import StepTimer, per_op_profile
 
 
 @dataclasses.dataclass
@@ -63,7 +75,7 @@ class ProfileInfo:
         return self.finish_time - self.registration_time
 
 
-PENDING, RUNNING, COMPLETED = ("PENDING", "RUNNING", "COMPLETED")
+PENDING, RUNNING, COMPLETED, FAILED = ("PENDING", "RUNNING", "COMPLETED", "FAILED")
 
 
 @dataclasses.dataclass
@@ -73,6 +85,7 @@ class Request:
     config: GenerationConfig
     state: str = PENDING
     slot: int = -1
+    error: Optional[str] = None  # set when the serving loop died (FAILED)
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     profile: ProfileInfo = dataclasses.field(default_factory=ProfileInfo)
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
@@ -82,7 +95,100 @@ class Request:
         return self.prompt_tokens + self.output_tokens
 
 
-class RequestManager:
+class BackgroundServing:
+    """The background serving loop of a request manager (``RequestManager``
+    and ``SpecRequestManager``): ``step()`` on a thread of its own while
+    other threads register requests and wait on their ``done`` events.
+
+    The manager provides ``engine``, ``step()``, ``run_until_idle()``,
+    ``_pending`` (a queue), ``_requests`` (guid -> Request) and
+    ``_drop_inflight()`` (empties its slots and in-flight work), and calls
+    ``_init_server()`` in its constructor and ``_enqueue`` to register."""
+
+    def _init_server(self) -> None:
+        self._lock = threading.Lock()  # _requests: registering threads vs the failing loop
+        self._server_thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._failure: Optional[str] = None  # the error the last loop died of
+
+    def _enqueue(self, req: Request) -> int:
+        req.profile.registration_time = time.monotonic()
+        with self._lock:
+            if self._failure is not None:
+                # nothing would ever serve it: refuse instead of leaving the caller waiting
+                raise RuntimeError(f"serving loop failed: {self._failure}")
+            self._requests[req.guid] = req
+        self._pending.put(req)
+        return req.guid
+
+    def finish(self, guids: Sequence[int]) -> List[Request]:
+        """The requests ``guids`` once done: awaited while the background
+        server runs, else served here by ``run_until_idle``. Raises
+        ``RuntimeError`` when the serving loop died under one of them
+        (partial output is not returned as if complete)."""
+        if self._server_thread is None:
+            self.run_until_idle()
+        else:
+            for g in guids:
+                self._requests[g].done.wait()
+        reqs = [self._requests[g] for g in guids]
+        failed = next((r for r in reqs if r.state == FAILED), None)
+        if failed is not None:
+            raise RuntimeError(f"serving loop failed during generation: {failed.error}")
+        return reqs
+
+    def start_background_server(self) -> None:
+        """Run ``step()`` on a daemon thread, sleeping 1 ms when idle
+        (idempotent). On the card the thread runs under the engine's device
+        (the current device is per thread). If a step raises, every request
+        not yet done is failed and the exception is re-raised on the thread."""
+        if self._server_thread is not None:
+            return
+        self._stop.clear()
+        self._failure = None
+        device = self.engine.device
+
+        def loop():
+            try:
+                with (torch.cuda.device(device) if device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    while not self._stop.is_set():
+                        if not self.step() and self._pending.empty():
+                            time.sleep(0.001)
+            except BaseException as e:
+                self._fail_all_inflight(e)
+                # a restarted loop serves new requests, not the failed ones
+                self._drop_inflight()
+                raise
+
+        self._server_thread = threading.Thread(target=loop, daemon=True)
+        self._server_thread.start()
+
+    def _fail_all_inflight(self, exc: BaseException) -> None:
+        """Unblock every waiter when the serving loop dies: requests not yet
+        done become FAILED with the error recorded, and later registrations
+        are refused until the server is stopped or started again."""
+        with self._lock:
+            self._failure = f"{type(exc).__name__}: {exc}"
+            for req in self._requests.values():
+                if not req.done.is_set():
+                    req.state = FAILED
+                    req.error = self._failure
+                    req.done.set()
+
+    def stop_server(self) -> None:
+        """Stop the loop between two steps and join it. Work still in flight
+        (pipelined horizons) stays queued for the next ``step()``, from a
+        restarted server or an in-process ``generate``."""
+        if self._server_thread is None:
+            return
+        self._stop.set()
+        self._server_thread.join()
+        self._server_thread = None
+        self._failure = None  # generate() serves in-process again
+
+
+class RequestManager(BackgroundServing):
     """Continuous-batching scheduler over an InferenceEngine."""
 
     def __init__(
@@ -99,6 +205,8 @@ class RequestManager:
         self.engine = engine
         self.decode_horizon = max(int(decode_horizon), 1)
         self.pipelined = bool(pipelined)
+        self.timer = StepTimer() if _ffconfig.profiling else None
+        self._per_op_printed = False
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self._inflight_q = []  # [(kind, fetch future, entries), ...]
         self._fetcher = concurrent.futures.ThreadPoolExecutor(max_workers=1)
@@ -108,6 +216,7 @@ class RequestManager:
         self._guid = itertools.count(1000000)
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._requests: Dict[int, Request] = {}
+        self._init_server()
 
         b = engine.max_requests
         self._slots: List[Optional[Request]] = [None] * b
@@ -135,10 +244,7 @@ class RequestManager:
             raise ValueError(f"adapter_id {config.adapter_id}: the engine holds "
                              f"{self.engine.num_adapters} adapters")
         req = Request(guid=next(self._guid), prompt_tokens=list(prompt_tokens), config=config)
-        req.profile.registration_time = time.monotonic()
-        self._requests[req.guid] = req
-        self._pending.put(req)
-        return req.guid
+        return self._enqueue(req)
 
     def get_request(self, guid: int) -> Request:
         return self._requests[guid]
@@ -278,6 +384,9 @@ class RequestManager:
             if self._finished(req, tok):
                 self._retire(slot)
 
+    def _phase(self, name: str):
+        return contextlib.nullcontext() if self.timer is None else self.timer.phase(name)
+
     def _choose_horizon(self, active, *, projected: bool = False) -> int:
         """Power-of-two horizon covering the largest remaining budget (token
         budget and cache room) of the active slots, capped at decode_horizon;
@@ -305,7 +414,8 @@ class RequestManager:
         while self._inflight_q and self._inflight_q[0][1].done():
             kind, fut, entries = self._inflight_q.pop(0)
             self._apply_fetched(kind, fut.result(), entries)
-        self._admit()
+        with self._phase("admit"):
+            self._admit()
         active = [s for s in range(self.engine.max_requests) if self._slots[s]]
 
         n = self._choose_horizon(active, projected=True) if active else 0
@@ -320,8 +430,9 @@ class RequestManager:
                 tokens_in[slot] = tok
             self._feedback_overrides = []
             lens = self._cache_lens.copy()
-            out_dev = self.engine.decode_horizon_async(
-                lens, tokens_in, self._next_key(), scfg, n, adapter_ids=self._adapter)
+            with self._phase("decode_dispatch"):
+                out_dev = self.engine.decode_horizon_async(
+                    lens, tokens_in, self._next_key(), scfg, n, adapter_ids=self._adapter)
             entries = [(s, self._slots[s]) for s in active]
             for s in active:
                 self._cache_lens[s] += n
@@ -337,7 +448,9 @@ class RequestManager:
         while self._inflight_q and (horizons_in_flight() >= self.pipeline_depth
                                     or not active or n == 0):
             kind, fut, entries = self._inflight_q.pop(0)
-            self._apply_fetched(kind, fut.result(), entries)
+            with self._phase("horizon_fetch"):
+                out = fut.result()
+            self._apply_fetched(kind, out, entries)
             if active and n > 0 and kind == "horizon":
                 break
         return bool(active or self._inflight_q)
@@ -346,21 +459,23 @@ class RequestManager:
         """One scheduling iteration; True while any request is in flight."""
         if self.pipelined and self.decode_horizon > 1:
             return self._step_pipelined()
-        self._admit()
+        with self._phase("admit"):
+            self._admit()
         active = [s for s in range(self.engine.max_requests) if self._slots[s]]
         if not active:
             return False
         scfg = SamplingConfig(temperature=self._temperature, top_p=self._top_p,
                               top_k=self._top_k)
         n = self._choose_horizon(active) if self.decode_horizon > 1 else 1
-        if n == 1:
-            horizon_tokens = self.engine.decode(
-                self._cache_lens, self._tokens, self._next_key(), scfg,
-                adapter_ids=self._adapter)[None, :]
-        else:
-            horizon_tokens = self.engine.decode_horizon(
-                self._cache_lens, self._tokens, self._next_key(), scfg, n,
-                adapter_ids=self._adapter)
+        with self._phase("decode"):
+            if n == 1:
+                horizon_tokens = self.engine.decode(
+                    self._cache_lens, self._tokens, self._next_key(), scfg,
+                    adapter_ids=self._adapter)[None, :]
+            else:
+                horizon_tokens = self.engine.decode_horizon(
+                    self._cache_lens, self._tokens, self._next_key(), scfg, n,
+                    adapter_ids=self._adapter)
         self._steps += n
         for slot in active:
             req = self._slots[slot]
@@ -378,24 +493,42 @@ class RequestManager:
 
     # ------------------------------------------------------------------
 
+    def _drop_inflight(self) -> None:
+        for slot in range(self.engine.max_requests):
+            if self._slots[slot] is not None:
+                self._slots[slot] = None
+                self._cache_lens[slot] = self._projected[slot] = 0
+                self._temperature[slot], self._top_p[slot], self._top_k[slot] = 0.0, 1.0, 0
+                self._adapter[slot] = -1
+        self._inflight_q, self._feedback, self._feedback_overrides = [], None, []
+
     def run_until_idle(self) -> None:
         while self.step() or not self._pending.empty():
             pass
+        if self.timer is not None:
+            for line in self.timer.report():
+                print(line)
+            # the per-op profile once per manager, at the first drain
+            if not self._per_op_printed:
+                self._per_op_printed = True
+                if type(self.engine) is InferenceEngine:
+                    for line in per_op_profile(self.engine.spec, self.engine.params):
+                        print(line)
 
     def generate(
         self,
         prompts: Union[Sequence[int], Sequence[Sequence[int]]],
         config: Optional[GenerationConfig] = None,
     ) -> List[Request]:
-        """Synchronous batch generate (token-id interface)."""
+        """Synchronous batch generate (token-id interface); see
+        :meth:`BackgroundServing.finish`."""
         if prompts and isinstance(prompts[0], int):
             prompts = [prompts]
-        guids = [self.register_request(p, config) for p in prompts]
-        self.run_until_idle()
-        return [self._requests[g] for g in guids]
+        return self.finish([self.register_request(p, config) for p in prompts])
 
     def close(self) -> None:
-        """Stop the fetch worker thread."""
+        """Stop the server, if running, and the fetch worker thread."""
+        self.stop_server()
         self._fetcher.shutdown(wait=True)
 
     @property
@@ -405,3 +538,5 @@ class RequestManager:
     @property
     def total_decoding_steps(self) -> int:
         return self._steps
+
+

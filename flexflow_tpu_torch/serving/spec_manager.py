@@ -8,12 +8,16 @@ is lossless: outputs equal incremental greedy decoding. Requests that sample
 (``spec_sampling.tree_sample_walk``).
 
 Keys: one ``torch.Generator`` draws a 63-bit key per dispatch (see
-``ops/sampling``). The per-phase profiler, the background serving thread and
-``MultiSSMSpecManager`` (several drafts) are not in the port yet.
+``ops/sampling``). The background serving thread is the incremental
+manager's (``request_manager.BackgroundServing``), and ``--profiling``
+times the phases as there. The stepwise path (``fused=False``) refuses
+sampled requests, where the JAX package walks them greedily.
+``MultiSSMSpecManager`` (several drafts) is not in the port yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import time
@@ -27,10 +31,12 @@ from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.serving.request_manager import (
     COMPLETED,
     RUNNING,
+    BackgroundServing,
     GenerationConfig,
     Request,
 )
 from flexflow_tpu_torch.serving.speculative import SpecEngine
+from flexflow_tpu_torch.utils.profiling import StepTimer
 
 
 # the JAX package's SpecEngine serves no adapter and drops adapter_id silently
@@ -39,7 +45,7 @@ NO_ADAPTERS = ("LoRA adapters are not served under speculative decoding: the JAX
                "the port's deliberate differences)")
 
 
-class SpecRequestManager:
+class SpecRequestManager(BackgroundServing):
     """Continuous-batching scheduler over a SpecEngine."""
 
     def __init__(
@@ -75,6 +81,8 @@ class SpecRequestManager:
         self._guid = itertools.count(2000000)
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._requests: Dict[int, Request] = {}
+        self._init_server()
+        self.timer = StepTimer() if _ffconfig.profiling else None
 
         b = engine.max_requests
         self._slots: List[Optional[Request]] = [None] * b
@@ -118,10 +126,10 @@ class SpecRequestManager:
         if config.adapter_id >= 0:
             raise NotImplementedError(NO_ADAPTERS)
         req = Request(guid=next(self._guid), prompt_tokens=list(prompt_tokens), config=config)
-        req.profile.registration_time = time.monotonic()
-        self._requests[req.guid] = req
-        self._pending.put(req)
-        return req.guid
+        return self._enqueue(req)
+
+    def _phase(self, name: str):
+        return contextlib.nullcontext() if self.timer is None else self.timer.phase(name)
 
     def _finished(self, req: Request, last_token: int) -> bool:
         if last_token in self.eos_token_ids or last_token in tuple(req.config.stop_token_ids):
@@ -332,25 +340,30 @@ class SpecRequestManager:
 
     def step(self) -> bool:
         """One scheduling iteration; True while any request is in flight."""
-        self._admit()
+        with self._phase("admit"):
+            self._admit()
         active = [s for s in range(self.engine.max_requests) if self._slots[s]]
         if not active:
             if self._inflight_q:
-                self._drain_inflight(self._inflight_q.pop(0))
+                with self._phase("spec_drain"):
+                    self._drain_inflight(self._inflight_q.pop(0))
                 return True
             return False
         if self.fused:
-            if self.pipelined:
-                return self._step_fused_pipelined(active)
-            return self._step_fused(active)
+            with self._phase("spec_fused"):
+                if self.pipelined:
+                    return self._step_fused_pipelined(active)
+                return self._step_fused(active)
         if any(self._temperature[s] > 0.0 for s in active):
             raise NotImplementedError(
                 "sampling requests need fused=True (stochastic verification runs in the "
                 "fused iteration)")
         lens_before = self._cache_lens.copy()
-        tree_tokens, tree_parents, tree_depths = self.engine.draft_tree(
-            lens_before, self._root_tokens)
-        argmax = self.engine.verify(lens_before, tree_tokens, tree_parents, tree_depths)
+        with self._phase("draft"):
+            tree_tokens, tree_parents, tree_depths = self.engine.draft_tree(
+                lens_before, self._root_tokens)
+        with self._phase("verify"):
+            argmax = self.engine.verify(lens_before, tree_tokens, tree_parents, tree_depths)
         from_slots = self._greedy_walk_accept(active, lens_before, tree_tokens, tree_parents,
                                               argmax)
         self.engine.commit(lens_before, from_slots)
@@ -396,17 +409,28 @@ class SpecRequestManager:
                 self._retire(slot)
         return from_slots
 
+    def _drop_inflight(self) -> None:
+        for slot in range(self.engine.max_requests):
+            if self._slots[slot] is not None:
+                self._slots[slot] = None
+                self._cache_lens[slot] = self._inflight_iters[slot] = 0
+                self._temperature[slot], self._top_p[slot], self._top_k[slot] = 0.0, 1.0, 0
+        self._inflight_q, self._dev_lens, self._dev_roots = [], None, None
+        self._override_mask[:] = False
+
     def run_until_idle(self) -> None:
         while self.step() or not self._pending.empty():
             pass
+        if self.timer is not None:
+            for line in self.timer.report():
+                print(line)
 
     def generate(self, prompts, config: Optional[GenerationConfig] = None) -> List[Request]:
-        """Synchronous batch generate (token-id interface)."""
+        """Synchronous batch generate (token-id interface); see
+        :meth:`BackgroundServing.finish`."""
         if prompts and isinstance(prompts[0], int):
             prompts = [prompts]
-        guids = [self.register_request(p, config) for p in prompts]
-        self.run_until_idle()
-        return [self._requests[g] for g in guids]
+        return self.finish([self.register_request(p, config) for p in prompts])
 
     # ------------------------------------------------------------------
 

@@ -686,6 +686,31 @@ def test_pipelined_horizon_tokens_survive_the_next_replay(cuda):
     assert torch.equal(first, want) and second.shape == (4, 4)
 
 
+def test_replays_resume_after_a_sampled_request_retires(cuda):
+    """A sampled request runs eagerly beside a greedy one (2 slots, horizon
+    4, pipelined); once it retires, every greedy step of the greedy request
+    and of a later all-greedy batch is a replay."""
+    spec = ModelSpec(**_TINY)
+    eng = InferenceEngine(spec, _tiny_params(spec, 0, _BF16, 8, cuda), max_requests_per_batch=2,
+                          max_seq_len=128, cache_dtype=_BF16, device=cuda)
+    rm = RequestManager(eng, decode_horizon=4, pipelined=True)
+    try:
+        g = rm.register_request([5, 17, 3, 99, 42], GenerationConfig(max_new_tokens=40))
+        rm.register_request([9, 1, 4], GenerationConfig(max_new_tokens=2, temperature=0.8))
+        rm.run_until_idle()
+        assert len(rm.get_request(g).output_tokens) == 40
+        # the sampled slot's horizons: those dispatched before its retirement
+        # was fetched, at most the pipeline's depth (2) of 4 steps
+        assert eng.graphs.replays >= rm.total_decoding_steps - 2 * 4 > 0
+        replays0, steps0 = eng.graphs.replays, rm.total_decoding_steps
+        reqs = rm.generate([[5, 17, 3, 99, 42], [7, 7, 7]], GenerationConfig(max_new_tokens=24))
+        torch.cuda.synchronize()
+    finally:
+        rm.close()
+    assert eng.graphs.replays - replays0 == rm.total_decoding_steps - steps0 > 0
+    assert reqs[0].output_tokens == rm.get_request(g).output_tokens[:24]
+
+
 def test_engines_with_graphs_free_their_memory_without_gc(cuda):
     """An engine that has captured its graphs is freed, weights, cache and
     graph pool, as soon as the last reference goes: no reference cycle

@@ -1,4 +1,6 @@
-"""The PyTorch port imports neither JAX nor the JAX package."""
+"""The PyTorch port imports neither JAX nor the JAX package, nor the
+repository's root ``inference`` package (the JAX side's scripts); its own
+``flexflow_tpu_torch.inference`` is allowed."""
 
 import os
 import re
@@ -30,19 +32,35 @@ PORT_MODULES = [
     "flexflow_tpu_torch.ops.kernels.qmm_variants",
     "flexflow_tpu_torch.benchmarks.tune_quant_kernel",
     "flexflow_tpu_torch.benchmarks.tune_int4_variants",
+    "flexflow_tpu_torch.utils.profiling",
+    "flexflow_tpu_torch.inference.chat",
+    "flexflow_tpu_torch.inference.entrypoint.http_server",
+    "flexflow_tpu_torch.inference.entrypoint.openai_server",
+    "flexflow_tpu_torch.inference.entrypoint.fastapi_incr",
+    "flexflow_tpu_torch.inference.entrypoint.fastapi_specinfer",
+    "flexflow_tpu_torch.inference.usecases.langchain_support",
+    "flexflow_tpu_torch.inference.usecases.prompt_template_incr",
+    "flexflow_tpu_torch.inference.usecases.prompt_template_specinfer",
+    "flexflow_tpu_torch.inference.usecases.rag_incr",
+    "flexflow_tpu_torch.inference.usecases.rag_specinfer",
+    "flexflow_tpu_torch.inference.usecases.gradio_chat",
+    "flexflow_tpu_torch.inference.usecases.gradio_incr",
+    "flexflow_tpu_torch.inference.usecases.gradio_specinfer",
+    "flexflow_tpu_torch.inference.streamlit.app",
 ]
 # "import jax", "from jax.x import", "import flexflow_tpu", "from flexflow_tpu.x
-# import" — but not the port's own flexflow_tpu_torch
+# import", "from inference.x import" — but not the port's own flexflow_tpu_torch
+# (nor its flexflow_tpu_torch.inference)
+_FORBIDDEN_ROOTS = ("jax", "jaxlib", "flexflow_tpu", "inference")
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flexflow_tpu)(?![\w])", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:" + "|".join(_FORBIDDEN_ROOTS) + r")(?![\w])", re.MULTILINE)
 
 
 def test_import_loads_no_jax_module():
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in PORT_MODULES)
-        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flexflow_tpu'))\n"
+        + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN_ROOTS!r})\n"
         "print(repr(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -68,6 +86,13 @@ def test_forbidden_pattern_catches_and_spares():
     assert _FORBIDDEN.search("    import flexflow_tpu")
     assert not _FORBIDDEN.search("from flexflow_tpu_torch.ops import attention")
     assert not _FORBIDDEN.search("import flexflow_tpu_torch")
+    assert _FORBIDDEN.search("from inference.usecases.langchain_support import SimpleChain")
+    assert _FORBIDDEN.search("    import inference.entrypoint.openai_server")
+    assert _FORBIDDEN.search("from inference import chat")
+    assert not _FORBIDDEN.search(
+        "from flexflow_tpu_torch.inference.usecases.rag_incr import build_rag")
+    assert not _FORBIDDEN.search("import flexflow_tpu_torch.inference.chat")
+    assert not _FORBIDDEN.search("    from inference_tools import x")
 
 
 def test_entry_points_refuse_missing_gpu():

@@ -6,6 +6,7 @@ the exact target probabilities, and the greedy degeneration."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from flexflow_tpu.ops import sampling as j_sampling
@@ -149,3 +150,14 @@ def test_greedy_slot_in_a_sampling_horizon_stays_lossless():
     assert rm.get_request(g_greedy).output_tokens == want
     samp = rm.get_request(g_samp).output_tokens
     assert 1 <= len(samp) <= 10 and all(0 <= t < TINY.vocab_size for t in samp)
+
+
+def test_stepwise_manager_refuses_sampled_requests():
+    """The stepwise path (``fused=False``) has no stochastic verification:
+    a sampled request raises where the JAX package walks it greedily; its
+    greedy requests are served."""
+    rm = SpecRequestManager(_engine(), fused=False, seed=1)
+    [r] = rm.generate([[3, 17, 91, 5]], GenerationConfig(max_new_tokens=4))
+    assert len(r.output_tokens) == 4
+    with pytest.raises(NotImplementedError, match="fused=True"):
+        rm.generate([[2, 4, 8]], GenerationConfig(max_new_tokens=4, temperature=0.8))
