@@ -1431,8 +1431,8 @@ def openai_phase(card: str, held: dict) -> dict:
         first = max(r.profile.first_token_time for r in http_reqs)
         out.update(
             requests=len(http_reqs), tokens=sum(len(r.output_tokens) for r in http_reqs),
-            decode_tok_s=sum(len(r.output_tokens) - 1 for r in http_reqs)
-            / (max(r.profile.finish_time for r in http_reqs) - first),
+            # as _served: from the last first token to the host's end of the run
+            decode_tok_s=sum(len(r.output_tokens) - 1 for r in http_reqs) / (t_end - first),
             mean_ttft_ms=1e3 * float(np.mean([r.profile.ttft for r in http_reqs])),
             wall_s=t_end - t_start, steps=steps, replays=replays, launches=launches,
             admissions=len({r.profile.first_token_time for r in http_reqs}))  # one a prefill
