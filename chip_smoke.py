@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only card,build,mixtral
     python3 chip_smoke.py --only card,build,lora
     python3 chip_smoke.py --only card,build,serve,openai
+    python3 chip_smoke.py --only card,build,finetune,train
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -136,7 +137,42 @@ Phases, in order; any failure exits non-zero:
               horizon equals the uncaptured body bitwise. Prints both runs'
               decode tok/s, mean TTFT and peak memory, and the adapters'
               bytes and build time.
-11. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+11. finetune — co-scheduled LoRA finetuning (``peft/finetune.FinetuneSession``)
+              on LLaMA-2-7B INT8 (32 layers, random weights from seed 0),
+              bf16, two adapter slots at rank 16, alpha 32 on wq and wv (the
+              PEFT CLI's targets), A and B drawn; slot 0 serves, slot 1
+              trains by SGD at lr 1e-3 on 4 seeded 256-token sequences, 16
+              steps. (a) One step's slot-1 gradients through K1/K3 and
+              ``QuantMatmulFn`` against the plain quant-matmul on the card:
+              with f32 activations over the same carriers, every tensor
+              (layer 0 included) at cosine >= 0.999 and relative L2 <=
+              3e-2; with bf16 activations within 1.5x the floor set by a
+              second plain version (the dequantized weight multiplied in
+              bf16): two right bf16 forwards part by their roundings; 129
+              qmm_int8 launches and 128 backwards a step; and 2 layers at
+              f32 against the CPU (1e-3). (b) The serve prompts routed [0,
+              -1, 0, -1, ...] through ``run_until_idle`` with the session
+              registered: tokens equal the run without it, every greedy step
+              a replay, each sequence's loss falls from the first epoch to
+              the last. (c) Slot 1 served before and after training: tokens
+              change; one replayed horizon on the trained slot equals the
+              uncaptured body bitwise. (d) Slot 1 exported as an HF PEFT
+              directory and loaded into a fresh engine's slot bitwise.
+              Prints the step's forward, backward and update device times,
+              the backward's dequant + matmul dx per carrier beside its
+              bound, decode tok/s with and without the session, and peak
+              memory.
+12. train   — the Trainer at LLaMA-2-7B width cut to 2 layers (f32 params,
+              gradients and Adam's m and v at 16 B a parameter; 32 layers
+              would not fit 80 GB), seed 0, Adam at lr 1e-4: a B=1, T=64
+              first step on the card against the CPU (loss rtol 1e-4,
+              gradients within 1e-4 of each leaf's magnitude, updated
+              parameters within 1e-5 wherever the gradient's sign is decided:
+              Adam's first update is about lr * sign(g)), 8 steps on one
+              4 x 512 batch (the loss must fall), and a save_checkpoint /
+              load_checkpoint resume (in memory) giving the same next loss.
+              Prints step ms, tokens/s and peak memory. TF32 stays off.
+13. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -155,11 +191,15 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import re
 import sys
+import tempfile
 import time
 
 # the H100's memory rate and L2 size are tune_quant_kernel's PEAK and L2_BYTES
@@ -168,7 +208,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
-          "mixtral", "lora", "profile")
+          "mixtral", "lora", "finetune", "train", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -193,6 +233,15 @@ MIXTRAL_8X7B = {
 LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 LORA_IDS = [0, 1, 2, 3, 0, 1, -1, -1]  # the served requests' adapters (-1: none)
 LORA_B_STD = 0.02  # B's draw: a delta about a sixth of a projection's output
+
+# the finetune phase: the PEFT CLI's adapters (wq, wv; two slots, slot 0
+# serves and slot 1 trains) at rank 16, alpha 32, and its SGD learning rate
+FT_TARGETS = ("q_proj", "v_proj")
+FT_IDS = [0, -1, 0, -1, 0, -1, 0, -1]  # the co-scheduled run's requests
+FT_LR = 1e-3
+FT_SEQS, FT_LEN, FT_STEPS = 4, 256, 16  # 4 sequences of 256 tokens, 16 SGD steps
+# the train phase: LLaMA-2-7B width at 2 layers, f32, Adam, one fixed batch
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 2, 4, 512, 8, 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -427,6 +476,8 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
     # width 3 and depth 4, and a 8192-row prefill; wgu also at each regime's
     # edges (16 | 17, 128 | 129, the prefill threshold - 1 | threshold)
     rows = (1, 8, 104, 8192)
+    if bits == 8:  # and a finetune step's 256 rows (one 256-token sequence)
+        rows = (1, 8, 104, FT_LEN, 8192)
     edges = (16, 17, 128, 129, thr - 1, thr)
     # (name, contraction shape, out width, group size, rows) of LLaMA-2-7B's
     # fused carriers; INT8's wgu again at group 64 (quantization_group_size=64),
@@ -1145,12 +1196,15 @@ def _prompts(vocab_size: int):
     return [rng.integers(3, vocab_size, n).tolist() for n in PROMPT_LENS]
 
 
-def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, adapters=None):
+def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, adapters=None,
+            session=None):
     """Warm up on one short request (through ``warm``, a scheduler on the
     same engine, or ``rm``), set the launch counts to 0, serve ``prompts``
-    (request i through LoRA adapter ``adapters[i]``; default none) and read
-    the counts. Every request must finish with ``max_new`` tokens from the
-    vocabulary. Returns (requests, stats)."""
+    (request i through LoRA adapter ``adapters[i]``; default none; with a
+    finetuning ``session`` registered after the warm-up, which
+    ``run_until_idle`` steps between scheduling iterations and drains) and
+    read the counts. Every request must finish with ``max_new`` tokens from
+    the vocabulary. Returns (requests, stats)."""
     import numpy as np
     import torch
 
@@ -1160,6 +1214,8 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, ad
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _launches(reset=True)
+    if session is not None:
+        rm.register_finetune(session)
     graphs = rm.engine.graphs
     replays0 = graphs.replays
     steps0 = rm.total_decoding_steps
@@ -1879,17 +1935,19 @@ def mixtral_phase(card: str, with_profile: bool) -> dict:
     return out
 
 
-def _lora_adapters(spec, n: int, device, seed: int):
-    """``n`` LoRA adapters at rank 16, alpha 32 on the seven projections,
-    bf16, A and B both drawn from one seeded generator (B non-zero, so
-    every adapter acts). Returns (stacks, config)."""
+def _lora_adapters(spec, n: int, device, seed: int, targets=LORA_TARGETS,
+                   dtype: str = "bfloat16", lr: float = 1e-3):
+    """``n`` LoRA adapters at rank 16, alpha 32 on ``targets`` (default the
+    seven projections; SGD at ``lr`` when finetuned), in ``dtype``, A and B
+    both drawn from one seeded generator (B non-zero, so every adapter
+    acts). Returns (stacks, config)."""
     import torch
 
     from flexflow_tpu_torch.peft.lora import LoraConfig, init_lora_params
 
-    cfg = LoraConfig(rank=16, alpha=32.0, target_modules=LORA_TARGETS)
+    cfg = LoraConfig(rank=16, alpha=32.0, target_modules=targets, learning_rate=lr)
     gen = torch.Generator(device=device).manual_seed(seed)
-    lora = init_lora_params(spec, cfg, n, gen, torch.bfloat16, device)
+    lora = init_lora_params(spec, cfg, n, gen, getattr(torch, dtype), device)
     for ab in lora.values():
         ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device=device) * LORA_B_STD)
     return lora, cfg
@@ -2096,6 +2154,501 @@ def lora_phase(card: str, with_profile: bool) -> dict:
     return out
 
 
+def _quant_matmul_in_x_dtype(x, qa, *, layer=None, expert=None, out_dtype=None):
+    """A second plain quant-matmul (stacked carriers, no experts): the plain
+    dequantized weight multiplied in x's dtype by ``torch.matmul`` (cuBLAS,
+    f32 accumulation) instead of in f32. Both are right; their difference
+    is the noise floor of a bf16 forward."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+
+    del expert
+    w = qm.dequant_weight(qa.q, qa.scale, qa.offset, qa.bits, qa.group_size, qa.d_rest, layer,
+                          x.dtype)
+    lead = x.shape[: x.dim() - qa.contract_dims]
+    out = torch.matmul(x.reshape(-1, qa.d_contract), w).to(out_dtype or x.dtype)
+    return out.reshape(*lead, *qa.shape[qa.batch_dims + qa.contract_dims:])
+
+
+@contextlib.contextmanager
+def _plain_quant_matmul(fn=None):
+    """The decoder's quant-matmul calls go to a plain version (default
+    ``quant_matmul_plain``; autograd through its torch ops): the yardstick
+    of the kernels and of ``QuantMatmulFn``'s backward."""
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+
+    kernel = decoder.quant_matmul
+    decoder.quant_matmul = fn or qm.quant_matmul_plain
+    try:
+        yield
+    finally:
+        decoder.quant_matmul = kernel
+
+
+def _finetune_data(vocab_size: int, seed: int = 6):
+    """FT_SEQS seeded sequences of FT_LEN next-token pairs ([1, T] each)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(FT_SEQS):
+        ids = rng.integers(3, vocab_size, FT_LEN + 1).astype(np.int32)
+        out.append((ids[None, :-1], ids[None, 1:]))
+    return out
+
+
+def _lora_grads(session, engine, tokens, labels, plain=None):
+    """One finetuning step's forward and backward with no update: (loss, the
+    session slot's gradients {(module, "a" | "b"): [L, ...]}); through the
+    kernels, or with ``plain`` (True, or a plain quant-matmul function)
+    through a plain version."""
+    with (_plain_quant_matmul(None if plain is True else plain) if plain
+          else contextlib.nullcontext()):
+        loss = session.loss(engine, tokens, labels)
+        loss.backward()
+    grads = {}
+    for mod, ab in session.params.items():
+        for k, p in ab.items():
+            grads[(mod, k)] = p.grad.detach().float().clone()
+            p.grad = None
+    return float(loss.detach()), grads
+
+
+def _grad_rule(got, want, what: str, min_cos: float, max_rel: float) -> dict:
+    """Per tensor (module, a or b, layer): cosine and relative L2 distance of
+    ``got`` to ``want``; every tensor non-zero, within both limits."""
+    rows = []
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        for layer in range(w.shape[0]):
+            gl, wl = g[layer].flatten().double(), w[layer].flatten().double()
+            wn = wl.norm().item()
+            require(wn > 0 and gl.norm().item() > 0,
+                    f"{what}: {key} layer {layer} has a zero gradient")
+            cos = (gl @ wl).item() / (gl.norm().item() * wn)
+            rows.append((f"{key[0]}.{key[1]}", layer, cos, (gl - wl).norm().item() / wn))
+    bad = [r for r in rows if r[2] < min_cos or r[3] > max_rel]
+    require(not bad, f"{what}: tensors off the limits (cosine >= {min_cos}, rel L2 <= "
+                     f"{max_rel}): {bad[:6]}")
+    out = dict(tensors=len(rows), min_cosine=min(r[2] for r in rows),
+               max_rel_l2=max(r[3] for r in rows),
+               layer0={name: (cos, rel) for name, layer, cos, rel in rows if layer == 0})
+    log(f"  {what}: {len(rows)} tensors, min cosine {out['min_cosine']:.6f}, max rel L2 "
+        f"{out['max_rel_l2']:.3g}; layer 0 (cosine, rel L2) "
+        f"{ {k: (round(c, 6), float(f'{r:.3g}')) for k, (c, r) in out['layer0'].items()} }")
+    return out
+
+
+def crosscheck_finetune() -> dict:
+    """2 layers at full 7B width, INT8 with f32 activations, two adapter
+    slots (A and B drawn): one finetuning step's loss and slot-1 gradients
+    through the kernels on the GPU against the plain versions on the CPU,
+    each tensor within 1e-3 (relative L2)."""
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.peft.finetune import FinetuneSession
+    from flexflow_tpu_torch.quant import quantize_params
+    from flexflow_tpu_torch.serving.engine import InferenceEngine, _params_to
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    dev, host = torch.device("cuda"), torch.device("cpu")
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": 2})
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = quantize_params(spec, params_lib.init_params(spec, gen, torch.float32, dev),
+                             bits=8, group_size=128, compute_dtype=torch.float32)
+    params = decoder.fuse_qkv_params(spec, params)
+    lora, cfg = _lora_adapters(spec, 2, dev, 3, FT_TARGETS, "float32", FT_LR)
+    tokens, labels = (a[:, :64] for a in _finetune_data(spec.vocab_size)[0])
+    out = {}
+    for name, d in (("gpu", dev), ("cpu", host)):
+        engine = InferenceEngine(spec, _params_to(params, d), max_requests_per_batch=1,
+                                 max_seq_len=64, cache_dtype=torch.float32, device=d,
+                                 lora=_params_to(lora, d), lora_config=cfg)
+        out[name] = _lora_grads(FinetuneSession(spec, cfg, 1, [(tokens, labels)]), engine,
+                                tokens, labels)
+        del engine
+    (lg, gg), (lc, gc) = out["gpu"], out["cpu"]
+    require(abs(lg - lc) <= 1e-3 * abs(lc), f"finetune cross-check loss {lg} vs CPU {lc}")
+    res = _grad_rule(gg, gc, "finetune cross-check (2 layers, f32, GPU kernels vs CPU plain)",
+                     0.999, 1e-3)
+    res.update(loss_gpu=lg, loss_cpu=lc)
+    del params, lora, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _f32_tree(params):
+    """The served tree with f32 activations: quantized carriers shared (their
+    compute dtype f32), other leaves cast."""
+    import torch
+
+    from flexflow_tpu_torch.quant.weight_only import QuantizedArray
+
+    if isinstance(params, dict):
+        return {k: _f32_tree(v) for k, v in params.items()}
+    if isinstance(params, QuantizedArray):
+        return dataclasses.replace(params, dtype=torch.float32)
+    return params.float() if isinstance(params, torch.Tensor) else params
+
+
+def _dx_rows(engine, card: str) -> dict:
+    """QuantMatmulFn's backward at a finetune step's FT_LEN rows on each of
+    the engine's quantized carriers (layer 0; the lm_head): the plain
+    dequant of one carrier and the bf16 torch.matmul, device time beside its
+    bound (the carrier, dy and dx moved once; 2 m D F operations)."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    layers = engine.params["layers"]
+    carriers = [(k, layers[k], 0, engine.spec.num_layers) for k in ("wqkv", "wo", "wgu", "wd")]
+    carriers.append(("lm_head", engine.params["lm_head"], None, 1))
+    out, total = {}, 0.0
+    for name, qa, layer, per_step in carriers:
+        d, f = qa.d_contract, qa.d_rest
+        dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        dy = torch.randn((FT_LEN, f), generator=gen, device=dev).to(dtype)
+
+        def dx():
+            w = qm.dequant_weight(qa.q, qa.scale, qa.offset, qa.bits, qa.group_size, f, layer,
+                                  torch.bfloat16)
+            return torch.matmul(dy.to(torch.bfloat16), w.t())
+
+        ms = time_ms(dx, 10)
+        nbytes = dy.numel() * dy.element_size() + _weight_bytes(8, d, qa.q.shape[-1],
+                                                               qa.group_size) + FT_LEN * d * 2
+        b_ms, b_by = bound(nbytes, 2.0 * FT_LEN * d * f, PEAK_BF16_FLOPS)
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, per_step=per_step)
+        total += ms * per_step
+        log(f"  backward dx {name} {d}x{f} m={FT_LEN} (dequant + bf16 torch.matmul, not a TPU "
+            f"kernel): {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {per_step} a step [{card}]")
+    out["per_step_ms"] = total
+    return out
+
+
+def finetune_phase(card: str) -> dict:
+    """Co-scheduled LoRA finetuning at full LLaMA-2-7B depth and width, INT8:
+    (a) one step's slot gradients through the kernels and QuantMatmulFn
+    against the plain quant-matmul on the card, with f32 activations
+    (cosine >= 0.999, relative L2 <= 3e-2 per tensor) and with bf16 ones
+    (within 1.5x the floor between two plain versions), and a 2-layer f32
+    check against the CPU; (b) the 8 prompts routed FT_IDS served with a session
+    training slot 1: tokens equal the run without it, every greedy step a
+    replay, each sequence's loss falls over the epochs; (c) slot 1 served after training: tokens differ
+    from before it, and a replayed horizon equals the uncaptured body on the
+    updated adapter; (d) slot 1 exported and loaded into a fresh engine's
+    slot bitwise. Prints the step's forward, backward (the dequant + matmul
+    part apart) and update times, decode tok/s with and without the session
+    and peak memory."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+    from flexflow_tpu_torch.peft.finetune import FinetuneSession
+    from flexflow_tpu_torch.peft.lora import (export_hf_adapter, init_lora_params,
+                                             load_hf_adapter_into_slot, unroute_lora)
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    out = {"crosscheck": crosscheck_finetune()}
+    dev = torch.device("cuda")
+    spec = ModelSpec(**LLAMA2_7B)
+    lora, cfg = _lora_adapters(spec, 2, dev, 0, FT_TARGETS, lr=FT_LR)
+    engine = InferenceEngine(spec, _quant_params(spec, 0, dev), max_requests_per_batch=8,
+                             max_seq_len=1024, max_tokens_per_batch=0,
+                             cache_dtype=torch.bfloat16, device=dev, lora=lora, lora_config=cfg)
+    del lora
+    data = _finetune_data(spec.vocab_size)
+    r, n_layers = cfg.rank, spec.num_layers
+
+    # (a) one step's gradients through the kernels against the plain path,
+    # layer 0 included: with f32 activations over the same carriers (the
+    # f32 kernel regime) at fixed limits; with the served bf16 activations
+    # against the floor that a second plain version sets (two right bf16
+    # forwards part by their roundings, amplified over 32 layers)
+    f32 = InferenceEngine(spec, _f32_tree(engine.params), max_requests_per_batch=1,
+                          max_seq_len=16, cache_dtype=torch.float32, device=dev,
+                          lora=unroute_lora(engine.lora), lora_config=cfg)
+    probe = FinetuneSession(spec, cfg, 1, data)
+    loss_k, grads_k = _lora_grads(probe, f32, *data[0])
+    loss_p, grads_p = _lora_grads(FinetuneSession(spec, cfg, 1, data), f32, *data[0], plain=True)
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+            f"finetune: f32 loss through the kernels {loss_k} vs the plain path {loss_p}")
+    out["grads_f32"] = _grad_rule(grads_k, grads_p, "finetune gradients (32 layers, f32 "
+                                  "activations, kernels + QuantMatmulFn vs plain quant-matmul)",
+                                  0.999, 3e-2)
+    del f32, probe, grads_k, grads_p
+    torch.cuda.empty_cache()
+    probe = FinetuneSession(spec, cfg, 1, data)
+    launches, calls = qm.LAUNCHES, qm.BACKWARD_CALLS
+    loss_k, grads_k = _lora_grads(probe, engine, *data[0])
+    out["grad_launches"] = dict(qmm_int8=qm.LAUNCHES - launches,
+                                backward=qm.BACKWARD_CALLS - calls)
+    # every base projection and the lm_head launch K1/K3 forward; each passes
+    # its gradient back through QuantMatmulFn but layer 0's wqkv, whose input
+    # (the embedding) trains nothing
+    want = dict(qmm_int8=4 * n_layers + 1, backward=4 * n_layers)
+    require(out["grad_launches"] == want,
+            f"finetune: a step launched {out['grad_launches']}, expected {want}")
+    loss_p, grads_p = _lora_grads(probe, engine, *data[0], plain=True)
+    loss_b, grads_b = _lora_grads(probe, engine, *data[0], plain=_quant_matmul_in_x_dtype)
+    torch.cuda.empty_cache()
+    floor = _grad_rule(grads_b, grads_p, "bf16 floor: plain in bf16 vs plain in f32 products "
+                       "(32 layers, both right)", 0.99, 1.0)
+    k_cos, k_rel = 1 - 1.5 * (1 - floor["min_cosine"]), 1.5 * floor["max_rel_l2"]
+    out["grads"] = _grad_rule(grads_k, grads_p, "finetune gradients (32 layers, bf16, kernels + "
+                              "QuantMatmulFn vs plain quant-matmul; limits 1.5x the floor)",
+                              k_cos, k_rel)
+    require(abs(loss_k - loss_p) <= 2 * abs(loss_b - loss_p) + 1e-6 * abs(loss_p),
+            f"finetune: bf16 loss through the kernels {loss_k} vs the plain path {loss_p} "
+            f"(the second plain version {loss_b})")
+    out["grads"].update(loss_kernels=loss_k, loss_plain=loss_p, loss_plain_bf16=loss_b,
+                        floor=floor)
+    del grads_k, grads_p, grads_b, probe
+
+    # (b) served with and without a co-scheduled session
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    prompts = _prompts(spec.vocab_size)
+    routed_ptrs = [t.data_ptr() for part in (engine.lora.a, engine.lora.b) for t in part.values()]
+    slot0 = [t.clone() for t in (*(a[..., :r] for a in engine.lora.a.values()),
+                                 *(b[:, :r] for b in engine.lora.b.values()))]
+    try:
+        base_reqs, out["base"] = _served(rm, prompts, 64, spec.vocab_size, "finetune base",
+                                         adapters=FT_IDS)
+        pre_reqs, _ = _served(rm, prompts, 64, spec.vocab_size, "slot 1 before training",
+                              adapters=[1] * 8)
+        session = FinetuneSession(spec, cfg, 1, data, epochs=FT_STEPS // FT_SEQS)
+        reqs, served = _served(rm, prompts, 64, spec.vocab_size, "finetune co-scheduled",
+                               adapters=FT_IDS, session=session)
+        out.update(served)
+        require([q.output_tokens for q in reqs] == [q.output_tokens for q in base_reqs],
+                "finetune: the co-scheduled run's tokens differ from the run without a session")
+        losses = session.losses
+        out["losses"] = losses
+        # step i trains sequence i % FT_SEQS: each sequence's loss must fall
+        # from the first epoch to the last (the first and the last step see
+        # different sequences)
+        require(len(losses) == FT_STEPS and all(
+            losses[-FT_SEQS + i] < losses[i] for i in range(FT_SEQS)),
+            f"finetune: {len(losses)} steps, losses {losses}")
+        require(all(torch.equal(a, b) for a, b in zip(
+            slot0, (*(a[..., :r] for a in engine.lora.a.values()),
+                    *(b[:, :r] for b in engine.lora.b.values())))),
+                "finetune: slot 0 changed")
+        require(routed_ptrs == [t.data_ptr() for part in (engine.lora.a, engine.lora.b)
+                                for t in part.values()],
+                "finetune: the routed adapters were reallocated, not updated in place")
+        log(f"  finetune losses over {FT_STEPS} steps: {[round(v, 4) for v in losses]}; by "
+            f"sequence, epoch 1 -> {FT_STEPS // FT_SEQS}: "
+            f"{[(round(losses[i], 4), round(losses[-FT_SEQS + i], 4)) for i in range(FT_SEQS)]}")
+
+        # the step's parts, timed on the device (4 more steps of slot 1)
+        timer = FinetuneSession(spec, cfg, 1, data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        parts = []
+        for i in range(1 + FT_SEQS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = timer.loss(engine, *data[i % FT_SEQS])
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            timer.update()
+            ev[3].record()
+            parts.append(ev)
+        torch.cuda.synchronize()
+        step = {k: float(np.mean([e[j].elapsed_time(e[j + 1]) for e in parts[1:]]))
+                for j, k in enumerate(("forward_ms", "backward_ms", "update_ms"))}
+        step["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        step["dx"] = _dx_rows(engine, card)
+        out["step"] = step
+        log(f"  finetune step (1 x {FT_LEN} tokens, device time, mean of {FT_SEQS}): forward "
+            f"{step['forward_ms']:.2f} ms, backward {step['backward_ms']:.2f} ms (of it the "
+            f"dequant + matmul dx, timed alone: {step['dx']['per_step_ms']:.2f} ms), update "
+            f"{step['update_ms']:.3f} ms; peak memory {step['peak_mem_gib']:.2f} GiB [{card}]")
+
+        # (c) the trained slot, served and replayed
+        post_reqs, out["after"] = _served(rm, prompts, 64, spec.vocab_size,
+                                          "slot 1 after training", adapters=[1] * 8)
+        out["slot1_requests_changed"] = sum(a.output_tokens != b.output_tokens
+                                            for a, b in zip(post_reqs, pre_reqs))
+        require(out["slot1_requests_changed"] > 0,
+                "finetune: slot 1 serves the same tokens after training as before")
+        lens = np.array([len(p) for p in prompts], np.int32)
+        toks = np.array([(q.output_tokens[0] + 1) % spec.vocab_size for q in post_reqs], np.int32)
+        _replay_check("trained slot-1 decode horizon (16 steps, 8 slots)",
+                      lambda replay: [engine.greedy_horizon_async(lens, toks, 16, replay=replay,
+                                                                  adapter_ids=[1] * 8)],
+                      list(engine.cache))
+    finally:
+        rm.close()
+
+    # (d) export slot 1, load it into a fresh engine's slot 0
+    with tempfile.TemporaryDirectory(prefix=".finetune_export_",
+                                     dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        export_hf_adapter(d, spec, unroute_lora(engine.lora), 1, cfg)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        fresh = init_lora_params(spec, cfg, 2, gen, torch.float32, dev)
+        load_hf_adapter_into_slot(d, spec, fresh, 0, cfg)
+    other = InferenceEngine(spec, engine.params, max_requests_per_batch=1, max_seq_len=64,
+                            cache_dtype=torch.bfloat16, device=dev, lora=fresh, lora_config=cfg)
+    require(all(torch.equal(other.lora.a[m][..., :r], engine.lora.a[m][..., r:2 * r])
+                and torch.equal(other.lora.b[m][:, :r], engine.lora.b[m][:, r:2 * r])
+                for m in engine.lora.a),
+            "finetune: the exported slot, loaded into a fresh engine, differs from the trained one")
+    log("  finetune: slot 1 exported (HF PEFT) and loaded into a fresh engine's slot 0 bitwise")
+    for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+        require(out["launches"][k] > 0, f"{k} was never launched in the co-scheduled run")
+    out["card"] = card
+    _log_served("finetune base (no session)", out["base"], card)
+    _log_served("finetune co-scheduled (session on slot 1)", out, card)
+    log(f"  finetune: co-scheduled tokens equal the run without a session; decode tok/s with "
+        f"/ without the session {out['decode_tok_s']:.1f} / {out['base']['decode_tok_s']:.1f}; "
+        f"{out['slot1_requests_changed']} of 8 slot-1 requests changed tokens after training "
+        f"[{card}]")
+    del engine, other, rm, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def _param_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _param_leaves(v, f"{prefix}{k}/")
+        elif v is not None:
+            yield f"{prefix}{k}", v
+
+
+def train_phase(card: str) -> dict:
+    """The Trainer at LLaMA-2-7B width, TRAIN_LAYERS layers (f32 params,
+    gradients and Adam's m and v take 16 B a parameter: 32 layers would not
+    fit the card), seed 0: a B=1, T=64 first step on the card against the
+    same step on the CPU (loss rtol 1e-4, gradients 1e-4 of each leaf's
+    magnitude, updated parameters atol 1e-5 where the gradient's sign is
+    decided), TRAIN_STEPS Adam steps on one fixed TRAIN_BATCH x TRAIN_LEN
+    batch (the loss must fall), and a save_checkpoint / load_checkpoint
+    resume that gives the same next loss."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.specs import ModelSpec
+    from flexflow_tpu_torch.training import AdamOptimizer, Trainer
+    from flexflow_tpu_torch.training.losses import sparse_categorical_crossentropy
+    from flexflow_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "train: TF32 must stay off for the f32 comparison")
+    dev, host = torch.device("cuda"), torch.device("cpu")
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": TRAIN_LAYERS})
+    t0 = time.perf_counter()
+    params = params_lib.init_params(spec, 0, torch.float32, host)
+    n_params = sum(p.numel() for _, p in _param_leaves(params))
+    out = dict(params=n_params, init_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(7)
+    ids = rng.integers(3, spec.vocab_size, (1, 65)).astype(np.int32)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def grads_of(tr):
+        """The step's gradients (the Trainer's forward and loss, no update)."""
+        t = torch.as_tensor(x, device=tr.device)
+        pos = torch.arange(t.shape[1], dtype=torch.int32, device=tr.device)[None]
+        logits, _ = decoder.forward(spec, tr.params, t, pos)
+        sparse_categorical_crossentropy(logits, torch.as_tensor(y, device=tr.device)).backward()
+        g = {}
+        for name, p in _param_leaves(tr.params):
+            g[name] = p.grad.detach().to(host, copy=True)
+            p.grad = None
+        return g
+
+    ref = {}
+    for name, d in (("cpu", host), ("gpu", dev)):
+        t1 = time.perf_counter()
+        tr = Trainer(spec, params, AdamOptimizer(lr=TRAIN_LR), device=d)
+        grads = grads_of(tr)
+        loss = tr.train_step(x, y)
+        new = {k: p.detach().to(host, copy=True) for k, p in _param_leaves(tr.params)}
+        ref[name] = (loss, grads, new)
+        log(f"  first step (1 x 64 tokens) on the {name}: loss {loss:.6f} in "
+            f"{time.perf_counter() - t1:.1f} s with the gradient probe")
+        del tr
+    (lc, gc, pc), (lg, gg, pg) = ref["cpu"], ref["gpu"]
+    require(abs(lg - lc) <= 1e-4 * abs(lc), f"train: first loss {lg} on the card vs {lc}")
+    worst_g, undecided, off = 0.0, 0, 0
+    for k in gc:
+        err = (gg[k] - gc[k]).abs()
+        scale = gc[k].abs().max().item()
+        worst_g = max(worst_g, err.max().item() / max(scale, 1e-30))
+        # Adam's first update is lr * g / (|g| + eps): about lr * sign(g). A
+        # gradient within the two sides' difference may take either sign.
+        decided = gc[k].abs() > 2 * err.max()
+        dp = (pg[k] - pc[k]).abs()
+        off += int((dp[decided] > 1e-5).sum())
+        undecided += int((~decided & (dp > 1e-5)).sum())
+        require(bool((dp[~decided] <= 2 * TRAIN_LR + 1e-5).all()),
+                f"train: {k} moved apart by more than 2 lr")
+    require(worst_g <= 1e-4, f"train: gradients differ by {worst_g} of their magnitude")
+    require(off == 0, f"train: {off} updated parameters with a decided gradient sign differ by "
+                      "more than 1e-5")
+    out.update(first_loss_gpu=lg, first_loss_cpu=lc, grad_rel_err=worst_g,
+               sign_ties_apart=undecided)
+    log(f"  first step: loss {lg:.6f} vs CPU {lc:.6f}; gradients within {worst_g:.3g} of each "
+        f"leaf's magnitude; updated parameters within 1e-5 except {undecided} of {n_params} "
+        f"whose gradient sign the two sides' difference leaves open (Adam moves them by "
+        f"+-lr)")
+    del ref, gc, gg, pc, pg
+
+    batch = rng.integers(3, spec.vocab_size, (TRAIN_BATCH, TRAIN_LEN + 1)).astype(np.int32)
+    bx, by = batch[:, :-1], batch[:, 1:]
+    tr = Trainer(spec, params, AdamOptimizer(lr=TRAIN_LR), device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        losses.append(tr.train_step(bx, by))  # returns a float: the step has finished
+        step_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    step_ms = 1e3 * float(np.mean(step_s[1:]))
+    out.update(losses=losses, step_ms=step_ms, first_step_ms=1e3 * step_s[0],
+               tokens_per_s=TRAIN_BATCH * TRAIN_LEN / (step_ms / 1e3), peak_mem_gib=peak)
+    log(f"  {TRAIN_STEPS} Adam steps on {TRAIN_BATCH} x {TRAIN_LEN} tokens: losses "
+        f"{[round(v, 4) for v in losses]}; step {step_ms:.1f} ms (first {1e3 * step_s[0]:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory {peak:.2f} GiB, {n_params} parameters "
+        f"[{card}]")
+
+    t1 = time.perf_counter()
+    buf = io.BytesIO()
+    save_checkpoint(buf, {"params": tr.params, "opt_state": tr.opt_state})
+    buf.seek(0)
+    state = load_checkpoint(buf, device=dev)
+    del buf
+    resumed = Trainer(spec, state["params"], AdamOptimizer(lr=TRAIN_LR), device=dev)
+    resumed.opt_state = state["opt_state"]
+    del state
+    out["checkpoint_s"] = time.perf_counter() - t1
+    want, got = tr.train_step(bx, by), resumed.train_step(bx, by)
+    require(abs(got - want) <= 1e-6 * abs(want),
+            f"train: the resumed step's loss {got} vs {want}")
+    out.update(next_loss=want, resumed_loss=got)
+    log(f"  checkpoint save + load + resume {out['checkpoint_s']:.1f} s: next loss {got:.6f} "
+        f"equals the uninterrupted run's {want:.6f}")
+    del tr, resumed
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -2206,12 +2759,26 @@ def main(argv=None) -> int:
             "2-layer cross-check first")
         summary["lora"] = lora_phase(card, "profile" in phases)
         lap("lora")
+    if "finetune" in phases:
+        log("[finetune] LLaMA-2-7B INT8 (32 layers) with 2 LoRA slots (rank 16, wq and wv): "
+            "gradients through the kernels against the plain path, then SGD finetuning of slot 1 "
+            f"({FT_STEPS} steps of {FT_LEN} tokens) co-scheduled with 8 requests routed "
+            f"{FT_IDS}")
+        summary["finetune"] = finetune_phase(card)
+        lap("finetune")
+    if "train" in phases:
+        log(f"[train] the Trainer at LLaMA-2-7B width, {TRAIN_LAYERS} layers, f32, Adam: "
+            f"a first step against the CPU, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} "
+            "tokens, a checkpoint resume")
+        summary["train"] = train_phase(card)
+        lap("train")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels, the tuning run for the variants
     launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0)
                        for p in (("variants",) if k in VARIANTS
-                                 else ("serve", "openai", "spec", "mixtral", "lora")))
+                                 else ("serve", "openai", "spec", "mixtral", "lora",
+                                       "finetune")))
                 for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],

@@ -21,6 +21,16 @@ through a fused dequant + tensor-core kernel; ``tiled`` (up to
 scratch that the wrapper allocates, then runs a bf16 GEMM pass. All of them
 sum each output element in the same order, so the regime never changes a
 bit. One call counts one launch whatever the regime.
+
+Under a gradient (``x.requires_grad``) ``quant_matmul`` goes through
+``QuantMatmulFn``: its forward is the same launch (on the CPU the plain
+version), its backward ``dx = dy @ dequant(W)^T`` in x's dtype, one carrier
+(one layer's slice) dequantized at a time by the plain dequant and
+multiplied with ``torch.matmul``. The carriers get no gradient. JAX has no
+backward kernel here: its gradient is XLA's transpose of the dequant-dot.
+A raw kernel launch writes into a fresh tensor with no ``grad_fn``, so
+without the Function a gradient would skip every quantized projection on
+the card while the CPU's plain version carried it.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 
 LAUNCHES = 0  # qmm_int8 kernel launches of this process (plain-version calls not counted)
 LAUNCHES_INT4 = 0  # qmm_int4 kernel launches
+BACKWARD_CALLS = 0  # QuantMatmulFn backward passes (dequant + torch.matmul; no kernel of ours)
 PREFILL_ROWS = 192  # bf16 calls with at least this many rows take the two-pass prefill
 
 
@@ -71,8 +82,7 @@ def _scratch(x: torch.Tensor, d: int, fp: int, bits: int, *carrier) -> Optional[
 def qmm_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                    group_size: int, n_out: int, out_dtype) -> torch.Tensor:
     """Plain PyTorch version: x [M, D], q [D, Fp] int8, scale [D/g, Fp] f32."""
-    s = torch.repeat_interleave(scale, group_size, dim=0)
-    w = (q.to(torch.float32) * s)[:, :n_out].to(x.dtype)
+    w = dequant_weight(q, scale, None, 8, group_size, n_out, None, x.dtype)
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
@@ -88,12 +98,26 @@ def int4_weight(q: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
     return qv * s + o
 
 
+def dequant_weight(q, scale, offset, bits: int, group_size: int, n_out: int,
+                   index: Optional[int], dtype) -> torch.Tensor:
+    """The [D, n_out] weight of one carrier (layer ``index`` of a stacked
+    one) as the kernels use it: dequantized in f32, rounded to ``dtype``."""
+    if index is not None:
+        q, scale = q[index], scale[index]
+        offset = None if offset is None else offset[index]
+    if bits == 8:
+        w = q.float() * torch.repeat_interleave(scale, group_size, dim=0)
+    else:
+        w = int4_weight(q, scale, offset, group_size)
+    return w[:, :n_out].to(dtype)
+
+
 def qmm_int4_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                    offset: torch.Tensor, group_size: int, n_out: int,
                    out_dtype) -> torch.Tensor:
     """Plain PyTorch version: x [M, D], q [D/2, Fp] uint8, scale and offset
     [D/g, Fp] f32."""
-    w = int4_weight(q, scale, offset, group_size)[:, :n_out].to(x.dtype)
+    w = dequant_weight(q, scale, offset, 4, group_size, n_out, None, x.dtype)
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
@@ -201,18 +225,12 @@ class LayerQuant:
     layer: int
 
 
-def quant_matmul(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = None,
-                 expert: Optional[int] = None, out_dtype=None) -> torch.Tensor:
-    """x @ dequantize(qa) (or of layer ``layer`` of a stacked carrier, and of
-    expert ``expert`` of that layer in a ``[L, E, D, Fp]`` expert stack).
-
-    The contraction axes of ``x`` are its last ``qa.contract_dims`` axes; the
-    output gets the unit's out shape. INT8 goes through ``qmm_int8``, INT4
-    through ``qmm_int4``. An expert stack is addressed as its ``[L*E, D, Fp]``
-    view at the flat index ``layer * E + expert`` (no copy).
-    """
+def _operands(x: torch.Tensor, qa: QuantizedArray, layer: Optional[int],
+              expert: Optional[int]):
+    """(x as [M, D], q, scale, offset, index, out shape): an expert stack
+    ``[L, E, ...]`` is addressed as its ``[L*E, ...]`` view at the flat index
+    ``layer * E + expert`` (no copy)."""
     cdims = qa.contract_dims
-    d = qa.d_contract
     bd = (layer is not None) + (expert is not None)
     if qa.q.dim() - 2 != bd:
         raise ValueError(f"carrier has {qa.q.dim() - 2} batch dims, expected {bd}")
@@ -229,15 +247,63 @@ def quant_matmul(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = 
 
         q, scale, offset, index = flat(q), flat(scale), flat(offset), layer * n_exp + expert
     unit = qa.shape[qa.batch_dims:]
-    out_shape = unit[cdims:]
     lead = x.shape[: x.dim() - cdims]
-    xb = x.reshape(math.prod(lead), d).contiguous()
-    kw = dict(group_size=qa.group_size, n_out=qa.d_rest, layer=index,
-              out_dtype=out_dtype or x.dtype)
-    if qa.bits == 8:
-        out = qmm_int8(xb, q, scale, **kw)
-    elif qa.bits == 4:
-        out = qmm_int4(xb, q, scale, offset, **kw)
+    xb = x.reshape(math.prod(lead), qa.d_contract).contiguous()
+    return xb, q, scale, offset, index, (*lead, *unit[cdims:])
+
+
+def _launch(xb, q, scale, offset, bits, group_size, n_out, index, out_dtype):
+    kw = dict(group_size=group_size, n_out=n_out, layer=index, out_dtype=out_dtype)
+    if bits == 8:
+        return qmm_int8(xb, q, scale, **kw)
+    if bits == 4:
+        return qmm_int4(xb, q, scale, offset, **kw)
+    raise ValueError(f"no quant-matmul for {bits}-bit carriers")
+
+
+class QuantMatmulFn(torch.autograd.Function):
+    """``x @ dequant(W)`` with a gradient for x (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, xb, q, scale, offset, bits, group_size, n_out, index, out_dtype):
+        ctx.save_for_backward(q, scale, offset)
+        ctx.meta = (bits, group_size, n_out, index, xb.dtype)
+        return _launch(xb, q, scale, offset, bits, group_size, n_out, index, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global BACKWARD_CALLS
+        q, scale, offset = ctx.saved_tensors
+        bits, group_size, n_out, index, x_dtype = ctx.meta
+        w = dequant_weight(q, scale, offset, bits, group_size, n_out, index, x_dtype)
+        BACKWARD_CALLS += 1
+        return (torch.matmul(dy.to(x_dtype), w.t()),) + (None,) * 8
+
+
+def quant_matmul(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = None,
+                 expert: Optional[int] = None, out_dtype=None) -> torch.Tensor:
+    """x @ dequantize(qa) (or of layer ``layer`` of a stacked carrier, and of
+    expert ``expert`` of that layer in a ``[L, E, D, Fp]`` expert stack).
+
+    The contraction axes of ``x`` are its last ``qa.contract_dims`` axes; the
+    output gets the unit's out shape. INT8 goes through ``qmm_int8``, INT4
+    through ``qmm_int4``; under a gradient both through ``QuantMatmulFn``.
+    """
+    xb, q, scale, offset, index, out_shape = _operands(x, qa, layer, expert)
+    args = (q, scale, offset, qa.bits, qa.group_size, qa.d_rest, index, out_dtype or x.dtype)
+    if torch.is_grad_enabled() and xb.requires_grad:
+        out = QuantMatmulFn.apply(xb, *args)
     else:
-        raise ValueError(f"no quant-matmul for {qa.bits}-bit carriers")
-    return out.reshape(*lead, *out_shape)
+        out = _launch(xb, *args)
+    return out.reshape(out_shape)
+
+
+def quant_matmul_plain(x: torch.Tensor, qa: QuantizedArray, *, layer: Optional[int] = None,
+                       expert: Optional[int] = None, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul` on any device (autograd
+    runs through its torch ops): the yardstick of the kernels and of
+    ``QuantMatmulFn``'s backward."""
+    xb, q, scale, offset, index, out_shape = _operands(x, qa, layer, expert)
+    w = dequant_weight(q, scale, offset, qa.bits, qa.group_size, qa.d_rest, index, x.dtype)
+    out = torch.matmul(xb.float(), w.float()).to(out_dtype or x.dtype)
+    return out.reshape(out_shape)

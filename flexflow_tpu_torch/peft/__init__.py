@@ -1,5 +1,5 @@
-"""Parameter-efficient finetuning: LoRA adapters for serving (port of
-``flexflow_tpu/peft``; its finetuning half waits for the training slice)."""
+"""Parameter-efficient finetuning: LoRA adapters for serving and their
+co-scheduled finetuning (port of ``flexflow_tpu/peft``)."""
 
 from flexflow_tpu_torch.peft.lora import (  # noqa: F401
     LoraConfig,
@@ -9,4 +9,5 @@ from flexflow_tpu_torch.peft.lora import (  # noqa: F401
     lora_scaling,
     merge_lora,
     route_lora,
+    unroute_lora,
 )

@@ -54,12 +54,14 @@ def hf_module_to_key(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class LoraConfig:
-    """Rank, alpha and target modules of an adapter (JAX's finetuning
-    fields, learning rate and optimizer, come with the training slice)."""
+    """Rank, alpha and target modules of an adapter, and the optimizer that
+    finetunes it (``peft/finetune.FinetuneSession``)."""
 
     rank: int = 16
     alpha: float = 16.0
     target_modules: Sequence[str] = ("wq", "wv")
+    learning_rate: float = 1e-3
+    optimizer: str = "sgd"  # "sgd" | "adam"
 
     def keys(self) -> Tuple[str, ...]:
         return tuple(hf_module_to_key(m) for m in self.target_modules)
@@ -139,6 +141,21 @@ def route_lora(lora: Stacks) -> RoutedLora:
                   .reshape(la, d_in, n * r).contiguous())
         b[mod] = ab["b"].to(torch.float32, copy=True).reshape(la, n * r, ab["b"].shape[-1])
     return RoutedLora(a, b, r, n)
+
+
+def unroute_lora(routed: RoutedLora) -> Stacks:
+    """The routing layout back in JAX's stack layout (the inverse of
+    :func:`route_lora`): per module ``a`` [L, N, D_in, r] and ``b`` [L, N,
+    r, D_out], float32 copies of what the routed tensors hold now (a
+    finetuned slot included)."""
+    n, r = routed.num_adapters, routed.rank
+    out: Stacks = {}
+    for mod in routed.a:
+        a, b = routed.a[mod], routed.b[mod]
+        la, d_in, _ = a.shape
+        out[mod] = {"a": a.reshape(la, d_in, n, r).permute(0, 2, 1, 3).contiguous(),
+                    "b": b.reshape(la, n, r, b.shape[-1]).clone()}
+    return out
 
 
 def load_hf_adapter_config(adapter_dir: str) -> LoraConfig:

@@ -24,8 +24,9 @@ import torch
 
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
-from flexflow_tpu_torch.peft.lora import (LoraConfig, init_lora_params, load_hf_adapter_config,
-                                         load_hf_adapter_into_slot)
+from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lora_params,
+                                         load_hf_adapter_config, load_hf_adapter_into_slot,
+                                         unroute_lora)
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import NO_ADAPTERS, SpecRequestManager
@@ -108,6 +109,16 @@ class LLM:
             if path is not None:
                 load_hf_adapter_into_slot(path, self.spec, lora, slot, cfg)
         return lora
+
+    def save_peft_adapter(self, adapter_dir: str, slot: int) -> None:
+        """Export adapter slot ``slot`` as an HF PEFT directory, as the
+        engine holds it now: a slot trained by a co-scheduled
+        ``FinetuneSession`` is read back from the engine's routed adapters
+        (``self.lora`` keeps the stacks as they were at ``compile``)."""
+        if self.rm is None or self.rm.engine.lora is None:
+            raise RuntimeError("no adapters: register them and call compile() first")
+        export_hf_adapter(adapter_dir, self.spec, unroute_lora(self.rm.engine.lora), slot,
+                          self.lora_config)
 
     def _load_params(self):
         _, params = hf_weights.load_params(

@@ -22,8 +22,11 @@ its slot, ``generate`` raises, and new registrations are refused until the
 server is stopped or started again (``BackgroundServing``, shared with
 ``SpecRequestManager``). ``--profiling`` (``FFConfig.profiling``) times the
 scheduler's phases and prints their report, and the per-op profile once,
-when ``run_until_idle`` drains. Co-scheduled finetuning is not in the port
-yet.
+when ``run_until_idle`` drains. ``register_finetune`` queues LoRA
+finetuning sessions (``peft/finetune.py``): ``run_until_idle`` runs one
+step of the first after every scheduling iteration, as JAX does, on the
+engine's stream behind the horizons already dispatched; the background
+server does not run them (nor does JAX's).
 """
 
 from __future__ import annotations
@@ -216,6 +219,7 @@ class RequestManager(BackgroundServing):
         self._guid = itertools.count(1000000)
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._requests: Dict[int, Request] = {}
+        self._finetune_queue = []  # co-scheduled LoRA finetuning sessions
         self._init_server()
 
         b = engine.max_requests
@@ -250,11 +254,16 @@ class RequestManager(BackgroundServing):
         return self._requests[guid]
 
     def register_finetune(self, session) -> None:
-        """Co-scheduled LoRA finetuning (JAX ``register_finetune``) needs a
-        backward pass through the decoder: it comes with the training slice."""
-        raise NotImplementedError(
-            "co-scheduled LoRA finetuning is not in the port yet: it waits for the training "
-            "slice (ROADMAP.md Queue A, A5b)")
+        """Queue a LoRA finetuning session (``peft/finetune.FinetuneSession``)
+        to run alongside serving, one step per ``run_until_idle`` iteration."""
+        self._finetune_queue.append(session)
+
+    def _finetune_tick(self) -> bool:
+        if not self._finetune_queue:
+            return False
+        if self._finetune_queue[0].tick(self.engine):
+            self._finetune_queue.pop(0)
+        return True
 
     def _next_key(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
@@ -503,8 +512,11 @@ class RequestManager(BackgroundServing):
         self._inflight_q, self._feedback, self._feedback_overrides = [], None, []
 
     def run_until_idle(self) -> None:
-        while self.step() or not self._pending.empty():
-            pass
+        while True:
+            busy = self.step()
+            busy |= self._finetune_tick()
+            if not busy and self._pending.empty():
+                break
         if self.timer is not None:
             for line in self.timer.report():
                 print(line)

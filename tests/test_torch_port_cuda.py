@@ -920,3 +920,66 @@ def test_lora_delta_on_cuda_matches_cpu(cuda):
     assert (delta_g - delta_c).abs().max() <= 1e-4 * delta_c.abs().max()
     assert delta_c[:, [0, 2]].abs().max() > 1e-2
     assert torch.equal(gl[:, 1], gb[:, 1])
+
+
+@pytest.mark.parametrize("bits,dtype,m", [(8, _BF16, 8), (8, _BF16, 256), (8, _F32, 40),
+                                          (4, _BF16, 104), (4, _F32, 8)])
+def test_quant_matmul_fn_dx_on_card_matches_plain(cuda, bits, dtype, m):
+    """Under a gradient the card's quant-matmul still launches the kernel
+    (its count rises) through QuantMatmulFn, and the Function's dx equals
+    autograd of the plain dequant + matmul: 1% of the magnitude in bf16
+    (the sums' order and the product's dtype differ), 1e-5 in f32."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    qa = quantize(torch.randn((3, 512, 384), generator=gen, device=cuda) * 0.05, bits, 128,
+                  batch_dims=1)
+    x = torch.randn((m, 512), generator=gen, device=cuda).to(dtype).requires_grad_()
+    xp = x.detach().clone().requires_grad_()
+    counter = "LAUNCHES" if bits == 8 else "LAUNCHES_INT4"
+    before, calls = getattr(t_qm, counter), t_qm.BACKWARD_CALLS
+    out = t_qm.quant_matmul(x, qa, layer=2)
+    want = t_qm.quant_matmul_plain(xp, qa, layer=2)
+    assert getattr(t_qm, counter) == before + 1
+    dy = torch.randn(out.shape, generator=gen, device=cuda).to(out.dtype)
+    out.backward(dy)
+    want.backward(dy)
+    assert t_qm.BACKWARD_CALLS == calls + 1
+    rel = 1e-2 if dtype == _BF16 else 1e-5
+    for got, ref in ((out, want), (x.grad, xp.grad)):
+        assert got.dtype == ref.dtype == dtype
+        assert (got.float() - ref.float()).abs().max() <= rel * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_finetune_steps_on_card_match_cpu(cuda, bits):
+    """Four SGD finetuning steps of slot 1 on a tiny f32 quantized LLaMA
+    through the kernels and QuantMatmulFn on the card: losses and the
+    trained slot within 1e-4 of the CPU's plain path, slot 0 unchanged."""
+    from flexflow_tpu_torch.peft.finetune import FinetuneSession
+
+    spec = ModelSpec(**_TINY)
+    params = _tiny_params(spec, 0, _F32, bits, "cpu")
+    lora, cfg = _lora_stacks(spec, 2, _F32, "cpu")
+    cfg = t_lora.LoraConfig(rank=cfg.rank, alpha=cfg.alpha, target_modules=cfg.target_modules,
+                            learning_rate=0.05)
+    toks = np.random.default_rng(5).integers(0, 256, (2, 33)).astype(np.int32)
+    data = [(toks[:, :-1], toks[:, 1:])]
+    out = {}
+    for dev in ("cpu", cuda):
+        engine = InferenceEngine(spec, params, max_requests_per_batch=2, max_seq_len=64,
+                                 cache_dtype=_F32, device=dev, lora=lora, lora_config=cfg)
+        slot0 = {m: a[..., :4].clone() for m, a in engine.lora.a.items()}
+        session = FinetuneSession(spec, cfg, 1, data, epochs=4)
+        launches = t_qm.LAUNCHES + t_qm.LAUNCHES_INT4
+        while not session.tick(engine):
+            pass
+        if dev != "cpu":
+            assert t_qm.LAUNCHES + t_qm.LAUNCHES_INT4 > launches
+        assert all(torch.equal(engine.lora.a[m][..., :4], a) for m, a in slot0.items())
+        out[str(dev)] = (session.losses, t_lora.unroute_lora(engine.lora))
+    (lg, sg), (lc, sc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert lc[-1] < lc[0]
+    for m in sc:
+        for k in ("a", "b"):
+            ref = sc[m][k][:, 1]
+            assert (sg[m][k][:, 1].cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()

@@ -47,6 +47,15 @@ PORT_MODULES = [
     "flexflow_tpu_torch.inference.usecases.gradio_incr",
     "flexflow_tpu_torch.inference.usecases.gradio_specinfer",
     "flexflow_tpu_torch.inference.streamlit.app",
+    "flexflow_tpu_torch.inference.peft",
+    "flexflow_tpu_torch.training",
+    "flexflow_tpu_torch.training.losses",
+    "flexflow_tpu_torch.training.metrics",
+    "flexflow_tpu_torch.training.optimizers",
+    "flexflow_tpu_torch.training.dataloader",
+    "flexflow_tpu_torch.training.trainer",
+    "flexflow_tpu_torch.peft.finetune",
+    "flexflow_tpu_torch.utils.checkpoint",
 ]
 # "import jax", "from jax.x import", "import flexflow_tpu", "from flexflow_tpu.x
 # import", "from inference.x import" — but not the port's own flexflow_tpu_torch

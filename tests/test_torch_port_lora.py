@@ -3,8 +3,9 @@
 heads): the routed forward and forward_cached at float32 (atol/rtol 1e-4;
 the INT8 base at the decoder tests' 1e-5), routing identities, merge_lora,
 served greedy tokens equal to JAX's engine, a sampled adapter request, the
-HF-PEFT adapter format both ways and against ``peft`` itself, the refusals,
-and the PEFT CLI. Adapter stacks are made with numpy from a seed and cross
+HF-PEFT adapter format both ways and against ``peft`` itself, the refusals
+(and a co-scheduled finetuning session), and the PEFT CLI (with and without
+``-finetuning-dataset``). Adapter stacks are made with numpy from a seed and cross
 over through ``params_from_numpy`` / ``lora_from_numpy``."""
 
 import json
@@ -362,8 +363,10 @@ def test_hf_peft_oracle(hf_peft):
 
 
 def test_refusals(hf_peft):
-    """Adapters under speculation, co-scheduled finetuning, adapters of
-    another rank and an adapter id the engine does not hold."""
+    """Adapters under speculation, adapters of another rank and an adapter id
+    the engine does not hold are refused; a co-scheduled finetuning session
+    registers and trains (its slot only) while a request is served."""
+    from flexflow_tpu_torch.peft.finetune import FinetuneSession
     from flexflow_tpu_torch.serve import LLM, SSM
     from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
     from flexflow_tpu_torch.serving.speculative import SpecEngine
@@ -378,13 +381,20 @@ def test_refusals(hf_peft):
         srm.register_request([1, 2, 3], TGen(adapter_id=0))
     rm = TRM(TEngine(ts, tparams, max_requests_per_batch=1, max_seq_len=32, device="cpu",
                      lora=tp.lora_from_numpy(_stacks(0)), lora_config=TCFG))
+    toks = np.random.default_rng(3).integers(0, 96, (2, 10)).astype(np.int32)
+    session = FinetuneSession(ts, tl.LoraConfig(rank=RANK, alpha=ALPHA, target_modules=ALL7,
+                                                learning_rate=0.05),
+                              1, [(toks, np.roll(toks, -1, axis=1))], epochs=3)
+    slot0 = {m: rm.engine.lora.a[m][..., :RANK].clone() for m in rm.engine.lora.a}
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
-            rm.register_finetune(object())
+        rm.register_finetune(session)
+        [req] = rm.generate([[1, 2, 3]], TGen(max_new_tokens=2))
         with pytest.raises(ValueError, match="holds 2 adapters"):
             rm.register_request([1, 2, 3], TGen(adapter_id=2))
     finally:
         rm.close()
+    assert len(req.output_tokens) == 2 and len(session.losses) == 3
+    assert all(torch.equal(rm.engine.lora.a[m][..., :RANK], a) for m, a in slot0.items())
     llm = LLM(model_dir, data_type="float32", device="cpu")
     llm.register_peft_adapter(adapter_dir)
     with pytest.raises(ValueError, match="share rank"):
@@ -416,5 +426,9 @@ def test_cli_parser_and_text_match_jax(hf_peft, tmp_path, capsys):
     texts = [[ln for ln in out.splitlines() if not ln.startswith("=== guid")]
              for out in (got, want)]
     assert got.count("=== guid") == 2 and texts[0] == texts[1]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t_cli.main(argv + ["-finetuning-dataset", str(prompts), "--device", "cpu"])
+    # co-scheduled finetuning of a second slot: the served text stays the adapter's
+    assert t_cli.main(argv + ["-finetuning-dataset", str(prompts), "--device", "cpu"]) == 0
+    tuned = capsys.readouterr().out
+    assert "[Finetune] steps 2 losses" in tuned
+    assert [ln for ln in tuned.splitlines()
+            if not ln.startswith(("=== guid", "[Finetune]"))] == texts[1]
