@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --only build,kernels --reps 5
     python3 chip_smoke.py --only card,build,spec
+    python3 chip_smoke.py --only card,build,kernels,spec,mixtral
     python3 chip_smoke.py --only card,build,variants
     python3 chip_smoke.py --only card,build,mixtral
     python3 chip_smoke.py --only card,build,lora
@@ -33,8 +34,13 @@ Phases, in order; any failure exits non-zero:
               the draft's 6 at the served prompts' lengths) and with every
               row full, SDPA-causal's own work; decode_attention at the
               7B shape, the served decode's lengths, one 4096-position
-              request and the verify's tree, each rotating through caches
-              past the L2. ``--parent DIR`` builds each of an earlier
+              request and the verify's tree (at LLaMA-2-7B's heads, at
+              Mixtral's GQA, and the 19-slot merged tree of two drafts with
+              irregular parents and padding slots; every checked node
+              bitwise equal to the one-token call), each rotating through
+              caches past the L2. The quant-matmul rows include INT4 at the
+              merged verify's 152 rows and the Mixtral expert stacks at the
+              speculative verify's 104. ``--parent DIR`` builds each of an earlier
               checkout's quant_matmul.cu, flash_prefill.cu and
               decode_attention.cu that exists beside this one and times it
               beside each of its rows; every INT8 qmm output must equal it
@@ -94,7 +100,18 @@ Phases, in order; any failure exits non-zero:
               horizon, replayed, must give the uncaptured iterations' outputs
               and caches bitwise from the same state. Prints both runs'
               decode tok/s, mean TTFT, peak memory, graphs, capture ms and
-              replays, and the mean verified tokens per step.
+              replays, and the mean verified tokens per step. Then two
+              drafts on the same verifier tensors and cache (data_ptr
+              checked): draft A (width 3, depth 4) and draft B, draft A's
+              weights plus seeded noise at 5% of each tensor's RMS (width
+              1, depth 6), served by ``MultiSSMSpecManager`` in rotation
+              (every iteration a replay of one engine's graph) and merged
+              (19-node trees, 152 verifier rows, stepwise): each request's
+              first 20 tokens equal the incremental run's, and each draft
+              cache's committed rows, copied when its request retires, lie
+              within 5e-2 relative L2 of a fresh prefill of the request's
+              history (catch-up). Prints each mode's tok/s, TTFT, peak
+              memory and verified tokens per step beside the one-draft run.
 9. mixtral  — Mixtral-8x7B (the published config.json's widths through
               ``from_hf_config``: 32 layers, 8 experts top-2, GQA 32/8 heads,
               dense MoE form). First a 2-layer model at that width, INT8,
@@ -115,9 +132,16 @@ Phases, in order; any failure exits non-zero:
               horizon equals the uncaptured body bitwise. Then one batched
               prefill of the same prompts with the dense and with the ragged
               MoE form, timed; their logits at each request's last prompt
-              position must agree by the cross-check's rule. Prints the
-              init time, decode tok/s, mean TTFT, peak memory, graphs and
-              replays.
+              position must agree by the cross-check's rule. Then Mixtral
+              as the verifier of ``SpecEngine`` on the same weight tensors
+              (data_ptr checked), with the 160M-class draft (random bf16
+              weights, seed 0), width 3, depth 4, fused and pipelined: each
+              request's first 20 tokens equal the incremental run's, every
+              iteration is a replay, one replayed horizon equals the
+              uncaptured body bitwise, qmm_int8, decode_attention and
+              flash_prefill launch, and the peak memory stays within 4 GiB
+              of the incremental run's. Prints the init time, decode tok/s,
+              mean TTFT, peak memory, graphs and replays of both runs.
 10. lora    — multi-adapter LoRA serving: first a 2-layer LLaMA-2-7B-width
               INT8 model with 4 adapters, a prefill of 4 requests routed
               [0, 3, -1, 1] and 8 teacher-forced decode steps through the
@@ -193,6 +217,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -478,6 +503,8 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
     rows = (1, 8, 104, 8192)
     if bits == 8:  # and a finetune step's 256 rows (one 256-token sequence)
         rows = (1, 8, 104, FT_LEN, 8192)
+    else:  # and the verify of two drafts' merged trees: 8 slots x 19 nodes
+        rows = (1, 8, 104, 152, 8192)
     edges = (16, 17, 128, 129, thr - 1, thr)
     # (name, contraction shape, out width, group size, rows) of LLaMA-2-7B's
     # fused carriers; INT8's wgu again at group 64 (quantization_group_size=64),
@@ -489,10 +516,11 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
     if bits == 8:
         shapes.append(("wgu", (4096,), 2 * 11008, 64, (8, 8192)))
         # Mixtral-8x7B's expert projections (wg / wu, and wd) at a decode
-        # step's 8 rows, a ragged expert group of the served prefill (its
-        # 1597 valid rows x top-2 / 8 experts, ~400), a group of the full
-        # 8 x 1024 bucket (2048) and the dense form's prefill (8192)
-        moe_rows = (8, 400, 2048, 8192)
+        # step's 8 rows, a speculative verify's 8 x 13 (the dense form runs
+        # every expert on every row), a ragged expert group of the served
+        # prefill (its 1597 valid rows x top-2 / 8 experts, ~400), a group
+        # of the full 8 x 1024 bucket (2048) and the dense form's prefill (8192)
+        moe_rows = (8, 104, 400, 2048, 8192)
         shapes += [("expert wg|wu", (4096,), 14336, 128, moe_rows),
                    ("expert wd", (14336,), 4096, 128, moe_rows)]
     log(f"  prefill threshold {thr} rows: from it a bf16 call dequantizes into a [D, Fp] bf16 "
@@ -771,22 +799,74 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
         del caches, alls
         torch.cuda.empty_cache()
 
-    # the tree form at the speculative verify's shape: 8 slots x the 13-node
-    # tree of width 3 and depth 4, LLaMA-2-7B heads, random parents
-    b, h, kh, s, d, width, depth = 8, 32, 32, 1024, 128, 3, 4
+    # the tree form: the speculative verify's 8 slots x the 13-node tree of
+    # width 3 and depth 4 (random parents) at LLaMA-2-7B's heads and at
+    # Mixtral-8x7B's GQA, and the merged tree of two drafts (3 x 4 and 1 x 6,
+    # tokens from a 3-token vocabulary so that they share prefixes: 19 slots,
+    # irregular parents, padding slots that attend only themselves)
+    lens_l = list(PROMPT_LENS)
+    tree_cases = [("", 32, 32, _beam_trees(6, 8, 3, 4)), (" GQA", 32, 8, _beam_trees(6, 8, 3, 4))]
+    merged = _merged_trees(7, 8, [(3, 4), (1, 6)])
+    tree_cases.append((" merged", 32, 32, merged))
+    for label, h, kh, parents in tree_cases:
+        tree_phase_case(label, h, kh, parents, lens_l, gen, held, report, timed, tol_bf16,
+                        parent)
+
+
+def _beam_trees(seed: int, b: int, width: int, depth: int, vocab: int = 0):
+    """[B, 1 + width x depth] parents in ``SpecEngine.draft_tree``'s layout
+    (slot 1 + (d - 1) W + w; each parent a random slot of the previous
+    depth), and with ``vocab`` the tokens drawn from it (root 0); numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
     t = 1 + width * depth
-    cpu_gen = torch.Generator().manual_seed(6)
-    parents = torch.zeros((b, t), dtype=torch.long)
-    for dd in range(2, depth + 1):
-        base, prev = 1 + (dd - 1) * width, 1 + (dd - 2) * width
-        parents[:, base:base + width] = prev + torch.randint(0, width, (b, width),
-                                                             generator=cpu_gen)
+    parents = np.full((b, t), -1, np.int32)
+    parents[:, 1:1 + width] = 0
+    for d in range(2, depth + 1):
+        base, prev = 1 + (d - 1) * width, 1 + (d - 2) * width
+        parents[:, base:base + width] = prev + rng.integers(0, width, (b, width))
+    if not vocab:
+        return parents
+    tokens = rng.integers(0, vocab, (b, t)).astype(np.int32)
+    tokens[:, 0] = 0
+    return tokens, parents
+
+
+def _merged_trees(seed: int, b: int, shapes):
+    """The parents [B, 1 + sum(W D)] of ``tree_merge.merge_batch`` over one
+    draft tree of each (width, depth) in ``shapes``, tokens from a 3-token
+    vocabulary (shared prefixes dedup; padding slots have parent -2)."""
+    from flexflow_tpu_torch.serving.tree_merge import merge_batch
+
+    trees = [_beam_trees(seed + i, b, w, d, vocab=3) for i, (w, d) in enumerate(shapes)]
+    t = 1 + sum(w * d for w, d in shapes)
+    return merge_batch(trees, t, t)[1]
+
+
+def tree_phase_case(label, h, kh, parents, lens_l, gen, held, report, timed, tol_bf16,
+                    parent) -> None:
+    """K5's tree form on 8 slots of one tree each (``parents`` [B, T]; -1 the
+    root, -2 a padding slot that attends only itself) against its plain
+    version, each checked node bitwise equal to the one-token call after its
+    ancestors were committed, then timed rotating through caches past L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    s, d = 1024, 128
+    parents = torch.as_tensor(parents, dtype=torch.long)
+    b, t = parents.shape
     anc = torch.eye(t, dtype=torch.bool).repeat(b, 1, 1)
     for cc in range(1, t):
-        anc[:, cc] |= anc[torch.arange(b), parents[:, cc]]
+        ok = parents[:, cc] >= 0
+        anc[ok, cc] |= anc[ok.nonzero()[:, 0], parents[ok, cc]]
     anc = anc.to(dev)
-    lens_l = list(PROMPT_LENS)
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    pads = int((parents == -2).sum())
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -807,13 +887,13 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
     if parent is not None:
         fns.append(("earlier kernel",
                     lambda: _decode_parent(parent, q, *nxt(), kn, vn, lens, index)))
-    what = f"decode_attention tree B={b} T={t} H={h} KH={kh} S={s} D={d} bfloat16"
+    what = f"decode_attention tree{label} B={b} T={t} H={h} KH={kh} S={s} D={d} bfloat16"
     errs = held(what, fns, want, pv)
     del want, pv
     got = da.tree_attention(q, kc, vc, kn, vn, lens, anc)
     # each node bitwise equal to the one-token call after its ancestors were
     # committed into the cache at lens, lens + 1, ... (incremental decoding):
-    # every node of slots 0 and 5, and two of slot 7
+    # every node of slots 0 and 5 (padding slots included), and two of slot 7
     nodes = [(0, cc) for cc in range(t)] + [(5, cc) for cc in range(t)] + [(7, 1), (7, t - 2)]
     for bi, cc in nodes:
         path = anc[bi, cc].nonzero()[:, 0].tolist()
@@ -827,8 +907,9 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
                                   torch.tensor([n + len(path) - 1], dtype=torch.int32,
                                                device=dev))
         require(torch.equal(one[0], got[bi, cc]),
-                f"tree attention: slot {bi} node {cc} differs from the one-token call")
-    report(what, errs, tol_bf16, f"; {len(nodes)} nodes bitwise equal to one-token calls")
+                f"tree attention{label}: slot {bi} node {cc} differs from the one-token call")
+    report(what, errs, tol_bf16, f"; {len(nodes)} nodes bitwise equal to one-token calls"
+                                 f"{f'; {pads} padding slots' if pads else ''}")
     # yardstick: SDPA over [cache | tree] with the joint mask
     alls = [(torch.cat([k, kn.transpose(1, 2)], dim=2), torch.cat([v, vn.transpose(1, 2)], 2))
             for k, v in caches]
@@ -839,9 +920,10 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
     # operations: 4 per (query head, element, attended column)
     cols = sum(t * n for n in lens_l) + int(anc.sum())
     nbytes = (2 * sum(lens_l) * kh * d + 2 * q.numel() + 2 * kn.numel()) * 2 + 4 * b
-    timed(f"tree B={b} T={t} H={h} KH={kh} S={s} D={d} bf16", fns,
+    timed(f"tree{label} B={b} T={t} H={h} KH={kh} S={s} D={d} bf16", fns,
           lambda: da.tree_attention_plain(q, *nxt(), kn, vn, lens, anc),
-          lambda: F.scaled_dot_product_attention(qt, *alls[next(it) % len(alls)], attn_mask=mask),
+          lambda: F.scaled_dot_product_attention(qt, *alls[next(it) % len(alls)], attn_mask=mask,
+                                                 enable_gqa=h != kh),
           nbytes, 4.0 * h * d * cols, errs["kernel"][0])
     del caches, alls
     torch.cuda.empty_cache()
@@ -1197,14 +1279,15 @@ def _prompts(vocab_size: int):
 
 
 def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, adapters=None,
-            session=None):
+            session=None, replayed: bool = True):
     """Warm up on one short request (through ``warm``, a scheduler on the
     same engine, or ``rm``), set the launch counts to 0, serve ``prompts``
     (request i through LoRA adapter ``adapters[i]``; default none; with a
     finetuning ``session`` registered after the warm-up, which
     ``run_until_idle`` steps between scheduling iterations and drains) and
     read the counts. Every request must finish with ``max_new`` tokens from
-    the vocabulary. Returns (requests, stats)."""
+    the vocabulary, and (``replayed``) every step must be a replay of one of
+    the manager's engines' graphs. Returns (requests, stats)."""
     import numpy as np
     import torch
 
@@ -1216,8 +1299,8 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, ad
     _launches(reset=True)
     if session is not None:
         rm.register_finetune(session)
-    graphs = rm.engine.graphs
-    replays0 = graphs.replays
+    graphs = [e.graphs for e in getattr(rm, "engines", [rm.engine])]
+    replays0 = sum(g.replays for g in graphs)
     steps0 = rm.total_decoding_steps
     t_start = time.monotonic()
     guids = [rm.register_request(p, GenerationConfig(max_new_tokens=max_new, adapter_id=a))
@@ -1234,9 +1317,9 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, ad
                 f"{path} request {r.guid}: token outside the vocabulary")
     # every greedy step (an incremental step, or a speculative iteration) of
     # the run was a replay of a captured graph
-    require(graphs.replays - replays0 == rm.total_decoding_steps - steps0,
-            f"{path}: {graphs.replays - replays0} replays for "
-            f"{rm.total_decoding_steps - steps0} steps")
+    replays = sum(g.replays for g in graphs) - replays0
+    require(replays == (rm.total_decoding_steps - steps0 if replayed else 0),
+            f"{path}: {replays} replays for {rm.total_decoding_steps - steps0} steps")
     first = max(r.profile.first_token_time for r in reqs)
     decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
     return reqs, dict(
@@ -1246,8 +1329,8 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, ad
         wall_s=t_end - t_start, steps=rm.total_decoding_steps - steps0,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, launches=launches,
-        graphs=len(graphs.graphs), capture_ms=graphs.capture_ms,
-        replays=graphs.replays - replays0)
+        graphs=sum(len(g.graphs) for g in graphs), capture_ms=sum(g.capture_ms for g in graphs),
+        replays=replays)
 
 
 def _log_served(what: str, out: dict, card: str) -> None:
@@ -1545,11 +1628,161 @@ DRAFT_160M = dict(LLAMA2_7B, hidden_size=768, num_layers=12, num_heads=6, num_kv
 PREFIX = 20  # tokens of every request that must equal incremental decoding's
 
 
+DRAFT_B_NOISE = 0.05  # draft B: draft A plus seeded noise of this RMS relative to each tensor's
+CATCHUP_REL = 5e-2  # a caught-up draft cache's rel L2 against a fresh prefill, bf16
+
+
+def _prefix_equal(what: str, got_reqs, want_reqs) -> list:
+    """Per request, the tokens of ``got_reqs`` equal to ``want_reqs``'s before
+    the first difference; each must reach ``PREFIX``."""
+    same = []
+    for g, w in zip(got_reqs, want_reqs):
+        a, b = g.output_tokens, w.output_tokens
+        n = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
+        same.append(n)
+        if n < PREFIX:
+            log(f"  {what} request {g.guid}: first difference at token {n}: {a[:n + 2]} "
+                f"against incremental {b[:n + 2]}")
+    log(f"  {what}: tokens equal to incremental before the first difference, per request: "
+        f"{same}")
+    require(min(same) >= PREFIX,
+            f"{what} output differs from incremental within the first {PREFIX} tokens")
+    return same
+
+
+def _ptrs(tree) -> list:
+    """Every tensor's data_ptr in a parameter tree, in key order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _ptrs(tree[k])]
+    if hasattr(tree, "q"):
+        return [x.data_ptr() for x in (tree.q, tree.scale, tree.offset) if x is not None]
+    return [tree.data_ptr()]
+
+
+def _shares_verifier(engines) -> bool:
+    first = engines[0]
+    return all(_ptrs(e.llm_params) == _ptrs(first.llm_params)
+               and e.llm_cache.k.data_ptr() == first.llm_cache.k.data_ptr()
+               and e.llm_cache.v.data_ptr() == first.llm_cache.v.data_ptr() for e in engines)
+
+
+def _snapshot_drafts_at_retire(rm) -> dict:
+    """Wrap ``rm._retire``: before a slot is freed, copy each draft cache's
+    rows below that draft's committed length (a later catch-up writes junk
+    into free slots). Returns {guid: [(length, k rows, v rows) per draft]}."""
+    snaps = {}
+    retire = rm._retire
+
+    def snapshot_then_retire(slot):
+        req = rm._slots[slot]
+        snaps[req.guid] = [(int(lens[slot]), e.ssm_cache.k[:, slot, :, :int(lens[slot])].clone(),
+                            e.ssm_cache.v[:, slot, :, :int(lens[slot])].clone())
+                           for e, lens in zip(rm.engines, rm._ssm_lens)]
+        retire(slot)
+
+    rm._retire = snapshot_then_retire
+    return snaps
+
+
+def _catchup_rule(engines, reqs, snaps) -> float:
+    """Each draft's committed rows at retirement against a fresh prefill of
+    the request's history through the same draft (flash prefill, bf16):
+    relative L2 over K and V within ``CATCHUP_REL``. Returns the largest."""
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+
+    worst, rows = 0.0, 0
+    for req in reqs:
+        for i, (n, k, v) in enumerate(snaps[req.guid]):
+            if n == 0:
+                continue
+            e = engines[i]
+            toks = torch.tensor([req.tokens[:n]], device=e.device)
+            pos = torch.arange(n, dtype=torch.int32, device=e.device)[None]
+            with torch.no_grad():
+                _, (fk, fv) = decoder.forward(e.ssm_spec, e.ssm_params, toks, pos, flash=True,
+                                              return_kv=True)
+            want = torch.cat([fk[:, 0].permute(0, 2, 1, 3).float(),
+                              fv[:, 0].permute(0, 2, 1, 3).float()])
+            got = torch.cat([k.float(), v.float()])
+            rel = ((got - want).norm() / want.norm()).item()
+            require(rel <= CATCHUP_REL, f"draft {i} cache of request {req.guid}: rel L2 {rel:.3g} "
+                                        f"against a fresh prefill of {n} tokens > {CATCHUP_REL}")
+            worst, rows = max(worst, rel), rows + n
+    require(rows > 0, "no draft cache rows were checked")
+    return worst
+
+
+def _noisy(params, gen, rel: float):
+    """``params`` plus seeded normal noise of RMS ``rel`` x each tensor's RMS."""
+    import torch
+
+    if isinstance(params, dict):
+        return {k: _noisy(params[k], gen, rel) for k in sorted(params)}
+    noise = torch.randn(params.shape, generator=gen, device=params.device)
+    return (params.float() + noise * rel * params.float().pow(2).mean().sqrt()).to(params.dtype)
+
+
+def two_draft_runs(engine, dspec, dparams, prompts, card) -> dict:
+    """Draft B (draft A's architecture and weights plus ``DRAFT_B_NOISE``
+    noise, tree width 1 and depth 6) on ``engine``'s verifier tensors and
+    cache, beside ``engine`` (draft A): the prompts served by rotation
+    (``MultiSSMSpecManager``, fused: every iteration a replay of one engine's
+    graph) and then merged (stepwise: 1 + 12 + 6 = 19 nodes a slot). Returns
+    {mode: (requests, stats)}."""
+    import torch
+
+    from flexflow_tpu_torch.serving.spec_manager import MultiSSMSpecManager
+    from flexflow_tpu_torch.serving.speculative import SpecEngine
+    from flexflow_tpu_torch.utils.profiling import StepTimer
+
+    dev = engine.device
+    dparams_b = _noisy(dparams, torch.Generator(device=dev).manual_seed(1), DRAFT_B_NOISE)
+    engine_b = SpecEngine(engine.llm_spec, engine.llm_params, dspec, dparams_b, beam_width=1,
+                          beam_depth=6, max_requests_per_batch=engine.max_requests,
+                          max_seq_len=engine.max_seq_len, cache_dtype=torch.bfloat16,
+                          device=dev, llm_cache=engine.llm_cache)
+    engines = [engine, engine_b]
+    require(_shares_verifier(engines),
+            "the two drafts' engines do not share the verifier's tensors and cache")
+    log(f"  draft B: draft A + noise at {DRAFT_B_NOISE} of each tensor's RMS (seed 1), width 1 "
+        f"depth 6; the engines share the verifier's {len(_ptrs(engine.llm_params))} tensors and "
+        f"its cache (data_ptr)")
+    runs = {}
+    for mode in ("rotation", "merged"):
+        merged = mode == "merged"
+        managers = [MultiSSMSpecManager(engines, merged=merged, fused=not merged)
+                    for _ in range(2)]
+        managers[0]._rr = 1  # the warm-up's first turn is draft B's: its graphs are captured
+        rm = managers[1]
+        rm.timer = StepTimer()  # host wall time per scheduling phase
+        snaps = _snapshot_drafts_at_retire(rm)
+        reqs, out = _served(rm, prompts, 64, engine.llm_spec.vocab_size,
+                            f"{mode} of two drafts", warm=managers[0], replayed=not merged)
+        del rm._retire  # the snapshot wrapper's reference cycle would keep the engines alive
+        out["phases_ms"] = {k: 1e3 * v for k, v in rm.timer.totals.items()}
+        out.update(card=card, mean_verified_tokens_per_step=rm.mean_verified_tokens_per_step,
+                   tree=rm._merged_t if merged else [e.tree for e in engines])
+        out["catchup_max_rel_l2"] = _catchup_rule(engines, reqs, snaps)
+        _log_served(f"{mode} of two drafts", out, card)
+        log(f"  {mode}: mean verified tokens per step {out['mean_verified_tokens_per_step']:.3f} "
+            f"(trees {out['tree']}); draft caches caught up: largest rel L2 against a fresh "
+            f"prefill {out['catchup_max_rel_l2']:.3g} (limit {CATCHUP_REL}) [{card}]")
+        runs[mode] = (reqs, out)
+        del managers, rm, snaps
+    require(_shares_verifier(engines), "the engines stopped sharing the verifier")
+    del engine_b, engines, dparams_b
+    torch.cuda.empty_cache()
+    return runs
+
+
 def spec_phase(card: str, with_profile: bool) -> dict:
     """Tree-speculative serving of LLaMA-2-7B INT4 with a 160M-class bf16
     draft that the verifier block-embeds (``utils/spec_pair``), through
-    ``SpecEngine`` + the fused, pipelined ``SpecRequestManager``, and the
-    incremental INT4 run of the same verifier it must agree with."""
+    ``SpecEngine`` + the fused, pipelined ``SpecRequestManager``; then a
+    second draft beside it, rotated and merged (``two_draft_runs``); and the
+    incremental INT4 run of the same verifier they must all agree with."""
     import torch
 
     from flexflow_tpu_torch.config import config as ffconfig
@@ -1593,7 +1826,9 @@ def spec_phase(card: str, with_profile: bool) -> dict:
     if with_profile:
         log("[profile] one 8-iteration horizon of the speculative engine")
         out["profile"] = spec_profile(engine, prompts)
-    del engine, rm, managers
+    del rm, managers
+    two = two_draft_runs(engine, dspec, dparams, prompts, card)
+    del engine
     torch.cuda.empty_cache()
 
     engine = InferenceEngine(vspec, vparams, max_requests_per_batch=8, max_seq_len=seq,
@@ -1612,22 +1847,23 @@ def spec_phase(card: str, with_profile: bool) -> dict:
     log(f"  mean verified tokens per step {out['mean_verified_tokens_per_step']:.3f} "
         f"(spec_horizon {horizon}, width {width}, depth {depth}) [{card}]")
     _log_served("incremental INT4", incr, card)
-    same = []
-    for s, i in zip(spec_reqs, incr_reqs):
-        a, b = s.output_tokens, i.output_tokens
-        n = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
-        same.append(n)
-        if n < PREFIX:
-            log(f"  request {s.guid}: first difference at token {n}: spec {a[:n + 2]} "
-                f"incremental {b[:n + 2]}")
-    out["tokens_equal_to_incremental"] = same
-    log(f"  tokens equal to incremental before the first difference, per request: {same}")
+    out["tokens_equal_to_incremental"] = _prefix_equal("one draft", spec_reqs, incr_reqs)
+    for mode, (reqs, stats) in two.items():
+        stats["tokens_equal_to_incremental"] = _prefix_equal(f"{mode} of two drafts", reqs,
+                                                             incr_reqs)
+        out[mode] = stats
+        log(f"  {mode} of two drafts against one draft: decode {stats['decode_tok_s']:.1f} "
+            f"against {out['decode_tok_s']:.1f} tok/s, mean TTFT {stats['mean_ttft_ms']:.1f} "
+            f"against {out['mean_ttft_ms']:.1f} ms, peak {stats['peak_mem_gib']:.2f} against "
+            f"{out['peak_mem_gib']:.2f} GiB, verified/step "
+            f"{stats['mean_verified_tokens_per_step']:.3f} against "
+            f"{out['mean_verified_tokens_per_step']:.3f} [{card}]")
     for k in ("qmm_int4", "decode_attention", "flash_prefill"):
         require(out["launches"][k] > 0, f"{k} was never launched while serving speculatively")
+        for mode in two:
+            require(out[mode]["launches"][k] > 0, f"{k} was never launched in the {mode} run")
     require(out["mean_verified_tokens_per_step"] > 1,
             f"mean verified tokens per step {out['mean_verified_tokens_per_step']} <= 1")
-    require(min(same) >= PREFIX,
-            f"speculative output differs from incremental within the first {PREFIX} tokens")
     return out
 
 
@@ -1930,7 +2166,78 @@ def mixtral_phase(card: str, with_profile: bool) -> dict:
     log(f"  launches as predicted: {moe_launches_per_forward(spec)} qmm_int8 a forward, "
         f"{spec.num_layers} decode_attention a decode step, {spec.num_layers} flash_prefill a "
         f"prefill [{card}]")
-    del engine, rm
+    del rm
+    out["spec"] = mixtral_spec_run(engine, reqs, prompts, out, card)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+MIXTRAL_SPEC_PEAK_GIB = 4.0  # the speculative run's peak memory over the incremental run's
+
+
+def mixtral_spec_run(engine, incr_reqs, prompts, incr: dict, card: str) -> dict:
+    """Mixtral-8x7B INT8 as the verifier under ``SpecEngine`` (dense MoE
+    form, captured), on the incremental engine's own weight tensors, with
+    the 160M-class draft (random bf16 weights, seed 0: it speculates blind,
+    so about one token verifies a step); width 3, depth 4, fused and
+    pipelined as ``LLM.compile`` builds it. Every request's first ``PREFIX``
+    tokens equal the incremental run's, every greedy iteration is a replay,
+    one replayed horizon equals the uncaptured body bitwise, qmm_int8,
+    decode_attention (the tree form in the verify) and flash_prefill launch,
+    and the peak memory stays within ``MIXTRAL_SPEC_PEAK_GIB`` of the
+    incremental run's."""
+    import torch
+
+    from flexflow_tpu_torch.config import config as ffconfig
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+    from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    dev = engine.device
+    spec = engine.spec
+    dspec = ModelSpec(**DRAFT_160M)
+    require(dspec.vocab_size == spec.vocab_size, "the draft and Mixtral need one vocabulary")
+    dparams = params_lib.init_params(dspec, torch.Generator(device=dev).manual_seed(0),
+                                     torch.bfloat16, dev)
+    width, depth, seq = 3, 4, engine.max_seq_len
+    horizon = max(1, min(ffconfig.spec_horizon, seq // (4 * (tree_size(width, depth) + 1))))
+    spec_engine = SpecEngine(spec, engine.params, dspec, dparams, beam_width=width,
+                             beam_depth=depth, max_requests_per_batch=engine.max_requests,
+                             max_seq_len=seq, cache_dtype=torch.bfloat16, device=dev)
+    require(_ptrs(spec_engine.llm_params) == _ptrs(engine.params),
+            "the speculative engine copied Mixtral's weights")
+    require(spec_engine.graphs is not None, "the dense-form Mixtral engine captures nothing")
+    managers = [SpecRequestManager(spec_engine, fused=True, spec_horizon=horizon,
+                                   pipelined=horizon > 1, pipeline_depth=ffconfig.pipeline_depth)
+                for _ in range(2)]
+    rm = managers[1]
+    reqs, out = _served(rm, prompts, 64, spec.vocab_size, "mixtral speculative",
+                        warm=managers[0])
+    out.update(card=card, spec_horizon=horizon,
+               mean_verified_tokens_per_step=rm.mean_verified_tokens_per_step,
+               verify_rows=engine.max_requests * spec_engine.tree)
+    _log_served("mixtral speculative", out, card)
+    log(f"  mixtral speculative: mean verified tokens per step "
+        f"{out['mean_verified_tokens_per_step']:.3f} (a random draft), {out['steps']} iterations "
+        f"of a {out['verify_rows']}-row verify; decode {out['decode_tok_s']:.1f} against "
+        f"incremental {incr['decode_tok_s']:.1f} tok/s, mean TTFT {out['mean_ttft_ms']:.1f} "
+        f"against {incr['mean_ttft_ms']:.1f} ms, peak {out['peak_mem_gib']:.2f} against "
+        f"{incr['peak_mem_gib']:.2f} GiB [{card}]")
+    lens = spec_engine._h([len(p) for p in prompts])
+    roots = spec_engine._h([(r.output_tokens[0] + 1) % spec.vocab_size for r in reqs])
+    _replay_check(f"mixtral speculative horizon ({horizon} iterations, 8 slots)",
+                  lambda replay: spec_engine.greedy_horizon_async(lens, roots, horizon,
+                                                                  replay=replay),
+                  [*spec_engine.llm_cache, *spec_engine.ssm_cache])
+    out["tokens_equal_to_incremental"] = _prefix_equal("mixtral speculative", reqs, incr_reqs)
+    for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+        require(out["launches"][k] > 0, f"{k} was never launched in the mixtral speculative run")
+    require(out["peak_mem_gib"] <= incr["peak_mem_gib"] + MIXTRAL_SPEC_PEAK_GIB,
+            f"mixtral speculative peak {out['peak_mem_gib']:.2f} GiB > the incremental run's "
+            f"{incr['peak_mem_gib']:.2f} + {MIXTRAL_SPEC_PEAK_GIB}")
+    del rm, managers, spec_engine, dparams
     torch.cuda.empty_cache()
     return out
 
@@ -2742,15 +3049,22 @@ def main(argv=None) -> int:
         log("[openai] the served model behind LLM.start_server() and the OpenAI endpoint on "
             "loopback: 1 sampled request, 8 client threads, 1 stream, 2 refusals")
         summary["openai"] = openai_phase(card, held)
+        # the serve phase's engine (reference cycles through its manager's
+        # threads): freed before later phases measure their peak memory
+        held.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         lap("openai")
     if "spec" in phases:
         log("[spec] LLaMA-2-7B INT4 verifier + 160M-class draft, tree width 3 depth 4, "
-            "8 requests, fused and pipelined")
+            "8 requests, fused and pipelined; then a second draft (width 1 depth 6) beside it, "
+            "rotated and merged")
         summary["spec"] = spec_phase(card, "profile" in phases)
         lap("spec")
     if "mixtral" in phases:
         log("[mixtral] Mixtral-8x7B INT8 (32 layers, 8 experts top-2), 8 requests, "
-            "decode_horizon=16, pipelined; the 2-layer cross-check first")
+            "decode_horizon=16, pipelined; the 2-layer cross-check first; then Mixtral as the "
+            "verifier of a 160M-class draft, width 3 depth 4")
         summary["mixtral"] = mixtral_phase(card, "profile" in phases)
         lap("mixtral")
     if "lora" in phases:
@@ -2774,11 +3088,14 @@ def main(argv=None) -> int:
         lap("train")
 
     # each path's launches, counted from 0 over its run: the served runs for
-    # the serving kernels, the tuning run for the variants
-    launches = {k: sum(summary.get(p, {}).get("launches", {}).get(k, 0)
-                       for p in (("variants",) if k in VARIANTS
-                                 else ("serve", "openai", "spec", "mixtral", "lora",
-                                       "finetune")))
+    # the serving kernels (two drafts rotated and merged, and Mixtral as a
+    # verifier, among them), the tuning run for the variants
+    served = [summary.get(p, {}) for p in ("serve", "openai", "spec", "mixtral", "lora",
+                                           "finetune")]
+    served += [summary.get("spec", {}).get(m, {}) for m in ("rotation", "merged")]
+    served.append(summary.get("mixtral", {}).get("spec", {}))
+    launches = {k: sum(run.get("launches", {}).get(k, 0)
+                       for run in ([summary.get("variants", {})] if k in VARIANTS else served))
                 for k in SOURCES}
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """FastAPI speculative-serving endpoint of the port (mirror of
-``inference/entrypoint/fastapi_specinfer.py``): an LLM with one draft model
-(``FF_SSM_DIRS``) through the background ``SpecRequestManager``. Needs
+``inference/entrypoint/fastapi_specinfer.py``): an LLM with one or more draft
+models (comma-separated in ``FF_SSM_DIRS``) through the background
+speculative manager. Needs
 ``fastapi``, ``pydantic`` and ``uvicorn``.
 
     FF_MODEL_DIR=... FF_SSM_DIRS=... python -m flexflow_tpu_torch.inference.entrypoint.fastapi_specinfer

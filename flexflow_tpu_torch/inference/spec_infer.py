@@ -1,14 +1,17 @@
 #!/usr/bin/env python
 """Tree-speculative decoding CLI of the port (flag-compatible with
-``inference/spec_infer.py``): one verifier plus a draft model, lossless
-greedy verification (or stochastic verification with ``--temperature``).
+``inference/spec_infer.py``): one verifier plus repeatable ``-ssm-model``
+draft models, lossless greedy verification (or stochastic verification with
+``--temperature``).
 
     python -m flexflow_tpu_torch.inference.spec_infer -llm-model DIR \\
-        -ssm-model DRAFT_DIR -prompt prompts.json --max-new-tokens 16 --device cuda
+        -ssm-model DRAFT_DIR [-ssm-model DRAFT2_DIR [--merge-ssm-trees]] \\
+        -prompt prompts.json --max-new-tokens 16 --device cuda
 
-More than one ``-ssm-model``, ``--merge-ssm-trees`` and parallelism degrees
-above 1 are refused (not in the port yet). Legion resource flags (``-ll:*``)
-are ignored.
+Several drafts rotate, one a speculative iteration; ``--merge-ssm-trees``
+verifies all their trees in one merged pass instead (greedy requests only).
+Parallelism degrees above 1 are refused (not in the port yet). Legion
+resource flags (``-ll:*``) are ignored.
 """
 
 import argparse
@@ -21,7 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-llm-model", "--llm-model", dest="model", required=True,
                    help="local HF model directory of the verifier")
     p.add_argument("-ssm-model", "--ssm-model", dest="ssm_models", action="append",
-                   default=[], help="draft model directory (repeatable in the reference)")
+                   default=[], help="draft model directory (repeatable)")
     p.add_argument("-prompt", "--prompt", dest="prompt", default="",
                    help="json file with a list of prompt strings")
     p.add_argument("-output-file", "--output-file", dest="output_file", default="")
@@ -34,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topk", "--top-k", dest="topk", type=int, default=0)
     p.add_argument("--beam-width", type=int, default=3)
     p.add_argument("--beam-depth", type=int, default=4)
-    p.add_argument("--merge-ssm-trees", action="store_true")
+    p.add_argument("--merge-ssm-trees", action="store_true",
+                   help="verify every draft's tree in one merged pass per iteration")
     p.add_argument("-tensor-parallelism-degree", "--tensor-parallelism-degree",
                    dest="tp", type=int, default=1)
     p.add_argument("-pipeline-parallelism-degree", "--pipeline-parallelism-degree",

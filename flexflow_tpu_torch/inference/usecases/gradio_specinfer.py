@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Gradio UI over speculative decoding (mirror of
-``inference/usecases/gradio_specinfer.py``; one draft model). Needs
+``inference/usecases/gradio_specinfer.py``; one or more draft models,
+comma-separated in ``FF_SSM_DIRS``). Needs
 ``gradio``, imported when the UI starts.
 
     FF_MODEL_DIR=... FF_SSM_DIRS=... python -m flexflow_tpu_torch.inference.usecases.gradio_specinfer

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Prompt-template usecase over speculative decoding (mirror of
 ``inference/usecases/prompt_template_specinfer.py``): the same chain served
-by an LLM with one draft model (the port serves one) through the background
-``SpecRequestManager``.
+by an LLM with one or more draft models (comma-separated in ``FF_SSM_DIRS``)
+through the background speculative manager.
 
     FF_MODEL_DIR=... FF_SSM_DIRS=... python -m flexflow_tpu_torch.inference.usecases.prompt_template_specinfer
 """

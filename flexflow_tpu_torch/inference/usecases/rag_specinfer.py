@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Retrieval-augmented generation over speculative decoding (mirror of
 ``inference/usecases/rag_specinfer.py``): the ``rag_incr`` recipe served by
-an LLM with one draft model.
+an LLM with one or more draft models (comma-separated in ``FF_SSM_DIRS``).
 
     FF_MODEL_DIR=... FF_SSM_DIRS=... FF_DOCS=... python -m flexflow_tpu_torch.inference.usecases.rag_specinfer
 """

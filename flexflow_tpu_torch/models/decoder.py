@@ -207,9 +207,9 @@ def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
     rows the ragged form computes (None: every row)."""
     b, t, d = h.shape
     x = h.reshape(b * t, d)
-    # every row through one router GEMM in both forms, so a row's routing
-    # never depends on which rows the ragged form keeps
-    router_logits = torch.tensordot(x.float(), p["router"].float(), dims=1)  # [N, E]
+    # every row through the router in both forms, so a row's routing never
+    # depends on which rows the ragged form keeps (nor on the row count)
+    router_logits = moe_lib.router_logits(x, p["router"])  # [N, E]
     rows = None
     if spec.moe.impl == "ragged" and valid is not None:
         rows = valid.reshape(-1).nonzero()[:, 0]

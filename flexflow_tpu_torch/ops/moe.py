@@ -18,6 +18,11 @@ float32 and rounds to the activation dtype once. Every routed row gets the
 same bits in both forms: the quant-matmul's rows do not depend on how many
 rows a call carries, and a token's top-2 contributions are added in expert
 order onto zero either way.
+
+The router logits (``router_logits``) are one f32 GEMM in blocks of
+``ROUTER_ROWS`` rows, so a row's logits do not depend on how many rows the
+call carries either: a token verified in a speculative tree routes as its
+incremental decode step did.
 """
 
 from __future__ import annotations
@@ -31,6 +36,22 @@ from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 
 Experts = Union[torch.Tensor, QuantizedArray, LayerQuant]
+
+
+ROUTER_ROWS = 128  # rows of one router GEMM
+
+
+def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """f32 router logits [N, E] of x [N, D] and the router [D, E]. A GEMM's
+    library picks its algorithm by shape, which changes a row's summation
+    order with the row count; so every GEMM here has ``ROUTER_ROWS`` rows
+    (the last block zero-padded), whatever N is."""
+    x, w = x.float(), router.float()
+    n = x.shape[0]
+    pad = -n % ROUTER_ROWS
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    return torch.cat([block @ w for block in x.split(ROUTER_ROWS)])[:n]
 
 
 def route_topk(router_logits: torch.Tensor, top_k: int):

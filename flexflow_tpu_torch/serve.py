@@ -1,10 +1,13 @@
 """User-facing serving API: ``LLM`` and ``SSM`` (port of
 ``flexflow_tpu/serve.py``: incremental decoding, and tree-speculative
-decoding with one draft model, on one device).
+decoding with one or several draft models, on one device).
 
 ``LLM(model_dir).compile(...)`` loads a local HuggingFace model directory and
 builds the engine and scheduler; with ``ssms=[SSM(draft_dir)]`` it builds a
-``SpecEngine`` and a fused, pipelined ``SpecRequestManager`` instead.
+``SpecEngine`` and a fused, pipelined ``SpecRequestManager`` instead, and
+with several drafts one ``SpecEngine`` a draft over one verifier and a
+``MultiSSMSpecManager`` that rotates them or, with ``merge_ssm_trees``,
+verifies their merged trees in one pass.
 ``generate(prompts)`` tokenizes, serves and detokenizes. LoRA adapters
 registered before ``compile`` (``register_peft_adapter``) are stacked into
 slots and routed per request (``generate(..., adapter_id=)``).
@@ -29,7 +32,8 @@ from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lo
                                          unroute_lora)
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
-from flexflow_tpu_torch.serving.spec_manager import NO_ADAPTERS, SpecRequestManager
+from flexflow_tpu_torch.serving.spec_manager import (NO_ADAPTERS, MultiSSMSpecManager,
+                                                     SpecRequestManager)
 from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
 from flexflow_tpu_torch.utils import hf_weights
 
@@ -131,15 +135,14 @@ class LLM:
                 beam_depth: int = 4, ssms: Sequence["SSM"] = (),
                 merge_ssm_trees: bool = False) -> None:
         """Load the weights and build the engine and the scheduler: the
-        incremental ``RequestManager``, or with one registered draft model
+        incremental ``RequestManager``; with one registered draft model
         (``ssms``) the speculative ``SpecRequestManager`` (fused, and
-        pipelined over a horizon of ``spec_horizon`` iterations)."""
+        pipelined over a horizon of ``spec_horizon`` iterations); with
+        several, a ``MultiSSMSpecManager`` over one engine a draft sharing
+        the verifier's weights and cache, rotating the drafts (fused) or,
+        with ``merge_ssm_trees``, verifying their merged trees."""
         for ssm in ssms:
             self.register_ssm(ssm)
-        if len(self._ssms) > 1 or merge_ssm_trees:
-            raise NotImplementedError(
-                "several draft models and merged trees (MultiSSMSpecManager, "
-                "serving/tree_merge.py) are not in the port yet: ROADMAP.md Queue A, A4")
         if self._ssms and self._peft:
             raise NotImplementedError(NO_ADAPTERS)
         if max_tokens_per_batch is None:
@@ -147,18 +150,27 @@ class LLM:
         self.params = self._load_params()
         self._load_tokenizer()
         if self._ssms:
-            ssm = self._ssms[0]
+            engines = []
+            for ssm in self._ssms:
+                # the first engine fuses and places the verifier; the others
+                # take its tensors and its cache
+                first = engines[0] if engines else None
+                engines.append(SpecEngine(
+                    self.spec, first.llm_params if first else self.params, ssm.spec,
+                    ssm._load_params(), beam_width=beam_width, beam_depth=beam_depth,
+                    max_requests_per_batch=max_requests_per_batch,
+                    max_seq_len=max_seq_length, cache_dtype=self.dtype, device=self.device,
+                    llm_cache=first.llm_cache if first else None))
+            if len(engines) > 1:
+                self.rm = MultiSSMSpecManager(engines, merged=merge_ssm_trees,
+                                              fused=not merge_ssm_trees)
+                return
             # never let the per-request speculation margin (horizon x
             # (tree + 1)) take more than about a quarter of the context
             tree = tree_size(beam_width, beam_depth)
             spec_horizon = max(1, min(_ffconfig.spec_horizon,
                                       max_seq_length // (4 * (tree + 1))))
-            engine = SpecEngine(
-                self.spec, self.params, ssm.spec, ssm._load_params(),
-                beam_width=beam_width, beam_depth=beam_depth,
-                max_requests_per_batch=max_requests_per_batch, max_seq_len=max_seq_length,
-                cache_dtype=self.dtype, device=self.device)
-            self.rm = SpecRequestManager(engine, fused=True, spec_horizon=spec_horizon,
+            self.rm = SpecRequestManager(engines[0], fused=True, spec_horizon=spec_horizon,
                                          pipelined=spec_horizon > 1,
                                          pipeline_depth=_ffconfig.pipeline_depth)
             return

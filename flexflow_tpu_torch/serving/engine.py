@@ -56,7 +56,7 @@ from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
-from flexflow_tpu_torch.serving.graphs import StepGraphs
+from flexflow_tpu_torch.serving.graphs import StepGraphs, capturable
 from flexflow_tpu_torch.specs import ModelSpec
 
 
@@ -113,9 +113,7 @@ class InferenceEngine:
         # each slot's adapter for the greedy body (None: an engine without adapters)
         self._adapters = (None if lora is None else
                           torch.full_like(self._lens, -1, dtype=torch.int64))
-        ragged_moe = spec.moe is not None and spec.moe.impl == "ragged"
-        self.graphs = (StepGraphs(self.device)
-                       if self.device.type == "cuda" and not ragged_moe else None)
+        self.graphs = StepGraphs(self.device) if capturable(self.device, spec) else None
 
     # ------------------------------------------------------------------
 

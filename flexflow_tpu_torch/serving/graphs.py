@@ -36,6 +36,14 @@ _COUNTERS = ((quant_matmul, "LAUNCHES"), (quant_matmul, "LAUNCHES_INT4"),
              (decode_attention, "LAUNCHES"), (flash_prefill, "LAUNCHES"))
 
 
+def capturable(device: torch.device, *specs) -> bool:
+    """Whether an engine on ``device`` running ``specs`` captures its greedy
+    step: on a CUDA device, unless a model's MoE FFN is the ``ragged`` form,
+    which reads its expert group sizes on the host every layer."""
+    return device.type == "cuda" and not any(
+        s.moe is not None and s.moe.impl == "ragged" for s in specs)
+
+
 def launch_counts() -> Tuple[int, ...]:
     """The serving kernels' launch counters: qmm_int8, qmm_int4,
     decode_attention, flash_prefill."""

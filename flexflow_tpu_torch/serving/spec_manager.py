@@ -1,5 +1,6 @@
 """SpecRequestManager — continuous batching for tree-speculative serving
-(port of ``flexflow_tpu/serving/spec_manager.py``, one draft model).
+(port of ``flexflow_tpu/serving/spec_manager.py``), and
+``MultiSSMSpecManager`` for several draft models against one verifier.
 
 Each iteration drafts a token tree per slot, verifies it with the verifier,
 accepts the longest verified path and commits its K/V. Greedy verification
@@ -11,8 +12,8 @@ Keys: one ``torch.Generator`` draws a 63-bit key per dispatch (see
 ``ops/sampling``). The background serving thread is the incremental
 manager's (``request_manager.BackgroundServing``), and ``--profiling``
 times the phases as there. The stepwise path (``fused=False``) refuses
-sampled requests, where the JAX package walks them greedily.
-``MultiSSMSpecManager`` (several drafts) is not in the port yet.
+sampled requests, where the JAX package walks them greedily; so does
+``MultiSSMSpecManager``'s merged mode, which runs that path.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from flexflow_tpu_torch.serving.request_manager import (
     GenerationConfig,
     Request,
 )
-from flexflow_tpu_torch.serving.speculative import SpecEngine
+from flexflow_tpu_torch.serving.speculative import MAX_SPEC_TREE_TOKEN_NUM, SpecEngine
+from flexflow_tpu_torch.serving.tree_merge import merge_batch
 from flexflow_tpu_torch.utils.profiling import StepTimer
 
 
@@ -43,6 +45,11 @@ from flexflow_tpu_torch.utils.profiling import StepTimer
 NO_ADAPTERS = ("LoRA adapters are not served under speculative decoding: the JAX package's "
                "SpecEngine ignores adapter_id, and the port refuses it instead (ROADMAP.md, "
                "the port's deliberate differences)")
+# the JAX package's merged mode walks a sampled request greedily and drops its
+# temperature silently
+MERGED_GREEDY = ("merged draft trees verify greedily: a sampled request (temperature > 0) "
+                 "needs the rotation mode (merged=False, fused=True); the JAX package walks "
+                 "it greedily instead (ROADMAP.md, the port's deliberate differences)")
 
 
 class SpecRequestManager(BackgroundServing):
@@ -370,11 +377,11 @@ class SpecRequestManager(BackgroundServing):
         return True
 
     def _greedy_walk_accept(self, active, lens_before, tree_tokens, tree_parents,
-                            argmax) -> np.ndarray:
-        """Walk each request's verified tree along the verifier's argmaxes,
-        extend outputs and advance cache lens; returns the K/V commit's
-        from_slots."""
-        t = self.engine.tree
+                            argmax, t: Optional[int] = None) -> np.ndarray:
+        """Walk each request's verified tree (``t`` nodes; default the
+        engine's tree) along the verifier's argmaxes, extend outputs and
+        advance cache lens; returns the K/V commit's from_slots."""
+        t = self.engine.tree if t is None else t
         self._steps += 1
         from_slots = np.tile(np.arange(t, dtype=np.int32), (len(lens_before), 1))
         for slot in active:
@@ -446,3 +453,147 @@ class SpecRequestManager(BackgroundServing):
     @property
     def num_processed_requests(self) -> int:
         return self._num_processed
+
+
+class MultiSSMSpecManager(SpecRequestManager):
+    """Several draft models against one verifier (the reference's
+    ``register_ssm_model`` loop): one ``SpecEngine`` a draft, all over one
+    verifier parameter tree and one verifier cache (``SpecEngine(llm_cache=)``).
+
+    Rotation (``fused=True``): one draft a turn, round-robin, each turn one
+    fused iteration of that draft's engine (a graph replay on the card).
+    Before its turn a draft's cache catches up over the tokens that other
+    drafts' turns committed (the reference re-commits them in
+    ``prepare_next_batch_init``). Merged (``merged=True``, ``fused=False``):
+    every draft expands its tree, ``tree_merge.merge_batch`` merges them,
+    one stepwise verify checks the merged tree and only the verifier cache
+    commits; the draft caches catch up next iteration."""
+
+    def __init__(self, engines: Sequence[SpecEngine], *, merged: bool = False, **kw):
+        if not engines:
+            raise ValueError("need at least one SpecEngine")
+        super().__init__(engines[0], **kw)
+        first = engines[0]
+        for e in engines[1:]:
+            if (e.llm_cache.k.data_ptr(), e.llm_cache.v.data_ptr()) != (
+                    first.llm_cache.k.data_ptr(), first.llm_cache.v.data_ptr()):
+                raise ValueError("the engines must share one verifier cache: build them with "
+                                 "SpecEngine(..., llm_cache=engines[0].llm_cache)")
+        self.merged = bool(merged)
+        if self.merged and self.fused:
+            raise ValueError("merged verification runs the stepwise path (fused=False)")
+        if not self.merged and not self.fused:
+            raise ValueError("rotation runs each draft's fused iteration (fused=True), "
+                             "or merge the trees (merged=True)")
+        if self.pipelined:
+            raise ValueError("rotation switches engines every turn: it is not pipelined")
+        self.engines = list(engines)
+        self._ssm_lens = [np.zeros(first.max_requests, np.int32) for _ in engines]
+        self._rr = 0
+        if self.merged:
+            self._merged_t = min(MAX_SPEC_TREE_TOKEN_NUM, 1 + sum(e.tree - 1 for e in engines))
+            self._tree_margin = self._merged_t
+        else:
+            self._tree_margin = max(e.tree for e in engines)
+
+    def register_request(self, prompt_tokens: Sequence[int],
+                         config: Optional[GenerationConfig] = None) -> int:
+        if self.merged and config is not None and config.temperature > 0.0:
+            raise NotImplementedError(MERGED_GREEDY)
+        return super().register_request(prompt_tokens, config)
+
+    def _admit(self) -> None:
+        """The first engine admits into the verifier cache and its draft's,
+        the others into their drafts' caches."""
+        self.engine = self.engines[0]
+        free = [s for s in range(self.engine.max_requests) if self._slots[s] is None]
+        super()._admit()
+        admitted = [s for s in free if self._slots[s] is not None]
+        if not admitted:
+            return
+        prompts = [np.asarray(self._slots[s].prompt_tokens, np.int32) for s in admitted]
+        for e in self.engines[1:]:
+            e.prefill_ssm_only(prompts, admitted)
+        for lens in self._ssm_lens:
+            lens[admitted] = [len(p) for p in prompts]
+
+    def _retire(self, slot: int) -> None:
+        super()._retire(slot)
+        for lens in self._ssm_lens:
+            lens[slot] = 0
+
+    def _drop_inflight(self) -> None:
+        super()._drop_inflight()
+        for lens in self._ssm_lens:
+            lens[:] = 0
+
+    def _catchup_engine(self, i: int, active) -> None:
+        """Advance draft i's cache to the committed lengths, in chunks of
+        its tree size + 2 tokens."""
+        eng = self.engines[i]
+        chunk = eng.tree + 2
+        while True:
+            lags = self._cache_lens - self._ssm_lens[i]
+            if not any(lags[s] > 0 for s in active):
+                return
+            tokens = np.zeros((eng.max_requests, chunk), np.int32)
+            taken = np.zeros(eng.max_requests, np.int32)
+            for s in active:
+                take = min(int(lags[s]), chunk)
+                if take <= 0:
+                    continue
+                start = int(self._ssm_lens[i][s])
+                tokens[s, :take] = self._slots[s].tokens[start:start + take]
+                taken[s] = take
+            eng.catchup(self._ssm_lens[i], tokens)
+            self._ssm_lens[i] += taken
+
+    def step(self) -> bool:
+        """One scheduling iteration; True while any request is in flight."""
+        if self.merged:
+            return self._step_merged()
+        with self._phase("admit"):
+            self._admit()
+        active = [s for s in range(self.engine.max_requests) if self._slots[s]]
+        if not active:
+            return False
+        i = self._rr % len(self.engines)
+        self._rr += 1
+        with self._phase("catchup"):
+            self._catchup_engine(i, active)
+        self.engine = self.engines[i]
+        with self._phase("spec_fused"):
+            self._step_fused(active)
+        # this draft's cache advanced with the commit (a retired slot's
+        # lengths are 0); the others lag until their turn
+        self._ssm_lens[i][:] = self._cache_lens
+        return True
+
+    def _step_merged(self) -> bool:
+        """Every draft's tree verified in one verifier pass. The draft
+        caches are not committed from the merged tree, whose layout is no
+        engine's: their lengths fall back to the pre-draft committed ones,
+        so the next catch-up replays the accepted tokens."""
+        with self._phase("admit"):
+            self._admit()
+        active = [s for s in range(self.engine.max_requests) if self._slots[s]]
+        if not active:
+            return False
+        lens_before = self._cache_lens.copy()
+        trees = []
+        with self._phase("draft"):
+            for i, eng in enumerate(self.engines):
+                self._catchup_engine(i, active)
+                tokens, parents, _ = eng.draft_tree(lens_before, self._root_tokens)
+                trees.append((tokens, parents))
+        tree_tokens, tree_parents, depths = merge_batch(trees, self._merged_t, self._merged_t)
+        first = self.engines[0]
+        with self._phase("verify"):
+            argmax = first.verify(lens_before, tree_tokens, tree_parents, depths)
+        from_slots = self._greedy_walk_accept(active, lens_before, tree_tokens, tree_parents,
+                                              argmax, self._merged_t)
+        with self._phase("commit"):
+            first.commit_llm_only(lens_before, from_slots)
+        for lens in self._ssm_lens:
+            np.minimum(lens, lens_before, out=lens)
+        return True

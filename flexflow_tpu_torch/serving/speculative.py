@@ -1,5 +1,9 @@
 """Tree-based speculative decoding (SpecInfer): draft tree + token-tree
-verification (port of ``flexflow_tpu/serving/speculative.py``, one draft).
+verification (port of ``flexflow_tpu/serving/speculative.py``). An engine
+pairs the verifier with one draft; several drafts are several engines over
+one verifier parameter tree and one verifier cache (``llm_cache=``), which
+``MultiSSMSpecManager`` rotates or merges. Either model may be a MoE: both
+run ``decoder.forward_cached`` with their own ``spec.moe.impl``.
 
 - draft phase: beam-tree expansion on the small model (``build_draft_phase``).
   The root step runs the draft's cached forward on the last committed token
@@ -29,9 +33,12 @@ window (``window_buckets``), and every greedy horizon is n replays, each
 replay's outputs copied out into fresh ``[n, ...]`` tensors. On the CPU the
 same body runs n times uncaptured. A horizon with a sampled slot is not
 captured: its iterations are issued eagerly, without a host sync
-(``spec_sampling`` seeds one generator per row on the host). Lens, roots
-and produced tokens stay device tensors until ``fetch``, each iteration's
-tree K/V lives in its own buffer, and the caches are updated in place.
+(``spec_sampling`` seeds one generator per row on the host). Nor is any
+iteration of an engine whose verifier or draft is a ragged MoE (its expert
+group sizes are read on the host): such an engine captures nothing. Lens,
+roots and produced tokens stay device tensors until ``fetch``, each
+iteration's tree K/V lives in its own buffer, and the caches are updated in
+place.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.serving.engine import _params_to, _round_up_pow2
-from flexflow_tpu_torch.serving.graphs import StepGraphs
+from flexflow_tpu_torch.serving.graphs import StepGraphs, capturable
 from flexflow_tpu_torch.serving.spec_sampling import tree_sample_walk
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -209,12 +216,14 @@ class SpecEngine:
         max_seq_len: int = 256,
         cache_dtype=torch.bfloat16,
         device=None,
+        llm_cache: Optional[KVCache] = None,
     ):
+        """``llm_cache``: a verifier cache to share (another engine's, for
+        several drafts against one verifier) instead of a new one. Passing
+        that engine's ``llm_params`` too shares its parameter tensors: they
+        are on the device and fused already, so nothing is copied."""
         if llm_spec.vocab_size != ssm_spec.vocab_size:
             raise ValueError("the verifier and the draft need one vocabulary")
-        if llm_spec.moe is not None or ssm_spec.moe is not None:
-            raise NotImplementedError(
-                "a MoE verifier or draft under SpecEngine is not in the port yet (ROADMAP.md)")
         t = tree_size(beam_width, beam_depth)
         if t > MAX_SPEC_TREE_TOKEN_NUM:
             raise ValueError(f"tree {t} exceeds the cap {MAX_SPEC_TREE_TOKEN_NUM}")
@@ -231,8 +240,16 @@ class SpecEngine:
         self.width, self.depth, self.tree = beam_width, beam_depth, t
         self.max_requests = max_requests_per_batch
         self.max_seq_len = max_seq_len
-        self.llm_cache = decoder.init_kv_cache(
-            llm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
+        if llm_cache is None:
+            llm_cache = decoder.init_kv_cache(
+                llm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
+        elif ((llm_cache.num_slots, llm_cache.max_seq_len) != (max_requests_per_batch,
+                                                                max_seq_len)
+              or llm_cache.k.device.type != self.device.type):
+            raise ValueError(f"a shared verifier cache {tuple(llm_cache.k.shape)} on "
+                             f"{llm_cache.k.device} does not fit {max_requests_per_batch} slots "
+                             f"x {max_seq_len} positions on {self.device}")
+        self.llm_cache = llm_cache
         self.ssm_cache = decoder.init_kv_cache(
             ssm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
         self._draft_phase = build_draft_phase(ssm_spec, beam_width, beam_depth)
@@ -243,8 +260,8 @@ class SpecEngine:
         self._roots = torch.zeros(b, dtype=i32, device=self.device)
         self._produced = torch.zeros((b, beam_depth + 1), dtype=i32, device=self.device)
         self._n_acc = torch.zeros(b, dtype=i32, device=self.device)
-        self.graphs = (StepGraphs(self.device)
-                       if self.device.type == "cuda" else None)
+        self.graphs = (StepGraphs(self.device) if capturable(self.device, llm_spec, ssm_spec)
+                       else None)
 
     # ------------------------------------------------------------------
     # host-facing helpers
@@ -290,12 +307,10 @@ class SpecEngine:
     # admission
     # ------------------------------------------------------------------
 
-    def prefill_both_batch(self, prompts, slots, key: Optional[int] = None,
-                           scfg: Optional[SamplingConfig] = None):
-        """Admit several requests into both caches (one causal forward of
-        each model through the flash-prefill kernel, each layer's K/V written
-        into the slots); returns the [NB] first tokens as host ints, greedy
-        unless ``scfg`` ([NB] fields) and ``key`` are given."""
+    def _prefill_into(self, spec, params, cache, prompts, slots):
+        """One causal forward of ``prompts`` through the flash-prefill
+        kernel, each layer's K/V written into the cache rows ``slots``;
+        returns the logits at each prompt's last position [NB, V]."""
         nb = len(prompts)
         bucket = min(_round_up_pow2(max(len(p) for p in prompts), 16), self.max_seq_len)
         padded = np.zeros((nb, bucket), np.int32)
@@ -305,31 +320,50 @@ class SpecEngine:
                 raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {self.max_seq_len}")
             padded[i, :len(p)] = p
             lengths[i] = len(p)
-        tokens, lens_d = self._h(padded), self._h(lengths)
+        lens_d = self._h(lengths)
         positions = torch.arange(bucket, dtype=torch.int32, device=self.device)[None].expand(
             nb, bucket)
         starts = np.zeros(nb, np.int64)
 
-        def sink_into(cache):
-            def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows
-                decoder.commit_kv_windows(
-                    cache.k[layer:layer + 1], cache.v[layer:layer + 1],
-                    k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
-                    v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
-            return sink
+        def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows
+            decoder.commit_kv_windows(
+                cache.k[layer:layer + 1], cache.v[layer:layer + 1],
+                k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
+                v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
 
         with torch.no_grad():
-            last, _ = decoder.forward(
-                self.llm_spec, self.llm_params, tokens, positions, lengths=lens_d,
-                flash=True, kv_sink=sink_into(self.llm_cache), logits_at=lens_d - 1)
-            decoder.forward(
-                self.ssm_spec, self.ssm_params, tokens, positions, lengths=lens_d,
-                flash=True, kv_sink=sink_into(self.ssm_cache), logits_at=lens_d - 1)
+            return decoder.forward(spec, params, self._h(padded), positions, lengths=lens_d,
+                                   flash=True, kv_sink=sink, logits_at=lens_d - 1)[0]
+
+    def prefill_both_batch(self, prompts, slots, key: Optional[int] = None,
+                           scfg: Optional[SamplingConfig] = None):
+        """Admit several requests into both caches (one causal forward of
+        each model through the flash-prefill kernel, each layer's K/V written
+        into the slots); returns the [NB] first tokens as host ints, greedy
+        unless ``scfg`` ([NB] fields) and ``key`` are given."""
+        last = self._prefill_into(self.llm_spec, self.llm_params, self.llm_cache, prompts, slots)
+        self.prefill_ssm_only(prompts, slots)
+        with torch.no_grad():
             if scfg is None:
                 toks = torch.argmax(last, dim=-1)
             else:
                 toks = sampling_lib.sample(last, key, self._scfg(scfg))
         return [int(t) for t in self.fetch(toks)]
+
+    def prefill_ssm_only(self, prompts, slots) -> None:
+        """Admit requests into the draft cache only (several drafts share
+        one verifier cache: only the first engine's admission fills it)."""
+        self._prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache, prompts, slots)
+
+    def catchup(self, ssm_lens, tokens) -> None:
+        """Advance the draft cache over already committed tokens: one
+        causal cached forward of ``tokens`` [B, C] (zero-padded) written at
+        ``ssm_lens`` [B]. A row with less lag writes junk past its valid
+        region, which the next forward overwrites before anything attends
+        it."""
+        with torch.no_grad():
+            decoder.forward_cached(self.ssm_spec, self.ssm_params, self._h(tokens),
+                                   self.ssm_cache, self._h(ssm_lens))
 
     # ------------------------------------------------------------------
     # stepwise path: draft tree, verify and commit as three host calls
@@ -411,13 +445,21 @@ class SpecEngine:
         """Compact the accepted tree slots of both caches:
         ``cache[lens + i] <- cache[lens + from_slots[b, i]]`` for i < T
         (identity past the accepted count)."""
+        self._commit((self.llm_cache, self.ssm_cache), cache_lens, from_slots)
+
+    def commit_llm_only(self, cache_lens, from_slots) -> None:
+        """``commit`` on the verifier cache alone (merged trees of several
+        drafts: each draft cache catches up over the committed tokens)."""
+        self._commit((self.llm_cache,), cache_lens, from_slots)
+
+    def _commit(self, caches, cache_lens, from_slots) -> None:
         lens_np = np.asarray(cache_lens, np.int32)
         fs = self._h(from_slots).long()
         b, t = fs.shape
         lens = self._h(lens_np).long()
         bidx = torch.arange(b, device=self.device)[:, None].expand(b, t)
         with torch.no_grad():
-            for cache in (self.llm_cache, self.ssm_cache):
+            for cache in caches:
                 src = torch.clamp(lens[:, None] + fs, max=cache.max_seq_len - 1)
                 # [B, T, L, KH, D] -> [L, B, KH, T, D] update windows
                 gk = cache.k[:, bidx, :, src].permute(2, 0, 3, 1, 4)
@@ -486,7 +528,7 @@ class SpecEngine:
         device (produced [n, B, depth+1], n_acc [n, B], lens_out [B],
         roots_out [B])."""
         return self.greedy_horizon_async(lens_dev, roots_dev, n, window,
-                                         replay=self.device.type == "cuda")
+                                         replay=self.graphs is not None)
 
     def _greedy_body(self, window) -> None:
         """One greedy iteration on the static buffers, in place."""

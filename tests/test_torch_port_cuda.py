@@ -983,3 +983,221 @@ def test_finetune_steps_on_card_match_cpu(cuda, bits):
         for k in ("a", "b"):
             ref = sc[m][k][:, 1]
             assert (sg[m][k][:, 1].cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# several drafts (MultiSSMSpecManager) and a MoE model under SpecEngine
+# ---------------------------------------------------------------------------
+
+
+def _merged_tree(gen, b, shapes):
+    """The merged tree of one random draft tree per (width, depth) in
+    ``shapes`` (tokens from a 3-token vocabulary, so prefixes are shared):
+    parents [B, T] (-2: a padding slot) and the ancestor mask."""
+    from flexflow_tpu_torch.serving.tree_merge import merge_batch
+
+    trees = []
+    for w, d in shapes:
+        parents, _ = _tree(gen, b, w, d)
+        tokens = torch.randint(0, 3, parents.shape, generator=gen)
+        tokens[:, 0] = 0
+        trees.append((tokens.numpy(), parents.numpy()))
+    t = 1 + sum(w * d for w, d in shapes)
+    parents = torch.as_tensor(merge_batch(trees, t, t)[1], dtype=torch.long)
+    anc = torch.eye(t, dtype=torch.bool).repeat(b, 1, 1)
+    for c in range(1, t):
+        ok = parents[:, c] >= 0
+        anc[ok, c] |= anc[ok.nonzero()[:, 0], parents[ok, c]]
+    return parents, anc
+
+
+@pytest.mark.parametrize("tree", ["gqa", "merged"])
+def test_tree_attention_gqa_and_merged_trees_match_incremental_bits(cuda, tree):
+    """K5's tree form at Mixtral's GQA (32 query heads on 8) and on the
+    merged tree of two drafts (19 slots, irregular parents, padding slots
+    that attend only themselves): each node bitwise equal to the one-token
+    call after its ancestors were committed, within the plain version's
+    bf16 limit."""
+    g = torch.Generator().manual_seed(9)
+    b, s = 4, 200
+    if tree == "gqa":
+        h, kh, d = 32, 8, 128
+        _, anc = _tree(g, b, 3, 4)
+    else:
+        h, kh, d = 8, 8, 128
+        parents, anc = _merged_tree(g, b, [(3, 4), (1, 6)])
+        assert anc.shape[-1] == 19 and (parents == -2).any()
+    t = anc.shape[-1]
+    lens = torch.tensor([0, 63, 64, 150], dtype=torch.int32)
+    q, kn, vn = (torch.randn(sh, generator=g).to(_BF16)
+                 for sh in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d)))
+    kc, vc = (torch.randn((b, kh, s, d), generator=g).to(_BF16) for _ in range(2))
+    dev = [x.to(cuda) for x in (q, kc, vc, kn, vn, lens, anc)]
+    got = t_da.tree_attention(*dev)
+    want = t_da.tree_attention_plain(*dev)
+    pv = t_da.tree_attention_plain(dev[0].float(), dev[1].float(), dev[2].float().abs(),
+                                   dev[3].float(), dev[4].float().abs(), dev[5], dev[6])
+    assert ((got.float() - want.float()).abs()
+            <= 2.0 ** -7 * want.float().abs() + 2.0 ** -12 * pv).all()
+    for bi in range(b):
+        for c in range(t):
+            path = anc[bi, c].nonzero()[:, 0].tolist()
+            n = int(lens[bi])
+            ck, cv = kc[bi:bi + 1].clone(), vc[bi:bi + 1].clone()
+            for j, a in enumerate(path[:-1]):
+                ck[0, :, n + j] = kn[bi, a]
+                cv[0, :, n + j] = vn[bi, a]
+            one = t_da.decode_attention(
+                q[bi:bi + 1, c].to(cuda), ck.to(cuda), cv.to(cuda), kn[bi:bi + 1, c].to(cuda),
+                vn[bi:bi + 1, c].to(cuda),
+                torch.tensor([n + len(path) - 1], dtype=torch.int32, device=cuda))
+            assert torch.equal(one[0], got[bi, c])
+
+
+def _two_draft_engines(cuda):
+    """Draft A (width 3, depth 4) and draft B (width 1, depth 6) on one bf16
+    INT4 verifier's tensors and cache, four requests admitted into all three
+    caches; returns (engines, lens, roots)."""
+    llm, ssm = ModelSpec(**_TINY), ModelSpec(**_DRAFT)
+    a = SpecEngine(llm, _tiny_params(llm, 2, _BF16, 4, cuda), ssm,
+                   _tiny_params(ssm, 3, _BF16, None, cuda), beam_width=3, beam_depth=4,
+                   max_requests_per_batch=4, max_seq_len=256, cache_dtype=_BF16, device=cuda)
+    b = SpecEngine(llm, a.llm_params, ssm, _tiny_params(ssm, 4, _BF16, None, cuda),
+                   beam_width=1, beam_depth=6, max_requests_per_batch=4, max_seq_len=256,
+                   cache_dtype=_BF16, device=cuda, llm_cache=a.llm_cache)
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 70)), [7] * 12, [200, 3]]
+    first = a.prefill_both_batch(prompts, [0, 1, 2, 3])
+    b.prefill_ssm_only(prompts, [0, 1, 2, 3])
+    return [a, b], a._h([len(p) for p in prompts]), a._h(first)
+
+
+def test_rotation_turns_replayed_equal_uncaptured(cuda):
+    """Turns of draft A, B, A (each one greedy iteration, B's after a
+    catch-up) replayed from one state give the uncaptured turns' outputs and
+    all three caches (the shared verifier cache, each draft's) bitwise: both
+    engines' graphs read the one verifier cache by address."""
+    engines, lens, roots = _two_draft_engines(cuda)
+    a, b = engines
+    assert a.llm_cache.k.data_ptr() == b.llm_cache.k.data_ptr()
+    caches = [*a.llm_cache, *a.ssm_cache, *b.ssm_cache]
+    saved = [c.clone() for c in caches]
+
+    def turns(replay):
+        outs, ln, rt, prev = [], lens, roots, None
+        for eng in (a, b, a):
+            if prev is not None:  # catch up over the tokens the last turn committed
+                eng.catchup(*(x.cpu().numpy() for x in prev))
+            p, n, ln_next, rt = eng.greedy_horizon_async(ln, rt, 1, None, replay=replay)
+            prev, ln = (ln, p[0]), ln_next
+            outs += [p, n, ln, rt]
+        return outs
+
+    want = [x.clone() for x in turns(False)]
+    want_caches = [c.clone() for c in caches]
+    _restore(caches, saved)
+    got = turns(True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(c, w) for c, w in zip(caches, want_caches))
+    assert a.graphs.replays == 2 and b.graphs.replays == 1
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["rotation", "merged"])
+def test_f32_two_drafts_on_cuda_match_cpu(cuda, merged):
+    """A tiny f32 INT4 verifier with two drafts, rotated (every iteration a
+    replay) or merged, through the kernels gives the CPU path's greedy
+    tokens exactly, which are incremental decoding's."""
+    from flexflow_tpu_torch.serving.spec_manager import MultiSSMSpecManager
+
+    llm, ssm = ModelSpec(**_TINY), ModelSpec(**_DRAFT)
+    lp = _tiny_params(llm, 0, _F32, 4, "cpu")
+    drafts = [(_tiny_params(ssm, 1, _F32, None, "cpu"), 2, 3),
+              (_tiny_params(ssm, 5, _F32, None, "cpu"), 1, 4)]
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 40)), [7] * 12]
+    cfg = GenerationConfig(max_new_tokens=12)
+    outs = {}
+    for dev in ("cpu", cuda):
+        engines = []
+        for sp, w, d in drafts:
+            first = engines[0] if engines else None
+            engines.append(SpecEngine(
+                llm, first.llm_params if first else lp, ssm, sp, beam_width=w, beam_depth=d,
+                max_requests_per_batch=2, max_seq_len=160, cache_dtype=_F32, device=dev,
+                llm_cache=first.llm_cache if first else None))
+        rm = MultiSSMSpecManager(engines, merged=merged, fused=not merged)
+        outs[str(dev)] = [r.output_tokens for r in rm.generate(prompts, cfg)]
+        if dev is cuda:
+            replays = sum(e.graphs.replays for e in engines)
+            assert replays == (0 if merged else rm.total_decoding_steps)
+    incr = RequestManager(InferenceEngine(llm, lp, max_requests_per_batch=2, max_seq_len=160,
+                                          cache_dtype=_F32, device="cpu"))
+    try:
+        want = [r.output_tokens for r in incr.generate(prompts, cfg)]
+    finally:
+        incr.close()
+    assert outs["cuda"] == outs["cpu"] == want
+
+
+@pytest.mark.parametrize("role", ["moe_verifier", "moe_draft"])
+def test_moe_spec_horizon_replayed_equals_uncaptured(cuda, role):
+    """A tiny dense-MoE model (bf16, INT8 group 32) as the verifier or as
+    the draft: three replayed greedy iterations give the uncaptured ones'
+    outputs and both caches bitwise; the ragged form captures nothing."""
+    moe, dense = ModelSpec(**_TINY_MOE), ModelSpec(**_DRAFT)
+    mp, dp = _tiny_params(moe, 0, _BF16, 8, cuda), _tiny_params(dense, 3, _BF16, None, cuda)
+    pair = (moe, mp, dense, dp) if role == "moe_verifier" else (
+        ModelSpec(**_TINY), _tiny_params(ModelSpec(**_TINY), 2, _BF16, 4, cuda), moe, mp)
+    eng = SpecEngine(*pair, beam_width=3, beam_depth=4, max_requests_per_batch=4,
+                     max_seq_len=256, cache_dtype=_BF16, device=cuda)
+    prompts = [[5, 17, 3, 99, 42], list(range(1, 70)), [7] * 12, [200, 3]]
+    lens = eng._h([len(p) for p in prompts])
+    roots = eng._h(eng.prefill_both_batch(prompts, [0, 1, 2, 3]))
+    caches = [*eng.llm_cache, *eng.ssm_cache]
+    saved = [c.clone() for c in caches]
+    want = [x.clone() for x in eng.greedy_horizon_async(lens, roots, 3, None, replay=False)]
+    want_caches = [c.clone() for c in caches]
+    _restore(caches, saved)
+    got = eng.greedy_horizon_async(lens, roots, 3, None, replay=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(c, w) for c, w in zip(caches, want_caches))
+    ragged = ModelSpec(**{**_TINY_MOE, "moe": MoESpec(num_experts=4, top_k=2, impl="ragged")})
+    pair = (ragged, mp, dense, dp) if role == "moe_verifier" else (pair[0], pair[1], ragged, mp)
+    assert SpecEngine(*pair, beam_width=3, beam_depth=4, max_requests_per_batch=4,
+                      max_seq_len=256, cache_dtype=_BF16, device=cuda).graphs is None
+
+
+def test_router_rows_on_card_do_not_depend_on_the_row_count(cuda):
+    """On the card a row's router logits are the same bits in a decode
+    step's 8 rows, a verify's 104 and a prefill's 8192."""
+    from flexflow_tpu_torch.ops import moe as t_moe
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((8192, 4096), generator=g, device=cuda).to(_BF16)
+    router = torch.randn((4096, 8), generator=g, device=cuda)
+    full = t_moe.router_logits(x, router)
+    for rows in (slice(0, 8), slice(40, 144), slice(5000, 5008)):
+        assert torch.equal(t_moe.router_logits(x[rows], router), full[rows])
+
+
+@pytest.mark.parametrize("norm", ["rms_norm", "layer_norm"])
+def test_norm_rows_on_card_do_not_depend_on_the_row_count(cuda, norm):
+    """On the card a row's f32 mean and its norm are the same bits in a
+    decode step's 8 rows, a verify's 8 x 13 and a prefill's 8 x 1024,
+    wherever the row sits: every one of 8192 rows, called in each size."""
+    from flexflow_tpu_torch.ops import norms as t_norms
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn((8192, 4096), generator=g, device=cuda) * 3).to(_BF16)
+    sc = torch.randn(4096, generator=g, device=cuda).to(_BF16)
+    args = (sc, 1e-5) if norm == "rms_norm" else (sc, torch.zeros(4096, device=cuda), 1e-5)
+    fn = getattr(t_norms, norm)
+    full = fn(x.reshape(8, 1024, 4096), *args).reshape(8192, 4096)
+    mean = t_norms.row_mean(x.float().reshape(8, 1024, 4096)).reshape(8192, 1)
+    for rows, shape in ((8, (8, 1, 4096)), (104, (8, 13, 4096))):
+        parts = x[:8192 // rows * rows].split(rows)
+        got = torch.cat([fn(p.reshape(shape), *args).reshape(rows, 4096) for p in parts])
+        assert torch.equal(got, full[:got.shape[0]])
+        got = torch.cat([t_norms.row_mean(p.float().reshape(shape)).reshape(rows, 1)
+                         for p in parts])
+        assert torch.equal(got, mean[:got.shape[0]])

@@ -22,6 +22,7 @@ PORT_MODULES = [
     "flexflow_tpu_torch.serving.speculative",
     "flexflow_tpu_torch.serving.spec_sampling",
     "flexflow_tpu_torch.serving.spec_manager",
+    "flexflow_tpu_torch.serving.tree_merge",
     "flexflow_tpu_torch.inference.spec_infer",
     "flexflow_tpu_torch.utils.hf_weights",
     "flexflow_tpu_torch.utils.spec_pair",

@@ -35,7 +35,6 @@ from flexflow_tpu_torch.quant import weight_only as tw
 from flexflow_tpu_torch.serving.engine import InferenceEngine as TEngine
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig as TGen
 from flexflow_tpu_torch.serving.request_manager import RequestManager as TRM
-from flexflow_tpu_torch.serving.speculative import SpecEngine
 from flexflow_tpu_torch.utils import hf_weights as t_hf
 
 torch.set_num_threads(2)
@@ -258,13 +257,6 @@ def test_ragged_engine_is_never_replayed():
         eng.greedy_horizon_async([1, 2], [3, 4], 1, replay=True)
 
 
-def test_spec_engine_refuses_moe():
-    _, ts = _specs("dense")
-    p = tp.init_params(ts, 0)
-    with pytest.raises(NotImplementedError):
-        SpecEngine(ts, p, ts, p, beam_width=2, beam_depth=2, max_seq_len=32, device="cpu")
-
-
 def test_streaming_quantized_init():
     """init_quantized_params: init_params' leaves, with every matmul weight
     an INT8 carrier in quantize_params' layout (experts [L, E, ...],
@@ -380,3 +372,19 @@ def test_cli_matches_jax_cli(mixtral_dir, tmp_path, capsys):
     texts = [[ln for ln in out.splitlines() if not ln.startswith("=== guid")]
              for out in (got, want)]
     assert texts[0] == texts[1]
+
+
+def test_router_rows_do_not_depend_on_the_row_count():
+    """The router logits of a row are the same bits in a call of 8 rows, of
+    104 (a speculative verify's 8 x 13) and of 300, wherever the row sits,
+    and within 1e-5 of JAX's f32 router GEMM."""
+    r = np.random.default_rng(8)
+    x = r.standard_normal((300, 64)).astype(np.float32)
+    router = r.standard_normal((64, E)).astype(np.float32)
+    tx, tr = torch.tensor(x), torch.tensor(router)
+    full = tmoe.router_logits(tx, tr)
+    assert torch.equal(tmoe.router_logits(tx[:8], tr), full[:8])
+    assert torch.equal(tmoe.router_logits(tx[96:200], tr), full[96:200])
+    perm = torch.randperm(300, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tmoe.router_logits(tx[perm], tr), full[perm])
+    _close(full, jnp.asarray(x) @ jnp.asarray(router))

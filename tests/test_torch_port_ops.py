@@ -43,6 +43,28 @@ def test_norms_match():
            j_norms.layer_norm(jnp.asarray(x), jnp.asarray(sc), jnp.asarray(bi), 1e-5))
 
 
+@pytest.mark.parametrize("norm", ["rms_norm", "layer_norm"])
+def test_norm_rows_do_not_depend_on_the_row_count(norm):
+    """A row's norm is the same bits in a call of 8 rows ([8, 1, D]: a
+    decode step), of 8 x 13 (a speculative verify) and of 300, wherever the
+    row sits; and within 1e-5 of JAX's."""
+    r = _rng(4)
+    x = torch.tensor(r.standard_normal((300, 256)).astype(np.float32) * 3).to(torch.bfloat16)
+    sc = torch.tensor(r.standard_normal(256).astype(np.float32)).to(torch.bfloat16)
+    bi = torch.tensor(r.standard_normal(256).astype(np.float32))
+    args = (sc, 1e-5) if norm == "rms_norm" else (sc, bi, 1e-5)
+    fn = getattr(t_norms, norm)
+    full = fn(x, *args)
+    assert torch.equal(fn(x[:8, None], *args)[:, 0], full[:8])
+    assert torch.equal(fn(x[40:144].reshape(8, 13, 256), *args).reshape(104, 256), full[40:144])
+    perm = torch.randperm(300, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(fn(x[perm], *args), full[perm])
+    xf = x.float().numpy()
+    jargs = [jnp.asarray(a.float().numpy()) for a in args[:-1]] + [args[-1]]
+    _close(fn(x.float(), *[a.float() if isinstance(a, torch.Tensor) else a for a in args]),
+           getattr(j_norms, norm)(jnp.asarray(xf), *jargs))
+
+
 @pytest.mark.parametrize("scaling", [
     None,
     ("linear", 2.0, 1.0, 4.0, 8192),
