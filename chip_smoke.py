@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only card,build,kernels,spec,mixtral
     python3 chip_smoke.py --only card,build,variants
     python3 chip_smoke.py --only card,build,mixtral
+    python3 chip_smoke.py --only card,build,offload
     python3 chip_smoke.py --only card,build,lora
     python3 chip_smoke.py --only card,build,serve,openai
     python3 chip_smoke.py --only card,build,finetune,train
@@ -58,7 +59,9 @@ Phases, in order; any failure exits non-zero:
               and one PyTorch library call timed beside it.
 5. crosscheck — a 2-layer decoder at full 7B width, INT8 and INT4: prefill
               and 8 decode steps through the kernels on the GPU against the
-              plain versions on the CPU (same weights, same tokens).
+              plain versions on the CPU (same weights, same tokens). At INT8,
+              ``utils/debug_dump.forward_with_traces`` on the card gives
+              ``decoder.forward``'s logits bitwise (the same kernels).
 6. serve    — LLaMA-2-7B INT8 (32 layers, random weights from seed 0):
               InferenceEngine + RequestManager(decode_horizon=16, pipelined)
               serve 8 requests; every request must finish and every kernel's
@@ -142,7 +145,27 @@ Phases, in order; any failure exits non-zero:
               flash_prefill launch, and the peak memory stays within 4 GiB
               of the incremental run's. Prints the init time, decode tok/s,
               mean TTFT, peak memory, graphs and replays of both runs.
-10. lora    — multi-adapter LoRA serving: first a 2-layer LLaMA-2-7B-width
+10. offload — CPU offload (``InferenceEngine(offload=True)``, the layer
+              stack in pinned host memory streamed through two device slots
+              on a copy stream, ``models/layer_store.py``). (a) LLaMA-2-7B INT8
+              (random, seed 0, the streaming init written to host memory),
+              resident then offload, the serve traffic (8 requests, 64 new
+              tokens, decode_horizon 16, pipelined): every token equal, K1
+              (lm_head, resident) / K3 (from the staged slot), K5 and K6
+              launch. (b) Mixtral-8x7B bf16 at full width, 4 layers, resident
+              then offload over one host build: the batched prefill's logits
+              and 16 greedy decode steps' logits bitwise equal. (c)
+              Mixtral-8x7B bf16 at full width, ``OFFLOAD_LAYERS`` layers (the
+              machine's host memory sets the cut), offload only: 8 requests x
+              16 new tokens (horizon 1, not pipelined, so each fetch closes a
+              step); prints the init and cudaHostRegister seconds, the
+              host-to-device rate of one 1 GiB copy from pinned memory, the
+              layer copies alone, the compute alone on the staged slots
+              (a ``LayerStore`` that copies nothing), TTFT and every decode step's wall, and
+              peak device memory, which must stay below 25% of the layers'
+              bytes; the prefill (mean TTFT) must take less than copy-alone +
+              compute-alone (the copies overlap the compute).
+11. lora    — multi-adapter LoRA serving: first a 2-layer LLaMA-2-7B-width
               INT8 model with 4 adapters, a prefill of 4 requests routed
               [0, 3, -1, 1] and 8 teacher-forced decode steps through the
               kernels on the GPU against the plain versions on the CPU
@@ -161,7 +184,7 @@ Phases, in order; any failure exits non-zero:
               horizon equals the uncaptured body bitwise. Prints both runs'
               decode tok/s, mean TTFT and peak memory, and the adapters'
               bytes and build time.
-11. finetune — co-scheduled LoRA finetuning (``peft/finetune.FinetuneSession``)
+12. finetune — co-scheduled LoRA finetuning (``peft/finetune.FinetuneSession``)
               on LLaMA-2-7B INT8 (32 layers, random weights from seed 0),
               bf16, two adapter slots at rank 16, alpha 32 on wq and wv (the
               PEFT CLI's targets), A and B drawn; slot 0 serves, slot 1
@@ -186,7 +209,7 @@ Phases, in order; any failure exits non-zero:
               the backward's dequant + matmul dx per carrier beside its
               bound, decode tok/s with and without the session, and peak
               memory.
-12. train   — the Trainer at LLaMA-2-7B width cut to 2 layers (f32 params,
+13. train   — the Trainer at LLaMA-2-7B width cut to 2 layers (f32 params,
               gradients and Adam's m and v at 16 B a parameter; 32 layers
               would not fit 80 GB), seed 0, Adam at lr 1e-4: a B=1, T=64
               first step on the card against the CPU (loss rtol 1e-4,
@@ -196,7 +219,7 @@ Phases, in order; any failure exits non-zero:
               4 x 512 batch (the loss must fall), and a save_checkpoint /
               load_checkpoint resume (in memory) giving the same next loss.
               Prints step ms, tokens/s and peak memory. TF32 stays off.
-13. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+14. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -233,7 +256,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
-          "mixtral", "lora", "finetune", "train", "profile")
+          "mixtral", "offload", "lora", "finetune", "train", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -1111,6 +1134,28 @@ def _quant_params(spec, seed: int, device, bits: int = 8):
     return params
 
 
+def _traces_bitwise(spec, params, tokens, positions, lengths) -> int:
+    """``utils/debug_dump.forward_with_traces`` on the card against
+    ``decoder.forward`` on the same inputs: the final logits bitwise equal
+    (the traced run launches the same kernels), every trace finite.
+    Returns the number of traces."""
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.utils.debug_dump import forward_with_traces
+
+    with torch.no_grad():
+        want, _ = decoder.forward(spec, params, tokens, positions, lengths=lengths, flash=True)
+    got, traces = forward_with_traces(spec, params, tokens, positions, lengths=lengths,
+                                      flash=True)
+    require(torch.equal(got, want), "forward_with_traces: logits differ from decoder.forward's")
+    require(len(traces) == 5 * spec.num_layers + 2
+            and all(bool(torch.isfinite(v.float()).all()) for v in traces.values()),
+            f"forward_with_traces: {len(traces)} traces, or a trace not finite")
+    log(f"  forward_with_traces: logits bitwise equal to decoder.forward's; {len(traces)} traces")
+    return len(traces)
+
+
 def crosscheck_phase(bits: int) -> dict:
     """2 layers at full 7B width, INT8 or INT4: GPU (kernels) vs CPU (plain)."""
     import numpy as np
@@ -1131,6 +1176,7 @@ def crosscheck_phase(bits: int) -> dict:
         toks[i, :n] = rng.integers(3, spec.vocab_size, n)
     s_max, steps = 64, 8
     caches, logits = {}, {}
+    traced = None
     for name, dev, params in (("cuda", torch.device("cuda"), gpu), ("cpu", torch.device("cpu"), cpu)):
         cache = decoder.init_kv_cache(spec, 2, s_max, torch.bfloat16, dev)
         tk = torch.as_tensor(toks, device=dev)
@@ -1139,6 +1185,8 @@ def crosscheck_phase(bits: int) -> dict:
         with torch.no_grad():
             lg, (k, v) = decoder.forward(spec, params, tk, pos, lengths=ln, flash=True,
                                          return_kv=True, logits_at=ln - 1)
+        if name == "cuda" and bits == 8:
+            traced = _traces_bitwise(spec, params, tk, pos, ln)
         decoder.commit_kv_windows(cache.k, cache.v, k.permute(0, 1, 3, 2, 4),
                                   v.permute(0, 1, 3, 2, 4), [0, 0])
         caches[name] = cache
@@ -1172,7 +1220,7 @@ def crosscheck_phase(bits: int) -> dict:
     require(bool(agree[decided].all()),
             f"cross-check greedy tokens disagree at decided positions: {agree.tolist()}")
     out = dict(max_abs_err=err, tol=tol, tokens_equal=int(agree.sum()), tokens=int(agree.numel()),
-               decided=int(decided.sum()))
+               decided=int(decided.sum()), traces=traced)
     log(f"  cross-check INT{bits}: logits max|err| {err:.4g} (tol {tol:.4g}); greedy tokens equal "
         f"{out['tokens_equal']}/{out['tokens']} ({out['decided']} beyond the error margin)")
     del gpu, cpu, caches
@@ -1299,7 +1347,8 @@ def _served(rm, prompts, max_new: int, vocab_size: int, path: str, warm=None, ad
     _launches(reset=True)
     if session is not None:
         rm.register_finetune(session)
-    graphs = [e.graphs for e in getattr(rm, "engines", [rm.engine])]
+    # an engine that captures nothing (CPU offload) has no graphs to count
+    graphs = [e.graphs for e in getattr(rm, "engines", [rm.engine]) if e.graphs is not None]
     replays0 = sum(g.replays for g in graphs)
     steps0 = rm.total_decoding_steps
     t_start = time.monotonic()
@@ -2242,6 +2291,356 @@ def mixtral_spec_run(engine, incr_reqs, prompts, incr: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# CPU offload
+# ---------------------------------------------------------------------------
+
+# Run (c)'s depth. bf16 Mixtral-8x7B holds 2.903 GB (2.703 GiB) of layer
+# weights a layer, 86.5 GiB for all 32. The one-H100 machine has 101 GiB
+# of memory, and a Python process holding a CUDA context sees 96.5 GiB
+# available (the card phase's "host memory" line): under 100 GiB, so the
+# run takes the most layers that leave 12 GiB free, 31 (83.8 GiB pinned).
+# Fixed here: the phase never shrinks itself at run time.
+OFFLOAD_LAYERS = 31
+OFFLOAD_NEW_TOKENS = 16  # runs (b) and (c): decode steps / tokens a request
+OFFLOAD_PEAK_SHARE = 0.25  # run (c)'s peak device memory against the layer stack's bytes
+
+
+def _meminfo_gib(path: str, key: str) -> float:
+    """A ``kB`` field of ``/proc/meminfo`` or ``/proc/self/status``, in GiB."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) / 2**20
+    raise PhaseError(f"no {key} in {path}")
+
+
+def _mem_available_gib() -> float:
+    return _meminfo_gib("/proc/meminfo", "MemAvailable")
+
+
+def _rss_gib() -> float:
+    """This process's resident memory (page-locked pages included)."""
+    return _meminfo_gib("/proc/self/status", "VmRSS")
+
+
+def _stepped_logits(engine, prompts, steps: int, layers=None):
+    """The engine's batched prefill (flash, K/V written into its cache, as
+    ``prefill_batch_to_slots_async`` does) of ``prompts`` into slots 0..n-1,
+    then ``steps`` greedy decode steps through ``forward_cached``, straight
+    on the engine's parameters (``layers`` in place of its layers, if
+    given) and cache. Returns (logits [steps + 1, n, V]
+    f32: the prefill's at each last prompt position, then each step's;
+    wall seconds of the prefill and of each step, synchronised)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models.decoder import to_device
+
+    n = len(prompts)
+    spec, dev = engine.spec, engine.device
+    cache = decoder.KVCache(engine.cache.k[:, :n], engine.cache.v[:, :n])
+    bucket = max(engine.prefill_bucket(len(p)) for p in prompts)
+    toks = np.zeros((n, bucket), np.int32)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tk, ln = to_device(toks, dev), to_device(lens, dev)
+    pos = torch.arange(bucket, dtype=torch.int32, device=dev)[None].expand(n, bucket)
+
+    def sink(layer, k, v):
+        decoder.commit_kv_windows(cache.k[layer:layer + 1], cache.v[layer:layer + 1],
+                                  k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
+                                  v.permute(0, 2, 1, 3)[None].to(cache.v.dtype),
+                                  np.zeros(n, np.int64), list(range(n)))
+
+    params = engine.params if layers is None else {**engine.params, "layers": layers}
+    walls, out = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, _ = decoder.forward(spec, params, tk, pos, lengths=ln, flash=True,
+                                kv_sink=sink, logits_at=ln - 1)
+        out.append(lg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        cur, cl = lg.argmax(-1).to(torch.int32), ln.clone()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            lg, _ = decoder.forward_cached(spec, params, cur[:, None], cache, cl)
+            out.append(lg[:, 0])
+            cur, cl = lg[:, 0].argmax(-1).to(torch.int32), cl + 1
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    return torch.stack(out).float(), walls
+
+
+def _h2d_gbps(reps: int = 3) -> float:
+    """Host-to-device rate of one plain copy of 1 GiB from page-locked memory
+    (the layer store's kind), mean of ``reps`` after a warm-up (CUDA events)."""
+    import torch
+
+    from flexflow_tpu_torch.models.layer_store import pinned_empty
+
+    host = pinned_empty((1 << 30,), torch.uint8)
+    dev = torch.empty((1 << 30,), dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dev.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return reps * (1 << 30) / (start.elapsed_time(end) / 1e3) / 1e9
+
+
+def _served_stamped(rm, prompts, max_new: int, vocab_size: int, path: str):
+    """``_served`` (no replays) noting the host time each of the engine's
+    fetches returns: at horizon 1, not pipelined, each closes the prefill
+    or a decode step. Returns (requests, stats, times). The engine's own
+    ``fetch`` is back in place on return, and no reference to the engine
+    outlives this call."""
+    engine, stamps = rm.engine, []
+    fetch = engine.fetch
+
+    def timed_fetch(x):
+        vals = fetch(x)
+        stamps.append(time.monotonic())
+        return vals
+
+    engine.fetch = timed_fetch
+    try:
+        reqs, served = _served(rm, prompts, max_new, vocab_size, path, replayed=False)
+    finally:
+        del engine.fetch
+    return reqs, served, stamps
+
+
+def offload_llama_run(card: str) -> dict:
+    """Run (a): LLaMA-2-7B INT8 resident against offload, the serve traffic."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    dev = torch.device("cuda")
+    spec = ModelSpec(**LLAMA2_7B)
+    t0 = time.perf_counter()
+    params = params_lib.init_quantized_params(
+        spec, torch.Generator(device=dev).manual_seed(0), bits=8, group_size=128,
+        dtype=torch.bfloat16, device=dev, host_layers=True)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    prompts = _prompts(spec.vocab_size)
+    reqs = {}
+    for offload in (False, True):
+        name = "offload" if offload else "resident"
+        engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                                 max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev,
+                                 offload=offload)
+        rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+        try:
+            reqs[name], out[name] = _served(rm, prompts, 64, spec.vocab_size,
+                                            f"offload (a) {name}", replayed=not offload)
+        finally:
+            rm.close()
+        _log_served(f"(a) LLaMA-2-7B INT8 {name}", out[name], card)
+        del engine, rm
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+        require(out["offload"]["launches"][k] > 0, f"offload (a): {k} was never launched")
+    same = [a.output_tokens == b.output_tokens for a, b in zip(reqs["resident"], reqs["offload"])]
+    require(all(same), f"offload (a): tokens differ from the resident run's: {same}")
+    log(f"  (a) all {len(same)} x 64 tokens equal to the resident run's; decode "
+        f"{out['offload']['decode_tok_s']:.2f} tok/s offload against "
+        f"{out['resident']['decode_tok_s']:.2f} resident [{card}]")
+    return out
+
+
+def offload_bitwise_run(card: str) -> dict:
+    """Run (b): Mixtral-8x7B bf16 at full width, 4 layers, resident against
+    offload: the prefill logits and 16 decode steps' logits bitwise."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    dev = torch.device("cuda")
+    spec = mixtral_spec(4)
+    params = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                    torch.bfloat16, dev, host_layers=True)
+    prompts = _prompts(spec.vocab_size)
+    logits, walls = {}, {}
+    for offload in (False, True):
+        engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                                 cache_dtype=torch.bfloat16, device=dev, offload=offload)
+        name = "offload" if offload else "resident"
+        _stepped_logits(engine, prompts, 1)  # warm-up: the timed run below is not the first
+        logits[name], walls[name] = _stepped_logits(engine, prompts, OFFLOAD_NEW_TOKENS)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    g = logits["offload"]
+    require(bool(torch.isfinite(g).all()) and g.shape == (OFFLOAD_NEW_TOKENS + 1, 8,
+                                                         spec.vocab_size),
+            f"offload (b): logits not finite or shaped {tuple(g.shape)}")
+    equal = torch.equal(g, logits["resident"])
+    require(equal, "offload (b): logits differ from the resident run's, max|diff| "
+            f"{(g - logits['resident']).abs().max().item()}")
+    out = dict(bitwise=equal, steps=OFFLOAD_NEW_TOKENS, walls_s=walls,
+               layers=spec.num_layers)
+    log(f"  (b) Mixtral-8x7B bf16, 4 layers: prefill and {OFFLOAD_NEW_TOKENS} decode steps' "
+        f"logits bitwise equal to resident; prefill {walls['offload'][0]:.3f} s offload against "
+        f"{walls['resident'][0]:.3f} s resident, a decode step {walls['offload'][1]:.3f} against "
+        f"{walls['resident'][1]:.3f} s [{card}]")
+    return out
+
+
+def _staged_only(store):
+    """A view of an engine's ``LayerStore`` (a subclass sharing its slots,
+    stream and events) whose forwards read the two staged slots, layer i
+    from slot i % 2, and copy nothing: the offload path's compute alone."""
+    import torch
+
+    from flexflow_tpu_torch.models.layer_store import LayerStore
+
+    class StagedOnly(LayerStore):
+        def __init__(self, store):
+            self.__dict__.update(store.__dict__)
+
+        def acquire(self, i):
+            torch.cuda.current_stream(self.device).wait_event(self._copied[i % 2])
+            return dict(self._views[i % 2])
+
+        def release(self, i):
+            pass
+
+    return StagedOnly(store)
+
+
+def offload_mixtral_run(card: str) -> dict:
+    """Run (c): Mixtral-8x7B bf16 at full width, ``OFFLOAD_LAYERS`` deep,
+    offload only: the served run (horizon 1, not pipelined, so each fetch
+    closes a step), the copy-alone and compute-alone times, the host rate."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.models import layer_store as offload_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+
+    dev = torch.device("cuda")
+    spec = mixtral_spec(OFFLOAD_LAYERS)
+    out = {"layers": spec.num_layers, "mem_available_gib_before": _mem_available_gib(),
+           "rss_gib_before": _rss_gib()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pinned0, pin0, t0 = offload_lib.pinned_bytes, offload_lib.pin_seconds, time.perf_counter()
+    params = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                    torch.bfloat16, dev, host_layers=True)
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0, pin_s=offload_lib.pin_seconds - pin0,
+               init_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev,
+                             offload=True)
+    del params
+    gc.collect()
+    store = engine.params["layers"]
+    out["stack_gib"] = store.layer_bytes * spec.num_layers / 2**30
+    out["pinned_gib"] = (offload_lib.pinned_bytes - pinned0) / 2**30
+    require(offload_lib.pinned_bytes - pinned0 == store.layer_bytes * spec.num_layers,
+            f"offload (c): {out['pinned_gib']:.2f} GiB pinned for {out['stack_gib']:.2f} GiB "
+            f"of layers: the stack is pinned more than once")
+    out["layer_gb"] = store.layer_bytes / 1e9
+    out["mem_available_gib_after"], out["rss_gib_after"] = _mem_available_gib(), _rss_gib()
+    log(f"  (c) Mixtral-8x7B bf16, {spec.num_layers} layers: {out['stack_gib']:.2f} GiB of layers "
+        f"pinned (one copy), init {out['init_s']:.1f} s (cudaHostRegister {out['pin_s']:.1f} s), init peak "
+        f"{out['init_peak_gib']:.2f} GiB on the card; MemAvailable "
+        f"{out['mem_available_gib_before']:.1f} -> {out['mem_available_gib_after']:.1f} GiB, "
+        f"this process's RSS {out['rss_gib_before']:.1f} -> {out['rss_gib_after']:.1f} GiB "
+        f"[{card}]")
+    out["h2d_gbps"] = _h2d_gbps()
+    prompts = _prompts(spec.vocab_size)
+    rm = RequestManager(engine, decode_horizon=1, pipelined=False)
+    try:
+        reqs, served, stamps = _served_stamped(rm, prompts, OFFLOAD_NEW_TOKENS,
+                                               spec.vocab_size, "offload (c)")
+    finally:
+        rm.close()
+    out.update(served)
+    # the served run's fetches: the admission's first tokens, then one a step
+    t_reg = min(r.profile.start_time for r in reqs)
+    marks = [s for s in stamps if s >= t_reg]
+    out["prefill_wall_s"] = marks[0] - t_reg
+    out["step_walls_s"] = list(np.diff(marks))
+    require(len(out["step_walls_s"]) == OFFLOAD_NEW_TOKENS - 1,
+            f"offload (c): {len(out['step_walls_s'])} decode steps timed")
+    for k in ("decode_attention", "flash_prefill"):
+        require(served["launches"][k] > 0, f"offload (c): {k} was never launched")
+    # the stream alone: every layer copied once, no compute
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for layer in range(spec.num_layers):
+        store._copy(layer % 2, layer)
+    store._stream.synchronize()
+    out["copy_alone_s"] = time.perf_counter() - t0
+    store.restart(0)
+    # the compute alone: a prefill and a decode step on the staged slots
+    logits, walls = _stepped_logits(engine, prompts, 1, layers=_staged_only(store))
+    out["compute_alone_prefill_s"], out["compute_alone_step_s"] = walls
+    require(bool(torch.isfinite(logits).all()), "offload (c): compute-alone logits not finite")
+    stream_s = store.layer_bytes * spec.num_layers / (out["h2d_gbps"] * 1e9)
+    out["stream_s_at_h2d_rate"] = stream_s
+    stack_bytes = store.layer_bytes * spec.num_layers
+    require(served["peak_mem_gib"] * 2**30 < OFFLOAD_PEAK_SHARE * stack_bytes,
+            f"offload (c): peak {served['peak_mem_gib']:.2f} GiB is not below "
+            f"{OFFLOAD_PEAK_SHARE:.0%} of the layers' {stack_bytes / 2**30:.2f} GiB")
+    overlap_limit = out["copy_alone_s"] + out["compute_alone_prefill_s"]
+    require(out["mean_ttft_ms"] / 1e3 < overlap_limit,
+            f"offload (c): prefill (mean TTFT) {out['mean_ttft_ms'] / 1e3:.3f} s is not below "
+            f"copy-alone + compute-alone {overlap_limit:.3f} s: the copies do not overlap")
+    steps = out["step_walls_s"]
+    log(f"  (c) host->device {out['h2d_gbps']:.2f} GB/s (1 GiB from pinned memory); layers "
+        f"{store.layer_bytes * spec.num_layers / 1e9:.2f} GB: {stream_s:.3f} s at that rate; "
+        f"copy alone {out['copy_alone_s']:.3f} s; compute alone: prefill "
+        f"{out['compute_alone_prefill_s']:.3f} s, a decode step "
+        f"{out['compute_alone_step_s']:.3f} s [{card}]")
+    log(f"  (c) served: TTFT mean {out['mean_ttft_ms']:.1f} ms (prefill wall "
+        f"{out['prefill_wall_s']:.3f} s), decode steps {min(steps):.3f}-{max(steps):.3f} s "
+        f"(mean {float(np.mean(steps)):.3f}), {out['decode_tok_s']:.2f} tok/s, peak "
+        f"{out['peak_mem_gib']:.2f} GiB allocated ({out['peak_mem_gib'] * 2**30 / stack_bytes:.1%} "
+        f"of the layers) [{card}]")
+    log(f"  (c) decode step walls (s): {json.dumps([round(s, 4) for s in steps])}")
+    del rm, engine, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the pinned layers leave the process with the engine (its RSS; the
+    # machine's MemAvailable follows some seconds later)
+    out["rss_gib_freed"] = _rss_gib()
+    require(out["rss_gib_after"] - out["rss_gib_freed"] > 0.95 * out["stack_gib"],
+            f"offload (c): RSS {out['rss_gib_freed']:.1f} GiB after the engine is freed, "
+            f"{out['rss_gib_after']:.1f} with its {out['stack_gib']:.1f} GiB of layers pinned")
+    log(f"  (c) engine freed: this process's RSS back to {out['rss_gib_freed']:.1f} GiB")
+    return out
+
+
+def offload_phase(card: str) -> dict:
+    """CPU offload: run (a) LLaMA-2-7B INT8 resident against offload, (b)
+    Mixtral-8x7B bf16 4 layers bitwise, (c) Mixtral-8x7B bf16 served from
+    host memory at ``OFFLOAD_LAYERS`` layers."""
+    out = {"llama": offload_llama_run(card), "bitwise": offload_bitwise_run(card),
+           "mixtral": offload_mixtral_run(card)}
+    out["card"] = card
+    return out
+
+
 def _lora_adapters(spec, n: int, device, seed: int, targets=LORA_TARGETS,
                    dtype: str = "bfloat16", lr: float = 1e-3):
     """``n`` LoRA adapters at rank 16, alpha 32 on ``targets`` (default the
@@ -2989,6 +3388,8 @@ def main(argv=None) -> int:
     log(card)  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    log(f"[card] host memory: MemTotal {_meminfo_gib('/proc/meminfo', 'MemTotal'):.2f} GiB, "
+        f"MemAvailable {_mem_available_gib():.2f} GiB with a CUDA context")
 
     t_start = t0 = time.perf_counter()
     _build.lib()
@@ -3067,6 +3468,13 @@ def main(argv=None) -> int:
             "verifier of a 160M-class draft, width 3 depth 4")
         summary["mixtral"] = mixtral_phase(card, "profile" in phases)
         lap("mixtral")
+    if "offload" in phases:
+        log("[offload] CPU offload: (a) LLaMA-2-7B INT8 resident against offload, 8 requests x 64 "
+            "tokens; (b) Mixtral-8x7B bf16, 4 layers, resident against offload, logits bitwise; "
+            f"(c) Mixtral-8x7B bf16, {OFFLOAD_LAYERS} layers from pinned host memory, 8 requests "
+            f"x {OFFLOAD_NEW_TOKENS} tokens")
+        summary["offload"] = offload_phase(card)
+        lap("offload")
     if "lora" in phases:
         log("[lora] LLaMA-2-7B INT8 with 4 LoRA adapters (rank 16, all seven projections), "
             "8 requests routed " + str(LORA_IDS) + ", decode_horizon=16, pipelined; the "
@@ -3094,6 +3502,9 @@ def main(argv=None) -> int:
                                            "finetune")]
     served += [summary.get("spec", {}).get(m, {}) for m in ("rotation", "merged")]
     served.append(summary.get("mixtral", {}).get("spec", {}))
+    offload = summary.get("offload", {})
+    served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
+    served.append(offload.get("mixtral", {}))
     launches = {k: sum(run.get("launches", {}).get(k, 0)
                        for run in ([summary.get("variants", {})] if k in VARIANTS else served))
                 for k in SOURCES}

@@ -5,9 +5,11 @@
     python -m flexflow_tpu_torch.inference.incr_decoding -llm-model DIR \\
         -prompt prompts.json --max-new-tokens 16 --device cuda
 
-Parallelism, offload and auto-parallelism flags are accepted for
-compatibility; degrees above 1 and ``--offload`` are refused (not in the
-port yet). Legion resource flags (``-ll:*``) are ignored.
+``--offload`` keeps the layer stack in pinned host memory and streams it
+in per layer (``LLM.compile(offload=True)``). Parallelism and
+auto-parallelism flags are accepted for compatibility; degrees above 1 are
+refused (not in the port yet). Legion resource flags (``-ll:*``) are
+ignored.
 """
 
 import argparse
@@ -44,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true")
     p.add_argument("--full-precision", action="store_true",
                    help="fp32 weights (default bf16)")
-    p.add_argument("-offload", "--offload", action="store_true")
+    p.add_argument("-offload", "--offload", action="store_true",
+                   help="layer weights in pinned host memory, streamed in per layer")
     p.add_argument("-offload-reserve-space-size", "--offload-reserve-space-size",
                    type=int, default=0, help="accepted for parity")
     p.add_argument("--profiling", action="store_true",
@@ -58,8 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, _legion_flags = build_parser().parse_known_args(argv)
-    if max(args.tp, args.pp, args.dp, args.cp) > 1 or args.offload:
-        raise SystemExit("parallelism degrees > 1 and --offload are not in the port yet")
+    if max(args.tp, args.pp, args.dp, args.cp) > 1:
+        raise SystemExit("parallelism degrees > 1 are not in the port yet")
 
     from flexflow_tpu_torch.config import config
     from flexflow_tpu_torch.serve import LLM
@@ -72,7 +75,7 @@ def main(argv=None):
               quantization=quant, output_file=args.output_file, device=args.device)
     llm.compile(max_requests_per_batch=args.max_requests_per_batch,
                 max_seq_length=args.max_sequence_length,
-                max_tokens_per_batch=args.max_tokens_per_batch)
+                max_tokens_per_batch=args.max_tokens_per_batch, offload=args.offload)
 
     prompts = ["Three tips for staying healthy are: "]
     if args.prompt:

@@ -38,6 +38,13 @@ A MoE FFN gets none, as in JAX. A row routed to -1 keeps the projection's
 output bit for bit. The routing reads nothing on the host, so a CUDA graph
 captures it.
 
+CPU offload (JAX ``_stream_in``): ``params["layers"]`` may be a
+:class:`~flexflow_tpu_torch.models.layer_store.LayerStore` (layers in pinned
+host memory, two device slots) instead of the stacked dict. Both forwards
+then read layer i from its staged slot (plain leaves at index 0, quantized
+ones as ``LayerQuant(slot, 0)``) and release it after the layer, so dense,
+MoE and LoRA layers, prefill, chunked prefill and decode all stream.
+
 KV cache layout: ``[L, B, KH, S, D]`` — one contiguous D-row per position
 for coalesced reads on the GPU (JAX keeps ``[L, B, KH, D, S]`` for the TPU's
 (8, 128) tiling). Public shapes stay as in JAX: logits ``[B, T, V]`` f32 and
@@ -46,7 +53,7 @@ the per-layer K/V ``[L, B, T, KH, D]``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +71,7 @@ from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
 from flexflow_tpu_torch.peft.lora import RoutedLora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
+from flexflow_tpu_torch.models.layer_store import LayerStore
 from flexflow_tpu_torch.specs import ModelSpec
 
 Params = Dict[str, Any]
@@ -277,7 +285,10 @@ def _layer(spec: ModelSpec, p: Params, h, attend, valid=None):
 
 def _layer_params(layers: Params, i: int) -> Params:
     """Layer i's view: plain leaves indexed, quantized stacks ([L, ...], or
-    [L, E, ...] experts) as LayerQuant."""
+    [L, E, ...] experts) as LayerQuant; from a :class:`LayerStore`, layer i
+    copied to the device on its own."""
+    if isinstance(layers, LayerStore):
+        return layers.layer(i)
     out = {}
     for k, v in layers.items():
         if isinstance(v, QuantizedArray):
@@ -304,14 +315,22 @@ def _lora_routing(lora: Optional[RoutedLora], adapter_ids: Optional[torch.Tensor
             "_lora_keep": ids >= 0}
 
 
-def _layer_view(params: Params, i: int, lora: Optional[RoutedLora],
-                routing: Optional[Params]) -> Params:
-    """Layer i's parameters, with its adapter weights and the routing when
-    the forward has LoRA."""
-    p = _layer_params(params["layers"], i)
-    if routing is not None:
-        p.update(routing, _lora={m: (lora.a[m][i], lora.b[m][i]) for m in lora.a})
-    return p
+def _layer_views(spec: ModelSpec, params: Params, lora: Optional[RoutedLora],
+                 routing: Optional[Params]) -> Iterator[Tuple[int, Params]]:
+    """(i, layer i's parameters) in layer order, with the layer's adapter
+    weights and the routing when the forward has LoRA. From a
+    :class:`LayerStore` (CPU offload) layer i is read from its staged slot
+    and released once the caller's work on it is enqueued, which starts the
+    copy of layer i + 2 into that slot."""
+    layers = params["layers"]
+    store = layers if isinstance(layers, LayerStore) else None
+    for i in range(spec.num_layers):
+        p = store.acquire(i) if store is not None else _layer_params(layers, i)
+        if routing is not None:
+            p.update(routing, _lora={m: (lora.a[m][i], lora.b[m][i]) for m in lora.a})
+        yield i, p
+        if store is not None:
+            store.release(i)
 
 
 def _embed(spec: ModelSpec, params: Params, tokens, positions):
@@ -382,6 +401,7 @@ def forward(
     lora: Optional[RoutedLora] = None,
     adapter_ids: Optional[torch.Tensor] = None,  # [B] adapter per row, -1: none
     lora_scale: float = 1.0,
+    traces: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """Self-attention forward (prefill). Returns ``(logits, kv)``.
 
@@ -389,11 +409,17 @@ def forward(
     ``(k, v)`` stacked [L, B, T, KH, D] when ``return_kv`` else None.
     ``kv_sink(layer, k, v)`` receives each layer's [B, T, KH, D] K/V instead
     of stacking them (the engine writes them straight into its cache).
+    ``traces`` (``utils/debug_dump``): a dict that receives every
+    intermediate under the reference's names: ``embed_tokens.output``,
+    ``layers.<i>.{q_proj,k_proj,v_proj}`` (before rotary),
+    ``layers.<i>.attn_output``, ``layers.<i>.output`` and ``lm_head.output``.
     """
     b, t = tokens.shape
     dev = tokens.device
     slopes = _alibi_slopes(spec, dev)
     h = _embed(spec, params, tokens, positions)
+    if traces is not None:
+        traces["embed_tokens.output"] = h
     use_flash = flash and slopes is None and spec.attn_logit_softcap is None
 
     mask = positions[:, None, :] <= positions[:, :, None]  # [B, T, T]
@@ -408,20 +434,28 @@ def forward(
     routing = _lora_routing(lora, adapter_ids, lora_scale)
 
     def attend(q, k, v):
+        if traces is not None:
+            traces.update({f"layers.{i}.q_proj": q, f"layers.{i}.k_proj": k,
+                           f"layers.{i}.v_proj": v})
         q, k = _maybe_rope(q, k, rope)
         kvs.append((k, v))
         if use_flash:
-            return flash_prefill(q.contiguous(), k.contiguous(),
-                                 v.to(q.dtype).contiguous(), flens)
-        return attn_lib.cached_attention(
-            q, k, v, cache_lens=torch.zeros(b, dtype=torch.int32, device=dev),
-            tree_mask=mask, q_positions=positions, slopes=slopes,
-            logit_softcap=spec.attn_logit_softcap)
+            out = flash_prefill(q.contiguous(), k.contiguous(), v.to(q.dtype).contiguous(), flens)
+        else:
+            out = attn_lib.cached_attention(
+                q, k, v, cache_lens=torch.zeros(b, dtype=torch.int32, device=dev),
+                tree_mask=mask, q_positions=positions, slopes=slopes,
+                logit_softcap=spec.attn_logit_softcap)
+        if traces is not None:
+            traces[f"layers.{i}.attn_output"] = out
+        return out
 
     ks, vs = [], []
-    for i in range(spec.num_layers):
+    for i, p in _layer_views(spec, params, lora, routing):
         kvs = []
-        h = _layer(spec, _layer_view(params, i, lora, routing), h, attend, valid)
+        h = _layer(spec, p, h, attend, valid)
+        if traces is not None:
+            traces[f"layers.{i}.output"] = h
         (k, v), = kvs
         if kv_sink is not None:
             kv_sink(i, k, v)
@@ -431,6 +465,8 @@ def forward(
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
     logits = _unembed(spec, params, h)
+    if traces is not None:
+        traces["lm_head.output"] = logits
     return logits, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
 
 
@@ -541,7 +577,7 @@ def forward_cached(
     routing = _lora_routing(lora, adapter_ids, lora_scale)
 
     new_k, new_v = [], []
-    for i in range(spec.num_layers):
+    for i, p in _layer_views(spec, params, lora, routing):
         ck_l, cv_l = cache.k[i], cache.v[i]  # [B, KH, S, D]
 
         def attend(q, k, v):
@@ -581,7 +617,7 @@ def forward_cached(
                 new_v.append(vc)
             return out
 
-        h = _layer(spec, _layer_view(params, i, lora, routing), h, attend)
+        h = _layer(spec, p, h, attend)
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
     logits = _unembed(spec, params, h)

@@ -9,18 +9,24 @@ stacked on a leading [num_layers, ...] axis. A MoE layer adds ``router``
 
 ``build_params`` assembles the stacked leaves layer by layer and, with
 ``bits``, quantizes each layer's slab as it comes into a carrier allocated
-once: the full-precision tree never exists. The HF loader's quantize-on-load
-and ``init_quantized_params`` (random weights for a model whose
-full-precision tree does not fit the card, e.g. Mixtral-8x7B) go through it.
+once: the full-precision tree never exists. The HF loader's
+quantize-on-load and ``init_quantized_params`` (random weights for a model
+whose full-precision tree does not fit the card, e.g. Mixtral-8x7B) go
+through it. With ``host_layers`` it writes the stack into (pinned) host
+memory for CPU offload, one layer at a time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from flexflow_tpu_torch.config import config as _ffconfig
+from flexflow_tpu_torch.models.decoder import fuse_qkv_params
+from flexflow_tpu_torch.models.layer_store import leaf_fields, host_empty
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, layer_quant_layout, quantize
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -97,10 +103,20 @@ def _maker(generator: Union[int, torch.Generator], dtype, device):
 
 
 def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
-                dtype=torch.float32, device="cpu") -> Params:
+                dtype=torch.float32, device="cpu", *, host_layers: bool = False) -> Params:
     """Random-initialized parameters (Glorot normal for matmuls and the MoE
     router, ones for norm scales, zeros for biases), each whole [L, ...]
-    leaf drawn in order from one ``torch.Generator``."""
+    leaf drawn in order from one ``torch.Generator``.
+
+    ``host_layers``: the layer stack goes to host memory (pinned when
+    ``device`` is a CUDA device), drawn on ``device`` one layer at a time
+    in ``init_quantized_params``' order (top leaves first, then layer by
+    layer, leaf by leaf), so the device never holds more than one layer:
+    the values differ from the whole-leaf draw. A resident engine built
+    from the same result holds the same bits."""
+    if host_layers:
+        return init_quantized_params(spec, generator, bits=None, dtype=dtype, device=device,
+                                     host_layers=True)
     device = torch.device(device)
     make = _maker(generator, dtype, device)
     layer_leaves, top_leaves = _leaves(spec)
@@ -111,14 +127,17 @@ def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
 
 
 def init_quantized_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0, *,
-                          bits: int = 8, group_size: int = 128, dtype=torch.bfloat16,
-                          device="cpu") -> Params:
+                          bits: Optional[int] = 8, group_size: int = 128, dtype=torch.bfloat16,
+                          device="cpu", host_layers: bool = False) -> Params:
     """Random-initialized parameters with every matmul weight quantized as
     it is drawn (``quantize_params``' layout): ``init_params``'
     distributions, drawn layer by layer and leaf by leaf, so peak memory is
     the carriers plus one layer's float32 slab of one leaf (2 GB for one
     Mixtral-8x7B expert projection) instead of the full-precision tree.
-    The port's counterpart of ``bench_70b.py``'s ``_init_quantized_streaming``."""
+    The port's counterpart of ``bench_70b.py``'s ``_init_quantized_streaming``.
+    ``bits=None`` draws the same way without quantizing; ``host_layers``
+    writes the layer stack into host memory (``build_params``), with the
+    same values as on the device."""
     device = torch.device(device)
     make = _maker(generator, torch.float32, device)
     layer_leaves, top_leaves = _leaves(spec)
@@ -129,7 +148,7 @@ def init_quantized_params(spec: ModelSpec, generator: Union[int, torch.Generator
 
     top = {n: make(shape, init) for n, (shape, init) in top_leaves.items()}
     return build_params(spec, top, layer, dtype=dtype, device=device, bits=bits,
-                        group_size=group_size)
+                        group_size=group_size, host_layers=host_layers)
 
 
 def _leaf(x, device, dtype) -> torch.Tensor:
@@ -138,21 +157,23 @@ def _leaf(x, device, dtype) -> torch.Tensor:
     return params_from_numpy(x, device, dtype)
 
 
-def _carrier(qa: QuantizedArray, num_layers: int, device) -> QuantizedArray:
-    """An empty [L, ...] stacked carrier for per-layer carriers like ``qa``."""
-    def empty(t):
-        return None if t is None else torch.empty((num_layers, *t.shape), dtype=t.dtype,
-                                                  device=device)
+def _stacked(one, num_layers: int, empty):
+    """An empty [L, ...] leaf for the one-layer leaf ``one`` (a ``[1, ...]``
+    tensor or carrier; ``empty(shape, dtype)`` allocates each field)."""
+    def stacked(t):
+        return None if t is None else empty((num_layers, *t.shape[1:]), t.dtype)
 
-    return QuantizedArray(
-        q=empty(qa.q), scale=empty(qa.scale), offset=empty(qa.offset), bits=qa.bits,
-        group_size=qa.group_size, shape=(num_layers, *qa.shape), batch_dims=qa.batch_dims + 1,
-        contract_dims=qa.contract_dims, dtype=qa.dtype, rest_pad=qa.rest_pad)
+    if isinstance(one, QuantizedArray):
+        return dataclasses.replace(one, q=stacked(one.q), scale=stacked(one.scale),
+                                   offset=stacked(one.offset),
+                                   shape=(num_layers, *one.shape[1:]))
+    return stacked(one)
 
 
 def build_params(spec: ModelSpec, top: Mapping[str, Any],
                  layer: Callable[[int], Iterable[Tuple[str, Any]]], *, dtype, device,
-                 bits: Optional[int] = None, group_size: int = 128) -> Params:
+                 bits: Optional[int] = None, group_size: int = 128,
+                 host_layers: bool = False) -> Params:
     """The decoder's parameters on ``device``, built one layer at a time.
 
     ``layer(i)`` yields layer i's ``(name, slab)`` pairs (numpy arrays or
@@ -161,29 +182,45 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
     slab that ``quantize_params`` would quantize is quantized on its own and
     written into a stacked carrier instead, byte for byte what quantizing
     the whole stacked leaf gives. ``top`` holds the other leaves (the
-    lm_head quantized whole with ``bits``)."""
+    lm_head quantized whole with ``bits``).
+
+    ``host_layers`` (CPU offload): the [L, ...] leaves and carriers live in
+    host memory, page-locked when ``device`` is a CUDA device
+    (``models/layer_store.pinned_empty``); each layer is made (and
+    quantized) on ``device``, fused there as the engine fuses a resident
+    stack (wqkv / wgu, ``decoder.fuse_qkv_params``, under
+    ``config.fuse_qkv``) and copied out, so the device holds one layer at a
+    time, the host holds one copy of the stack, and the values are those of
+    the resident engine's. ``top`` stays on ``device``."""
     device = torch.device(device)
     n_layers = spec.num_layers
+    fuse = host_layers and _ffconfig.fuse_qkv
+    if host_layers:
+        pin = device.type == "cuda"
+
+        def empty(shape, dt):
+            return host_empty(shape, dt, pin)
+    else:
+        def empty(shape, dt):
+            return torch.empty(shape, dtype=dt, device=device)
     layers: Params = {}
     for i in range(n_layers):
+        one: Params = {}  # layer i's leaves as [1, ...]
         for name, slab in layer(i):
-            t = _leaf(slab, device, dtype)
-            layout = layer_quant_layout(name, t.dim() + 1) if bits else None
-            if layout is None:
-                if name not in layers:
-                    layers[name] = torch.empty((n_layers, *t.shape), dtype=t.dtype, device=device)
-                layers[name][i] = t
-                continue
-            qa = quantize(t, bits, group_size, batch_dims=layout[0] - 1,
-                          contract_dims=layout[1], compute_dtype=dtype)
-            del t
+            t = _leaf(slab, device, dtype)[None]
+            layout = layer_quant_layout(name, t.dim()) if bits else None
+            if layout is not None:
+                t = quantize(t, bits, group_size, batch_dims=layout[0],
+                             contract_dims=layout[1], compute_dtype=dtype)
+            one[name] = t
+        if fuse:
+            one = fuse_qkv_params(spec, {"layers": one})["layers"]
+        for name, leaf in one.items():
             if name not in layers:
-                layers[name] = _carrier(qa, n_layers, device)
-            c = layers[name]
-            c.q[i] = qa.q
-            c.scale[i] = qa.scale
-            if qa.offset is not None:
-                c.offset[i] = qa.offset
+                layers[name] = _stacked(leaf, n_layers, empty)
+            for dst, src in zip(leaf_fields(layers[name]), leaf_fields(leaf)):
+                dst[i] = src[0]
+        del one
     params = {k: _leaf(v, device, dtype) for k, v in top.items()}
     if bits and "lm_head" in params:
         params["lm_head"] = quantize(params["lm_head"], bits, group_size, compute_dtype=dtype)
@@ -414,15 +451,17 @@ _CONVERTERS = {
 
 def convert_hf_state_dict(spec: ModelSpec, sd: Mapping[str, Any], dtype=torch.float32,
                           device="cpu", *, bits: Optional[int] = None,
-                          group_size: int = 128) -> Params:
+                          group_size: int = 128, host_layers: bool = False) -> Params:
     """HuggingFace state dict -> the decoder's parameters on ``device``, for
     every architecture the JAX package converts (LLaMA, Mixtral, OPT,
     Falcon, MPT, GPTBigCode), one layer at a time (``build_params``); with
-    ``bits`` every matmul weight is quantized as its layer is converted."""
+    ``bits`` every matmul weight is quantized as its layer is converted,
+    with ``host_layers`` the layer stack goes to (pinned) host memory."""
     top, layer = _CONVERTERS[spec.arch]
     s = _SD(sd)
     return build_params(spec, top(spec, s), lambda i: layer(spec, s, i).items(), dtype=dtype,
-                        device=device, bits=bits, group_size=group_size)
+                        device=device, bits=bits, group_size=group_size,
+                        host_layers=host_layers)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ builds the engine and scheduler; with ``ssms=[SSM(draft_dir)]`` it builds a
 with several drafts one ``SpecEngine`` a draft over one verifier and a
 ``MultiSSMSpecManager`` that rotates them or, with ``merge_ssm_trees``,
 verifies their merged trees in one pass.
+``compile(offload=True)`` (``--offload``) serves the incremental engine
+with its layer stack in pinned host memory, streamed in per layer.
 ``generate(prompts)`` tokenizes, serves and detokenizes. LoRA adapters
 registered before ``compile`` (``register_peft_adapter``) are stacked into
 slots and routed per request (``generate(..., adapter_id=)``).
@@ -124,30 +126,42 @@ class LLM:
         export_hf_adapter(adapter_dir, self.spec, unroute_lora(self.rm.engine.lora), slot,
                           self.lora_config)
 
-    def _load_params(self):
+    def _load_params(self, host_layers: bool = False):
         _, params = hf_weights.load_params(
             self.model_dir, self.spec, dtype=self.dtype, quantize_bits=self.quant_bits,
-            quantize_group_size=_ffconfig.quantization_group_size, device=self.device)
+            quantize_group_size=_ffconfig.quantization_group_size, device=self.device,
+            host_layers=host_layers)
         return params
 
     def compile(self, *, max_requests_per_batch: int = 8, max_seq_length: int = 256,
                 max_tokens_per_batch: Optional[int] = None, beam_width: int = 3,
                 beam_depth: int = 4, ssms: Sequence["SSM"] = (),
-                merge_ssm_trees: bool = False) -> None:
+                merge_ssm_trees: bool = False, offload: Optional[bool] = None) -> None:
         """Load the weights and build the engine and the scheduler: the
         incremental ``RequestManager``; with one registered draft model
         (``ssms``) the speculative ``SpecRequestManager`` (fused, and
         pipelined over a horizon of ``spec_horizon`` iterations); with
         several, a ``MultiSSMSpecManager`` over one engine a draft sharing
         the verifier's weights and cache, rotating the drafts (fused) or,
-        with ``merge_ssm_trees``, verifying their merged trees."""
+        with ``merge_ssm_trees``, verifying their merged trees.
+
+        ``offload`` (default ``config.cpu_offload``, ``--offload``) keeps
+        the layer stack in pinned host memory and streams it in layer by
+        layer (``models/layer_store.py``), for the incremental engine, LoRA
+        adapters included. With draft models it raises: the JAX package
+        drops the flag there without a word."""
         for ssm in ssms:
             self.register_ssm(ssm)
+        if offload is None:
+            offload = _ffconfig.cpu_offload
+        if self._ssms and offload:
+            raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "
+                                      "speculative decoding with offload is not supported")
         if self._ssms and self._peft:
             raise NotImplementedError(NO_ADAPTERS)
         if max_tokens_per_batch is None:
             max_tokens_per_batch = 128
-        self.params = self._load_params()
+        self.params = self._load_params(host_layers=offload)
         self._load_tokenizer()
         if self._ssms:
             engines = []
@@ -186,7 +200,11 @@ class LLM:
             device=self.device,
             lora=self.lora,
             lora_config=self.lora_config,
+            offload=offload,
         )
+        # the engine's tree (fused; under offload its layers are the store's
+        # pinned leaves): the loaded tree is not kept beside it
+        self.params = engine.params
         self.rm = RequestManager(
             engine,
             decode_horizon=_ffconfig.decode_horizon,

@@ -36,6 +36,15 @@ prefill padding rows get -1). The greedy body reads the ids from a static
 device buffer that ``_load`` fills, so a LoRA engine's greedy horizons are
 replays too.
 
+CPU offload (JAX ``offload=True``): the layer stack goes to a
+``models/layer_store.LayerStore`` (pinned host memory, two device slots fed on
+a copy stream) and every forward streams it; the embeddings, the head and
+the final norm stay on the device, as do LoRA adapter stacks. Unlike JAX,
+wqkv / wgu are fused before the layers are pinned (``build_params`` fuses
+a ``host_layers`` stack layer by layer), so an offload engine runs the
+resident engine's launches and gives its bits. Such an engine
+captures no graph (``graphs.capturable``).
+
 Host values (lengths, slots) travel to the device through pinned,
 non-blocking copies, and sampled tokens stay on the device until ``fetch``,
 so the host runs ahead of the card between horizons.
@@ -57,6 +66,7 @@ from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 from flexflow_tpu_torch.serving.graphs import StepGraphs, capturable
+from flexflow_tpu_torch.models.layer_store import LayerStore
 from flexflow_tpu_torch.specs import ModelSpec
 
 
@@ -91,12 +101,24 @@ class InferenceEngine:
         device=None,
         lora=None,  # {mod: {"a": [L, N, D_in, r], "b": [L, N, r, D_out]}}
         lora_config=None,  # its LoraConfig (alpha / rank gives the scale)
+        offload: bool = False,  # layers in pinned host memory, streamed per layer
     ):
         self.spec = spec
         self.device = resolve_device(device)
-        params = _params_to(params, self.device)
+        self.offload = bool(offload)
+        if self.offload:  # the layers stay where they are until the store takes them
+            params = {**_params_to({k: v for k, v in params.items() if k != "layers"},
+                                   self.device), "layers": params["layers"]}
+        else:
+            params = _params_to(params, self.device)
         if _ffconfig.fuse_qkv:
+            # before the store pins anything, so offload and resident run the
+            # same launches and bits (a stack built with ``host_layers`` comes
+            # fused already and is left as it is)
             params = decoder.fuse_qkv_params(spec, params)
+        if self.offload:
+            params = {**params, "layers": LayerStore(params["layers"], spec.num_layers,
+                                                     self.device)}
         self.params = params
         self.lora = None if lora is None else route_lora(_params_to(lora, self.device))
         self.lora_scale = lora_scaling(lora_config) if lora is not None and lora_config else 1.0
@@ -113,7 +135,8 @@ class InferenceEngine:
         # each slot's adapter for the greedy body (None: an engine without adapters)
         self._adapters = (None if lora is None else
                           torch.full_like(self._lens, -1, dtype=torch.int64))
-        self.graphs = StepGraphs(self.device) if capturable(self.device, spec) else None
+        self.graphs = (StepGraphs(self.device) if capturable(self.device, spec,
+                                                             offload=self.offload) else None)
 
     # ------------------------------------------------------------------
 

@@ -36,11 +36,14 @@ _COUNTERS = ((quant_matmul, "LAUNCHES"), (quant_matmul, "LAUNCHES_INT4"),
              (decode_attention, "LAUNCHES"), (flash_prefill, "LAUNCHES"))
 
 
-def capturable(device: torch.device, *specs) -> bool:
+def capturable(device: torch.device, *specs, offload: bool = False) -> bool:
     """Whether an engine on ``device`` running ``specs`` captures its greedy
     step: on a CUDA device, unless a model's MoE FFN is the ``ragged`` form,
-    which reads its expert group sizes on the host every layer."""
-    return device.type == "cuda" and not any(
+    which reads its expert group sizes on the host every layer, or the
+    engine offloads its layers to the host (``offload``). An offload step is
+    bound by the host-to-device stream of its layers (about 1.7 s for bf16
+    Mixtral-8x7B over PCIe), so a replay would save nothing."""
+    return device.type == "cuda" and not offload and not any(
         s.moe is not None and s.moe.impl == "ragged" for s in specs)
 
 

@@ -9,9 +9,11 @@ horizon k's tokens are fetched; the fetch (``.cpu()``) runs on a worker
 thread. Outputs are identical either way.
 
 ``jax.random`` keys become one ``torch.Generator`` that draws a 63-bit step
-key per dispatch (see ``ops/sampling``). The horizon bookkeeping is the
-Python loop of the JAX package (its native scheduler belongs to the JAX
-package). Each slot carries its request's LoRA adapter id (-1: none) into
+key per dispatch (see ``ops/sampling``). Every fetched batch of tokens
+(first tokens, stepwise and pipelined horizons) is applied by the native
+scheduler core (``utils/native_scheduler``, built from
+``native/scheduler_core.cc``), as the JAX package applies its pipelined
+horizons. Each slot carries its request's LoRA adapter id (-1: none) into
 every prefill and horizon, as in JAX.
 
 ``start_background_server`` runs ``step()`` on a thread of its own (a 1 ms
@@ -46,6 +48,7 @@ import torch
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.serving.engine import InferenceEngine
+from flexflow_tpu_torch.utils import native_scheduler
 from flexflow_tpu_torch.utils.profiling import StepTimer, per_op_profile
 
 
@@ -328,22 +331,11 @@ class RequestManager(BackgroundServing):
             for slot, _, tok_dev in results:
                 self._feedback_overrides.append((slot, tok_dev))
         else:
-            for (slot, req, _), tok in zip(results, self.engine.fetch(firsts)):
-                first_tok = int(tok)
-                req.profile.first_token_time = time.monotonic()
-                req.profile.llm_decoding_steps = 1
-                req.output_tokens.append(first_tok)
-                self._tokens[slot] = first_tok
-                self._feedback_overrides.append((slot, first_tok))
-                if self._finished(req, first_tok):
-                    self._retire(slot)
-
-    def _finished(self, req: Request, last_token: int) -> bool:
-        if last_token in self.eos_token_ids or last_token in tuple(req.config.stop_token_ids):
-            return True
-        if len(req.output_tokens) >= req.config.max_new_tokens:
-            return True
-        return len(req.prompt_tokens) + len(req.output_tokens) >= self.engine.max_seq_len
+            vals = self.engine.fetch(firsts)
+            for (slot, _, _), tok in zip(results, vals):
+                self._tokens[slot] = int(tok)
+                self._feedback_overrides.append((slot, int(tok)))
+            self._process_first((vals, time.monotonic()), results)
 
     def _retire(self, slot: int) -> None:
         req = self._slots[slot]
@@ -364,18 +356,47 @@ class RequestManager(BackgroundServing):
                   f"ttft({req.profile.ttft * 1e3:.3f})")
         req.done.set()
 
-    def _process_horizon(self, out_tokens: np.ndarray, entries) -> None:
-        """Apply one fetched [n, B] horizon to the requests it was run for."""
-        for slot, req in entries:
-            if req.state == COMPLETED:
-                continue
-            for i in range(out_tokens.shape[0]):
-                tok = int(out_tokens[i, slot])
-                req.output_tokens.append(tok)
-                req.profile.llm_decoding_steps += 1
-                if self._finished(req, tok):
-                    self._retire(slot)
-                    break
+    def _process_horizon(self, out_tokens: np.ndarray, entries) -> np.ndarray:
+        """Apply fetched [n, B] tokens to the requests they were run for and
+        return which slots finished ([B]). The native scheduler core
+        (``utils/native_scheduler``, as in the JAX package) is the one
+        retirement rule of every path (first tokens, stepwise and pipelined
+        horizons): a slot takes tokens until an EOS or stop id, its max-new
+        tokens, or a full cache; finished slots retire through ``_retire``."""
+        b = self.engine.max_requests
+        fin = np.zeros(b, np.int32)
+        live = [(s, r) for s, r in entries if r.state != COMPLETED]
+        if not live:
+            return fin
+        active = np.zeros(b, np.int32)
+        counts = np.zeros(b, np.int32)
+        max_new = np.full(b, 1 << 30, np.int32)
+        totals = np.zeros(b, np.int32)
+        budget = np.full(b, 1 << 30, np.int32)
+        max_stop = max([len(tuple(r.config.stop_token_ids)) for _, r in live] + [1])
+        stop_ids = np.full((b, max_stop), -1, np.int32)
+        stop_counts = np.zeros(b, np.int32)
+        for s, r in live:
+            active[s] = 1
+            counts[s] = len(r.output_tokens)
+            max_new[s] = r.config.max_new_tokens
+            totals[s] = len(r.prompt_tokens) + len(r.output_tokens)
+            budget[s] = self.engine.max_seq_len
+            sids = tuple(r.config.stop_token_ids)
+            stop_counts[s] = len(sids)
+            stop_ids[s, :len(sids)] = sids
+        eos = np.asarray(list(self.eos_token_ids) or [-1], np.int32)
+        # margin 1: a slot retires once its cache is full (total >= S)
+        toks, taken, fin = native_scheduler.process_horizon(
+            np.asarray(out_tokens, np.int32), active, counts, max_new, totals, budget, 1, eos,
+            stop_ids, stop_counts)
+        for s, r in live:
+            k = int(taken[s])
+            r.output_tokens.extend(int(x) for x in toks[s, :k])
+            r.profile.llm_decoding_steps += k
+            if fin[s]:
+                self._retire(s)
+        return fin
 
     def _fetch_stamped(self, x):
         """Fetch on the worker and note when the values reached the host:
@@ -384,14 +405,14 @@ class RequestManager(BackgroundServing):
         return vals, time.monotonic()
 
     def _process_first(self, fetched, pend) -> None:
+        """Apply the prefills' first tokens (fetched at ``now``) as a
+        one-token horizon."""
         vals, now = fetched
+        first = np.zeros((1, self.engine.max_requests), np.int32)
         for (slot, req, _), tok in zip(pend, vals):
-            tok = int(tok)
+            first[0, slot] = int(tok)
             req.profile.first_token_time = now
-            req.profile.llm_decoding_steps = 1
-            req.output_tokens.append(tok)
-            if self._finished(req, tok):
-                self._retire(slot)
+        self._process_horizon(first, [(slot, req) for slot, req, _ in pend])
 
     def _phase(self, name: str):
         return contextlib.nullcontext() if self.timer is None else self.timer.phase(name)
@@ -486,16 +507,9 @@ class RequestManager(BackgroundServing):
                     self._cache_lens, self._tokens, self._next_key(), scfg, n,
                     adapter_ids=self._adapter)
         self._steps += n
+        fin = self._process_horizon(horizon_tokens, [(s, self._slots[s]) for s in active])
         for slot in active:
-            req = self._slots[slot]
-            for i in range(n):
-                tok = int(horizon_tokens[i, slot])
-                req.output_tokens.append(tok)
-                req.profile.llm_decoding_steps += 1
-                if self._finished(req, tok):
-                    self._retire(slot)
-                    break
-            else:
+            if not fin[slot]:
                 self._cache_lens[slot] += n
                 self._tokens[slot] = int(horizon_tokens[n - 1, slot])
         return True

@@ -1,10 +1,14 @@
 """HuggingFace checkpoint loading (port of ``flexflow_tpu/utils/hf_weights.py``).
 
-Safetensors shards are read by a pure-Python reader: an 8-byte little-endian
-header length, a JSON header naming each tensor's dtype, shape and byte range,
-and ``numpy.frombuffer`` over an ``mmap`` of the file. ``save_safetensors``
-writes the same format. No ``safetensors`` package is needed.
-(``pytorch_model*.bin`` shards are not read yet.)
+Safetensors shards are read through the native reader
+(``utils/native_safetensors.py``, ``native/safetensors_reader.cc``: zero-copy
+views into an ``mmap`` of each file), as the JAX package reads them.
+``SafetensorsFile`` is the pure-Python reader of the same format (an 8-byte
+little-endian header length, a JSON header naming each tensor's dtype, shape
+and byte range, ``numpy.frombuffer`` over an ``mmap``): the plain version
+the native reader is tested against. ``save_safetensors`` writes the format.
+No ``safetensors`` package is needed. (``pytorch_model*.bin`` shards are
+not read yet.)
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from flexflow_tpu_torch.models import params as params_lib
 from flexflow_tpu_torch.specs import ModelSpec, from_hf_config_file
+from flexflow_tpu_torch.utils.native_safetensors import NativeSafetensors
 
 _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": np.uint16,
@@ -84,17 +89,17 @@ def save_safetensors(tensors: Dict[str, np.ndarray], path: str) -> None:
 
 
 class LazyStateDict:
-    """Mapping-like view over a model dir's safetensors shards; tensors are
-    read on access."""
+    """Mapping-like view over a model dir's safetensors shards (native
+    reader); tensors are read on access."""
 
     def __init__(self, model_dir: str):
         self.model_dir = model_dir
-        self._index: Dict[str, SafetensorsFile] = {}
+        self._index: Dict[str, NativeSafetensors] = {}
         st_files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
         if not st_files:
             raise FileNotFoundError(f"No .safetensors weights in {model_dir}")
         for path in st_files:
-            sf = SafetensorsFile(path)
+            sf = NativeSafetensors(path)
             for name in sf.keys():
                 self._index[name] = sf
 
@@ -120,15 +125,17 @@ def load_params(
     quantize_bits: Optional[int] = None,
     quantize_group_size: int = 128,
     device="cpu",
+    host_layers: bool = False,
 ):
     """Load a local HF model dir into the decoder params on ``device``, with
     optional weight-only quantize-on-load (4 or 8 bits). Layers are read,
     converted and (with ``quantize_bits``) quantized one at a time, so a
     quantized load never holds the full-precision tree on the device; the
     carriers are byte for byte those of ``quantize_params`` on the whole
-    converted tree."""
+    converted tree. ``host_layers``: the layer stack goes to (pinned) host
+    memory for CPU offload (``build_params``)."""
     spec = spec or load_spec(model_dir)
     params = params_lib.convert_hf_state_dict(
         spec, LazyStateDict(model_dir), dtype, device, bits=quantize_bits,
-        group_size=quantize_group_size)
+        group_size=quantize_group_size, host_layers=host_layers)
     return spec, params

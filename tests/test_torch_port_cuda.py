@@ -17,6 +17,7 @@ import torch
 
 from flexflow_tpu_torch.models import decoder as t_decoder
 from flexflow_tpu_torch.models import params as t_params
+from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.ops.kernels import decode_attention as t_da
 from flexflow_tpu_torch.ops.kernels import flash_prefill as t_fp
 from flexflow_tpu_torch.ops.kernels import qmm_variants as t_qv
@@ -27,6 +28,7 @@ from flexflow_tpu_torch.quant.weight_only import QuantizedArray, quantize
 from flexflow_tpu_torch.serving import graphs
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.engine import _params_to as td_params_to
+from flexflow_tpu_torch.models.layer_store import LayerStore
 from flexflow_tpu_torch.serving.request_manager import GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
 from flexflow_tpu_torch.serving.speculative import SpecEngine
@@ -1201,3 +1203,85 @@ def test_norm_rows_on_card_do_not_depend_on_the_row_count(cuda, norm):
         got = torch.cat([t_norms.row_mean(p.float().reshape(shape)).reshape(rows, 1)
                          for p in parts])
         assert torch.equal(got, mean[:got.shape[0]])
+
+
+# ---------------------------------------------------------------------------
+# CPU offload: the layer store's staged slots on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_staged_quant_slot_equals_resident_layer(cuda, bits):
+    """Layer 1 of a pinned [3, ...] carrier staged into a one-layer device
+    slot (``LayerStore``) gives, through ``LayerQuant(slot, 0)``, the bits of
+    the resident carrier at layer 1, in every regime (m = 1, 8, 104, 8192)."""
+    from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    d, f = 512, 384
+    resident = quantize(torch.randn((3, d, f), generator=gen, device=cuda) * 0.05, bits, 128,
+                        batch_dims=1, compute_dtype=_BF16)
+    store = LayerStore({"w": resident}, 3, cuda)
+    assert store.host["w"].q.is_pinned() and store.host["w"].q.device.type == "cpu"
+    store.release(0)
+    staged = store.acquire(1)["w"]
+    assert isinstance(staged, LayerQuant) and staged.layer == 0
+    for m in (1, 8, 104, 8192):
+        x = torch.randn((m, d), generator=gen, device=cuda).to(_BF16)
+        got = t_qm.quant_matmul(x, staged.qa, layer=0)
+        assert torch.equal(got, t_qm.quant_matmul(x, resident, layer=1)), m
+    store.release(1)
+
+
+def test_offload_engine_pins_one_copy_of_the_stack(cuda):
+    """A ``host_layers`` build and the offload engine built on it hold the
+    layer stack page-locked once (the store's leaves, the build's fused
+    ones); freeing the engine gives it all back."""
+    from flexflow_tpu_torch.models import layer_store
+
+    spec = ModelSpec(**_TINY)
+    gc.collect()
+    before = layer_store.pinned_bytes
+    params = t_params.init_quantized_params(spec, 0, bits=8, group_size=32, dtype=_BF16,
+                                            device=cuda, host_layers=True)
+    eng = InferenceEngine(spec, params, max_requests_per_batch=2, max_seq_len=64,
+                          cache_dtype=_BF16, device=cuda, offload=True)
+    del params
+    gc.collect()
+    store = eng.params["layers"]
+    assert layer_store.pinned_bytes - before == store.layer_bytes * spec.num_layers
+    del eng, store
+    gc.collect()
+    assert layer_store.pinned_bytes == before
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["llama-int8", "mixtral-bf16"])
+def test_offload_ring_across_forwards_gives_resident_bits(cuda, moe):
+    """Three greedy decode horizons (the copy ring runs on from one forward
+    into the next) and a batched prefill on an offload engine give the
+    resident engine's tokens and cache bitwise; each engine's layers come
+    from one host build (``init_quantized_params(host_layers=True)``), so
+    the values are the same."""
+    spec = ModelSpec(**(_TINY_MOE if moe else _TINY))
+    params = t_params.init_quantized_params(spec, 0, bits=None if moe else 8, group_size=32,
+                                            dtype=_BF16, device=cuda, host_layers=True)
+    assert all(t.is_pinned() for t in
+               (v.q if isinstance(v, QuantizedArray) else v for v in params["layers"].values()))
+    out = []
+    for offload in (False, True):
+        eng = InferenceEngine(spec, params, max_requests_per_batch=4, max_seq_len=160,
+                              cache_dtype=_BF16, device=cuda, offload=offload)
+        assert (eng.graphs is None) == offload
+        greedy = SamplingConfig(temperature=np.zeros(2, np.float32),
+                                top_p=np.ones(2, np.float32), top_k=np.zeros(2, np.int32))
+        first = eng.prefill_batch_to_slots_async([[5, 6, 7], [9] * 40], [0, 2], 0, greedy)
+        _fill_cache(eng.cache, 1)
+        toks = [eng.greedy_horizon_async([60, 63, 130, 5], [3, 17, 101, 250], 4, replay=False)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        out.append((first, toks, [c.clone() for c in eng.cache]))
+        del eng
+    (f0, t0, c0), (f1, t1, c1) = out
+    assert torch.equal(f0, f1)
+    assert all(torch.equal(a, b) for a, b in zip(t0, t1))
+    assert all(torch.equal(a, b) for a, b in zip(c0, c1))

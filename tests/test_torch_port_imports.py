@@ -57,6 +57,14 @@ PORT_MODULES = [
     "flexflow_tpu_torch.training.trainer",
     "flexflow_tpu_torch.peft.finetune",
     "flexflow_tpu_torch.utils.checkpoint",
+    "flexflow_tpu_torch.models.layer_store",
+    "flexflow_tpu_torch.utils.debug_dump",
+    "flexflow_tpu_torch.utils.alignment",
+    "flexflow_tpu_torch.utils.recompile",
+    "flexflow_tpu_torch.utils.native_build",
+    "flexflow_tpu_torch.utils.native_scheduler",
+    "flexflow_tpu_torch.utils.native_safetensors",
+    "flexflow_tpu_torch.utils.native_tokenizer",
 ]
 # "import jax", "from jax.x import", "import flexflow_tpu", "from flexflow_tpu.x
 # import", "from inference.x import" — but not the port's own flexflow_tpu_torch
