@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only card,build,lora
     python3 chip_smoke.py --only card,build,serve,openai
     python3 chip_smoke.py --only card,build,finetune,train
+    python3 chip_smoke.py --only card,build,graph
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -219,7 +220,30 @@ Phases, in order; any failure exits non-zero:
               4 x 512 batch (the loss must fall), and a save_checkpoint /
               load_checkpoint resume (in memory) giving the same next loss.
               Prints step ms, tokens/s and peak memory. TF32 stays off.
-14. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+14. graph   — the graph layer (``ffmodel/``, ``keras/``, the frontends), f32, TF32
+              off. (a) AlexNet at 3 x 224 x 224, 10 classes, Adam at 1e-3
+              (``examples/alexnet.py``): a seeded batch of 8 through ``forward``
+              and ``evaluate`` on the card and on the CPU with the card's
+              parameters carried across (logits within 1e-4 of their
+              magnitude, the loss within 1e-4, predictions equal where decided);
+              the same with fusion off (within 1e-4; the substitution report
+              equal to the CPU's); then 8 steps at batch 64 on one batch (the
+              loss must fall). (b) The BERT-large proxy (``examples/bert_proxy.py``
+              ``--large`` widths: seq 512, 16 heads, hidden 1024), SGD at 0.01,
+              batch 4: 2 layers, one step on the card against the CPU (loss rtol
+              1e-4, updated parameters within 1e-5 of each layer's magnitude);
+              then 24 layers, 4 steps (each loss finite, the last below the
+              first). (c) A Keras ``Sequential`` CNN on
+              ``keras.datasets.mnist.load_data(synthetic=True)``, Adam, 2 epochs
+              on the card (the epoch loss must fall). (d) A residual CNN
+              ``nn.Module`` through ``from_torch_module`` on the card (within
+              1e-4 of the module's own outputs there), its ``torch_ir`` round
+              trip (outputs bitwise), and an ONNX MLP written by ``onnx_proto``
+              (within 1e-5 of numpy). Prints each training run's step wall and
+              device time (CUDA events), images/s or tokens/s, peak memory and
+              model FLOPs (3x the forward's products) over the device time as a
+              share of the f32 peak. No port kernel may launch on this path.
+15. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -256,7 +280,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
-          "mixtral", "offload", "lora", "finetune", "train", "profile")
+          "mixtral", "offload", "lora", "finetune", "train", "graph", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -290,6 +314,13 @@ FT_LR = 1e-3
 FT_SEQS, FT_LEN, FT_STEPS = 4, 256, 16  # 4 sequences of 256 tokens, 16 SGD steps
 # the train phase: LLaMA-2-7B width at 2 layers, f32, Adam, one fixed batch
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 2, 4, 512, 8, 1e-4
+# the graph phase: AlexNet at 3 x 224 x 224 (examples/alexnet.py), a batch of 8
+# held against the CPU and 8 Adam steps at batch 64; the BERT-large proxy
+# (examples/bert_proxy.py --large: seq 512, 16 heads, hidden 1024, 24 layers) at
+# batch 4, its first 2 layers held against the CPU, 4 SGD steps at full depth
+GRAPH_CHECK_BATCH, GRAPH_TRAIN_BATCH, GRAPH_STEPS = 8, 64, 8
+BERT_LARGE = dict(seq=512, heads=16, hidden=1024, layers=24)
+BERT_BATCH, BERT_STEPS, BERT_CHECK_LAYERS = 4, 4, 2
 
 
 class PhaseError(RuntimeError):
@@ -3355,6 +3386,316 @@ def train_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the graph layer (FFModel, Keras, the frontends)
+# ---------------------------------------------------------------------------
+
+
+def graph_flops(ff) -> float:
+    """A forward's FLOPs at the graph's shapes: 2 x the multiply-adds of its
+    products (dense, conv2d, batch_matmul); the elementwise ops are left out."""
+    total = 0
+    for n in ff._nodes:
+        out = math.prod(n.out_shapes[0])
+        if n.op in ("dense", "batch_matmul"):
+            total += 2 * out * n.inputs[0].shape[-1]
+        elif n.op == "conv2d":
+            kh, kw = n.attrs["kernel"]
+            total += 2 * out * (n.inputs[0].shape[1] // n.attrs["groups"]) * kh * kw
+    return float(total)
+
+
+def _numpy_tree(tree) -> dict:
+    return {k: {leaf: v.detach().cpu().numpy() for leaf, v in d.items()} for k, d in tree.items()}
+
+
+def _within(got, want, rel: float, what: str) -> float:
+    """max |got - want| over max |want|, required <= ``rel``."""
+    import numpy as np
+
+    err = float(np.abs(np.asarray(got, np.float64) - want).max())
+    scale = float(np.abs(want).max())
+    require(err <= rel * scale, f"{what}: max |err| {err:.3g} over a magnitude {scale:.3g}")
+    return err / scale
+
+
+def _graph_train(ff, x, y, steps: int, items: int, unit: str, what: str, card: str) -> dict:
+    """``steps`` training steps on one fixed batch (each loss read back, so
+    each step's wall time closes on the device), then the step's device time
+    (CUDA events over steps queued behind a sleep) and its model FLOPs (3x
+    the forward's) as a share of the card's f32 peak."""
+    import numpy as np
+    import torch
+
+    inputs, labels = ff._to_inputs([x]), ff._to_labels(y)
+    gen = torch.Generator(device=ff.device).manual_seed(1)  # dropout masks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, _ = ff._step(inputs, labels, gen)
+        losses.append(loss.item())
+        wall.append(time.perf_counter() - t0)
+    dev_ms = time_ms(lambda: ff._step(inputs, labels, gen), reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(np.isfinite(losses)), f"{what}: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+    wall_ms = 1e3 * float(np.mean(wall[1:]))
+    flops = 3 * graph_flops(ff)
+    out = dict(losses=losses, wall_ms=wall_ms, first_wall_ms=1e3 * wall[0], device_ms=dev_ms,
+               per_s=items / (wall_ms / 1e3), per_s_device=items / (dev_ms / 1e3),
+               model_tflop=flops / 1e12, f32_peak_share=flops / (dev_ms / 1e3) / PEAK_F32_FLOPS,
+               peak_mem_gib=peak)
+    log(f"  {what}: {steps} steps, losses {[round(v, 5) for v in losses]}; step wall "
+        f"{wall_ms:.2f} ms (first {out['first_wall_ms']:.1f}), device {dev_ms:.2f} ms (host "
+        f"dispatch shows as the gap); {out['per_s']:.1f} {unit}/s ({out['per_s_device']:.1f} at "
+        f"device time); {flops / 1e12:.3f} TFLOP a step (3x the forward's products) = "
+        f"{out['f32_peak_share']:.1%} of the f32 peak ({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s); "
+        f"peak memory {peak:.2f} GiB [{card}]")
+    return out
+
+
+def _residual_cnn():
+    """A resnet-style module (tests/test_frontend_widening.py's MiniResNet):
+    stem, two basic blocks (the second strided, with a projection), adaptive
+    average pool, flatten, linear; batch norms in eval mode."""
+    import torch.nn as tnn
+
+    class Block(tnn.Module):
+        def __init__(self, cin, cout, stride=1):
+            super().__init__()
+            self.conv1 = tnn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.bn1 = tnn.BatchNorm2d(cout)
+            self.relu = tnn.ReLU()
+            self.conv2 = tnn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.bn2 = tnn.BatchNorm2d(cout)
+            self.down = (tnn.Sequential(tnn.Conv2d(cin, cout, 1, stride, bias=False),
+                                        tnn.BatchNorm2d(cout))
+                         if stride != 1 or cin != cout else None)
+
+        def forward(self, x):
+            idn = x if self.down is None else self.down(x)
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            return self.relu(out + idn)
+
+    class ResCNN(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = tnn.Conv2d(3, 16, 3, 1, 1, bias=False)
+            self.bn1 = tnn.BatchNorm2d(16)
+            self.relu = tnn.ReLU()
+            self.maxpool = tnn.MaxPool2d(2, 2)
+            self.layer1 = Block(16, 16)
+            self.layer2 = Block(16, 32, stride=2)
+            self.avgpool = tnn.AdaptiveAvgPool2d((1, 1))
+            self.flatten = tnn.Flatten()
+            self.fc = tnn.Linear(32, 10)
+
+        def forward(self, x):
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            x = self.layer2(self.layer1(x))
+            return self.fc(self.flatten(self.avgpool(x)))
+
+    return ResCNN()
+
+
+def graph_phase(card: str) -> dict:
+    """The graph layer on the card: (a) AlexNet, (b) the BERT-large proxy,
+    (c) a Keras CNN, (d) the torch.fx / serialized-IR / ONNX frontends. Each
+    cross-check runs the same parameters on the CPU (or in numpy)."""
+    import numpy as np
+    import torch
+
+    import flexflow_tpu_torch.keras as keras
+    from flexflow_tpu_torch.config import config as ffconfig
+    from flexflow_tpu_torch.examples.alexnet import build_alexnet
+    from flexflow_tpu_torch.examples.bert_proxy import build as build_bert
+    from flexflow_tpu_torch.ffmodel import AdamOptimizer, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.onnx_frontend import apply_onnx_weights, from_onnx_model
+    from flexflow_tpu_torch.torch_frontend import apply_torch_weights, from_torch_module
+    from flexflow_tpu_torch.torch_ir import model_to_string, string_to_ff
+    from flexflow_tpu_torch.utils import onnx_proto as op
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "graph: TF32 must stay off for the f32 comparisons")
+    dev, host = torch.device("cuda"), torch.device("cpu")
+    out: dict = {}
+    _launches(reset=True)
+
+    # (a) AlexNet
+    def alexnet(batch, device, fusion=True):
+        old, ffconfig.fusion = ffconfig.fusion, fusion
+        try:
+            ff = build_alexnet(FFModel(seed=0, device=device), batch)
+            ff.compile(optimizer=AdamOptimizer(lr=1e-3))
+        finally:
+            ffconfig.fusion = old
+        return ff
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(GRAPH_CHECK_BATCH, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 10, GRAPH_CHECK_BATCH).astype(np.int32)
+    gpu = alexnet(GRAPH_CHECK_BATCH, dev)
+    cpu = alexnet(GRAPH_CHECK_BATCH, host)
+    cpu.load_numpy(_numpy_tree(gpu.params), _numpy_tree(gpu.state))
+    fg, fc = gpu.forward(x), cpu.forward(x)
+    rel = _within(fg, fc, 1e-4, "graph: AlexNet logits on the card against the CPU")
+    eg, ec = gpu.evaluate(x, y, batch_size=GRAPH_CHECK_BATCH), cpu.evaluate(
+        x, y, batch_size=GRAPH_CHECK_BATCH)
+    require(abs(eg["loss"] - ec["loss"]) <= 1e-4 * abs(ec["loss"]),
+            f"graph: AlexNet evaluate loss {eg['loss']} on the card vs {ec['loss']}")
+    err = np.abs(fg - fc).max()
+    top2 = np.sort(fc, axis=-1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * err
+    require(bool((fg.argmax(-1) == fc.argmax(-1))[decided].all()),
+            "graph: AlexNet predictions differ on a decided row")
+    if decided.all():
+        require(eg["accuracy"] == ec["accuracy"], "graph: AlexNet evaluate accuracy differs")
+    unfused = alexnet(GRAPH_CHECK_BATCH, dev, fusion=False)
+    unfused.load_numpy(_numpy_tree(gpu.params), _numpy_tree(gpu.state))
+    rel_fusion = _within(unfused.forward(x), fg, 1e-4, "graph: AlexNet fusion off against on")
+    require(gpu.substitution_report == cpu.substitution_report,
+            f"graph: substitution report {gpu.substitution_report} vs the CPU's "
+            f"{cpu.substitution_report}")
+    log(f"  AlexNet 3x224x224 batch {GRAPH_CHECK_BATCH}: logits within {rel:.3g} of their "
+        f"magnitude of the CPU's; evaluate loss {eg['loss']:.6f} vs {ec['loss']:.6f}, accuracy "
+        f"{eg['accuracy']} vs {ec['accuracy']}; fusion off within {rel_fusion:.3g} of on; "
+        f"substitutions {gpu.substitution_report} ({len(gpu._nodes)} nodes against "
+        f"{len(unfused._nodes)} unfused)")
+    out["alexnet_check"] = dict(rel_err=rel, loss_gpu=eg["loss"], loss_cpu=ec["loss"],
+                                fusion_rel_err=rel_fusion, report=gpu.substitution_report)
+    del gpu, cpu, unfused
+    train = alexnet(GRAPH_TRAIN_BATCH, dev)
+    xt = rng.randn(GRAPH_TRAIN_BATCH, 3, 224, 224).astype(np.float32)
+    yt = rng.randint(0, 10, GRAPH_TRAIN_BATCH).astype(np.int32)
+    out["alexnet"] = _graph_train(train, xt, yt, GRAPH_STEPS, GRAPH_TRAIN_BATCH, "images",
+                                  f"AlexNet, Adam, batch {GRAPH_TRAIN_BATCH}", card)
+    out["alexnet"]["params"] = sum(v.numel() for d in train.params.values() for v in d.values())
+    del train
+    torch.cuda.empty_cache()
+
+    # (b) the BERT-large proxy
+    b = BERT_LARGE
+
+    def bert(layers, device):
+        ff = build_bert(FFModel(seed=0, device=device), BERT_BATCH, b["seq"], b["hidden"],
+                        b["heads"], layers)
+        ff.compile(SGDOptimizer(lr=0.01))
+        return ff
+
+    xb = rng.randn(BERT_BATCH, b["seq"], b["hidden"]).astype(np.float32)
+    yb = rng.randint(0, 8, BERT_BATCH).astype(np.int32)
+    g2, c2 = bert(BERT_CHECK_LAYERS, dev), bert(BERT_CHECK_LAYERS, host)
+    c2.load_numpy(_numpy_tree(g2.params))
+    steps = {}
+    for name, ff in (("gpu", g2), ("cpu", c2)):
+        t0 = time.perf_counter()
+        loss, _ = ff._step(ff._to_inputs([xb]), ff._to_labels(yb), None)
+        steps[name] = (loss.item(), _numpy_tree(ff.params), time.perf_counter() - t0)
+    (lg, pg, sg), (lc, pc, sc) = steps["gpu"], steps["cpu"]
+    require(abs(lg - lc) <= 1e-4 * abs(lc), f"graph: BERT proxy loss {lg} on the card vs {lc}")
+    # each layer's updated parameters against the layer's magnitude: a bias
+    # starts at 0 and moves by lr x a gradient that cancels to rounding noise
+    # (the value projection's, under a softmax whose rows sum to 1)
+    worst = 0.0
+    for k in pc:
+        err = max(float(np.abs(pg[k][leaf] - pc[k][leaf]).max()) for leaf in pc[k])
+        scale = max(float(np.abs(pc[k][leaf]).max()) for leaf in pc[k])
+        require(err <= 1e-5 * scale, f"graph: BERT proxy {k} after one step: max |err| "
+                                     f"{err:.3g} over the layer's magnitude {scale:.3g}")
+        worst = max(worst, err / scale)
+    log(f"  BERT-large proxy, {BERT_CHECK_LAYERS} layers, {BERT_BATCH} x {b['seq']}, one SGD "
+        f"step: loss {lg:.7f} vs CPU {lc:.7f}; updated parameters within {worst:.3g} of each "
+        f"layer's magnitude (card {sg:.2f} s, CPU {sc:.2f} s)")
+    out["bert_check"] = dict(loss_gpu=lg, loss_cpu=lc, param_rel_err=worst)
+    del g2, c2, steps, pg, pc
+    deep = bert(b["layers"], dev)
+    out["bert"] = _graph_train(deep, xb, yb, BERT_STEPS, BERT_BATCH * b["seq"], "tokens",
+                               f"BERT-large proxy, {b['layers']} layers, SGD, "
+                               f"{BERT_BATCH} x {b['seq']}", card)
+    out["bert"]["params"] = sum(v.numel() for d in deep.params.values() for v in d.values())
+    del deep
+    torch.cuda.empty_cache()
+
+    # (c) Keras
+    (xk, yk), _ = keras.datasets.mnist.load_data(synthetic=True)
+    xk = (xk.reshape(-1, 1, 28, 28) / 255.0).astype(np.float32)
+    model = keras.Sequential([
+        keras.Input(shape=(1, 28, 28), batch_size=64),
+        keras.Conv2D(32, 3, activation="relu"), keras.MaxPooling2D(2),
+        keras.Conv2D(64, 3, activation="relu"), keras.MaxPooling2D(2),
+        keras.Flatten(), keras.Dense(128, activation="relu"), keras.Dense(10),
+    ])
+    model.compile(optimizer=keras.Adam(learning_rate=1e-3))
+    require(model.ffmodel.device.type == "cuda", "graph: the Keras model is not on the card")
+    t0 = time.perf_counter()
+    hist = model.fit(xk, yk.astype(np.int32), batch_size=64, epochs=2)
+    require(hist[-1]["loss"] < hist[0]["loss"], f"graph: Keras epoch losses did not fall: {hist}")
+    out["keras"] = dict(history=hist, seconds=time.perf_counter() - t0)
+    log(f"  Keras CNN on synthetic MNIST (512 x 1 x 28 x 28), Adam, 2 epochs of batch 64: "
+        f"{[(round(h['loss'], 4), round(h['accuracy'], 3)) for h in hist]} in "
+        f"{out['keras']['seconds']:.2f} s")
+    del model
+
+    # (d) the frontends
+    gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)  # the module's initialization
+    module = _residual_cnn()
+    with torch.no_grad():  # running statistics that differ from the init's
+        for mod in module.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.1, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+    module = module.to(dev).eval()
+    xr = rng.randn(8, 3, 32, 32).astype(np.float32)
+    ff = from_torch_module(module, [(3, 32, 32)], batch_size=8, device=dev)
+    lines = model_to_string(ff)  # the serialized graph, before compile rewrites it
+    ff.compile(optimizer=None)
+    apply_torch_weights(ff)
+    with torch.no_grad():
+        want = module(torch.as_tensor(xr, device=dev)).cpu().numpy()
+    got = ff.forward(xr)
+    rel_fx = _within(got, want, 1e-4, "graph: the fx-imported residual CNN against the module")
+    ff2 = FFModel(device=dev)
+    string_to_ff(lines, ff2, [ff2.create_tensor((8, 3, 32, 32))])
+    ff2.compile(optimizer=None)
+    ff2.load_numpy(_numpy_tree(ff.params), _numpy_tree(ff.state))
+    require(np.array_equal(ff2.forward(xr), got),
+            "graph: the torch_ir round trip changed the outputs")
+    r1 = np.random.RandomState(1)
+    w1, b1 = r1.randn(16, 32).astype(np.float32), r1.randn(32).astype(np.float32)
+    w2 = r1.randn(32, 4).astype(np.float32)
+    model_proto = op.ModelProto(ir_version=8, opset_import=[op.OperatorSetIdProto(version=17)],
+                                graph=op.GraphProto(
+        name="mlp",
+        node=[op.NodeProto(op_type="Gemm", input=["x", "w1", "b1"], output=["h"], name="fc1"),
+              op.NodeProto(op_type="Relu", input=["h"], output=["hr"]),
+              op.NodeProto(op_type="MatMul", input=["hr", "w2"], output=["y"], name="fc2")],
+        initializer=[op.array_to_tensor(a, name=n) for n, a in
+                     (("w1", w1), ("b1", b1), ("w2", w2))],
+        input=[op.tensor_value_info("x", op.TensorProto.FLOAT, ("N", 16))],
+        output=[op.tensor_value_info("y", op.TensorProto.FLOAT, ("N", 4))]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mlp.onnx")
+        op.save(model_proto, path)
+        fo = from_onnx_model(path, batch_size=4, device=dev)
+    fo.compile(optimizer=None)
+    apply_onnx_weights(fo)
+    xo = r1.randn(4, 16).astype(np.float32)
+    rel_onnx = _within(fo.forward(xo), np.maximum(xo @ w1 + b1, 0) @ w2, 1e-5,
+                       "graph: the ONNX MLP against numpy")
+    require(fo.device.type == "cuda", "graph: the ONNX model is not on the card")
+    out["frontends"] = dict(fx_rel_err=rel_fx, onnx_rel_err=rel_onnx, ir_lines=len(lines))
+    log(f"  frontends: fx residual CNN within {rel_fx:.3g} of the module on the card; torch_ir "
+        f"round trip ({len(lines)} lines) bitwise; ONNX MLP within {rel_onnx:.3g} of numpy")
+    launched = {k: v for k, v in _launches().items() if v}
+    require(not launched, f"graph: the graph path launched a port kernel: {launched}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -3494,6 +3835,13 @@ def main(argv=None) -> int:
             "tokens, a checkpoint resume")
         summary["train"] = train_phase(card)
         lap("train")
+    if "graph" in phases:
+        log("[graph] the graph layer: AlexNet 3x224x224 (batch 8 against the CPU, 8 Adam steps at "
+            f"batch {GRAPH_TRAIN_BATCH}), the BERT-large proxy ({BERT_CHECK_LAYERS} layers against "
+            f"the CPU, {BERT_LARGE['layers']} layers x {BERT_STEPS} SGD steps at "
+            f"{BERT_BATCH} x {BERT_LARGE['seq']}), a Keras CNN, the fx / IR / ONNX frontends")
+        summary["graph"] = graph_phase(card)
+        lap("graph")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a

@@ -8,7 +8,7 @@ normalized as its incremental decode step was.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,3 +56,18 @@ def layer_norm(
     if bias is not None:
         y = y + bias.float()
     return y.to(dtype)
+
+
+def residual_rms_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
+                      eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual add then RMSNorm; returns (residual_out, normed)."""
+    res = x + residual
+    return res, rms_norm(res, scale, eps)
+
+
+def residual_layer_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
+                        bias: Optional[torch.Tensor],
+                        eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual add then LayerNorm; returns (residual_out, normed)."""
+    res = x + residual
+    return res, layer_norm(res, scale, bias, eps)

@@ -53,7 +53,7 @@ class Trainer:
                 raise ValueError(f"mesh must be a mesh or 'auto', got {mesh!r}")
             raise NotImplementedError(
                 "mesh='auto' (the layout search of parallel/auto.py) is not in the port yet "
-                "(ROADMAP.md Queue A, A11)")
+                "(ROADMAP.md Queue A, A11b)")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (data and tensor parallel training) is not in the port yet "

@@ -1285,3 +1285,50 @@ def test_offload_ring_across_forwards_gives_resident_bits(cuda, moe):
     assert torch.equal(f0, f1)
     assert all(torch.equal(a, b) for a, b in zip(t0, t1))
     assert all(torch.equal(a, b) for a, b in zip(c0, c1))
+
+
+def test_ffmodel_defaults_to_cuda(cuda):
+    """``FFModel()`` with no device builds on the GPU, and its parameters live there."""
+    from flexflow_tpu_torch.ffmodel import FFModel
+
+    ff = FFModel()
+    ff.dense(ff.create_tensor((2, 8)), 4)
+    ff.compile()
+    assert ff.device.type == "cuda"
+    assert all(p.is_cuda for d in ff.params.values() for p in d.values())
+
+
+def test_alexnet_shaped_forward_on_card_matches_cpu(cuda):
+    """An AlexNet-shaped graph (11x11 stride-4 conv, 3/2 max pools, 5x5 and
+    3x3 convs, dense, dropout) at 3 x 64 x 64: the card's forward within 1e-4
+    of the output's magnitude of the CPU's on the card's parameters (f32,
+    TF32 off)."""
+    from flexflow_tpu_torch.ffmodel import FFModel
+
+    def build(device):
+        ff = FFModel(seed=0, device=device)
+        t = ff.create_tensor((4, 3, 64, 64))
+        t = ff.conv2d(t, 16, 11, 11, 4, 4, 2, 2, activation="relu")
+        t = ff.pool2d(t, 3, 3, 2, 2)
+        t = ff.conv2d(t, 32, 5, 5, 1, 1, 2, 2, activation="relu")
+        t = ff.pool2d(t, 3, 3, 2, 2)
+        for c in (48, 32, 32):
+            t = ff.conv2d(t, c, 3, 3, 1, 1, 1, 1, activation="relu")
+        t = ff.flat(t)
+        t = ff.dense(t, 64, activation="relu")
+        t = ff.dropout(t, 0.5)
+        ff.dense(t, 10)
+        ff.compile()
+        return ff
+
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu, cpu = build(cuda), build("cpu")
+        cpu.load_numpy({k: {n: v.detach().cpu().numpy() for n, v in d.items()}
+                        for k, d in gpu.params.items()})
+        x = np.random.RandomState(0).randn(4, 3, 64, 64).astype(np.float32)
+        got, want = gpu.forward(x), cpu.forward(x)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

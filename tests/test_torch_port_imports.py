@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package, nor the
-repository's root ``inference`` package (the JAX side's scripts); its own
-``flexflow_tpu_torch.inference`` is allowed."""
+repository's root ``inference`` and ``examples`` packages (the JAX side's
+scripts); its own ``flexflow_tpu_torch.inference`` and
+``flexflow_tpu_torch.examples`` are allowed."""
 
 import os
 import re
@@ -65,11 +66,36 @@ PORT_MODULES = [
     "flexflow_tpu_torch.utils.native_scheduler",
     "flexflow_tpu_torch.utils.native_safetensors",
     "flexflow_tpu_torch.utils.native_tokenizer",
+    "flexflow_tpu_torch.ops.nn",
+    "flexflow_tpu_torch.ffmodel",
+    "flexflow_tpu_torch.ffmodel.model",
+    "flexflow_tpu_torch.ffmodel.substitutions",
+    "flexflow_tpu_torch.keras",
+    "flexflow_tpu_torch.keras.callbacks",
+    "flexflow_tpu_torch.keras.datasets.cifar10",
+    "flexflow_tpu_torch.keras.datasets.mnist",
+    "flexflow_tpu_torch.keras.initializers",
+    "flexflow_tpu_torch.keras.layers",
+    "flexflow_tpu_torch.keras.losses",
+    "flexflow_tpu_torch.keras.metrics",
+    "flexflow_tpu_torch.keras.models",
+    "flexflow_tpu_torch.keras.optimizers",
+    "flexflow_tpu_torch.keras.preprocessing.sequence",
+    "flexflow_tpu_torch.keras.preprocessing.text",
+    "flexflow_tpu_torch.keras.regularizers",
+    "flexflow_tpu_torch.torch_frontend",
+    "flexflow_tpu_torch.torch_ir",
+    "flexflow_tpu_torch.onnx_frontend",
+    "flexflow_tpu_torch.utils.onnx_proto",
+    *(f"flexflow_tpu_torch.examples.{name}" for name in (
+        "alexnet", "bert_proxy", "candle_uno", "cifar10_cnn", "dlrm", "inception", "mlp_unify",
+        "mnist_mlp", "moe", "multi_head_attention", "resnet", "resnext50", "split_test",
+        "transformer", "xdl")),
 ]
 # "import jax", "from jax.x import", "import flexflow_tpu", "from flexflow_tpu.x
-# import", "from inference.x import" — but not the port's own flexflow_tpu_torch
-# (nor its flexflow_tpu_torch.inference)
-_FORBIDDEN_ROOTS = ("jax", "jaxlib", "flexflow_tpu", "inference")
+# import", "from inference.x import", "from examples import" — but not the port's
+# own flexflow_tpu_torch (nor its flexflow_tpu_torch.inference or .examples)
+_FORBIDDEN_ROOTS = ("jax", "jaxlib", "flexflow_tpu", "inference", "examples")
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:" + "|".join(_FORBIDDEN_ROOTS) + r")(?![\w])", re.MULTILINE)
 
@@ -111,6 +137,12 @@ def test_forbidden_pattern_catches_and_spares():
         "from flexflow_tpu_torch.inference.usecases.rag_incr import build_rag")
     assert not _FORBIDDEN.search("import flexflow_tpu_torch.inference.chat")
     assert not _FORBIDDEN.search("    from inference_tools import x")
+    assert _FORBIDDEN.search("from examples.alexnet import build_alexnet")
+    assert _FORBIDDEN.search("    from examples import bert_proxy")
+    assert _FORBIDDEN.search("import examples.moe")
+    assert not _FORBIDDEN.search("from flexflow_tpu_torch.examples.alexnet import build_alexnet")
+    assert not _FORBIDDEN.search("from flexflow_tpu_torch.examples import bert_proxy")
+    assert not _FORBIDDEN.search("import examples_util")
 
 
 def test_entry_points_refuse_missing_gpu():
