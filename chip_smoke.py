@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only card,build,serve,openai
     python3 chip_smoke.py --only card,build,finetune,train
     python3 chip_smoke.py --only card,build,graph
+    python3 chip_smoke.py --only card,build,search
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -243,7 +244,31 @@ Phases, in order; any failure exits non-zero:
               device time (CUDA events), images/s or tokens/s, peak memory and
               model FLOPs (3x the forward's products) over the device time as a
               share of the f32 peak. No port kernel may launch on this path.
-15. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+15. search  — the rewrite x placement search on one device (``parallel/``), f32,
+              TF32 off. (a) ``examples/mlp_unify.py --full`` (batch 64, 1024 ->
+              8 x 8192 in both towers, SGD) compiled with ``auto_parallel``
+              False and True from one seed, the second taking the first's
+              parameters: each graph's rewrites, the search's wall ms,
+              candidates and plan cost, then 8 steps each through the graph
+              phase's helper (step device and wall ms); the first losses
+              within 1e-5 relative. (b) The same graph's
+              ``joint_optimize(n_devices=2)`` with an ``OpCostCache`` on the
+              card (bf16 matmuls timed at their sharded shapes): the cache's
+              entries beside the analytic model's time for each, the search's
+              wall ms, and where its views and rewrites differ from the
+              analytic plan's. (c) ``Trainer(mesh="auto")`` at the train
+              phase's LLaMA-2-7B width, 2 layers, 4 x 512 tokens, Adam: its
+              measured step (``auto_report``) beside ``simulate_runtime``'s
+              estimate over a cache timed on the card and ``analytic_cost``,
+              ``estimate_memory`` beside the peak memory; then 3 steps of the
+              chosen layout (the loss must fall). (d) The C5 top-k
+              (``ops/topk.py``) on tied f32 and bf16 rows at the served
+              shapes (routing's [8 | 104, 8], the draft's [8 | 24, 32000])
+              against a stable host argsort, bitwise, timed beside the
+              threshold form (``torch.topk``, then the tied tail by a
+              running count) and ``torch.topk``. No port kernel may launch
+              in this phase.
+16. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -280,7 +305,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
-          "mixtral", "offload", "lora", "finetune", "train", "graph", "profile")
+          "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -321,6 +346,15 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 2, 4, 512, 8, 1e-4
 GRAPH_CHECK_BATCH, GRAPH_TRAIN_BATCH, GRAPH_STEPS = 8, 64, 8
 BERT_LARGE = dict(seq=512, heads=16, hidden=1024, layers=24)
 BERT_BATCH, BERT_STEPS, BERT_CHECK_LAYERS = 4, 4, 2
+# the search phase: examples/mlp_unify.py --full (batch 64, 1024 -> 8 x 8192 in
+# both towers, SGD at 1e-3) compiled without and with the joint search; the
+# Trainer's layout search at the train phase's width on 4 x 512 tokens; the C5
+# top-k on tied rows at the served shapes: MoE routing (8 experts, top-2) at a
+# decode step's 8 rows and a verify's 104, the draft tree's root (8 rows) and
+# depths (8 x 3 beams) over a 32000-token vocabulary
+UNIFY_BATCH, UNIFY_IN, UNIFY_HIDDEN, UNIFY_STEPS, UNIFY_LR = 64, 1024, (8192,) * 8, 8, 1e-3
+SEARCH_BATCH, SEARCH_LEN = 4, 512
+TOPK_CASES = ((8, 8, 2), (104, 8, 2), (8, 32000, 3), (24, 32000, 3))  # (rows, width, k)
 
 
 class PhaseError(RuntimeError):
@@ -3419,15 +3453,18 @@ def _within(got, want, rel: float, what: str) -> float:
     return err / scale
 
 
-def _graph_train(ff, x, y, steps: int, items: int, unit: str, what: str, card: str) -> dict:
+def _graph_train(ff, x, y, steps: int, items: int, unit: str, what: str, card: str,
+                 falls: bool = True) -> dict:
     """``steps`` training steps on one fixed batch (each loss read back, so
     each step's wall time closes on the device), then the step's device time
     (CUDA events over steps queued behind a sleep) and its model FLOPs (3x
-    the forward's) as a share of the card's f32 peak."""
+    the forward's) as a share of the card's f32 peak. ``x``: one input or a
+    list; the last loss must be below the first unless ``falls`` is False
+    (a graph that learns too slowly to show it in ``steps``)."""
     import numpy as np
     import torch
 
-    inputs, labels = ff._to_inputs([x]), ff._to_labels(y)
+    inputs, labels = ff._to_inputs(x if isinstance(x, list) else [x]), ff._to_labels(y)
     gen = torch.Generator(device=ff.device).manual_seed(1)  # dropout masks
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3440,7 +3477,7 @@ def _graph_train(ff, x, y, steps: int, items: int, unit: str, what: str, card: s
     dev_ms = time_ms(lambda: ff._step(inputs, labels, gen), reps=3, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     require(all(np.isfinite(losses)), f"{what}: a loss is not finite: {losses}")
-    require(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+    require(not falls or losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
     wall_ms = 1e3 * float(np.mean(wall[1:]))
     flops = 3 * graph_flops(ff)
     out = dict(losses=losses, wall_ms=wall_ms, first_wall_ms=1e3 * wall[0], device_ms=dev_ms,
@@ -3696,6 +3733,220 @@ def graph_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the search on one device (parallel/)
+# ---------------------------------------------------------------------------
+
+
+def _top_k_threshold(x, k: int):
+    """The cheaper exact top-k proposed for wide rows, timed beside the port's
+    stable sort: ``torch.topk`` for the values and the k-th value v; the
+    entries above v put in (value desc, index asc) order by two sorts of k;
+    the rest of the k filled with the lowest-index entries equal to v
+    (the j-th found by a binary search of the row's running count of v)."""
+    import torch
+
+    vals, idx = torch.topk(x, k, dim=-1)
+    v = vals[..., -1:]
+    g = (vals > v).sum(-1, keepdim=True)
+    by_idx, perm = torch.sort(idx, dim=-1)
+    order = torch.sort(torch.gather(vals, -1, perm), dim=-1, descending=True, stable=True).indices
+    above = torch.gather(by_idx, -1, order)
+    counts = torch.cumsum((x == v).to(torch.int32), dim=-1)
+    j = torch.arange(1, k + 1, dtype=torch.int32, device=x.device).expand(idx.shape).contiguous()
+    first_eq = torch.searchsorted(counts, j)
+    slot = torch.arange(k, device=x.device).expand(idx.shape) - g
+    return vals, torch.where(slot < 0, above, torch.gather(first_eq, -1, slot.clamp(min=0)))
+
+
+def _plan_views(plan) -> dict:
+    """A plan's sharded views by node name (replicated and source views left
+    out)."""
+    return {plan.nodes[j].name: v.name for j, v in sorted(plan.views.items())
+            if v.name not in ("rep", "src")}
+
+
+def search_phase(card: str) -> dict:
+    """The joint search and the layout search on the card: (a) mlp_unify
+    --full with and without ``auto_parallel``, (b) its plan over measured
+    matmul costs, (c) the Trainer's layout search at 7B width against the
+    cost model, (d) the C5 top-k on tied rows."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import config as ffconfig
+    from flexflow_tpu_torch.examples.mlp_unify import build as build_unify
+    from flexflow_tpu_torch.ffmodel import FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ffmodel.substitutions import load_rules
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.ops.topk import top_k
+    from flexflow_tpu_torch.parallel import auto as auto_lib
+    from flexflow_tpu_torch.parallel.joint import joint_optimize
+    from flexflow_tpu_torch.specs import ModelSpec
+    from flexflow_tpu_torch.training import AdamOptimizer, Trainer
+
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "search: TF32 must stay off for the f32 comparisons")
+    dev, host = torch.device("cuda"), torch.device("cpu")
+    out: dict = {}
+    _launches(reset=True)
+
+    # (a) mlp_unify --full without and with the joint search
+    def unify(auto: bool):
+        ff = build_unify(FFModel(seed=0, device=dev), UNIFY_BATCH, UNIFY_IN, list(UNIFY_HIDDEN))
+        built = len(ff._nodes)
+        t0 = time.perf_counter()
+        ff.compile(SGDOptimizer(lr=UNIFY_LR), auto_parallel=auto)
+        return ff, time.perf_counter() - t0, built
+
+    off, off_s, built = unify(False)
+    on, on_s, _ = unify(True)
+    plan = on.joint_plan
+    require(off.joint_plan is None and plan is not None and plan.cost < float("inf"),
+            "search: compile(auto_parallel=True) kept no plan")
+    on.load_numpy(_numpy_tree(off.params))
+    rules = load_rules(ffconfig.substitution_json) if ffconfig.substitution_json else None
+    kw = dict(n_devices=max(auto_lib.device_count(dev), 2), batch=UNIFY_BATCH, rules=rules,
+              budget=ffconfig.search_budget * 4, alpha=ffconfig.search_alpha)
+    fresh = build_unify(FFModel(device=dev), UNIFY_BATCH, UNIFY_IN, list(UNIFY_HIDDEN))
+    t0 = time.perf_counter()
+    analytic = joint_optimize(fresh._nodes, fresh._inputs, **kw)
+    search_ms = 1e3 * (time.perf_counter() - t0)
+    require(analytic.applied == plan.applied and analytic.cost == plan.cost,
+            "search: the plan of compile() differs from joint_optimize's on the same graph")
+    log(f"  mlp_unify --full ({built} nodes, batch {UNIFY_BATCH}, {UNIFY_IN} -> "
+        f"{len(UNIFY_HIDDEN)} x {UNIFY_HIDDEN[0]} in both towers): fixpoint rewrites "
+        f"{off.substitution_report} -> {len(off._nodes)} nodes; joint search "
+        f"(n_devices {kw['n_devices']}, budget {kw['budget']}, alpha {kw['alpha']}) rewrites "
+        f"{on.substitution_report} -> {len(on._nodes)} nodes, {len(plan.report)} candidates, "
+        f"plan cost {plan.cost:.6g} s (analytic, H100 MachineModel), views "
+        f"{_plan_views(plan)}; the search alone {search_ms:.1f} ms wall; compile "
+        f"{1e3 * off_s:.0f} ms without, {1e3 * on_s:.0f} ms with")
+    rng = np.random.RandomState(0)
+    xs = [rng.randn(UNIFY_BATCH, UNIFY_IN).astype(np.float32) for _ in range(2)]
+    y = rng.randint(0, UNIFY_HIDDEN[-1], UNIFY_BATCH).astype(np.int32)
+    runs = {}
+    for name, ff in (("off", off), ("on", on)):
+        # the demo's signal all but vanishes through 8 bias-free layers at its
+        # initialization: its loss sits at log(8192) to 6 digits for 8 steps
+        runs[name] = _graph_train(ff, xs, y, UNIFY_STEPS, UNIFY_BATCH, "samples",
+                                  f"mlp_unify --full, auto_parallel={name == 'on'}", card,
+                                  falls=False)
+    lo, ln = runs["off"]["losses"][0], runs["on"]["losses"][0]
+    require(abs(ln - lo) <= 1e-5 * abs(lo), f"search: first losses {ln} with the search vs {lo}")
+    out["unify"] = dict(nodes_built=built, nodes_off=len(off._nodes), nodes_on=len(on._nodes),
+                        report_off=off.substitution_report, report_on=on.substitution_report,
+                        candidates=len(plan.report), plan_cost_s=plan.cost,
+                        views=_plan_views(plan), search_ms=search_ms, compile_ms_off=1e3 * off_s,
+                        compile_ms_on=1e3 * on_s, first_loss_off=lo, first_loss_on=ln,
+                        off=runs["off"], on=runs["on"])
+    log(f"  mlp_unify step with / without the search: device {runs['on']['device_ms']:.3f} / "
+        f"{runs['off']['device_ms']:.3f} ms, wall {runs['on']['wall_ms']:.3f} / "
+        f"{runs['off']['wall_ms']:.3f} ms; first losses {ln:.9f} / {lo:.9f} [{card}]")
+    del off, on, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same graph's plan over matmuls timed on the card
+    cache = auto_lib.OpCostCache(dev)
+    t0 = time.perf_counter()
+    measured = joint_optimize(fresh._nodes, fresh._inputs, cache=cache, **kw)
+    measured_ms = 1e3 * (time.perf_counter() - t0)
+    m = auto_lib.MachineModel()
+    entries = []
+    for key, sec in sorted(cache.items(), key=lambda kv: repr(kv[0])):
+        _, rows, k, n = key
+        model_s = 2.0 * rows * k * n / m.chip_flops + (k * n * 2) / m.hbm_bw
+        entries.append(dict(key=list(key), measured_ms=1e3 * sec, analytic_ms=1e3 * model_s))
+        log(f"    cache {key}: {1e3 * sec:.4f} ms measured, {1e3 * model_s:.4f} ms analytic "
+            f"({sec / model_s:.1f}x)")
+    va, vm = _plan_views(analytic), _plan_views(measured)
+    differ = {name: (va.get(name, "rep"), vm.get(name, "rep"))
+              for name in sorted(set(va) | set(vm)) if va.get(name) != vm.get(name)}
+    out["measured"] = dict(entries=entries, search_ms=measured_ms, cost_s=measured.cost,
+                           applied=measured.applied, analytic_applied=analytic.applied,
+                           candidates=len(measured.report), views_differ=differ)
+    log(f"  measured search: {len(cache)} cache entries, {len(measured.report)} candidates, "
+        f"{measured_ms:.1f} ms wall (the timing included), plan cost {measured.cost:.6g} s "
+        f"against the analytic plan's {analytic.cost:.6g} s; rewrites {measured.applied} vs "
+        f"{analytic.applied}; views that differ (analytic, measured): {differ or 'none'} "
+        f"[{card}]")
+    del fresh, cache
+
+    # (c) the Trainer's layout search at 7B width against the cost model
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": TRAIN_LAYERS})
+    params = params_lib.init_params(spec, 0, torch.float32, host)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(spec, params, AdamOptimizer(lr=TRAIN_LR), mesh="auto",
+                 auto_batch_size=SEARCH_BATCH, auto_seq_len=SEARCH_LEN, device=dev)
+    auto_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del params
+    rep = tr.auto_report
+    require(len(rep) == 1 and rep[0]["layout"] == "dp=1 pp=1 tp=1 mb=1"
+            and rep[0]["measured_s"] < float("inf"), f"search: the Trainer's report {rep}")
+    layout = auto_lib.Layout(1, 1, 1)
+    op_cache = auto_lib.OpCostCache(dev)
+    sim_s = auto_lib.simulate_runtime(spec, layout, SEARCH_BATCH, SEARCH_LEN, op_cache)
+    ana_s = auto_lib.analytic_cost(layout, spec, SEARCH_BATCH, SEARCH_LEN)
+    mem_gb = auto_lib.estimate_memory(layout, spec, SEARCH_BATCH, SEARCH_LEN) / 1e9
+    step_s = rep[0]["measured_s"]
+    batch = rng.randint(3, spec.vocab_size, (SEARCH_BATCH, SEARCH_LEN + 1)).astype(np.int32)
+    losses = [tr.train_step(batch[:, :-1], batch[:, 1:]) for _ in range(3)]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"search: the chosen layout's losses {losses}")
+    out["trainer"] = dict(report=rep, search_s=auto_s, step_ms=1e3 * step_s,
+                          simulated_ms=1e3 * sim_s, analytic_ms=1e3 * ana_s,
+                          est_mem_gb=mem_gb, peak_mem_gb=peak_gb, losses=losses,
+                          cache={str(k): 1e3 * v for k, v in op_cache.items()})
+    log(f"  Trainer(mesh='auto') at LLaMA-2-7B width, {TRAIN_LAYERS} layers, f32, Adam, "
+        f"{SEARCH_BATCH} x {SEARCH_LEN} tokens: {rep[0]['layout']} measured {1e3 * step_s:.2f} ms a "
+        f"step (the search {auto_s:.1f} s with its Trainer's build); simulate_runtime "
+        f"{1e3 * sim_s:.2f} ms (bf16 ops timed on the card, {len(op_cache)} entries; "
+        f"{step_s / sim_s:.2f}x), analytic_cost {1e3 * ana_s:.2f} ms ({step_s / ana_s:.2f}x); "
+        f"estimate_memory {mem_gb:.2f} GB against a peak of {peak_gb:.2f} GB while searching; "
+        f"the chosen layout's losses {[round(v, 4) for v in losses]} [{card}]")
+    del tr, op_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the C5 top-k on the card against a stable host argsort
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, width, k in TOPK_CASES:
+            x = np.round(rng.randn(rows, width) * 2) / 2  # halves: exact in bf16
+            x[-1] = 0.5
+            xt = torch.tensor(x, dtype=torch.float32, device=dev).to(dtype)
+            want = np.argsort(-x, axis=-1, kind="stable")[:, :k]
+            for form, fn in (("top_k", top_k), ("threshold", _top_k_threshold)):
+                vals, idx = fn(xt, k)
+                require(np.array_equal(idx.cpu().numpy(), want)
+                        and np.array_equal(vals.float().cpu().numpy(),
+                                           np.take_along_axis(x, want, -1)),
+                        f"search: {form} on the card, {dtype} [{rows}, {width}]")
+            rows_apart = int((torch.topk(xt, k).indices.cpu().numpy() != want).any(-1).sum())
+            ms = time_ms(lambda: top_k(xt, k), reps=50)
+            threshold_ms = time_ms(lambda: _top_k_threshold(xt, k), reps=50)
+            plain_ms = time_ms(lambda: torch.topk(xt, k), reps=50)
+            checks.append(dict(dtype=str(dtype).replace("torch.", ""), rows=rows, width=width,
+                               k=k, ms=ms, threshold_ms=threshold_ms, topk_ms=plain_ms,
+                               topk_rows_apart=rows_apart))
+            log(f"  C5 top_k {str(dtype).replace('torch.', '')} [{rows}, {width}] k={k}: "
+                f"indices equal a stable host argsort on every row (the threshold form's "
+                f"too); stable sort {ms:.4f} ms, threshold form {threshold_ms:.4f} ms, "
+                f"torch.topk {plain_ms:.4f} ms, whose indices differ on {rows_apart} of "
+                f"{rows} rows [{card}]")
+    out["topk"] = checks
+    launched = {k: v for k, v in _launches().items() if v}
+    require(not launched, f"search: the search path launched a port kernel: {launched}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -3842,6 +4093,13 @@ def main(argv=None) -> int:
             f"{BERT_BATCH} x {BERT_LARGE['seq']}), a Keras CNN, the fx / IR / ONNX frontends")
         summary["graph"] = graph_phase(card)
         lap("graph")
+    if "search" in phases:
+        log("[search] the rewrite x placement search on one device: mlp_unify --full with and "
+            "without auto_parallel, its plan over matmuls timed on the card, "
+            f"Trainer(mesh='auto') at LLaMA-2-7B width ({TRAIN_LAYERS} layers, {SEARCH_BATCH} x "
+            f"{SEARCH_LEN}) against the cost model, the C5 top-k on tied rows")
+        summary["search"] = search_phase(card)
+        lap("search")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a

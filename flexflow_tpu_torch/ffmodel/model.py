@@ -13,8 +13,11 @@ port's optimizers, which update the parameters in place. Batch-norm
 statistics are updated in place, outside autograd. ``set_learning_rate``
 changes the optimizer's rate without rebuilding anything.
 
-A device mesh (ROADMAP A8) and ``compile(auto_parallel=True)``, JAX's
-rewrite x placement search (A11b), are not in the port and raise.
+``compile(auto_parallel=True)`` runs JAX's joint rewrite x placement
+search (``parallel/joint.py``) and keeps its graph, planned as JAX plans it
+for at least two devices; on one device nothing is sharded, as in JAX. A
+device mesh (ROADMAP A8), and the search on one (A11c), are not in the port
+and raise.
 ``load_numpy`` takes the JAX model's ``params`` / ``state`` as numpy trees,
 so both packages can compute the same thing.
 """
@@ -33,6 +36,7 @@ from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.ops import activations as act_lib
 from flexflow_tpu_torch.ops import nn as nn_ops
 from flexflow_tpu_torch.ops import norms as norm_ops
+from flexflow_tpu_torch.ops.topk import top_k
 from flexflow_tpu_torch.training import losses as loss_lib
 from flexflow_tpu_torch.training import metrics as metrics_lib
 from flexflow_tpu_torch.training.metrics import PerfMetrics
@@ -139,8 +143,9 @@ def _slice(x, slices):
 
 
 def _take(x, index, axis):
-    """``jnp.take(x, index, axis)``: index of any shape."""
-    flat = x.index_select(axis, index.reshape(-1).long())
+    """``jnp.take(x, index, axis)``: index of any shape; a negative index
+    counts from the end, as in numpy (one below ``-size`` still raises)."""
+    flat = x.index_select(axis, nn_ops.wrap_index(index.reshape(-1), x.shape[axis]))
     return flat.reshape(x.shape[:axis] + index.shape + x.shape[axis + 1:])
 
 
@@ -781,10 +786,10 @@ class FFModel:
             out = (probs @ vh).transpose(1, 2).reshape(b, tq, e)
             return [out @ p["wo"]], s
         if op == "top_k":
-            vals, idx = torch.topk(xs[0], a["k"], dim=-1)
+            vals, idx = top_k(xs[0], a["k"])
             return [vals, idx.to(torch.int32)], s
         if op == "arg_top_k":
-            _, idx = torch.topk(xs[0], a["k"], dim=-1)
+            _, idx = top_k(xs[0], a["k"])
             return [idx.to(torch.int32)], s
         if op == "argmax":
             return [torch.argmax(xs[0], dim=-1).to(torch.int32)], s
@@ -793,7 +798,7 @@ class FFModel:
             # (exact dense routing, no capacity drop)
             logits = xs[0] @ p["gate"]
             probs = torch.softmax(logits, dim=-1)
-            topw, topi = torch.topk(probs, a["top_k"], dim=-1)
+            topw, topi = top_k(probs, a["top_k"])
             topw = topw / torch.sum(topw, dim=-1, keepdim=True)
             combine = torch.sum(
                 F.one_hot(topi, a["num_experts"]).to(topw.dtype) * topw[..., None], dim=-2
@@ -836,21 +841,49 @@ class FFModel:
         auto_parallel: bool = False,
     ) -> None:
         """Rewrite the graph (under ``config.fusion``), initialize the
-        parameters on the model's device, and set up the optimizer."""
+        parameters on the model's device, and set up the optimizer.
+
+        ``auto_parallel=True`` rewrites through the joint rewrite x
+        placement search instead of the plain fixpoint, as JAX's compile
+        does: ``joint_optimize`` with analytic costs for
+        ``max(devices, 2)`` devices, the batch from the inputs' leading
+        dimensions, ``config.search_budget * 4`` expansions and
+        ``config.search_alpha``. Its graph replaces the model's, the plan is
+        ``self.joint_plan`` and its rewrites join ``substitution_report``.
+        One device runs the graph unsharded; more raise (A8, A11c)."""
         from flexflow_tpu_torch.config import config as _ffconfig
         from flexflow_tpu_torch.ffmodel.substitutions import load_rules, optimize_graph
+        from flexflow_tpu_torch.parallel import auto as auto_lib
 
         if auto_parallel:
-            raise NotImplementedError(
-                "compile(auto_parallel=True), the rewrite x placement search over a device "
-                "mesh, is not in the port yet (ROADMAP.md Queue A, A11b)")
+            n_devices = auto_lib.device_count(self.device)
+            auto_lib.refuse_mesh(n_devices, "compile(auto_parallel=True)")
         self.substitution_report = {}
+        self.joint_plan = None
+        self.auto_report = None
         if getattr(_ffconfig, "fusion", True):
             rules = None
             if getattr(_ffconfig, "substitution_json", None):
                 rules = load_rules(_ffconfig.substitution_json)
-            self._nodes, self._inputs, self.substitution_report = (
-                optimize_graph(self._nodes, self._inputs, rules))
+            if auto_parallel:
+                from flexflow_tpu_torch.parallel.joint import joint_optimize
+
+                batch = 1
+                for i in self._inputs:
+                    shp = self._nodes[i].out_shapes[0]
+                    if shp:
+                        batch = max(batch, int(shp[0]))
+                plan = joint_optimize(
+                    self._nodes, self._inputs, n_devices=max(n_devices, 2), batch=batch,
+                    rules=rules, budget=getattr(_ffconfig, "search_budget", 8) * 4,
+                    alpha=getattr(_ffconfig, "search_alpha", 1.2))
+                self._nodes, self._inputs = plan.nodes, plan.input_ids
+                self.joint_plan = plan
+                for r, _j in plan.applied:
+                    self.substitution_report[r] = self.substitution_report.get(r, 0) + 1
+            else:
+                self._nodes, self._inputs, self.substitution_report = (
+                    optimize_graph(self._nodes, self._inputs, rules))
 
         gen = torch.Generator().manual_seed(self._seed)
         params, state = {}, {}

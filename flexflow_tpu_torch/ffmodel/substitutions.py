@@ -15,8 +15,8 @@ Rules (each a ``(name, matcher)`` applied to fixpoint):
 
 ``optimize_graph`` runs inside ``FFModel.compile`` under ``config.fusion``
 (the reference's --fusion flag); ``match_sites`` lists single rewrites, the
-unit of JAX's joint rewrite x placement search, which waits for the
-multi-device port (ROADMAP A11b).
+unit of the joint rewrite x placement search (``parallel/joint.py``,
+``compile(auto_parallel=True)``).
 """
 
 from __future__ import annotations

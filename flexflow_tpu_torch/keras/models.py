@@ -58,8 +58,8 @@ class Model:
 
     def compile(self, optimizer=None, loss="sparse_categorical_crossentropy",
                 metrics=("accuracy",), auto_parallel=False):
-        """``auto_parallel=True`` is refused (ROADMAP A11b), as
-        ``FFModel.compile`` refuses it."""
+        """``auto_parallel=True`` runs ``FFModel.compile``'s joint rewrite x
+        placement search (on one device; more raise, ROADMAP A8 / A11c)."""
         self.ff.compile(optimizer=optimizer, loss_type=_LOSS_MAP[loss],
                         metrics=metrics, auto_parallel=auto_parallel)
 

@@ -32,6 +32,7 @@ from typing import Union
 import torch
 
 from flexflow_tpu_torch.ops import activations as act_lib
+from flexflow_tpu_torch.ops import topk as topk_lib
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 
@@ -56,9 +57,9 @@ def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
 
 def route_topk(router_logits: torch.Tensor, top_k: int):
     """Softmax -> top-k -> renormalize. Returns (weights [N, K] f32,
-    expert ids [N, K], highest weight first)."""
+    expert ids [N, K], highest weight first, the lower id first on a tie)."""
     probs = torch.softmax(router_logits.float(), dim=-1)
-    topw, topi = torch.topk(probs, top_k, dim=-1, sorted=True)
+    topw, topi = topk_lib.top_k(probs, top_k)
     return topw / topw.sum(dim=-1, keepdim=True), topi
 
 

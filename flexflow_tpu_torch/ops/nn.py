@@ -172,6 +172,14 @@ def reverse(x: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.flip(x, dims=(axis,))
 
 
+def wrap_index(index: torch.Tensor, size: int) -> torch.Tensor:
+    """int64 indices into a dimension of ``size``, a negative one counted from
+    the end as numpy does (JAX's ``take`` and ``take_along_axis`` too)."""
+    index = index.long()
+    return torch.where(index < 0, index + size, index)
+
+
 def gather(x: torch.Tensor, index: torch.Tensor, axis: int) -> torch.Tensor:
-    """``take_along_axis``: int32 indices are widened for ``torch.gather``."""
-    return torch.gather(x, axis, index.long())
+    """``take_along_axis``: int32 indices are widened for ``torch.gather``, a
+    negative index counts from the end."""
+    return torch.gather(x, axis, wrap_index(index, x.shape[axis]))

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from flexflow_tpu_torch.ops.topk import top_k
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -112,8 +114,9 @@ def sample(
 
 
 def arg_top_k(logits: torch.Tensor, k: int, *, return_probs: bool = False):
-    """Top-k token ids (and optionally softmax probs) per row."""
-    idx = torch.topk(logits, k, dim=-1).indices
+    """Top-k token ids (and optionally softmax probs) per row, the lower id
+    first among equal logits."""
+    idx = top_k(logits, k)[1]
     if not return_probs:
         return idx
     probs = torch.softmax(logits.float(), dim=-1)

@@ -29,6 +29,7 @@ import torch
 
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
+from flexflow_tpu_torch.parallel import auto as auto_lib
 from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lora_params,
                                          load_hf_adapter_config, load_hf_adapter_into_slot,
                                          unroute_lora)
@@ -136,7 +137,8 @@ class LLM:
     def compile(self, *, max_requests_per_batch: int = 8, max_seq_length: int = 256,
                 max_tokens_per_batch: Optional[int] = None, beam_width: int = 3,
                 beam_depth: int = 4, ssms: Sequence["SSM"] = (),
-                merge_ssm_trees: bool = False, offload: Optional[bool] = None) -> None:
+                merge_ssm_trees: bool = False, offload: Optional[bool] = None,
+                auto_parallel: Optional[bool] = None) -> None:
         """Load the weights and build the engine and the scheduler: the
         incremental ``RequestManager``; with one registered draft model
         (``ssms``) the speculative ``SpecRequestManager`` (fused, and
@@ -149,11 +151,22 @@ class LLM:
         the layer stack in pinned host memory and streams it in layer by
         layer (``models/layer_store.py``), for the incremental engine, LoRA
         adapters included. With draft models it raises: the JAX package
-        drops the flag there without a word."""
+        drops the flag there without a word.
+
+        ``auto_parallel`` (default ``config.auto_parallel``,
+        ``-auto-parallelism``) is JAX's serving layout search, which runs
+        only over more than one device (and not with drafts, adapters or
+        quantization): on one device it does nothing, as in JAX; over more
+        it raises (ROADMAP A8, A11c)."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
             offload = _ffconfig.cpu_offload
+        if auto_parallel is None:
+            auto_parallel = getattr(_ffconfig, "auto_parallel", False)
+        if auto_parallel and not self._ssms and not self._peft and self.quant_bits is None:
+            auto_lib.refuse_mesh(auto_lib.device_count(self.device),
+                                 "LLM.compile(auto_parallel=True)")
         if self._ssms and offload:
             raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "
                                       "speculative decoding with offload is not supported")

@@ -54,6 +54,7 @@ from flexflow_tpu_torch.models import decoder
 from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
+from flexflow_tpu_torch.ops.topk import top_k
 from flexflow_tpu_torch.serving.engine import _params_to, _round_up_pow2
 from flexflow_tpu_torch.serving.graphs import StepGraphs, capturable
 from flexflow_tpu_torch.serving.spec_sampling import tree_sample_walk
@@ -77,7 +78,7 @@ def make_depths_vec(width: int, depth: int, device=None) -> torch.Tensor:
 
 def _log_softmax_topk(logits: torch.Tensor, k: int):
     logp = torch.log_softmax(logits.float(), dim=-1)
-    vals, idx = torch.topk(logp, k, dim=-1)
+    vals, idx = top_k(logp, k)
     return vals, idx.to(torch.int32)
 
 
@@ -133,7 +134,7 @@ def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int):
             anc_self = anc | (slots[None, None, :] == self_slots[None, :, None])
             cand_logp, cand_tok = _log_softmax_topk(logits, w)  # [B, W, W]
             total = beam_logp[:, :, None] + cand_logp
-            beam_logp, flat_idx = torch.topk(total.reshape(b, w * w), w, dim=-1)
+            beam_logp, flat_idx = top_k(total.reshape(b, w * w), w)
             parents = flat_idx // w
             beam_tokens = torch.gather(cand_tok.reshape(b, w * w), 1, flat_idx)
             anc = torch.gather(anc_self, 1, parents[:, :, None].expand(b, w, tree))
@@ -414,7 +415,7 @@ class SpecEngine:
                                   == self_slots[None, :, None])
                 cand_logp, cand_tok = _log_softmax_topk(logits, w)
                 total = beam_logp[:, :, None] + cand_logp
-                beam_logp, flat_idx = torch.topk(total.reshape(b, w * w), w, dim=-1)
+                beam_logp, flat_idx = top_k(total.reshape(b, w * w), w)
                 parents = flat_idx // w
                 beam_tokens = torch.gather(cand_tok.reshape(b, w * w), 1, flat_idx)
                 anc = torch.gather(anc_self, 1, parents[:, :, None].expand(b, w, t))

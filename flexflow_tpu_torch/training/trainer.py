@@ -9,9 +9,12 @@ JAX package's unfused tree, copied once into leaf tensors that require
 grad on the Trainer's device.
 
 Quantized parameters are refused (``TypeError``): JAX cannot take a
-gradient of integer leaves either. A mesh, ``mesh="auto"`` and pipeline
-stages are not in the port yet and raise ``NotImplementedError`` naming
-their ROADMAP items.
+gradient of integer leaves either. ``mesh="auto"`` runs the layout search
+(``parallel/auto.optimize_train_layout``: on one device it measures the
+only layout, dp = pp = tp = 1, and trains under it; its report is
+``auto_report``). A mesh and pipeline stages are not in the port yet and
+raise ``NotImplementedError`` naming their ROADMAP items (A8, A9; the
+search over more than one device, A11c).
 """
 
 from __future__ import annotations
@@ -47,13 +50,20 @@ class Trainer:
 
     def __init__(self, spec: ModelSpec, params: Any, optimizer, *, mesh=None,
                  pipeline_stages: int = 1, loss: str = "sparse_categorical_crossentropy",
-                 device=None):
+                 auto_batch_size: int = 8, auto_seq_len: int = 128, device=None):
+        """``mesh="auto"`` measures the legal layouts' train steps at
+        (``auto_batch_size``, ``auto_seq_len``) and trains under the
+        fastest; on one device that is no mesh."""
+        self.auto_report = None
         if isinstance(mesh, str):
             if mesh != "auto":
                 raise ValueError(f"mesh must be a mesh or 'auto', got {mesh!r}")
-            raise NotImplementedError(
-                "mesh='auto' (the layout search of parallel/auto.py) is not in the port yet "
-                "(ROADMAP.md Queue A, A11b)")
+            from flexflow_tpu_torch.parallel import auto as auto_lib
+
+            layout, self.auto_report = auto_lib.optimize_train_layout(
+                spec, params, optimizer, batch_size=auto_batch_size, seq_len=auto_seq_len,
+                loss=loss, device=device)
+            mesh = auto_lib.layout_mesh(layout)
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (data and tensor parallel training) is not in the port yet "

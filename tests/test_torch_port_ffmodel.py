@@ -11,7 +11,10 @@ calls; the port takes the JAX model's parameters through ``load_numpy``.
 - ``fit`` for 2 epochs on a dropout-free model (batch norm, SGD with
   momentum and Adam): per-epoch losses within 1e-4 of JAX's, the same
   shuffle; a regularizer and ``set_learning_rate`` likewise (SGD).
-- ``export_dot`` string-equal; the A8 / A11b refusals.
+- ``export_dot`` string-equal; the A8 / A11c refusals.
+- Negative ``take`` / ``gather`` indices wrap as JAX's (C4), at int32 and
+  int64; tied ``top_k`` / ``arg_top_k`` inputs and a tied MoE gate pick
+  JAX's indices, the lower index first (C5).
 """
 
 import jax
@@ -108,6 +111,33 @@ def _one(fn, shapes, ints=()):
     return build, inputs
 
 
+def _fixed_ints(fn, shapes, ints):
+    """``fn(ff, *tensors)`` over float inputs of ``shapes`` and the given
+    int32 index arrays ``ints``."""
+    def build(ff):
+        ts = [ff.create_tensor(s) for s in shapes]
+        ts += [ff.create_tensor(a.shape, np.int32) for a in ints]
+        fn(ff, *ts)
+    return build, lambda: [_r(i, *s) for i, s in enumerate(shapes)] + list(ints)
+
+
+# C4: indices in [-6, 6) into an axis of 6, with -1 (take) and -6 (gather)
+TAKE_NEG = np.array([[0, -1, 5, -6, 2], [3, -2, 1, 4, -1]], np.int32)
+GATHER_NEG = np.random.RandomState(12).randint(-6, 6, (3, 2, 4)).astype(np.int32)
+GATHER_NEG[0, 0, 0] = -6
+
+
+def _tied(ff, x):
+    """relu(x - 1) of a normal draw (C5): most entries tie at 0."""
+    return ff.relu(ff.scalar_sub(x, 1.0))
+
+
+def _top_k_ties(ff, x):
+    """The values and the indices (as floats) of a tied top-16."""
+    vals, idx = ff.top_k(_tied(ff, x), 16)
+    return ff.concat([vals, ff.cast(idx, np.float32)], -1)
+
+
 OPS = {f"unary-{op}": _unary(op) for op in (
     "exp", "sin", "cos", "relu", "sigmoid", "tanh", "elu", "gelu", "identity", "silu",
     "hardswish", "hardsigmoid", "softplus", "mish")}
@@ -177,6 +207,9 @@ OPS.update({
     "reverse": _one(lambda ff, x: ff.reverse(x, 1), [(2, 5, 3)]),
     "gather": _one(lambda ff, x, i: ff.gather(x, i, 1), [(3, 6, 4)], ints=[((3, 2, 4), 6)]),
     "take": _one(lambda ff, x, i: ff.take(x, i, 1), [(3, 6, 4)], ints=[((2, 5), 6)]),
+    "gather-negative": _fixed_ints(lambda ff, x, i: ff.gather(x, i, 1), [(3, 6, 4)],
+                                   [GATHER_NEG]),
+    "take-negative": _fixed_ints(lambda ff, x, i: ff.take(x, i, 1), [(3, 6, 4)], [TAKE_NEG]),
     "mean": _one(lambda ff, x: ff.mean(x, (1, 2)), [(2, 3, 4)]),
     "mean-keepdims": _one(lambda ff, x: ff.mean(x, (1,), keepdims=True), [(2, 3, 4)]),
     "reduce_sum": _one(lambda ff, x: ff.reduce_sum(x, (0, 2)), [(2, 3, 4)]),
@@ -187,6 +220,8 @@ OPS.update({
                              [(2, 5, 12), (2, 5, 6)]),
     "top_k": _one(lambda ff, x: ff.top_k(x, 3), [(4, 9)]),
     "arg_top_k": _one(lambda ff, x: ff.arg_top_k(x, 3), [(4, 9)]),
+    "top_k-ties": _one(_top_k_ties, [(4, 64)]),
+    "arg_top_k-ties": _one(lambda ff, x: ff.arg_top_k(_tied(ff, x), 16), [(4, 64)]),
     "argmax": _one(lambda ff, x: ff.argmax(x), [(4, 3, 9)]),
     "moe": _one(lambda ff, x: ff.moe(x, num_experts=4, top_k=2, expert_hidden=8, out_dim=5),
                 [(6, 10)]),
@@ -237,6 +272,39 @@ def test_op_matches_jax(name):
         _close(np.zeros(p.shape) if g is None else g.numpy(), jgp[k][leaf], f"d {k}/{leaf}")
     for (i, _), g in zip(fins, grads[len(leaves):]):
         _close(np.zeros(xs[i].shape) if g is None else g.numpy(), jgx[i], f"d input {i}")
+
+
+def test_moe_tied_gate_routes_as_jax():
+    """C5: a zero gate ties every expert; JAX's top-k takes experts 0 and 1."""
+    def build(ff):
+        ff.moe(ff.create_tensor((6, 10)), num_experts=8, top_k=2, expert_hidden=8, out_dim=5)
+
+    j, t = pair(build)
+    name = j._nodes[-1].name
+    j.params = {**j.params, name: {**j.params[name],
+                                   "gate": jnp.zeros_like(j.params[name]["gate"])}}
+    t.load_numpy(_np_tree(j.params))
+    x = _r(0, 6, 10)
+    _close(t.forward([x]), j.forward([x]), "forward")
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_negative_indices_wrap_as_jax(dtype):
+    """C4 at both index widths; an index below -size still raises."""
+    from flexflow_tpu_torch.ffmodel.model import _take
+    from flexflow_tpu_torch.ops import nn as t_nn
+
+    x = _r(3, 3, 6, 4)
+    np.testing.assert_array_equal(
+        _take(torch.tensor(x), torch.tensor(TAKE_NEG, dtype=dtype), 1).numpy(),
+        np.asarray(jnp.take(jnp.asarray(x), jnp.asarray(TAKE_NEG), axis=1)))
+    np.testing.assert_array_equal(
+        t_nn.gather(torch.tensor(x), torch.tensor(GATHER_NEG, dtype=dtype), 1).numpy(),
+        np.asarray(jnp.take_along_axis(jnp.asarray(x), jnp.asarray(GATHER_NEG), axis=1)))
+    with pytest.raises((IndexError, RuntimeError)):
+        _take(torch.tensor(x), torch.tensor([-7], dtype=dtype), 1)
+    with pytest.raises((IndexError, RuntimeError)):
+        t_nn.gather(torch.tensor(x), torch.full((3, 1, 4), 6, dtype=dtype), 1)
 
 
 # --- mirrors of tests/test_ffmodel.py ----------------------------------------
@@ -470,12 +538,17 @@ def test_regularizer_and_set_learning_rate_match_jax():
     _close(t.params["hidden"]["w"].detach().numpy(), j.params["hidden"]["w"], "w", 1e-4)
 
 
-def test_refusals():
+def test_refusals(monkeypatch):
+    """A mesh names A8; the search runs on one device (``test_torch_port_search``)
+    and names A11c over more than one."""
+    from flexflow_tpu_torch.parallel import auto as auto_lib
+
     with pytest.raises(NotImplementedError, match="A8"):
         FFModel(mesh=object(), device="cpu")
     ff = FFModel(device="cpu")
     ff.dense(ff.create_tensor((2, 4)), 3)
-    with pytest.raises(NotImplementedError, match="A11b"):
+    monkeypatch.setattr(auto_lib, "device_count", lambda device=None: 2)
+    with pytest.raises(NotImplementedError, match="A11c"):
         ff.compile(auto_parallel=True)
     with pytest.raises(RuntimeError, match="compile"):
         ff.forward(np.zeros((2, 4), np.float32))

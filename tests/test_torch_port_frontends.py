@@ -628,12 +628,32 @@ def _unsqueeze_constant_clip(m, rng):
     return model, lambda x: np.clip(x, 0.0, 0.5)
 
 
+def _gather_negative(m, rng):
+    """C4: an embedding ``Gather`` over a [10, 4] initializer with negative
+    ids (ONNX allows [-s, s-1]), added to the input."""
+    table = rng.randn(10, 4).astype(np.float32)
+    ids = np.array([[0, -1, 9], [1, -10, 5]], np.int64)
+    nodes = [
+        m.NodeProto(op_type="Constant", input=[], output=["ids"], attribute=[
+            m.AttributeProto(name="value", t=m.array_to_tensor(ids, name="ids_v"),
+                             type=m.AttributeProto.TENSOR)]),
+        m.NodeProto(op_type="Gather", input=["table", "ids"], output=["g"],
+                    attribute=[_i(m, "axis", 0)]),
+        m.NodeProto(op_type="Add", input=["x", "g"], output=["y"]),
+    ]
+    model = _mk_model(m, nodes, [m.tensor_value_info("x", m.TensorProto.FLOAT, ("N", 3, 4))],
+                      [m.tensor_value_info("y", m.TensorProto.FLOAT, ("N", 3, 4))],
+                      {"table": table})
+    return model, lambda x: x + table[ids]
+
+
 # name: (model maker, input shape, batch, seed: tests/test_onnx_frontend.py's, the
 # input drawn after the weights from the same stream)
 ONNX_MODELS = {"mlp": (_mlp, (16,), 4, 1), "cnn": (_cnn, (3, 8, 8), 2, 2),
                "round4_gap_ops": (_gap_ops, (16,), 4, 3),
                "pad_gap_cast": (_pad_gap_cast, (3, 6, 6), 2, 4),
-               "multiaxis_unsqueeze_constant_clip": (_unsqueeze_constant_clip, (6,), 3, 5)}
+               "multiaxis_unsqueeze_constant_clip": (_unsqueeze_constant_clip, (6,), 3, 5),
+               "gather_negative_ids": (_gather_negative, (3, 4), 2, 6)}
 
 
 @pytest.mark.parametrize("name", sorted(ONNX_MODELS))
@@ -657,6 +677,9 @@ def test_onnx_model_matches_numpy_and_jax(tmp_path, name):
     tol = 1e-4 if name == "cnn" else 1e-5
     np.testing.assert_allclose(got, want_fn(x), rtol=tol, atol=tol)
     _close(got, jf.forward(x))
+    if name == "gather_negative_ids":  # a gather and an add: exact in both
+        np.testing.assert_array_equal(got, want_fn(x))
+        np.testing.assert_array_equal(got, jf.forward(x))
 
 
 @pytest.mark.parametrize("name", sorted(ONNX_MODELS))

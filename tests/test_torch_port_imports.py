@@ -67,6 +67,12 @@ PORT_MODULES = [
     "flexflow_tpu_torch.utils.native_safetensors",
     "flexflow_tpu_torch.utils.native_tokenizer",
     "flexflow_tpu_torch.ops.nn",
+    "flexflow_tpu_torch.ops.topk",
+    "flexflow_tpu_torch.parallel",
+    "flexflow_tpu_torch.parallel.auto",
+    "flexflow_tpu_torch.parallel.joint",
+    "flexflow_tpu_torch.parallel.pipeline",
+    "flexflow_tpu_torch.parallel.topology",
     "flexflow_tpu_torch.ffmodel",
     "flexflow_tpu_torch.ffmodel.model",
     "flexflow_tpu_torch.ffmodel.substitutions",

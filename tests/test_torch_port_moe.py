@@ -76,6 +76,18 @@ def test_route_topk_matches_jax():
     _close(tw_, jw_, atol=1e-7)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_route_topk_ties_match_jax(k):
+    """C5: rounded logits tie within most rows (equal logits give equal
+    probabilities); the lower expert id comes first, as in JAX."""
+    logits = np.round(np.random.default_rng(4).standard_normal((64, 8)) * 0.7)
+    assert (np.sort(logits, -1)[:, 1:] == np.sort(logits, -1)[:, :-1]).any(-1).all()
+    jw_, ji = jmoe.route_topk(jnp.asarray(logits, jnp.float32), k)
+    tw_, ti = tmoe.route_topk(torch.tensor(logits, dtype=torch.float32), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    _close(tw_, jw_, atol=1e-7)
+
+
 @pytest.mark.parametrize("bits", [None, 8], ids=["fp32", "int8"])
 @pytest.mark.parametrize("form", ["dense", "ragged"])
 def test_moe_ffn_matches_jax(form, bits):

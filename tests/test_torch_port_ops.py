@@ -142,6 +142,32 @@ def test_arg_top_k_matches():
     _close(tp, jp)
 
 
+def test_arg_top_k_ties_match():
+    """C5: halves tie often; JAX's ids, the lower id first."""
+    x = np.round(_rng(8).standard_normal((4, 40)) * 2) / 2
+    ji, jp = j_samp.arg_top_k(jnp.asarray(x, jnp.float32), 6, return_probs=True)
+    ti, tp = t_samp.arg_top_k(torch.tensor(x, dtype=torch.float32), 6, return_probs=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    _close(tp, jp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width,k", [(8, 2), (9, 3), (64, 16), (2048, 5), (32000, 4)])
+def test_top_k_helper_matches_lax_top_k(width, k, dtype):
+    """The C5 helper against ``jax.lax.top_k`` on rows with many ties (values
+    on a grid of halves, exact in bf16), and on all-equal rows."""
+    import jax
+
+    from flexflow_tpu_torch.ops.topk import top_k
+
+    x = np.round(_rng(width).standard_normal((3, width)) * 2) / 2
+    x[2] = 0.5
+    jv, ji = jax.lax.top_k(jnp.asarray(x, getattr(jnp, dtype)), k)
+    tv, ti = top_k(torch.tensor(x, dtype=torch.float32).to(getattr(torch, dtype)), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.float().numpy(), np.asarray(jv, np.float32))
+
+
 def _attn_inputs(seed, b=2, t=3, s=16, h=4, kh=2, d=8):
     r = _rng(seed)
     f = lambda *sh: r.standard_normal(sh).astype(np.float32)  # noqa: E731

@@ -117,6 +117,29 @@ def test_draft_phase_matches_jax(width, depth):
     assert tspec.tree_size(width, depth) == jspec.tree_size(width, depth)
 
 
+@pytest.mark.parametrize("head", ["zero", "two_columns"])
+def test_draft_phase_ties_match_jax(head):
+    """C5: a zero lm_head ties every token; with only two nonzero columns
+    the rest tie at the top-3's edge. Tokens and parents equal JAX's."""
+    js, jparams, ts, tparams = _pair()
+    w = np.zeros((js.hidden_size, js.vocab_size), np.float32)
+    if head == "two_columns":
+        w[:, [5, 9]] = np.random.default_rng(11).standard_normal((js.hidden_size, 2))
+    jparams = {**jparams, "lm_head": jnp.asarray(w)}
+    tparams = {**tparams, "lm_head": torch.tensor(w)}
+    b, s = 3, 48
+    jc, tc = _caches(js, b, s, 10)
+    lens = np.array([5, 0, 20], np.int32)
+    roots = np.array([7, 3, 60], np.int32)
+    jt, jpar, janc, _ = jspec.build_draft_phase(js, 3, 3)(
+        jparams, jc, jnp.asarray(lens), jnp.asarray(roots))
+    tt, tpar, tanc, _ = tspec.build_draft_phase(ts, 3, 3)(
+        tparams, tc, torch.tensor(lens), torch.tensor(roots))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tpar.numpy(), np.asarray(jpar))
+    np.testing.assert_array_equal(tanc.numpy(), np.asarray(janc))
+
+
 def test_greedy_accept_walk_matches_jax():
     r = np.random.default_rng(11)
     w, d, b = 3, 4, 16

@@ -248,16 +248,22 @@ def test_dataloader_batches_equal_jax(drop_last, shuffle):
             assert np.array_equal(tx, np.asarray(jx)) and np.array_equal(ty, np.asarray(jy))
 
 
-def test_refusals():
-    """The sharded, auto and pipelined Trainers name their ROADMAP items; a
-    quantized parameter tree is a TypeError, as a gradient of JAX's integer
-    leaves is; without ``device`` the Trainer runs on the card or raises."""
+def test_refusals(monkeypatch):
+    """The sharded and pipelined Trainers, and the auto one over more than one
+    device (on one it trains: ``test_torch_port_search``), name their ROADMAP
+    items; a quantized parameter tree is a TypeError, as a gradient of JAX's
+    integer leaves is; without ``device`` the Trainer runs on the card or
+    raises."""
+    from flexflow_tpu_torch.parallel import auto as auto_lib
+
     js, jparams, ts, npp = _models(TINY)
     params = tp.params_from_numpy(npp)
     with pytest.raises(NotImplementedError, match="A8"):
         Trainer(ts, params, SGDOptimizer(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(ts, params, SGDOptimizer(), mesh="auto", device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(auto_lib, "device_count", lambda device=None: 2)
+        with pytest.raises(NotImplementedError, match="A8.*A11c"):
+            Trainer(ts, params, SGDOptimizer(), mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="'auto'"):
         Trainer(ts, params, SGDOptimizer(), mesh="manual", device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
