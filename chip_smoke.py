@@ -268,7 +268,31 @@ Phases, in order; any failure exits non-zero:
               threshold form (``torch.topk``, then the tied tail by a
               running count) and ``torch.topk``. No port kernel may launch
               in this phase.
-16. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+16. tp      — tensor and data parallel serving (``parallel/mesh.py``,
+              ``parallel/sharding.py``) at the serve phase's configuration
+              (LLaMA-2-7B INT8, the 8 prompts, 64 greedy tokens). (a) One
+              rank over NCCL through the sharded path (the collectives
+              issued, captured in the step's CUDA graph and replayed): tokens
+              bitwise equal to the serve phase's (run here when serve is not
+              selected), tok/s beside one device's. Then two ranks sharing
+              the card over gloo (spawned; gloo collectives are not
+              captured, so every horizon runs eagerly): (b) T = 2, each
+              rank's cut of the one-device carriers: every request's first
+              token equal to one device's (rows whose top-2 margin lies
+              within twice the observed error counted and printed as
+              near-ties, held all the same), prefill logits within
+              ``TP_LOGITS_REL`` of their magnitude, each request's common
+              prefix printed; (c) D = 2: every token bitwise one device's
+              (a row's bits do not depend on the rows around it); (d) the
+              spec phase's INT4 verifier and 160M draft at T = 2: each
+              request's first 20 speculative tokens equal to the same cut's
+              incremental ones; (e) Mixtral-8x7B INT8 at
+              ``TP_MIXTRAL_LAYERS`` layers, full width, T = 2: first tokens
+              and prefill logits against one device's at that depth, as (b).
+              (f) With more than one GPU, (b) over NCCL at min(4, count)
+              ranks; otherwise it says why it did not run. The ranks must
+              agree on every token. Prints the phase's wall time.
+17. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -295,6 +319,7 @@ import json
 import math
 import os
 import re
+import shutil
 import sys
 import tempfile
 import time
@@ -305,7 +330,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
-          "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "profile")
+          "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "tp", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -579,6 +604,7 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
 
     from flexflow_tpu_torch.benchmarks.tune_quant_kernel import n_copies
     from flexflow_tpu_torch.ops.kernels import quant_matmul as qm
+    from flexflow_tpu_torch.parallel.sharding import slice_carrier_columns
     from flexflow_tpu_torch.quant.weight_only import dequantize, quantize
 
     kname = f"qmm_int{bits}"
@@ -611,6 +637,17 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
         moe_rows = (8, 104, 400, 2048, 8192)
         shapes += [("expert wg|wu", (4096,), 14336, 128, moe_rows),
                    ("expert wd", (14336,), 4096, 128, moe_rows)]
+    # a tensor-parallel rank's carriers at T = 2 (the tp phase): wqkv 4096 ->
+    # 6144, wo 2048 -> 4096, wgu 4096 -> 11008, wd 5504 -> 4096 (INT4: two
+    # half planes of 2752 rows, so group 64); and INT8's wd at T = 4 (2752
+    # rows: group 64), the halved-group cut
+    tp_rows = (8, 104, 8192)
+    shapes += [("T=2 rank wqkv", (4096,), 6144, 128, tp_rows),
+               ("T=2 rank wo", (16, 128), 4096, 128, tp_rows),
+               ("T=2 rank wgu", (4096,), 11008, 128, tp_rows),
+               ("T=2 rank wd", (5504,), 4096, 128 if bits == 8 else 64, tp_rows)]
+    if bits == 8:
+        shapes.append(("T=4 rank wd", (2752,), 4096, 64, tp_rows))
     log(f"  prefill threshold {thr} rows: from it a bf16 call dequantizes into a [D, Fp] bf16 "
         f"scratch (peak {4096 * 32256 * 2} bytes, the lm_head's 4096 x 32256 carrier)")
 
@@ -734,7 +771,25 @@ def qmm_phase(bits: int, reps: int, records: list, parent=None) -> None:
         # f32 out: only the summation order differs (4096 terms)
         err, scale = check(f"lm_head {d}x{f} f32-out", qa, x, None, torch.float32, 1e-4)
         timed(f"lm_head {d}x{f} f32-out", qa, x, None, w_lib, torch.float32, err, 1e-4 * scale)
-    del w_lib, qa
+    # a T = 2 rank's vocab-parallel lm_head: columns [0, 16000) of the same
+    # carrier, re-padded to 16384; whether its output equals the matching
+    # columns of the whole call bit for bit is a finding, not a gate
+    half = slice_carrier_columns(qa, ((0, f // 2),))
+    half = dataclasses.replace(half, shape=(d, f // 2))
+    require(half.q.shape[-1] == 16384, f"rank lm_head carrier width {half.q.shape[-1]} != 16384")
+    w_half = [w_lib[0][:, :f // 2].contiguous()]
+    for m in (8, 104, 8192):
+        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        err, scale = check(f"T=2 rank lm_head {d}x{f // 2} f32-out", half, x, None,
+                           torch.float32, 1e-4)
+        same = torch.equal(_qmm(qm, half, x, None, torch.float32),
+                           _qmm(qm, qa, x, None, torch.float32)[:, :f // 2])
+        verdict = "bitwise equal" if same else "NOT bitwise equal"
+        log(f"  {kname} T=2 rank lm_head m={m}: output {verdict} to the whole call's first "
+            f"{f // 2} columns")
+        timed(f"T=2 rank lm_head {d}x{f // 2} f32-out", half, x, None, w_half, torch.float32,
+              err, 1e-4 * scale)
+    del w_lib, w_half, qa, half
     torch.cuda.empty_cache()
 
 
@@ -796,6 +851,7 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
         ("", 8, 32, 32, 1024, 128, bf16, [1024, 1000, 777, 600, 512, 300, 100, 0], True),
         (" serve", 8, 32, 32, 1024, 128, bf16, served, True),
         (" serve", 8, 32, 8, 1024, 128, bf16, served, True),
+        (" serve T=2", 8, 16, 16, 1024, 128, bf16, served, True),  # a T = 2 rank's heads
         (" long", 1, 32, 32, 4096, 128, bf16, [4096], True),
         ("", 8, 32, 32, 1024, 128, f32, [1024, 1000, 777, 600, 512, 300, 100, 0], False),
         ("", 4, 32, 8, 512, 128, bf16, [512, 64, 1, 300], False),
@@ -893,7 +949,8 @@ def decode_attention_phase(reps: int, records: list, parent=None) -> None:
     # tokens from a 3-token vocabulary so that they share prefixes: 19 slots,
     # irregular parents, padding slots that attend only themselves)
     lens_l = list(PROMPT_LENS)
-    tree_cases = [("", 32, 32, _beam_trees(6, 8, 3, 4)), (" GQA", 32, 8, _beam_trees(6, 8, 3, 4))]
+    tree_cases = [("", 32, 32, _beam_trees(6, 8, 3, 4)), (" GQA", 32, 8, _beam_trees(6, 8, 3, 4)),
+                  (" T=2", 16, 16, _beam_trees(6, 8, 3, 4))]
     merged = _merged_trees(7, 8, [(3, 4), (1, 6)])
     tree_cases.append((" merged", 32, 32, merged))
     for label, h, kh, parents in tree_cases:
@@ -1044,6 +1101,7 @@ def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
         (" serve", 8, 1024, 32, 32, 128, bf16, served, True),
         (" serve", 8, 1024, 32, 8, 128, bf16, served, True),
         (" draft", 8, 1024, 6, 6, 128, bf16, served, True),
+        (" serve T=2", 8, 1024, 16, 16, 128, bf16, served, True),  # a T = 2 rank's heads
         # every row full: SDPA-causal's work equals the kernel's
         (" full", 8, 1024, 32, 32, 128, bf16, [1024] * 8, True),
     ]
@@ -1515,6 +1573,7 @@ def serve_phase(card: str, with_profile: bool, hold: dict = None) -> dict:
     spec, engine, rm, prompts = _llama_serving()
     try:
         reqs, out = _served(rm, prompts, 64, spec.vocab_size, "serve")
+        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=out["decode_tok_s"])
         lens = np.array([len(p) for p in prompts], np.int32)
         # not the served tokens, so the horizon writes other K/V than the run did
         toks = np.array([(r.output_tokens[0] + 1) % spec.vocab_size for r in reqs], np.int32)
@@ -3947,6 +4006,398 @@ def search_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor and data parallelism (parallel/mesh.py, parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+TP_MIXTRAL_LAYERS = 4  # (e)'s depth at Mixtral-8x7B's full width
+# (b), (e): the T-rank prefill's last-position logits against one device's,
+# max |difference| over the largest |logit|: both round every layer's output
+# to bf16 once, from f32 sums of the same products in another order (the
+# one-device K1 call against T partial calls summed by the all-reduce)
+TP_LOGITS_REL = 5e-2
+_SERVED: dict = {}  # the serve phase's tokens and decode tok/s, for the tp phase
+
+
+def _greedy_scfg(n: int):
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.sampling import SamplingConfig
+
+    return SamplingConfig(temperature=np.zeros(n, np.float32), top_p=np.ones(n, np.float32),
+                          top_k=np.zeros(n, np.int32))
+
+
+def _prefill_logits(engine, spec, prompts):
+    """Last-position float32 logits [N, V] of one batched prefill forward of
+    ``prompts`` through the engine's parameters at its bucket (no cache
+    write), on the host; and the greedy first tokens of a real admission
+    into slots 0..N-1."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+
+    n = len(prompts)
+    bucket = max(engine.prefill_bucket(len(p)) for p in prompts)
+    padded = np.zeros((n, bucket), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    dev = engine.device
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    positions = torch.arange(bucket, dtype=torch.int32, device=dev)[None].expand(n, bucket)
+    with torch.no_grad():
+        logits, _ = decoder.forward(spec, engine.params, torch.as_tensor(padded, device=dev),
+                                    positions, lengths=lens, flash=True, logits_at=lens - 1)
+        first = engine.prefill_batch_to_slots_async(prompts, list(range(n)), 0,
+                                                    _greedy_scfg(n))[:n]
+    return logits.float().cpu(), first.cpu().tolist()
+
+
+def _first_token_rule(what: str, got_logits, want_logits, got_first, want_first) -> dict:
+    """Logits within ``TP_LOGITS_REL`` of their magnitude, and every
+    request's first token equal to one device's; the near-tie rows (top-2
+    margin within twice the observed error), which the logits alone would
+    not decide, are counted and reported."""
+    import torch
+
+    err = (got_logits - want_logits).abs().max().item()
+    scale = want_logits.abs().max().item()
+    require(err <= TP_LOGITS_REL * scale,
+            f"{what}: prefill logits max|diff| {err} > {TP_LOGITS_REL} x {scale}")
+    require(got_first == want_first,
+            f"{what}: first tokens {got_first} against one device's {want_first}")
+    top2 = torch.topk(want_logits, 2, dim=-1).values
+    near = int((top2[:, 0] - top2[:, 1] <= 2 * err).sum())
+    log(f"  {what}: prefill logits max|diff| {err:.4g} ({err / scale:.3g} of the largest "
+        f"|logit|, limit {TP_LOGITS_REL}); every request's first token equal to one device's "
+        f"({len(want_first)} of {len(want_first)}), {near} of them on near-tie rows (top-2 "
+        f"margin within 2x the error)")
+    return dict(logits_max_abs_diff=err, logits_scale=scale, first_equal=len(want_first),
+                near_ties=near)
+
+
+def _common_prefix(got, want) -> list:
+    return [next((j for j in range(len(a)) if a[j] != b[j]), len(a)) for a, b in zip(got, want)]
+
+
+def _tp_llama(mesh, dev):
+    """LLaMA-2-7B INT8 (group 128) on this rank of ``mesh``: the serve
+    phase's draw (``_quant_params``), each layer's slab quantized whole and
+    then cut (``build_params(mesh=)``), so each rank's carriers are slices
+    of the one-device carriers at any degree (a row cut inside a group
+    keeps the group's scale). Layer by layer, two ranks' builds fit the
+    card together (a whole-tree quantization on each does not)."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**LLAMA2_7B)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    whole = params_lib.init_params(spec, gen, torch.bfloat16, dev)
+    layers = whole.pop("layers")
+    params = params_lib.build_params(spec, whole, lambda i: ((n, v[i]) for n, v in layers.items()),
+                                     dtype=torch.bfloat16, device=dev, bits=8, group_size=128,
+                                     mesh=mesh)
+    del whole, layers
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev,
+                             mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    return spec, engine, RequestManager(engine, decode_horizon=16, pipelined=True)
+
+
+def _tp_case_b(mesh, dev, refs) -> dict:
+    """(b): T ranks, each with its cut of the model: served tokens and the
+    prefill."""
+    spec, engine, rm = _tp_llama(mesh, dev)
+    prompts = _prompts(spec.vocab_size)
+    try:
+        reqs, st = _served(rm, prompts, 64, spec.vocab_size, f"tp (b) T={mesh.model}",
+                           replayed=engine.graphs is not None)
+        st["tokens"] = [r.output_tokens for r in reqs]
+        st["logits"], st["first"] = _prefill_logits(engine, spec, prompts)
+    finally:
+        rm.close()
+    return st
+
+
+def _tp_case_c(mesh, dev, refs) -> dict:
+    """(c): D ranks, each with the whole model and its block of slots."""
+    spec, engine, rm = _tp_llama(mesh, dev)
+    try:
+        reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size,
+                           f"tp (c) D={mesh.data}", replayed=engine.graphs is not None)
+        st["tokens"] = [r.output_tokens for r in reqs]
+    finally:
+        rm.close()
+    return st
+
+
+def _tp_case_d(mesh, dev, refs) -> dict:
+    """(d): the spec phase's INT4 verifier and 160M draft at T ranks, the
+    speculative run and the incremental run of the same cut."""
+    import torch
+
+    from flexflow_tpu_torch.config import config as ffconfig
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.parallel.sharding import shard_params
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+    from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
+    from flexflow_tpu_torch.specs import ModelSpec
+    from flexflow_tpu_torch.utils.spec_pair import embed_draft_in_verifier
+
+    dspec, vspec = ModelSpec(**DRAFT_160M), ModelSpec(**LLAMA2_7B)
+    dparams = params_lib.init_params(dspec, torch.Generator(device=dev).manual_seed(0),
+                                     torch.bfloat16, dev)
+    # the block-embedding builds the whole verifier (a harness shortcut:
+    # the loaders cut as they build); cut at once, the whole tree freed
+    vparams = shard_params(vspec, embed_draft_in_verifier(
+        dspec, dparams, vspec, bits=4, group_size=128, dtype=torch.bfloat16, device=dev), mesh)
+    dparams = shard_params(dspec, dparams, mesh)
+    torch.cuda.empty_cache()
+    width, depth, seq = 3, 4, 1024
+    horizon = max(1, min(ffconfig.spec_horizon, seq // (4 * (tree_size(width, depth) + 1))))
+    prompts = _prompts(vspec.vocab_size)
+    engine = SpecEngine(vspec, vparams, dspec, dparams, beam_width=width, beam_depth=depth,
+                        max_requests_per_batch=8, max_seq_len=seq, cache_dtype=torch.bfloat16,
+                        device=dev, mesh=mesh)
+    managers = [SpecRequestManager(engine, fused=True, spec_horizon=horizon,
+                                   pipelined=horizon > 1, pipeline_depth=ffconfig.pipeline_depth)
+                for _ in range(2)]
+    spec_reqs, st = _served(managers[1], prompts, 64, vspec.vocab_size,
+                            f"tp (d) speculative T={mesh.model}", warm=managers[0],
+                            replayed=engine.graphs is not None)
+    st["mean_verified_tokens_per_step"] = managers[1].mean_verified_tokens_per_step
+    del managers, engine
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(vspec, vparams, max_requests_per_batch=8, max_seq_len=seq,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev,
+                             mesh=mesh)
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        incr_reqs, incr = _served(rm, prompts, 64, vspec.vocab_size,
+                                  f"tp (d) incremental T={mesh.model}",
+                                  replayed=engine.graphs is not None)
+    finally:
+        rm.close()
+    st["incremental"] = incr
+    st["spec_tokens"] = [r.output_tokens for r in spec_reqs]
+    st["incr_tokens"] = [r.output_tokens for r in incr_reqs]
+    return st
+
+
+def _tp_case_e(mesh, dev, refs) -> dict:
+    """(e): Mixtral-8x7B INT8 at TP_MIXTRAL_LAYERS layers, built layer by
+    layer, each slab quantized whole and then cut
+    (``init_quantized_params(mesh=)``); its prefill against one device's at
+    that depth."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    spec = mixtral_spec(TP_MIXTRAL_LAYERS)
+    params = params_lib.init_quantized_params(spec, 0, bits=8, group_size=128,
+                                              dtype=torch.bfloat16, device=dev, mesh=mesh)
+    engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev,
+                             mesh=mesh)
+    del params
+    logits, first = _prefill_logits(engine, spec, _prompts(spec.vocab_size))
+    return dict(logits=logits, first=first)
+
+
+TP_CASES = {"b": _tp_case_b, "c": _tp_case_c, "d": _tp_case_d, "e": _tp_case_e}
+
+
+def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
+    """One rank of the tp phase's (b)-(f): ``backend`` gloo shares card 0,
+    NCCL takes card ``rank``. Each case builds its own mesh over the group;
+    the results go to ``tmp`` for the parent to hold against one device."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rank:
+        global log
+        log = lambda *a: None  # noqa: E731 - rank 0 speaks for the mesh
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous-{backend}",
+                            world_size=world, rank=rank)
+    try:
+        out = {}
+        for case in cases:
+            t0 = time.perf_counter()
+            degrees = dict(data=world) if case == "c" else dict(model=world)
+            mesh = make_mesh(**degrees, backend=backend, device=dev)
+            out[case] = TP_CASES[case](mesh, dev, None)
+            out[case]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(out, f"{tmp}/{backend}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_tp(world: int, backend: str, tmp: str, cases, limit_s: float) -> list:
+    """Every rank's results of ``cases`` (ranks spawned; killed at ``limit_s``)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_tp_rank, args=(world, backend, tmp, list(cases)), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + limit_s
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            require(time.monotonic() < deadline,
+                    f"tp: {world} {backend} ranks did not finish within {limit_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(f"{tmp}/{backend}.{r}.pt", weights_only=False) for r in range(world)]
+
+
+def tp_phase(card: str) -> dict:
+    """Tensor and data parallel serving (see the module docstring, phase
+    tp): (a) one rank over NCCL through the sharded path in this process;
+    then two ranks sharing the card over gloo for (b)-(e), spawned; (f) NCCL
+    across GPUs when the machine has more than one."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.sharding import shard_params
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    spec = ModelSpec(**LLAMA2_7B)
+    prompts = _prompts(spec.vocab_size)
+    out: dict = {"card": card}
+    params = _quant_params(spec, 0, dev)
+    if "tokens" not in _SERVED:  # the serve phase did not run: its run here
+        engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                                 max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev)
+        rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+        try:
+            reqs, st = _served(rm, prompts, 64, spec.vocab_size, "tp one device")
+        finally:
+            rm.close()
+        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+        del engine, rm
+        torch.cuda.empty_cache()
+
+    # (a) one rank over NCCL, through the sharded path: collectives in the graphs
+    mesh = make_mesh(model=1, device=dev)
+    require(mesh.backend == "nccl", f"tp (a): backend {mesh.backend}, not nccl")
+    engine = InferenceEngine(spec, shard_params(spec, params, mesh), max_requests_per_batch=8,
+                             max_seq_len=1024, max_tokens_per_batch=0,
+                             cache_dtype=torch.bfloat16, device=dev, mesh=mesh)
+    del params
+    require(engine.graphs is not None, "tp (a): an NCCL mesh engine captures its step")
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, st = _served(rm, prompts, 64, spec.vocab_size, "tp (a) world 1 over NCCL")
+        require([r.output_tokens for r in reqs] == _SERVED["tokens"],
+                "tp (a): tokens differ from the one-device run's")
+        ref_logits, ref_first = _prefill_logits(engine, spec, prompts)
+    finally:
+        rm.close()
+    out["a"] = st
+    _log_served("tp (a) world 1 over NCCL", st, card)
+    log(f"  tp (a): tokens bitwise equal to the one-device run's; decode {st['decode_tok_s']:.1f} "
+        f"tok/s against one device's {_SERVED['decode_tok_s']:.1f} [{card}]")
+    del engine, rm
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # Mixtral's one-device prefill at (e)'s depth
+    mspec = mixtral_spec(TP_MIXTRAL_LAYERS)
+    mparams = params_lib.init_quantized_params(mspec, 0, bits=8, group_size=128,
+                                               dtype=torch.bfloat16, device=dev)
+    engine = InferenceEngine(mspec, mparams, max_requests_per_batch=8, max_seq_len=1024,
+                             max_tokens_per_batch=0, cache_dtype=torch.bfloat16, device=dev)
+    del mparams
+    mix_logits, mix_first = _prefill_logits(engine, mspec, prompts)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_tp(2, "gloo", tmp, "bcde", 900)
+        n = torch.cuda.device_count()
+        nccl = _spawn_tp(min(4, n), "nccl", tmp, "b", 600)[0]["b"] if n > 1 else None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["ranks_s"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    for case in "bcde":
+        for r in ranks[1:]:
+            for key in ("tokens", "first", "spec_tokens", "incr_tokens"):
+                require(r[case].get(key) == r0[case].get(key),
+                        f"tp ({case}): ranks disagree on {key}")
+    b = r0["b"]
+    out["b"] = dict(_first_token_rule("tp (b) T=2 over gloo", b["logits"], ref_logits,
+                                      b["first"], ref_first),
+                    prefix=_common_prefix(b["tokens"], _SERVED["tokens"]),
+                    decode_tok_s=b["decode_tok_s"], launches=b["launches"], seconds=b["seconds"])
+    log(f"  tp (b) T=2 over gloo: tokens equal to one device's before the first difference, per "
+        f"request: {out['b']['prefix']}; {b['seconds']:.1f} s with the weights' build")
+    c = r0["c"]
+    require(c["tokens"] == _SERVED["tokens"], "tp (c) D=2: tokens differ from one device's")
+    out["c"] = dict(decode_tok_s=c["decode_tok_s"], launches=c["launches"], seconds=c["seconds"])
+    log(f"  tp (c) D=2 over gloo: every request's 64 tokens bitwise equal to one device's; "
+        f"{c['seconds']:.1f} s")
+    d = r0["d"]
+    same = _common_prefix(d["spec_tokens"], d["incr_tokens"])
+    require(min(same) >= PREFIX,
+            f"tp (d): speculative output differs from incremental within {PREFIX} tokens: {same}")
+    out["d"] = dict(prefix=same, mean_verified=d["mean_verified_tokens_per_step"],
+                    launches=d["launches"], incremental_launches=d["incremental"]["launches"],
+                    seconds=d["seconds"])
+    log(f"  tp (d) INT4 verifier + 160M draft at T=2 over gloo: speculative tokens equal to the "
+        f"same cut's incremental ones before the first difference, per request: {same}; "
+        f"mean verified tokens per step {d['mean_verified_tokens_per_step']:.3f}; "
+        f"{d['seconds']:.1f} s")
+    e = r0["e"]
+    out["e"] = _first_token_rule(f"tp (e) Mixtral-8x7B INT8 {TP_MIXTRAL_LAYERS} layers T=2 over "
+                                 "gloo", e["logits"], mix_logits, e["first"], mix_first)
+    out["e"]["seconds"] = e["seconds"]
+    if nccl is not None:
+        f = nccl
+        out["f"] = dict(_first_token_rule(f"tp (f) T={min(4, n)} over NCCL", f["logits"],
+                                          ref_logits, f["first"], ref_first),
+                        prefix=_common_prefix(f["tokens"], _SERVED["tokens"]),
+                        decode_tok_s=f["decode_tok_s"], seconds=f["seconds"])
+        log(f"  tp (f) T={min(4, n)} over NCCL: tokens equal to one device's before the first "
+            f"difference, per request: {out['f']['prefix']}; decode {f['decode_tok_s']:.1f} tok/s")
+    else:
+        log(f"  tp (f) did not run: the machine shows {n} GPU (NCCL takes one device a rank)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  tp phase wall {out['seconds']:.1f} s, the spawned ranks' {out['ranks_s']:.1f} s of "
+        f"it [{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -4100,6 +4551,13 @@ def main(argv=None) -> int:
             f"{SEARCH_LEN}) against the cost model, the C5 top-k on tied rows")
         summary["search"] = search_phase(card)
         lap("search")
+    if "tp" in phases:
+        log("[tp] tensor and data parallel serving: (a) LLaMA-2-7B INT8 through the sharded "
+            "path on one rank over NCCL; two ranks sharing the card over gloo: (b) T=2, (c) D=2, "
+            f"(d) the INT4 speculative pair at T=2, (e) Mixtral-8x7B INT8 at "
+            f"{TP_MIXTRAL_LAYERS} layers, T=2; (f) NCCL across GPUs when there are several")
+        summary["tp"] = tp_phase(card)
+        lap("tp")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a
@@ -4108,6 +4566,9 @@ def main(argv=None) -> int:
                                            "finetune")]
     served += [summary.get("spec", {}).get(m, {}) for m in ("rotation", "merged")]
     served.append(summary.get("mixtral", {}).get("spec", {}))
+    tp = summary.get("tp", {})  # (a) in this process; (b), (c) and (d) on rank 0
+    served += [tp.get("a", {}), tp.get("b", {}), tp.get("c", {}), tp.get("d", {}),
+               {"launches": tp.get("d", {}).get("incremental_launches", {})}]
     offload = summary.get("offload", {})
     served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
     served.append(offload.get("mixtral", {}))

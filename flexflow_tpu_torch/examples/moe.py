@@ -5,7 +5,7 @@ classifier whose hidden layer is a top-k-gated expert ensemble, built from
 the gate->topk->group_by->experts->aggregate composite, src/ops/moe.cc:20-60).
 
 A mesh (expert parallel training) is not in the port yet: ``main(mesh=...)``
-raises naming ROADMAP A8.
+raises naming ROADMAP A8b.
 """
 
 import numpy as np

@@ -16,7 +16,7 @@ changes the optimizer's rate without rebuilding anything.
 ``compile(auto_parallel=True)`` runs JAX's joint rewrite x placement
 search (``parallel/joint.py``) and keeps its graph, planned as JAX plans it
 for at least two devices; on one device nothing is sharded, as in JAX. A
-device mesh (ROADMAP A8), and the search on one (A11c), are not in the port
+device mesh (ROADMAP A8b), and the search on one (A11c), are not in the port
 and raise.
 ``load_numpy`` takes the JAX model's ``params`` / ``state`` as numpy trees,
 so both packages can compute the same thing.
@@ -156,7 +156,7 @@ class FFModel:
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (data, tensor and expert parallel graphs) is not in the port "
-                "yet (ROADMAP.md Queue A, A8)")
+                "yet (ROADMAP.md Queue A, A8b)")
         self.device = resolve_device(device)
         self._nodes: List[_Node] = []
         self._inputs: List[int] = []
@@ -850,7 +850,7 @@ class FFModel:
         dimensions, ``config.search_budget * 4`` expansions and
         ``config.search_alpha``. Its graph replaces the model's, the plan is
         ``self.joint_plan`` and its rewrites join ``substitution_report``.
-        One device runs the graph unsharded; more raise (A8, A11c)."""
+        One device runs the graph unsharded; more raise (A8b, A11c)."""
         from flexflow_tpu_torch.config import config as _ffconfig
         from flexflow_tpu_torch.ffmodel.substitutions import load_rules, optimize_graph
         from flexflow_tpu_torch.parallel import auto as auto_lib

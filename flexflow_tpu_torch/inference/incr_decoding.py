@@ -6,10 +6,15 @@
         -prompt prompts.json --max-new-tokens 16 --device cuda
 
 ``--offload`` keeps the layer stack in pinned host memory and streams it
-in per layer (``LLM.compile(offload=True)``). Parallelism and
-auto-parallelism flags are accepted for compatibility; degrees above 1 are
-refused (not in the port yet). Legion resource flags (``-ll:*``) are
-ignored.
+in per layer (``LLM.compile(offload=True)``). Tensor and data parallelism
+serve over ``T * D`` ranks, one process each (rank 0 prints):
+
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.inference.incr_decoding \
+        -llm-model DIR -tensor-parallelism-degree 2 [--device cpu]
+
+Pipeline and context degrees above 1 are refused (ROADMAP A9, A10).
+``-auto-parallelism`` is accepted for compatibility (one device). Legion
+resource flags (``-ll:*``) are ignored.
 """
 
 import argparse
@@ -61,9 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, _legion_flags = build_parser().parse_known_args(argv)
-    if max(args.tp, args.pp, args.dp, args.cp) > 1:
-        raise SystemExit("parallelism degrees > 1 are not in the port yet")
-
     from flexflow_tpu_torch.config import config
     from flexflow_tpu_torch.serve import LLM
 
@@ -75,7 +77,9 @@ def main(argv=None):
               quantization=quant, output_file=args.output_file, device=args.device)
     llm.compile(max_requests_per_batch=args.max_requests_per_batch,
                 max_seq_length=args.max_sequence_length,
-                max_tokens_per_batch=args.max_tokens_per_batch, offload=args.offload)
+                max_tokens_per_batch=args.max_tokens_per_batch, offload=args.offload,
+                tensor_parallelism_degree=args.tp, data_parallelism_degree=args.dp,
+                pipeline_parallelism_degree=args.pp, context_parallel_degree=args.cp)
 
     prompts = ["Three tips for staying healthy are: "]
     if args.prompt:
@@ -83,6 +87,8 @@ def main(argv=None):
             prompts = json.load(f)
     results = llm.generate(prompts, max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature, top_p=args.topp, top_k=args.topk)
+    if llm.mesh is not None and llm.mesh.rank != 0:
+        return 0  # every rank holds the same results
     for r in results:
         print(f"=== guid {r.guid} (steps {r.decoding_steps}, "
               f"latency {r.latency_ms:.1f}ms) ===")

@@ -63,7 +63,8 @@ def main(argv=None):
         print("PEFT model id passed, but PEFT is not enabled", file=sys.stderr)
         return 1
     if max(args.tp, args.dp) > 1:
-        raise SystemExit("parallelism degrees > 1 are not in the port yet")
+        raise SystemExit("PEFT serving and finetuning under a device mesh are not in the port "
+                         "yet (ROADMAP.md Queue A, A8b)")
 
     import numpy as np
 

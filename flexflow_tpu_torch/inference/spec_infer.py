@@ -10,8 +10,9 @@ draft models, lossless greedy verification (or stochastic verification with
 
 Several drafts rotate, one a speculative iteration; ``--merge-ssm-trees``
 verifies all their trees in one merged pass instead (greedy requests only).
-Parallelism degrees above 1 are refused (not in the port yet). Legion
-resource flags (``-ll:*``) are ignored.
+Tensor and data parallelism serve over ``T * D`` ranks, one process each
+(under ``torchrun``; rank 0 prints); pipeline degrees above 1 are refused
+(ROADMAP A9). Legion resource flags (``-ll:*``) are ignored.
 """
 
 import argparse
@@ -43,6 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="tp", type=int, default=1)
     p.add_argument("-pipeline-parallelism-degree", "--pipeline-parallelism-degree",
                    dest="pp", type=int, default=1)
+    p.add_argument("-data-parallelism-degree", "--data-parallelism-degree",
+                   dest="dp", type=int, default=1)
     p.add_argument("--fusion", action="store_true", help="accepted for parity")
     p.add_argument("-4bit-quantization", "--4bit-quantization", dest="int4",
                    action="store_true")
@@ -62,9 +65,6 @@ def main(argv=None):
     if not args.ssm_models:
         print("error: at least one -ssm-model required", file=sys.stderr)
         return 2
-    if max(args.tp, args.pp) > 1:
-        raise SystemExit("parallelism degrees > 1 are not in the port yet")
-
     from flexflow_tpu_torch.config import config
     from flexflow_tpu_torch.serve import LLM, SSM
 
@@ -80,7 +80,8 @@ def main(argv=None):
                 max_seq_length=args.max_sequence_length,
                 max_tokens_per_batch=args.max_tokens_per_batch,
                 beam_width=args.beam_width, beam_depth=args.beam_depth, ssms=ssms,
-                merge_ssm_trees=args.merge_ssm_trees)
+                merge_ssm_trees=args.merge_ssm_trees, tensor_parallelism_degree=args.tp,
+                data_parallelism_degree=args.dp, pipeline_parallelism_degree=args.pp)
 
     prompts = ["Three tips for staying healthy are: "]
     if args.prompt:
@@ -88,6 +89,8 @@ def main(argv=None):
             prompts = json.load(f)
     results = llm.generate(prompts, max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature, top_p=args.topp, top_k=args.topk)
+    if llm.mesh is not None and llm.mesh.rank != 0:
+        return 0  # every rank holds the same results
     for r in results:
         print(f"=== guid {r.guid} (steps {r.decoding_steps}, "
               f"latency {r.latency_ms:.1f}ms, "

@@ -94,8 +94,11 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(spec: ModelSpec, num_slots: int, max_seq_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
-    shape = (spec.num_layers, num_slots, spec.num_kv_heads, max_seq_len, spec.head_dim)
+                  dtype=torch.bfloat16, device="cpu", num_kv_heads: Optional[int] = None) -> KVCache:
+    """``num_kv_heads``: a tensor-parallel rank's own count (default the
+    spec's)."""
+    shape = (spec.num_layers, num_slots, num_kv_heads or spec.num_kv_heads, max_seq_len,
+             spec.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -120,17 +123,22 @@ def _norm(spec: ModelSpec, h, scale, bias):
     return norms.layer_norm(h, scale, bias, spec.norm_eps)
 
 
-def _linear(x, w, b=None):
-    """x [..., D] @ w [D, ...out] (+ b); quantized weights go to the kernel."""
+def _linear(x, w, b=None, *, dims: int = 1, out_dtype=None):
+    """x [..., D] @ w [D, ...out] (+ b), contracting x's last ``dims`` axes
+    with w's first; quantized weights go to the kernel. In x's dtype, or
+    ``out_dtype`` (float32: a row-parallel partial, the kernel's f32 output
+    or an f32 product of a plain weight)."""
     if isinstance(w, LayerQuant):
-        out = quant_matmul(x, w.qa, layer=w.layer)
+        out = quant_matmul(x, w.qa, layer=w.layer, out_dtype=out_dtype)
     elif isinstance(w, QuantizedArray):
-        out = quant_matmul(x, w)
+        out = quant_matmul(x, w, out_dtype=out_dtype)
+    elif out_dtype is None:
+        out = torch.tensordot(x, w, dims=dims)
     else:
-        out = torch.tensordot(x, w, dims=1)
+        out = torch.tensordot(x.to(out_dtype), w.to(out_dtype), dims=dims)
     if b is not None:
         out = out + b
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
 def _apply_lora(p: Params, mod: str, x, out):
@@ -152,14 +160,20 @@ def _apply_lora(p: Params, mod: str, x, out):
 
 
 def _qkv(spec: ModelSpec, p: Params, h):
-    """h [B,T,D] -> q [B,T,H,Dh], k/v [B,T,KH,Dh]."""
+    """h [B,T,D] -> q [B,T,H,Dh], k/v [B,T,KH,Dh] (a tensor-parallel rank's
+    own heads, and the KV heads its cache keeps)."""
+    sh = p.get("_shard")
     if "wqkv" in p:
         out = _linear(h, p["wqkv"], p.get("bqkv"))
-        hh, kh = spec.num_heads, spec.num_kv_heads
+        hh, kh = ((spec.num_heads, spec.num_kv_heads) if sh is None
+                  else (sh.num_heads(spec), sh.num_kv_proj(spec)))
         q, k, v = torch.split(out, [hh, kh, kh], dim=-2)
     else:
         q, k, v = (_linear(h, p["wq"], p.get("bq")), _linear(h, p["wk"], p.get("bk")),
                    _linear(h, p["wv"], p.get("bv")))
+    if sh is not None and sh.kv_take is not None:
+        take = sh.index("kv_take", k.device)
+        k, v = k.index_select(-2, take), v.index_select(-2, take)
     hf = h.float() if "_lora" in p else h  # one cast for the three deltas
     return _apply_lora(p, "wq", hf, q), _apply_lora(p, "wk", hf, k), _apply_lora(p, "wv", hf, v)
 
@@ -169,7 +183,11 @@ def fuse_qkv_params(spec: ModelSpec, params: Params) -> Params:
     ``wgu`` [L, D, 2F] so a step pays one kernel call per group. Column-exact
     (quantized groups included, via ``concat_rest``)."""
     layers = dict(params["layers"])
-    hh, kh = spec.num_heads, spec.num_kv_heads
+    sh = params.get("_shard")
+    hh, kh = ((spec.num_heads, spec.num_kv_heads) if sh is None
+              else (sh.num_heads(spec), sh.num_kv_proj(spec)))
+    f = spec.intermediate_size if sh is None or sh.ffn is None else sum(
+        b - a for a, b in sh.ffn)
 
     def _fusable(names):
         ws = [layers.get(n) for n in names]
@@ -201,7 +219,7 @@ def fuse_qkv_params(spec: ModelSpec, params: Params) -> Params:
         ws = _fusable(["wg", "wu"])
         if ws is not None and layers.get("bu") is None:
             if isinstance(ws[0], QuantizedArray):
-                layers["wgu"] = concat_rest(ws, (2 * spec.intermediate_size,))
+                layers["wgu"] = concat_rest(ws, (2 * f,))
             else:
                 layers["wgu"] = torch.cat(ws, dim=-1)
             for n in ("wg", "wu"):
@@ -209,10 +227,29 @@ def fuse_qkv_params(spec: ModelSpec, params: Params) -> Params:
     return {**params, "layers": layers}
 
 
+def _row_parallel(p: Params, what: str) -> bool:
+    """Whether this rank's ``what`` ("heads" or "ffn") is a row-parallel
+    cut whose partial outputs are summed over the mesh's model axis."""
+    sh = p.get("_shard")
+    return sh is not None and getattr(sh, what) is not None
+
+
+def _reduced(p: Params, partial, bias, dtype):
+    """A row-parallel float32 partial summed over the model axis, the bias
+    added once after the sum, rounded once to ``dtype``."""
+    out = p["_shard"].mesh.all_reduce(partial.float())
+    if bias is not None:
+        out = out + bias
+    return out.to(dtype)
+
+
 def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
     """Mixtral's sparse MoE FFN (JAX ``_moe_mlp``): an f32 router, then the
     dense or the ragged form of ``ops/moe.py``. ``valid`` [B, T] marks the
-    rows the ragged form computes (None: every row)."""
+    rows the ragged form computes (None: every row). Under tensor
+    parallelism each expert is cut (JAX's ``_MOE_RULES``): the f32 combine
+    of the rank's partial experts is summed over the model axis and rounded
+    once."""
     b, t, d = h.shape
     x = h.reshape(b * t, d)
     # every row through the router in both forms, so a row's routing never
@@ -223,9 +260,12 @@ def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
         rows = valid.reshape(-1).nonzero()[:, 0]
         x, router_logits = x[rows], router_logits[rows]
     ffn = moe_lib.moe_ffn_ragged if spec.moe.impl == "ragged" else moe_lib.moe_ffn_dense
-    out = ffn(x, router_logits, p["wg"], p["wu"], p["wd"], spec.moe.top_k)
+    tp = _row_parallel(p, "ffn")
+    out = ffn(x, router_logits, p["wg"], p["wu"], p["wd"], spec.moe.top_k, partial=tp)
     if rows is not None:
-        out = torch.zeros_like(h).reshape(b * t, d).index_copy_(0, rows, out)
+        out = torch.zeros(b * t, d, dtype=out.dtype, device=out.device).index_copy_(0, rows, out)
+    if tp:
+        out = _reduced(p, out, None, h.dtype)
     return out.reshape(b, t, d)
 
 
@@ -243,6 +283,9 @@ def _mlp(spec: ModelSpec, p: Params, h, valid=None):
     else:
         inner = act_lib.get_activation(spec.act)(
             _apply_lora(p, "wu", h, _linear(h, p["wu"], p.get("bu"))))
+    if _row_parallel(p, "ffn"):
+        return _reduced(p, _linear(inner, p["wd"], out_dtype=torch.float32), p.get("bd"),
+                        h.dtype)
     out = _linear(inner, p["wd"])
     if p.get("bd") is not None:
         out = out + p["bd"]
@@ -252,6 +295,9 @@ def _mlp(spec: ModelSpec, p: Params, h, valid=None):
 def _attn_out(spec: ModelSpec, p: Params, a):
     """a [B,T,H,Dh] -> [B,T,D] via wo [H,Dh,D]."""
     wo = p["wo"]
+    if _row_parallel(p, "heads"):
+        return _reduced(p, _linear(a, wo, dims=2, out_dtype=torch.float32), p.get("bo"),
+                        a.dtype)
     if isinstance(wo, LayerQuant):
         out = quant_matmul(a, wo.qa, layer=wo.layer)
     elif isinstance(wo, QuantizedArray):
@@ -324,8 +370,11 @@ def _layer_views(spec: ModelSpec, params: Params, lora: Optional[RoutedLora],
     copy of layer i + 2 into that slot."""
     layers = params["layers"]
     store = layers if isinstance(layers, LayerStore) else None
+    shard = params.get("_shard")
     for i in range(spec.num_layers):
         p = store.acquire(i) if store is not None else _layer_params(layers, i)
+        if shard is not None:
+            p["_shard"] = shard
         if routing is not None:
             p.update(routing, _lora={m: (lora.a[m][i], lora.b[m][i]) for m in lora.a})
         yield i, p
@@ -334,7 +383,17 @@ def _layer_views(spec: ModelSpec, params: Params, lora: Optional[RoutedLora],
 
 
 def _embed(spec: ModelSpec, params: Params, tokens, positions):
-    h = params["embed_tokens"][tokens.long()]
+    sh = params.get("_shard")
+    emb = params["embed_tokens"]
+    if sh is not None and sh.vocab is not None:
+        # vocab-parallel: the rank's rows, zero elsewhere, summed (exact:
+        # one rank holds each row)
+        local = tokens.long() - sh.vocab[0]
+        mine = (local >= 0) & (local < emb.shape[0])
+        h = torch.where(mine[..., None], emb[local.clamp(0, emb.shape[0] - 1)].float(), 0.0)
+        h = sh.mesh.all_reduce(h).to(emb.dtype)
+    else:
+        h = emb[tokens.long()]
     if spec.embed_scale != 1.0:
         h = h * spec.embed_scale
     if spec.pos == "learned":
@@ -354,13 +413,20 @@ def _unembed(spec: ModelSpec, params: Params, h):
         logits = torch.tensordot(h.float(), w.float(), dims=1)
     if params.get("lm_head_bias") is not None:
         logits = logits + params["lm_head_bias"].float()
+    sh = params.get("_shard")
+    if sh is not None and sh.vocab is not None:
+        logits = sh.mesh.all_gather(logits, dim=-1)  # vocab-parallel: exact
     return logits
 
 
-def _alibi_slopes(spec: ModelSpec, device):
+def _alibi_slopes(spec: ModelSpec, device, shard=None):
+    """ALiBi slopes of every head, or of a tensor-parallel rank's own."""
     if spec.pos != "alibi":
         return None
-    return attn_lib.alibi_slopes(spec.num_heads, spec.alibi_max_bias, device)
+    slopes = attn_lib.alibi_slopes(spec.num_heads, spec.alibi_max_bias, device)
+    if shard is not None and shard.heads is not None:
+        slopes = slopes.index_select(0, shard.index("heads", device))
+    return slopes
 
 
 def _rope_tables(spec: ModelSpec, positions):
@@ -416,7 +482,7 @@ def forward(
     """
     b, t = tokens.shape
     dev = tokens.device
-    slopes = _alibi_slopes(spec, dev)
+    slopes = _alibi_slopes(spec, dev, params.get("_shard"))
     h = _embed(spec, params, tokens, positions)
     if traces is not None:
         traces["embed_tokens.output"] = h
@@ -541,7 +607,7 @@ def forward_cached(
     b, t = tokens.shape
     dev = tokens.device
     s = cache.max_seq_len
-    slopes = _alibi_slopes(spec, dev)
+    slopes = _alibi_slopes(spec, dev, params.get("_shard"))
     cache_lens = cache_lens.to(device=dev, dtype=torch.int32)
     if positions is None:
         positions = cache_lens[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]

@@ -14,6 +14,12 @@ quantize-on-load and ``init_quantized_params`` (random weights for a model
 whose full-precision tree does not fit the card, e.g. Mixtral-8x7B) go
 through it. With ``host_layers`` it writes the stack into (pinned) host
 memory for CPU offload, one layer at a time.
+
+Under a device mesh (``mesh=``, a ``parallel/mesh.Mesh``) every function
+here returns this rank's tree (``parallel/sharding``): each leaf or layer slab is
+cut as soon as it is made, a quantized slab after it is quantized whole, so
+no rank ever holds more than one leaf or layer of the whole model, and the
+result equals ``shard_params`` of the one-device tree from the same inputs.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.models.decoder import fuse_qkv_params
 from flexflow_tpu_torch.models.layer_store import leaf_fields, host_empty
+from flexflow_tpu_torch.parallel.sharding import layer_cutter, rank_shard, shard_leaf
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, layer_quant_layout, quantize
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -103,7 +110,8 @@ def _maker(generator: Union[int, torch.Generator], dtype, device):
 
 
 def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
-                dtype=torch.float32, device="cpu", *, host_layers: bool = False) -> Params:
+                dtype=torch.float32, device="cpu", *, host_layers: bool = False,
+                mesh=None) -> Params:
     """Random-initialized parameters (Glorot normal for matmuls and the MoE
     router, ones for norm scales, zeros for biases), each whole [L, ...]
     leaf drawn in order from one ``torch.Generator``.
@@ -113,22 +121,27 @@ def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
     in ``init_quantized_params``' order (top leaves first, then layer by
     layer, leaf by leaf), so the device never holds more than one layer:
     the values differ from the whole-leaf draw. A resident engine built
-    from the same result holds the same bits."""
+    from the same result holds the same bits. ``mesh``: this rank's cut,
+    each leaf cut as it is drawn."""
     if host_layers:
         return init_quantized_params(spec, generator, bits=None, dtype=dtype, device=device,
                                      host_layers=True)
     device = torch.device(device)
     make = _maker(generator, dtype, device)
     layer_leaves, top_leaves = _leaves(spec)
-    layers = {n: make((spec.num_layers, *shape), init) for n, (shape, init) in layer_leaves.items()}
-    params = {n: make(shape, init) for n, (shape, init) in top_leaves.items()}
+    shard, cut = layer_cutter(spec, mesh, None)
+    layers = {n: cut(n, make((spec.num_layers, *shape), init))
+              for n, (shape, init) in layer_leaves.items()}
+    params = {n: cut(n, make(shape, init), top=True) for n, (shape, init) in top_leaves.items()}
     params["layers"] = layers
+    if shard is not None:
+        params["_shard"] = shard
     return params
 
 
 def init_quantized_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0, *,
                           bits: Optional[int] = 8, group_size: int = 128, dtype=torch.bfloat16,
-                          device="cpu", host_layers: bool = False) -> Params:
+                          device="cpu", host_layers: bool = False, mesh=None) -> Params:
     """Random-initialized parameters with every matmul weight quantized as
     it is drawn (``quantize_params``' layout): ``init_params``'
     distributions, drawn layer by layer and leaf by leaf, so peak memory is
@@ -137,7 +150,7 @@ def init_quantized_params(spec: ModelSpec, generator: Union[int, torch.Generator
     The port's counterpart of ``bench_70b.py``'s ``_init_quantized_streaming``.
     ``bits=None`` draws the same way without quantizing; ``host_layers``
     writes the layer stack into host memory (``build_params``), with the
-    same values as on the device."""
+    same values as on the device. ``mesh``: this rank's cut."""
     device = torch.device(device)
     make = _maker(generator, torch.float32, device)
     layer_leaves, top_leaves = _leaves(spec)
@@ -148,7 +161,7 @@ def init_quantized_params(spec: ModelSpec, generator: Union[int, torch.Generator
 
     top = {n: make(shape, init) for n, (shape, init) in top_leaves.items()}
     return build_params(spec, top, layer, dtype=dtype, device=device, bits=bits,
-                        group_size=group_size, host_layers=host_layers)
+                        group_size=group_size, host_layers=host_layers, mesh=mesh)
 
 
 def _leaf(x, device, dtype) -> torch.Tensor:
@@ -173,7 +186,7 @@ def _stacked(one, num_layers: int, empty):
 def build_params(spec: ModelSpec, top: Mapping[str, Any],
                  layer: Callable[[int], Iterable[Tuple[str, Any]]], *, dtype, device,
                  bits: Optional[int] = None, group_size: int = 128,
-                 host_layers: bool = False) -> Params:
+                 host_layers: bool = False, mesh=None) -> Params:
     """The decoder's parameters on ``device``, built one layer at a time.
 
     ``layer(i)`` yields layer i's ``(name, slab)`` pairs (numpy arrays or
@@ -191,9 +204,17 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
     stack (wqkv / wgu, ``decoder.fuse_qkv_params``, under
     ``config.fuse_qkv``) and copied out, so the device holds one layer at a
     time, the host holds one copy of the stack, and the values are those of
-    the resident engine's. ``top`` stays on ``device``."""
+    the resident engine's. ``top`` stays on ``device``.
+
+    ``mesh``: this rank's tree; each slab is cut once it is made (and
+    quantized), the top leaves before they reach ``device`` (a quantized
+    lm_head after it is quantized whole)."""
     device = torch.device(device)
     n_layers = spec.num_layers
+    if mesh is not None and host_layers:
+        raise NotImplementedError("CPU offload under a device mesh is not in the port yet "
+                                  "(ROADMAP.md Queue A, A8b)")
+    shard, cut = layer_cutter(spec, mesh, bits)
     fuse = host_layers and _ffconfig.fuse_qkv
     if host_layers:
         pin = device.type == "cuda"
@@ -212,7 +233,7 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
             if layout is not None:
                 t = quantize(t, bits, group_size, batch_dims=layout[0],
                              contract_dims=layout[1], compute_dtype=dtype)
-            one[name] = t
+            one[name] = cut(name, t)
         if fuse:
             one = fuse_qkv_params(spec, {"layers": one})["layers"]
         for name, leaf in one.items():
@@ -221,10 +242,16 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
             for dst, src in zip(leaf_fields(layers[name]), leaf_fields(leaf)):
                 dst[i] = src[0]
         del one
-    params = {k: _leaf(v, device, dtype) for k, v in top.items()}
-    if bits and "lm_head" in params:
-        params["lm_head"] = quantize(params["lm_head"], bits, group_size, compute_dtype=dtype)
+    params = {}
+    for k, v in top.items():
+        if bits and k == "lm_head":
+            params[k] = cut(k, quantize(_leaf(v, device, dtype), bits, group_size,
+                                        compute_dtype=dtype), top=True)
+        else:
+            params[k] = _leaf(cut(k, _leaf(v, "cpu", dtype), top=True), device, dtype)
     params["layers"] = layers
+    if shard is not None:
+        params["_shard"] = shard
     return params
 
 
@@ -451,17 +478,19 @@ _CONVERTERS = {
 
 def convert_hf_state_dict(spec: ModelSpec, sd: Mapping[str, Any], dtype=torch.float32,
                           device="cpu", *, bits: Optional[int] = None,
-                          group_size: int = 128, host_layers: bool = False) -> Params:
+                          group_size: int = 128, host_layers: bool = False,
+                          mesh=None) -> Params:
     """HuggingFace state dict -> the decoder's parameters on ``device``, for
     every architecture the JAX package converts (LLaMA, Mixtral, OPT,
     Falcon, MPT, GPTBigCode), one layer at a time (``build_params``); with
     ``bits`` every matmul weight is quantized as its layer is converted,
-    with ``host_layers`` the layer stack goes to (pinned) host memory."""
+    with ``host_layers`` the layer stack goes to (pinned) host memory,
+    with ``mesh`` this rank's cut of each layer."""
     top, layer = _CONVERTERS[spec.arch]
     s = _SD(sd)
     return build_params(spec, top(spec, s), lambda i: layer(spec, s, i).items(), dtype=dtype,
                         device=device, bits=bits, group_size=group_size,
-                        host_layers=host_layers)
+                        host_layers=host_layers, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +507,7 @@ def _is_quantized(leaf) -> bool:
     return all(hasattr(leaf, f) for f in ("q", "scale", "bits", "group_size"))
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float32):
+def params_from_numpy(tree, device="cpu", dtype=torch.float32, *, spec=None, mesh=None):
     """Turn a parameter tree of numpy arrays (e.g. the JAX package's params
     after ``np.asarray`` on each leaf) into the port's tensors on ``device``.
 
@@ -486,11 +515,30 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     leaves, given as objects or dicts with ``q/scale/offset/bits/group_size/
     shape/batch_dims/contract_dims/rest_pad``, keep their carriers byte for
     byte and get ``dtype`` as their compute dtype.
+
+    ``mesh`` (with the model's ``spec``): this rank's tree, each leaf cut on
+    the host as it is converted, before it reaches ``device``.
     """
+    if mesh is not None:
+        if spec is None:
+            raise ValueError("params_from_numpy(mesh=) needs the model's spec")
+        layers = tree["layers"]
+        int4 = [_is_quantized(layers.get(n)) and int(_field(layers[n], "bits")) == 4
+                for n in ("wo", "wd")]
+        shard = rank_shard(spec, mesh, int4_wo=int4[0], int4_wd=int4[1])
+
+        def cut(name, leaf, top):
+            return _to(shard_leaf(name, params_from_numpy(leaf, "cpu", dtype), shard, top=top),
+                       torch.device(device))
+
+        out = {k: cut(k, v, True) for k, v in tree.items() if k != "layers"}
+        out["layers"] = {k: cut(k, v, False) for k, v in layers.items()}
+        out["_shard"] = shard
+        return out
     device = torch.device(device)
     if _is_quantized(tree):
-        get = (lambda f: tree.get(f)) if isinstance(tree, Mapping) else (
-            lambda f: getattr(tree, f, None))
+        def get(f):
+            return _field(tree, f)
         offset = get("offset")
         return QuantizedArray(
             q=torch.tensor(np.asarray(get("q")), device=device),
@@ -513,6 +561,15 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     if arr.dtype.kind == "f":
         t = t.to(dtype)
     return t.to(device)
+
+
+def _field(leaf, name: str):
+    """A quantized leaf's field, given as an object or a dict."""
+    return leaf.get(name) if isinstance(leaf, Mapping) else getattr(leaf, name, None)
+
+
+def _to(x, device):
+    return x.to(device) if isinstance(x, (torch.Tensor, QuantizedArray)) else x
 
 
 def lora_from_numpy(tree, device="cpu", dtype=torch.float32):

@@ -19,6 +19,11 @@ same bits in both forms: the quant-matmul's rows do not depend on how many
 rows a call carries, and a token's top-2 contributions are added in expert
 order onto zero either way.
 
+Under tensor parallelism (``partial=True``) each expert holds a rank's
+columns of ``wg`` / ``wu`` and rows of ``wd``: its ``wd`` product stays
+float32, and the combine comes back float32 and unrounded, for the caller
+to sum over the model axis and round once.
+
 The router logits (``router_logits``) are one f32 GEMM in blocks of
 ``ROUTER_ROWS`` rows, so a row's logits do not depend on how many rows the
 call carries either: a token verified in a speculative tree routes as its
@@ -63,38 +68,43 @@ def route_topk(router_logits: torch.Tensor, top_k: int):
     return topw / topw.sum(dim=-1, keepdim=True), topi
 
 
-def expert_matmul(x: torch.Tensor, w: Experts, e: int) -> torch.Tensor:
+def expert_matmul(x: torch.Tensor, w: Experts, e: int, out_dtype=None) -> torch.Tensor:
     """x [N, D] @ expert ``e`` of ``w``: a plain [E, D, F] tensor, an
-    [E, D, F] QuantizedArray, or a layer of a [L, E, D, F] quantized stack."""
+    [E, D, F] QuantizedArray, or a layer of a [L, E, D, F] quantized stack;
+    in x's dtype or ``out_dtype`` (float32)."""
     if isinstance(w, LayerQuant):
-        return quant_matmul(x, w.qa, layer=w.layer, expert=e)
+        return quant_matmul(x, w.qa, layer=w.layer, expert=e, out_dtype=out_dtype)
     if isinstance(w, QuantizedArray):
-        return quant_matmul(x, w, layer=e)
+        return quant_matmul(x, w, layer=e, out_dtype=out_dtype)
+    if out_dtype is not None:
+        return torch.matmul(x.to(out_dtype), w[e].to(out_dtype))
     return torch.matmul(x, w[e])
 
 
-def _swiglu_expert(x, wg, wu, wd, e: int) -> torch.Tensor:
+def _swiglu_expert(x, wg, wu, wd, e: int, partial: bool = False) -> torch.Tensor:
     inner = act_lib.sigmoid_silu_multi(expert_matmul(x, wg, e), expert_matmul(x, wu, e))
-    return expert_matmul(inner, wd, e)
+    return expert_matmul(inner, wd, e, torch.float32 if partial else None)
 
 
 def moe_ffn_dense(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu: Experts,
-                  wd: Experts, top_k: int) -> torch.Tensor:
+                  wd: Experts, top_k: int, partial: bool = False) -> torch.Tensor:
     """x [N, D], router logits [N, E] -> [N, D]: every expert on every row,
-    weighted by the routing (zero where a row is not routed)."""
+    weighted by the routing (zero where a row is not routed); float32 and
+    unrounded with ``partial`` (a tensor-parallel rank's share)."""
     topw, topi = route_topk(router_logits, top_k)
     combine = torch.zeros(router_logits.shape, dtype=torch.float32,
                           device=x.device).scatter_(-1, topi, topw)  # [N, E]
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(router_logits.shape[-1]):
-        out += _swiglu_expert(x, wg, wu, wd, e).float() * combine[:, e:e + 1]
-    return out.to(x.dtype)
+        out += _swiglu_expert(x, wg, wu, wd, e, partial).float() * combine[:, e:e + 1]
+    return out if partial else out.to(x.dtype)
 
 
 def moe_ffn_ragged(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu: Experts,
-                   wd: Experts, top_k: int) -> torch.Tensor:
+                   wd: Experts, top_k: int, partial: bool = False) -> torch.Tensor:
     """x [N, D], router logits [N, E] -> [N, D]: each expert on the rows
-    routed to it (sort-based dispatch), weighted scatter-add back."""
+    routed to it (sort-based dispatch), weighted scatter-add back (float32
+    and unrounded with ``partial``)."""
     n_exp = router_logits.shape[-1]
     topw, topi = route_topk(router_logits, top_k)
     flat_expert = topi.reshape(-1)
@@ -108,7 +118,7 @@ def moe_ffn_ragged(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu
     for e, size in enumerate(sizes):
         if size:
             rows = slice(start, start + size)
-            y = _swiglu_expert(x_sorted[rows], wg, wu, wd, e)
+            y = _swiglu_expert(x_sorted[rows], wg, wu, wd, e, partial)
             out.index_add_(0, token_idx[rows], y.float() * w_sorted[rows, None])
         start += size
-    return out.to(x.dtype)
+    return out if partial else out.to(x.dtype)

@@ -3,8 +3,9 @@
 
 ``jax.random`` keys become integer seeds. A step's key is one 63-bit integer
 drawn from the scheduler's ``torch.Generator``; row ``r`` draws from a
-generator seeded with ``fold_in(key, row_offset + r)``, so a request's sampled
-stream depends only on (key, global row), never on the batch around it. The
+generator seeded with ``fold_in(key, rows[r])``, its global row, so a
+request's sampled stream depends only on (key, global row), never on the
+batch around it. The
 bits differ from ``jax.random``'s; parity with JAX is the exact filtered
 logits plus the distribution.
 """
@@ -92,10 +93,13 @@ def sample(
     cfg: SamplingConfig,
     *,
     greedy_only: bool = False,
-    row_offset: int = 0,
+    rows=None,
 ) -> torch.Tensor:
     """One token per row (int32 [B]); greedy rows (temperature <= 0) take
-    argmax. ``greedy_only`` skips the sort machinery (every row greedy)."""
+    argmax. ``greedy_only`` skips the sort machinery (every row greedy).
+    Row r draws from ``fold_in(key, rows[r])``: ``rows`` names each row's
+    global index in its batch (default 0, 1, ...; a data-parallel rank's
+    own rows, or a batch's tail, name theirs)."""
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if greedy_only:
         return greedy_tok
@@ -106,7 +110,7 @@ def sample(
         if t <= 0.0:
             continue
         gen = torch.Generator(device=logits.device)
-        gen.manual_seed(fold_in(key, row_offset + r))
+        gen.manual_seed(fold_in(key, r if rows is None else rows[r]))
         u = torch.rand(masked.shape[-1], generator=gen, device=logits.device)
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         out[r] = torch.argmax(masked[r] + gumbel).to(torch.int32)

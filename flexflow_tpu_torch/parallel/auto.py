@@ -24,7 +24,7 @@ Differences from the JAX module:
 - The port runs on one device: ``layout_mesh`` gives ``None`` for
   ``Layout(1, 1, 1)`` and refuses any other layout, and
   ``optimize_train_layout`` / ``optimize_serving_layout`` refuse more than
-  one device before measuring anything (ROADMAP A8, A9, A11c). Without
+  one device before measuring anything (ROADMAP A8b, A9, A11c). Without
   ``n_devices`` they count the CUDA devices for a CUDA device and one for
   the CPU.
 - A candidate that fails to build or run is skipped, as in JAX, but the
@@ -87,12 +87,18 @@ def device_count(device=None) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
-def refuse_mesh(n_devices: int, what: str) -> None:
-    """The port places on one device: more is a device mesh (A8) and the
-    search over it (A11c)."""
+def refuse_mesh(n_devices: int, what: str, serving: bool = False) -> None:
+    """The search places on one device. Over more, serving has its mesh
+    (A8a: pass the degrees) but not the search over it (A11c); training
+    has neither (A8b, A11c)."""
     if n_devices > 1:
+        if serving:
+            raise NotImplementedError(
+                f"{what} over {n_devices} devices: the serving mesh (ROADMAP.md Queue A, A8a) "
+                "is in the port (pass tensor_parallelism_degree / data_parallelism_degree), "
+                "the layout search on it (A11c) is not yet")
         raise NotImplementedError(
-            f"{what} over {n_devices} devices needs a device mesh (ROADMAP.md Queue A, A8) "
+            f"{what} over {n_devices} devices needs a training mesh (ROADMAP.md Queue A, A8b) "
             "and the search on a mesh (A11c), which are not in the port yet")
 
 
@@ -298,7 +304,7 @@ def layout_mesh(layout: Layout):
     if (layout.data, layout.pipe, layout.model) == (1, 1, 1) and not layout.hybrid_ffn:
         return None
     raise NotImplementedError(
-        f"layout {layout} needs a device mesh (ROADMAP.md Queue A, A8; pipeline stages, "
+        f"layout {layout} needs a training mesh (ROADMAP.md Queue A, A8b; pipeline stages, "
         "A9), which is not in the port yet")
 
 
@@ -372,7 +378,7 @@ def optimize_serving_layout(
 
     dev = resolve_device(device)
     n = n_devices or device_count(dev)
-    refuse_mesh(n, "the serving layout search")
+    refuse_mesh(n, "the serving layout search", serving=True)
     dtype = cache_dtype if cache_dtype is not None else torch.bfloat16
 
     def step_factory(layout: Layout):

@@ -1,0 +1,180 @@
+"""Device mesh over ``torch.distributed`` ranks (port of
+``flexflow_tpu/parallel/mesh.py``, with its axis names).
+
+JAX builds one controller's ``jax.sharding.Mesh`` and lets GSPMD place the
+arrays. The port runs one process per rank (SPMD): every rank runs the same
+engine on the same requests with its own shard of the parameters and of the
+KV cache, and the explicit collectives below make every value the host
+reads identical on every rank. Rank ``r`` of a ``data x pipe x model x
+seq`` mesh sits at JAX's coordinate ``np.arange(n).reshape(data, pipe,
+model, seq)``: its model rank is ``r % model`` and its data rank
+``r // model``.
+
+Only ``all_reduce``, list-form ``all_gather`` and ``broadcast`` are used:
+NCCL and gloo take all three on CUDA tensors, so two ranks may share one
+card over gloo (``backend="gloo"``). NCCL collectives can be captured in a
+CUDA graph once their communicator exists; gloo's cannot.
+
+Pipeline stages (``pipe > 1``, ROADMAP A9) and context parallelism
+(``seq > 1``, A10) are not in the port yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+from typing import Any, List, Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+DATA_AXIS = "data"
+PIPE_AXIS = "pipe"
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+AXES = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS, SEQ_AXIS)
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """One rank's view of a ``data x pipe x model x seq`` mesh: its
+    coordinate, its device and the ``model`` and ``data`` process groups
+    (None for a rank made by :meth:`fake`, which shards parameters but
+    runs no collective)."""
+
+    data: int
+    pipe: int
+    model: int
+    seq: int
+    rank: int
+    device: torch.device
+    backend: Optional[str] = None
+    model_group: Any = None
+    data_group: Any = None
+
+    @classmethod
+    def fake(cls, data: int = 1, model: int = 1, rank: int = 0, device="cpu") -> "Mesh":
+        """The mesh coordinate ``rank`` without a process group: what
+        ``shard_params`` needs to cut that rank's tree."""
+        if not 0 <= rank < data * model:
+            raise ValueError(f"rank {rank} outside a {data} x {model} mesh")
+        return cls(data, 1, model, 1, rank, torch.device(device))
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph may capture this mesh's collectives (NCCL)."""
+        return self.backend == "nccl"
+
+    def _group(self, axis: str):
+        group = self.model_group if axis == MODEL_AXIS else self.data_group
+        if group is None:
+            raise RuntimeError("this mesh has no process group (Mesh.fake): it shards "
+                               "parameters but runs no collective")
+        return group
+
+    def all_reduce(self, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+        """Sum ``x`` over ``axis`` in place; returns it."""
+        dist.all_reduce(x, group=self._group(axis))
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str = MODEL_AXIS) -> torch.Tensor:
+        """The ``axis`` ranks' ``x`` concatenated along ``dim`` in rank order."""
+        x = x.contiguous()
+        n = self.model if axis == MODEL_AXIS else self.data
+        parts: List[torch.Tensor] = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._group(axis))
+        return torch.cat(parts, dim=dim)
+
+    def warm(self, device) -> None:
+        """One eager collective on each group (NCCL makes a communicator at
+        its first collective, which must not happen under graph capture)."""
+        for axis in (MODEL_AXIS, DATA_AXIS):
+            self.all_reduce(torch.zeros(1, device=device), axis)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _default_device() -> torch.device:
+    """``cuda:LOCAL_RANK``; raises when the rank has no CUDA device (the
+    CPU is used only when the caller names it, as ``resolve_device``)."""
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    resolve_device("cuda")
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(f"rank with LOCAL_RANK {local} has no CUDA device "
+                           f"({torch.cuda.device_count()} visible); pass device=")
+    return torch.device("cuda", local)
+
+
+def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
+              backend: Optional[str] = None,
+              device: Optional[Union[str, torch.device]] = None) -> Mesh:
+    """This rank's mesh over the default process group.
+
+    The group is the caller's if one is initialised; otherwise it is made
+    from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``), or, for a mesh of one rank, on a free localhost port.
+    ``data * pipe * model * seq`` must equal the world size. The backend is
+    NCCL for CUDA devices and gloo for the CPU unless ``backend`` names
+    one; the device is ``cuda:LOCAL_RANK`` unless ``device`` names one
+    (without CUDA that raises: only ``device="cpu"`` gives a CPU mesh)."""
+    if pipe > 1:
+        raise NotImplementedError("pipeline-parallel serving (pipe > 1) is not in the port "
+                                  "yet (ROADMAP.md Queue A, A9)")
+    if seq > 1:
+        raise NotImplementedError("context parallelism (seq > 1) is not in the port yet "
+                                  "(ROADMAP.md Queue A, A10)")
+    need = data * pipe * model * seq
+    if min(data, pipe, model, seq) < 1:
+        raise ValueError(f"mesh degrees must be >= 1, got {data}x{pipe}x{model}x{seq}")
+    device = _default_device() if device is None else resolve_device(device)
+    if backend is None:
+        if dist.is_initialized():
+            backend = dist.get_backend()
+        else:
+            backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        elif need == 1:
+            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    world_size=1, rank=0)
+        else:
+            raise RuntimeError(f"a {need}-rank mesh needs a process group: run under torchrun "
+                               "or call torch.distributed.init_process_group first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if need != world:
+        raise ValueError(f"mesh {data}x{pipe}x{model}x{seq} needs {need} ranks, the world "
+                         f"has {world}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    model_group = data_group = None
+    for d in range(data):  # every rank creates every group, in one order
+        g = dist.new_group([d * model + m for m in range(model)], backend=backend)
+        if d == rank // model:
+            model_group = g
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)], backend=backend)
+        if m == rank % model:
+            data_group = g
+    mesh = Mesh(data, pipe, model, seq, rank, device, backend, model_group, data_group)
+    if rank == 0:
+        print(f"[mesh] data={data} model={model} over {world} rank(s), backend {backend}, "
+              f"rank 0 on {device}", flush=True)
+    return mesh

@@ -18,6 +18,14 @@ then only registers and waits, so concurrent callers share the batch, and
 ``generate_stream`` yields text deltas as horizons are fetched. The
 tokenizer is imported lazily (``transformers``). Runs on ``cuda`` unless
 ``device`` names another device.
+
+``compile(tensor_parallelism_degree=T, data_parallelism_degree=D)`` serves
+on ``T * D`` ranks (one process each, e.g. under ``torchrun``): every rank
+calls the same methods with the same prompts, loads only its own cut of
+the weights (``parallel/sharding``) and gets the same results
+(``parallel/mesh``). Pipeline and context degrees above 1 are ROADMAP A9
+and A10; LoRA, PEFT and offload under a mesh A8b; ``start_server`` under a
+mesh A10 (JAX's request broadcaster).
 """
 
 from __future__ import annotations
@@ -30,10 +38,11 @@ import torch
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.parallel import auto as auto_lib
+from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lora_params,
                                          load_hf_adapter_config, load_hf_adapter_into_slot,
                                          unroute_lora)
-from flexflow_tpu_torch.serving.engine import InferenceEngine
+from flexflow_tpu_torch.serving.engine import NO_MESH_ADAPTERS, InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import (NO_ADAPTERS, MultiSSMSpecManager,
                                                      SpecRequestManager)
@@ -63,6 +72,8 @@ class GenerationResult:
 
 class LLM:
     """A served causal LM."""
+
+    mesh = None  # this rank's parallel/mesh.Mesh once compile has made one
 
     def __init__(self, model_dir: str, *, data_type: str = "bfloat16",
                  quantization: Optional[str] = None, output_file: str = "",
@@ -127,15 +138,29 @@ class LLM:
         export_hf_adapter(adapter_dir, self.spec, unroute_lora(self.rm.engine.lora), slot,
                           self.lora_config)
 
-    def _load_params(self, host_layers: bool = False):
+    def _load_params(self, host_layers: bool = False, mesh=None):
         _, params = hf_weights.load_params(
             self.model_dir, self.spec, dtype=self.dtype, quantize_bits=self.quant_bits,
             quantize_group_size=_ffconfig.quantization_group_size, device=self.device,
-            host_layers=host_layers)
+            host_layers=host_layers, mesh=mesh)
         return params
 
+    def _make_mesh(self, tp: int, dp: int, pp: int, cp: int):
+        """The serving mesh of the degrees (None for one device): this
+        rank's device is ``cuda:LOCAL_RANK`` unless the LLM names one."""
+        if max(tp, dp, pp, cp) == 1:
+            return None
+        named = self.device.type != "cuda" or self.device.index is not None
+        mesh = make_mesh(data=dp, pipe=pp, model=tp, seq=cp,
+                         device=self.device if named else None)
+        self.device = mesh.device
+        return mesh
+
     def compile(self, *, max_requests_per_batch: int = 8, max_seq_length: int = 256,
-                max_tokens_per_batch: Optional[int] = None, beam_width: int = 3,
+                max_tokens_per_batch: Optional[int] = None,
+                tensor_parallelism_degree: int = 1, data_parallelism_degree: int = 1,
+                pipeline_parallelism_degree: int = 1, context_parallel_degree: int = 1,
+                beam_width: int = 3,
                 beam_depth: int = 4, ssms: Sequence["SSM"] = (),
                 merge_ssm_trees: bool = False, offload: Optional[bool] = None,
                 auto_parallel: Optional[bool] = None) -> None:
@@ -156,17 +181,30 @@ class LLM:
         ``auto_parallel`` (default ``config.auto_parallel``,
         ``-auto-parallelism``) is JAX's serving layout search, which runs
         only over more than one device (and not with drafts, adapters or
-        quantization): on one device it does nothing, as in JAX; over more
-        it raises (ROADMAP A8, A11c)."""
+        quantization), with the degrees left at 1: on one device it does
+        nothing, as in JAX; over more it raises (the search over a mesh is
+        ROADMAP A11c).
+
+        ``tensor_parallelism_degree`` x ``data_parallelism_degree`` (JAX's
+        signature) serve over that many ranks (``parallel/mesh.make_mesh``;
+        every rank calls ``compile`` and ``generate`` alike). Pipeline and
+        context degrees above 1 raise (A9, A10), as do adapters and offload
+        under a mesh (A8b)."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
             offload = _ffconfig.cpu_offload
         if auto_parallel is None:
             auto_parallel = getattr(_ffconfig, "auto_parallel", False)
-        if auto_parallel and not self._ssms and not self._peft and self.quant_bits is None:
+        degrees = (tensor_parallelism_degree, data_parallelism_degree,
+                   pipeline_parallelism_degree, context_parallel_degree)
+        if (auto_parallel and max(degrees) == 1 and not self._ssms and not self._peft
+                and self.quant_bits is None):
             auto_lib.refuse_mesh(auto_lib.device_count(self.device),
-                                 "LLM.compile(auto_parallel=True)")
+                                 "LLM.compile(auto_parallel=True)", serving=True)
+        if max(degrees) > 1 and (offload or self._peft):
+            raise NotImplementedError(NO_MESH_ADAPTERS)
+        self.mesh = self._make_mesh(*degrees)
         if self._ssms and offload:
             raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "
                                       "speculative decoding with offload is not supported")
@@ -174,7 +212,7 @@ class LLM:
             raise NotImplementedError(NO_ADAPTERS)
         if max_tokens_per_batch is None:
             max_tokens_per_batch = 128
-        self.params = self._load_params(host_layers=offload)
+        self.params = self._load_params(host_layers=offload, mesh=self.mesh)
         self._load_tokenizer()
         if self._ssms:
             engines = []
@@ -184,10 +222,10 @@ class LLM:
                 first = engines[0] if engines else None
                 engines.append(SpecEngine(
                     self.spec, first.llm_params if first else self.params, ssm.spec,
-                    ssm._load_params(), beam_width=beam_width, beam_depth=beam_depth,
-                    max_requests_per_batch=max_requests_per_batch,
+                    ssm._load_params(mesh=self.mesh), beam_width=beam_width,
+                    beam_depth=beam_depth, max_requests_per_batch=max_requests_per_batch,
                     max_seq_len=max_seq_length, cache_dtype=self.dtype, device=self.device,
-                    llm_cache=first.llm_cache if first else None))
+                    llm_cache=first.llm_cache if first else None, mesh=self.mesh))
             if len(engines) > 1:
                 self.rm = MultiSSMSpecManager(engines, merged=merge_ssm_trees,
                                               fused=not merge_ssm_trees)
@@ -214,6 +252,7 @@ class LLM:
             lora=self.lora,
             lora_config=self.lora_config,
             offload=offload,
+            mesh=self.mesh,
         )
         # the engine's tree (fused; under offload its layers are the store's
         # pinned leaves): the loaded tree is not kept beside it
@@ -312,7 +351,12 @@ class LLM:
             raise RuntimeError(f"serving loop failed during generation: {req.error}")
 
     def start_server(self) -> None:
-        """Start the background serving loop (incremental or speculative)."""
+        """Start the background serving loop (incremental or speculative).
+        Under a mesh it raises: the ranks would each take requests on their
+        own (JAX's request broadcaster is ROADMAP A10)."""
+        if self.mesh is not None:
+            raise NotImplementedError("start_server under a device mesh needs the request "
+                                      "broadcaster (ROADMAP.md Queue A, A10)")
         self.rm.start_background_server()
 
     def stop_server(self) -> None:

@@ -48,6 +48,19 @@ captures no graph (``graphs.capturable``).
 Host values (lengths, slots) travel to the device through pinned,
 non-blocking copies, and sampled tokens stay on the device until ``fetch``,
 so the host runs ahead of the card between horizons.
+
+Tensor and data parallelism (JAX ``mesh=``): with a
+``parallel/mesh.Mesh`` every rank builds the engine over its own cut of
+the parameters (``parallel/sharding.shard_params``, unless the tree is one
+already) and of the KV cache (its heads; its data rank's block of slots)
+and is driven with the same calls and the same host values. The public
+methods keep the one-device shapes: a data rank computes only its own
+slots' rows (every row's bits do not depend on the rows around it) and
+the tokens are gathered over the ``data`` axis, so every rank's manager
+sees every slot. Each rank takes the prefill bucket of the whole batch.
+The decoder's collectives run inside the greedy step, so a graph captures
+them under NCCL; gloo's cannot be captured (``graphs.capturable``). LoRA
+and CPU offload under a mesh are ROADMAP A8b.
 """
 
 from __future__ import annotations
@@ -65,9 +78,14 @@ from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
-from flexflow_tpu_torch.serving.graphs import StepGraphs, capturable
+from flexflow_tpu_torch.serving.graphs import step_graphs
 from flexflow_tpu_torch.models.layer_store import LayerStore
+from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
+from flexflow_tpu_torch.parallel.sharding import shard_params, slot_block
 from flexflow_tpu_torch.specs import ModelSpec
+
+NO_MESH_ADAPTERS = ("LoRA adapters, PEFT finetuning and CPU offload under a device mesh are "
+                    "not in the port yet (ROADMAP.md Queue A, A8b)")
 
 
 def _round_up_pow2(n: int, lo: int) -> int:
@@ -83,6 +101,52 @@ def _params_to(params, device):
     if isinstance(params, (QuantizedArray, torch.Tensor)):
         return params.to(device)
     return params
+
+
+def place_params(spec: ModelSpec, params, device, mesh):
+    """The engine's tree on ``device``: this rank's cut under a mesh (a
+    tree cut already, with its ``"_shard"``, is kept), fused (wqkv / wgu)
+    under ``config.fuse_qkv``."""
+    if mesh is not None and "_shard" not in params:
+        params = shard_params(spec, params, mesh)
+    params = _params_to(params, device)
+    if _ffconfig.fuse_qkv:
+        params = decoder.fuse_qkv_params(spec, params)
+    return params
+
+
+class SlotBlock:
+    """A data rank's block ``[lo, hi)`` of the request slots and the
+    gathers that give every rank every slot (one data rank, or a slot count
+    the data axis does not divide: the whole batch, no collective)."""
+
+    def __init__(self, num_slots: int, mesh):
+        self.mesh = mesh
+        self.lo, self.hi = slot_block(num_slots, mesh)
+        self.split = self.hi - self.lo < num_slots
+        self.n = self.hi - self.lo
+
+    def local(self, x):
+        """Rows [lo, hi) of a [B, ...] host array or device tensor."""
+        return x[self.lo:self.hi] if self.split else x
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every data rank's rows of ``x`` along ``dim``, in slot order."""
+        return self.mesh.all_gather(x, dim, DATA_AXIS) if self.split else x
+
+    def rows(self, slots) -> list:
+        """The positions in ``slots`` that this rank owns."""
+        return [i for i, s in enumerate(slots) if not self.split or self.lo <= s < self.hi]
+
+    def combine(self, n: int, rows, values: Optional[torch.Tensor], device) -> torch.Tensor:
+        """An [n] int32 tensor with ``values`` at ``rows`` (this rank's),
+        summed over the data axis so that every rank holds every row."""
+        if not self.split:
+            return values
+        out = torch.zeros(n, dtype=torch.int32, device=device)
+        if rows:
+            out[torch.as_tensor(rows, device=device)] = values.to(torch.int32)
+        return self.mesh.all_reduce(out, DATA_AXIS)
 
 
 class InferenceEngine:
@@ -102,10 +166,17 @@ class InferenceEngine:
         lora=None,  # {mod: {"a": [L, N, D_in, r], "b": [L, N, r, D_out]}}
         lora_config=None,  # its LoraConfig (alpha / rank gives the scale)
         offload: bool = False,  # layers in pinned host memory, streamed per layer
+        mesh=None,  # parallel/mesh.Mesh: this rank's cut of a TP x DP mesh
     ):
         self.spec = spec
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
         self.offload = bool(offload)
+        if mesh is not None and (lora is not None or self.offload):
+            raise NotImplementedError(NO_MESH_ADAPTERS)
+        if mesh is not None and "_shard" not in params:
+            params = shard_params(spec, params, mesh)
         if self.offload:  # the layers stay where they are until the store takes them
             params = {**_params_to({k: v for k, v in params.items() if k != "layers"},
                                    self.device), "layers": params["layers"]}
@@ -127,16 +198,19 @@ class InferenceEngine:
         self.max_seq_len = max_seq_len
         self.max_tokens_per_batch = max_tokens_per_batch
         self.min_prefill_bucket = min_prefill_bucket
+        self.slots = SlotBlock(max_requests_per_batch, mesh)
+        shard = params.get("_shard")
         self.cache = decoder.init_kv_cache(
-            spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
-        # the greedy step's static buffers and, on the card, its graph
-        self._lens = torch.zeros(max_requests_per_batch, dtype=torch.int32, device=self.device)
+            spec, self.slots.n, max_seq_len, cache_dtype, self.device,
+            num_kv_heads=None if shard is None else shard.num_kv_cache(spec))
+        # the greedy step's static buffers (this rank's slots) and, on the
+        # card, its graph
+        self._lens = torch.zeros(self.slots.n, dtype=torch.int32, device=self.device)
         self._tokens = torch.zeros_like(self._lens)
         # each slot's adapter for the greedy body (None: an engine without adapters)
         self._adapters = (None if lora is None else
                           torch.full_like(self._lens, -1, dtype=torch.int64))
-        self.graphs = (StepGraphs(self.device) if capturable(self.device, spec,
-                                                             offload=self.offload) else None)
+        self.graphs = step_graphs(self.device, spec, offload=self.offload, mesh=mesh)
 
     # ------------------------------------------------------------------
 
@@ -151,10 +225,12 @@ class InferenceEngine:
     def _greedy_only(scfg: SamplingConfig) -> bool:
         return bool(np.all(np.asarray(scfg.temperature) <= 0.0))
 
-    def _sample(self, logits, key: int, scfg: SamplingConfig):
+    def _sample(self, logits, key: int, scfg: SamplingConfig, rows=None):
+        """``rows``: the batch rows ``logits`` (and ``scfg``) hold, whose
+        indices seed the sampled rows (None: 0, 1, ...)."""
         if self._greedy_only(scfg):
             return sampling_lib.sample(logits, key, scfg, greedy_only=True)
-        return sampling_lib.sample(logits, key, self._scfg(scfg))
+        return sampling_lib.sample(logits, key, self._scfg(scfg), rows=rows)
 
     def _adapter_ids(self, adapter_ids: Optional[Sequence[int]], n: int):
         """``n`` rows' adapter ids (None: every row -1), checked against the
@@ -201,7 +277,30 @@ class InferenceEngine:
         while nb < real_nb:
             nb *= 2
         nb = min(nb, max(self.max_requests, real_nb))
+        # the whole batch's bucket, on every data rank
         bucket = max(self.prefill_bucket(len(p)) for p in prompts)
+        if self.slots.split:
+            mine = self.slots.rows(slots)
+            toks = None
+            if mine:
+                pick = lambda xs: None if xs is None else [xs[i] for i in mine]
+                sc = SamplingConfig(*(np.asarray(f)[mine] for f in scfg))
+                toks = self._prefill_rows(
+                    pick(prompts), [slots[i] - self.slots.lo for i in mine], key, sc,
+                    pick(adapter_ids), bucket, mine)[:len(mine)]
+            return self.slots.combine(nb, mine, toks, self.device)
+        return self._prefill_rows(prompts, slots, key, scfg, adapter_ids, bucket, None)
+
+    def _prefill_rows(self, prompts, slots, key: int, scfg: SamplingConfig, adapter_ids,
+                      bucket: int, rows):
+        """``prefill_batch_to_slots_async`` over this rank's cache rows
+        ``slots`` at ``bucket``; ``rows``: the prompts' global batch rows
+        (their sampling seeds; None: 0, 1, ...)."""
+        real_nb = len(prompts)
+        nb = 1
+        while nb < real_nb:
+            nb *= 2
+        nb = min(nb, max(self.slots.n, real_nb))
         padded = np.zeros((nb, bucket), np.int32)
         lengths = np.ones((nb,), np.int32)  # pad rows: 1 dummy token
         slots = list(slots) + [-1] * (nb - real_nb)  # -1: written nowhere
@@ -234,7 +333,9 @@ class InferenceEngine:
             logits, _ = decoder.forward(
                 self.spec, self.params, tokens, positions, lengths=lens_d,
                 flash=True, kv_sink=sink, logits_at=lens_d - 1, **routing)
-            return self._sample(logits, key, scfg)
+            if rows is not None:
+                rows = list(rows) + [max(rows) + 1 + i for i in range(nb - real_nb)]
+            return self._sample(logits, key, scfg, rows)
 
     def prefill_to_slot_async(self, prompt_tokens, slot: int, key: int,
                               scfg1: SamplingConfig, adapter_id: int = -1):
@@ -252,8 +353,12 @@ class InferenceEngine:
                                  scfg1: SamplingConfig, adapter_id: int = -1):
         """Token-budgeted prefill: chunks of max_tokens_per_batch against the
         slot's own cache rows (written in place)."""
+        mine = self.slots.rows([slot])
+        if not mine:  # another data rank's slot: its token comes in the gather
+            return self.slots.combine(1, [], None, self.device)[0]
         routing = self._routing(self._adapter_ids([adapter_id], 1))
         c = self.max_tokens_per_batch
+        slot -= self.slots.lo
         cache1 = decoder.KVCache(self.cache.k[:, slot:slot + 1], self.cache.v[:, slot:slot + 1])
         n = len(prompt_tokens)
         done = 0
@@ -267,7 +372,8 @@ class InferenceEngine:
                     to_device([done], self.device), write_start=[done],
                     logits_at=to_device([m - 1], self.device), **routing)
                 done += m
-            return self._sample(logits, key, scfg1)[0]
+            tok = self._sample(logits, key, scfg1)
+            return self.slots.combine(1, mine, tok, self.device)[0]
 
     # ------------------------------------------------------------------
     # decode
@@ -303,18 +409,21 @@ class InferenceEngine:
         if self._greedy_only(scfg):
             return self.greedy_horizon_async(lens, tokens, n, replay=self.graphs is not None,
                                              adapter_ids=adapter_ids)
-        routing = self._routing(self._adapter_ids(adapter_ids, lens.shape[0]))
-        lens_d, toks = to_device(lens, self.device), self._tokens_in(tokens)
-        out = torch.empty((n, lens.shape[0]), dtype=torch.int32, device=self.device)
-        scfg_d = self._scfg(scfg)
+        sl = self.slots
+        routing = self._routing(self._adapter_ids(sl.local(adapter_ids) if adapter_ids
+                                                  is not None else None, sl.n))
+        lens_d, toks = to_device(sl.local(lens), self.device), sl.local(self._tokens_in(tokens))
+        out = torch.empty((n, sl.n), dtype=torch.int32, device=self.device)
+        scfg_d = self._scfg(SamplingConfig(*(sl.local(np.asarray(f)) for f in scfg)))
         with torch.no_grad():
             for i in range(n):
                 logits, _ = decoder.forward_cached(
                     self.spec, self.params, toks[:, None], self.cache, lens_d, **routing)
-                toks = sampling_lib.sample(logits[:, 0], sampling_lib.fold_in(key, i), scfg_d)
+                toks = sampling_lib.sample(logits[:, 0], sampling_lib.fold_in(key, i), scfg_d,
+                                           rows=range(sl.lo, sl.lo + sl.n))
                 lens_d = lens_d + 1
                 out[i] = toks
-        return out
+        return sl.gather(out, 1)
 
     def _greedy_body(self, _key=None) -> None:
         """One greedy step on the static buffers, in place: K/V written at
@@ -327,8 +436,8 @@ class InferenceEngine:
         self._lens.add_(1)
 
     def _load(self, lens: np.ndarray, tokens, adapter_ids=None) -> None:
-        self._lens.copy_(to_device(lens, self.device))
-        self._tokens.copy_(self._tokens_in(tokens))
+        self._lens.copy_(to_device(self.slots.local(lens), self.device))
+        self._tokens.copy_(self.slots.local(self._tokens_in(tokens)))
         ids = self._adapter_ids(adapter_ids, self.max_requests)
         if ids is not None:
             self._adapters.copy_(ids)
@@ -348,7 +457,7 @@ class InferenceEngine:
         if replay and self.graphs is None:
             raise ValueError("replaying a captured step needs an engine on a CUDA device "
                              "whose step has static shapes (not a ragged MoE)")
-        out = torch.empty((n, self.max_requests), dtype=torch.int32, device=self.device)
+        out = torch.empty((n, self.slots.n), dtype=torch.int32, device=self.device)
         with torch.no_grad():
             if replay and not self.graphs.graphs:
                 self._load(lens, tokens, adapter_ids)
@@ -360,4 +469,4 @@ class InferenceEngine:
                 else:
                     self._greedy_body()
                 out[i] = self._tokens
-        return out
+        return self.slots.gather(out, 1)

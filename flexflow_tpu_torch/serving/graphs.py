@@ -26,7 +26,7 @@ that ran.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Hashable, Tuple
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
@@ -36,15 +36,35 @@ _COUNTERS = ((quant_matmul, "LAUNCHES"), (quant_matmul, "LAUNCHES_INT4"),
              (decode_attention, "LAUNCHES"), (flash_prefill, "LAUNCHES"))
 
 
-def capturable(device: torch.device, *specs, offload: bool = False) -> bool:
+def capturable(device: torch.device, *specs, offload: bool = False, mesh=None) -> bool:
     """Whether an engine on ``device`` running ``specs`` captures its greedy
     step: on a CUDA device, unless a model's MoE FFN is the ``ragged`` form,
     which reads its expert group sizes on the host every layer, or the
-    engine offloads its layers to the host (``offload``). An offload step is
-    bound by the host-to-device stream of its layers (about 1.7 s for bf16
-    Mixtral-8x7B over PCIe), so a replay would save nothing."""
-    return device.type == "cuda" and not offload and not any(
-        s.moe is not None and s.moe.impl == "ragged" for s in specs)
+    engine offloads its layers to the host (``offload``), or its mesh's
+    collectives are gloo's, which a CUDA graph cannot capture. An offload
+    step is bound by the host-to-device stream of its layers (about 1.7 s
+    for bf16 Mixtral-8x7B over PCIe), so a replay would save nothing."""
+    return (device.type == "cuda" and not offload
+            and (mesh is None or mesh.capturable)
+            and not any(s.moe is not None and s.moe.impl == "ragged" for s in specs))
+
+
+def step_graphs(device: torch.device, *specs, offload: bool = False,
+                mesh=None) -> "Optional[StepGraphs]":
+    """An engine's ``StepGraphs`` where it ``capturable`` (else None). A
+    CUDA engine whose gloo mesh rules capture out says so on the output.
+    Under an NCCL mesh every communicator is warmed first by one eager
+    collective: NCCL makes it lazily, and a first collective under capture
+    fails."""
+    if not capturable(device, *specs, offload=offload, mesh=mesh):
+        if (mesh is not None and not mesh.capturable and mesh.rank == 0
+                and capturable(device, *specs, offload=offload)):
+            print(f"[graphs] {mesh.backend} collectives cannot be captured in a CUDA graph: "
+                  "every horizon of this engine runs eagerly", flush=True)
+        return None
+    if mesh is not None:
+        mesh.warm(device)
+    return StepGraphs(device)
 
 
 def launch_counts() -> Tuple[int, ...]:

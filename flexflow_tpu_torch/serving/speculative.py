@@ -39,6 +39,14 @@ group sizes are read on the host): such an engine captures nothing. Lens,
 roots and produced tokens stay device tensors until ``fetch``, each
 iteration's tree K/V lives in its own buffer, and the caches are updated in
 place.
+
+Under a mesh (JAX ``mesh=``) the verifier and the draft are both cut
+(``parallel/sharding``), both caches hold the rank's KV heads and its data
+rank's block of slots, and every public method keeps the one-device shapes
+(``engine.SlotBlock``: a data rank computes its own slots' rows, whose bits
+do not depend on the rows around them, and the results are gathered over
+the ``data`` axis). The tree verification runs the decode-attention
+kernel's tree form on the rank's own heads.
 """
 
 from __future__ import annotations
@@ -48,15 +56,14 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.models import decoder
 from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.ops.topk import top_k
-from flexflow_tpu_torch.serving.engine import _params_to, _round_up_pow2
-from flexflow_tpu_torch.serving.graphs import StepGraphs, capturable
+from flexflow_tpu_torch.serving.engine import SlotBlock, _round_up_pow2, place_params
+from flexflow_tpu_torch.serving.graphs import step_graphs
 from flexflow_tpu_torch.serving.spec_sampling import tree_sample_walk
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -99,7 +106,7 @@ def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int):
         logits, (k0, v0) = decoder.forward_cached(
             ssm_spec, ssm_params, roots[:, None], ssm_cache, cache_lens,
             write_cache=False)
-        shape = (ssm_spec.num_layers, b, tree, ssm_spec.num_kv_heads, ssm_spec.head_dim)
+        shape = (ssm_spec.num_layers, b, tree, k0.shape[3], ssm_spec.head_dim)
         buf_k = torch.zeros(shape, dtype=cdt, device=dev)
         buf_v = torch.zeros(shape, dtype=cdt, device=dev)
         buf_k[:, :, 0:1] = k0
@@ -218,51 +225,57 @@ class SpecEngine:
         cache_dtype=torch.bfloat16,
         device=None,
         llm_cache: Optional[KVCache] = None,
+        mesh=None,
     ):
         """``llm_cache``: a verifier cache to share (another engine's, for
         several drafts against one verifier) instead of a new one. Passing
         that engine's ``llm_params`` too shares its parameter tensors: they
-        are on the device and fused already, so nothing is copied."""
+        are on the device, cut and fused already, so nothing is copied.
+        ``mesh``: this rank's ``parallel/mesh.Mesh`` (tensor and data
+        parallelism)."""
         if llm_spec.vocab_size != ssm_spec.vocab_size:
             raise ValueError("the verifier and the draft need one vocabulary")
         t = tree_size(beam_width, beam_depth)
         if t > MAX_SPEC_TREE_TOKEN_NUM:
             raise ValueError(f"tree {t} exceeds the cap {MAX_SPEC_TREE_TOKEN_NUM}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
+        self.mesh = mesh
         self.llm_spec, self.ssm_spec = llm_spec, ssm_spec
-        llm_params = _params_to(llm_params, self.device)
-        ssm_params = _params_to(ssm_params, self.device)
-        if _ffconfig.fuse_qkv:
-            # draft and verifier flip together, so decode, draft expansion
-            # and tree verification stay mutually consistent
-            llm_params = decoder.fuse_qkv_params(llm_spec, llm_params)
-            ssm_params = decoder.fuse_qkv_params(ssm_spec, ssm_params)
+        # draft and verifier fuse together (config.fuse_qkv), so decode,
+        # draft expansion and tree verification stay mutually consistent
+        llm_params = place_params(llm_spec, llm_params, self.device, mesh)
+        ssm_params = place_params(ssm_spec, ssm_params, self.device, mesh)
         self.llm_params, self.ssm_params = llm_params, ssm_params
+        self.slots = SlotBlock(max_requests_per_batch, mesh)
+        nb = self.slots.n
         self.width, self.depth, self.tree = beam_width, beam_depth, t
         self.max_requests = max_requests_per_batch
         self.max_seq_len = max_seq_len
+        def kv_heads(spec, params):
+            sh = params.get("_shard")
+            return None if sh is None else sh.num_kv_cache(spec)
+
         if llm_cache is None:
-            llm_cache = decoder.init_kv_cache(
-                llm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
-        elif ((llm_cache.num_slots, llm_cache.max_seq_len) != (max_requests_per_batch,
-                                                                max_seq_len)
+            llm_cache = decoder.init_kv_cache(llm_spec, nb, max_seq_len, cache_dtype,
+                                              self.device, kv_heads(llm_spec, llm_params))
+        elif ((llm_cache.num_slots, llm_cache.max_seq_len) != (nb, max_seq_len)
               or llm_cache.k.device.type != self.device.type):
             raise ValueError(f"a shared verifier cache {tuple(llm_cache.k.shape)} on "
-                             f"{llm_cache.k.device} does not fit {max_requests_per_batch} slots "
+                             f"{llm_cache.k.device} does not fit {nb} slots "
                              f"x {max_seq_len} positions on {self.device}")
         self.llm_cache = llm_cache
-        self.ssm_cache = decoder.init_kv_cache(
-            ssm_spec, max_requests_per_batch, max_seq_len, cache_dtype, self.device)
+        self.ssm_cache = decoder.init_kv_cache(ssm_spec, nb, max_seq_len, cache_dtype,
+                                               self.device, kv_heads(ssm_spec, ssm_params))
         self._draft_phase = build_draft_phase(ssm_spec, beam_width, beam_depth)
         self._depths = make_depths_vec(beam_width, beam_depth, self.device)
         # the greedy iteration's static buffers and, on the card, its graphs
-        b, i32 = max_requests_per_batch, torch.int32
+        b, i32 = nb, torch.int32
         self._lens = torch.zeros(b, dtype=i32, device=self.device)
         self._roots = torch.zeros(b, dtype=i32, device=self.device)
         self._produced = torch.zeros((b, beam_depth + 1), dtype=i32, device=self.device)
         self._n_acc = torch.zeros(b, dtype=i32, device=self.device)
-        self.graphs = (StepGraphs(self.device) if capturable(self.device, llm_spec, ssm_spec)
-                       else None)
+        self.graphs = step_graphs(self.device, llm_spec, ssm_spec, mesh=mesh)
 
     # ------------------------------------------------------------------
     # host-facing helpers
@@ -308,12 +321,12 @@ class SpecEngine:
     # admission
     # ------------------------------------------------------------------
 
-    def _prefill_into(self, spec, params, cache, prompts, slots):
-        """One causal forward of ``prompts`` through the flash-prefill
-        kernel, each layer's K/V written into the cache rows ``slots``;
-        returns the logits at each prompt's last position [NB, V]."""
+    def _prefill_into(self, spec, params, cache, prompts, slots, bucket: int):
+        """One causal forward of ``prompts`` (padded to ``bucket``) through
+        the flash-prefill kernel, each layer's K/V written into this rank's
+        cache rows ``slots``; returns the logits at each prompt's last
+        position [NB, V]."""
         nb = len(prompts)
-        bucket = min(_round_up_pow2(max(len(p) for p in prompts), 16), self.max_seq_len)
         padded = np.zeros((nb, bucket), np.int32)
         lengths = np.zeros((nb,), np.int32)
         for i, p in enumerate(prompts):
@@ -342,19 +355,36 @@ class SpecEngine:
         each model through the flash-prefill kernel, each layer's K/V written
         into the slots); returns the [NB] first tokens as host ints, greedy
         unless ``scfg`` ([NB] fields) and ``key`` are given."""
-        last = self._prefill_into(self.llm_spec, self.llm_params, self.llm_cache, prompts, slots)
-        self.prefill_ssm_only(prompts, slots)
-        with torch.no_grad():
-            if scfg is None:
-                toks = torch.argmax(last, dim=-1)
-            else:
-                toks = sampling_lib.sample(last, key, self._scfg(scfg))
+        bucket = self._bucket(prompts)
+        mine = self.slots.rows(slots)
+        toks = None
+        if mine:
+            ps, ss = [prompts[i] for i in mine], [slots[i] - self.slots.lo for i in mine]
+            last = self._prefill_into(self.llm_spec, self.llm_params, self.llm_cache, ps, ss,
+                                      bucket)
+            self._prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache, ps, ss, bucket)
+            with torch.no_grad():
+                if scfg is None:
+                    toks = torch.argmax(last, dim=-1)
+                else:
+                    sc = SamplingConfig(*(np.asarray(f)[mine] for f in scfg))
+                    toks = sampling_lib.sample(last, key, self._scfg(sc), rows=mine)
+        toks = self.slots.combine(len(prompts), mine, toks, self.device)
         return [int(t) for t in self.fetch(toks)]
+
+    def _bucket(self, prompts) -> int:
+        """The whole batch's prefill bucket (every data rank takes it)."""
+        return min(_round_up_pow2(max(len(p) for p in prompts), 16), self.max_seq_len)
 
     def prefill_ssm_only(self, prompts, slots) -> None:
         """Admit requests into the draft cache only (several drafts share
         one verifier cache: only the first engine's admission fills it)."""
-        self._prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache, prompts, slots)
+        bucket = self._bucket(prompts)
+        mine = self.slots.rows(slots)
+        if mine:
+            self._prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache,
+                               [prompts[i] for i in mine],
+                               [slots[i] - self.slots.lo for i in mine], bucket)
 
     def catchup(self, ssm_lens, tokens) -> None:
         """Advance the draft cache over already committed tokens: one
@@ -362,9 +392,11 @@ class SpecEngine:
         ``ssm_lens`` [B]. A row with less lag writes junk past its valid
         region, which the next forward overwrites before anything attends
         it."""
+        sl = self.slots
         with torch.no_grad():
-            decoder.forward_cached(self.ssm_spec, self.ssm_params, self._h(tokens),
-                                   self.ssm_cache, self._h(ssm_lens))
+            decoder.forward_cached(self.ssm_spec, self.ssm_params,
+                                   self._h(sl.local(np.asarray(tokens))), self.ssm_cache,
+                                   self._h(sl.local(np.asarray(ssm_lens))))
 
     # ------------------------------------------------------------------
     # stepwise path: draft tree, verify and commit as three host calls
@@ -374,6 +406,15 @@ class SpecEngine:
         """Expand the draft tree for every slot, writing the draft's tree K/V
         into its cache at [lens, lens + tree). Returns host arrays
         (tree_tokens [B, T], tree_parents [B, T], tree_depths [T])."""
+        sl = self.slots
+        tt, tp, depths = self._draft_tree(sl.local(np.asarray(cache_lens, np.int32)),
+                                          sl.local(np.asarray(root_tokens)))
+        if sl.split:
+            both = sl.gather(self._h(np.stack([tt, tp], 1)), 0)
+            tt, tp = (np.ascontiguousarray(x) for x in np.moveaxis(self.fetch(both), 1, 0))
+        return tt, tp, depths
+
+    def _draft_tree(self, cache_lens, root_tokens):
         lens_np = np.asarray(cache_lens, np.int32)
         b, w, dmax, t = len(lens_np), self.width, self.depth, self.tree
         lens = self._h(lens_np)
@@ -424,7 +465,9 @@ class SpecEngine:
     def verify(self, cache_lens, tree_tokens, tree_parents, tree_depths) -> np.ndarray:
         """Verifier over the tree (its K/V written at [lens, lens + T));
         returns the greedy argmax per tree slot [B, T] on the host."""
-        lens_np = np.asarray(cache_lens, np.int32)
+        sl = self.slots
+        lens_np = sl.local(np.asarray(cache_lens, np.int32))
+        tree_tokens, tree_parents = sl.local(tree_tokens), sl.local(tree_parents)
         b, t = tree_tokens.shape
         anc = np.zeros((b, t, t), bool)
         anc[:, np.arange(t), np.arange(t)] = True
@@ -435,12 +478,14 @@ class SpecEngine:
         depths = np.asarray(tree_depths)
         if depths.ndim == 1:
             depths = np.broadcast_to(depths[None, :], (b, t))
+        else:
+            depths = sl.local(depths)
         with torch.no_grad():
             logits, _ = decoder.forward_cached(
                 self.llm_spec, self.llm_params, self._h(tree_tokens), self.llm_cache,
                 self._h(lens_np), positions=self._h(lens_np[:, None] + depths),
                 tree_mask=self._h(anc, np.bool_), write_start=lens_np)
-            return self.fetch(torch.argmax(logits, dim=-1))
+            return self.fetch(sl.gather(torch.argmax(logits, dim=-1), 0))
 
     def commit(self, cache_lens, from_slots) -> None:
         """Compact the accepted tree slots of both caches:
@@ -454,8 +499,8 @@ class SpecEngine:
         self._commit((self.llm_cache,), cache_lens, from_slots)
 
     def _commit(self, caches, cache_lens, from_slots) -> None:
-        lens_np = np.asarray(cache_lens, np.int32)
-        fs = self._h(from_slots).long()
+        lens_np = self.slots.local(np.asarray(cache_lens, np.int32))
+        fs = self._h(self.slots.local(np.asarray(from_slots))).long()
         b, t = fs.shape
         lens = self._h(lens_np).long()
         bidx = torch.arange(b, device=self.device)[:, None].expand(b, t)
@@ -500,13 +545,15 @@ class SpecEngine:
 
     def _sample_walk(self, key: int, scfg: SamplingConfig):
         """A walk that verifies stochastically against each slot's target
-        distribution (``scfg`` fields [B] on the device)."""
+        distribution (``scfg`` fields [B] on the device; this data rank's
+        slots, whose global indices seed the walk)."""
         def walk(logits, tree_tokens, tree_parents):
             b, t, v = logits.shape
             rep = SamplingConfig(*(torch.repeat_interleave(f, t) for f in scfg))
             p_tree = sampling_lib.target_probs(logits.reshape(b * t, v), rep).reshape(b, t, v)
             return tree_sample_walk(p_tree, tree_tokens, tree_parents, key,
-                                    width=self.width, depth=self.depth)
+                                    width=self.width, depth=self.depth,
+                                    row_offset=self.slots.lo)
         return walk
 
     def fused_step(self, cache_lens, root_tokens, window=None) -> Tuple[np.ndarray, np.ndarray]:
@@ -555,7 +602,7 @@ class SpecEngine:
             raise ValueError("replaying a captured iteration needs an engine on a CUDA device")
         if replay and window not in self.window_buckets():
             raise ValueError(f"window {window} is not one of {self.window_buckets()}")
-        b = self.max_requests
+        b, sl = self.slots.n, self.slots
         produced = torch.empty((n, b, self.depth + 1), dtype=torch.int32, device=self.device)
         n_acc = torch.empty((n, b), dtype=torch.int32, device=self.device)
         with torch.no_grad():
@@ -571,13 +618,14 @@ class SpecEngine:
                     self._greedy_body(window)
                 produced[i] = self._produced
                 n_acc[i] = self._n_acc
-        return produced, n_acc, self._lens.clone(), self._roots.clone()
+        return (sl.gather(produced, 1), sl.gather(n_acc, 1), sl.gather(self._lens.clone()),
+                sl.gather(self._roots.clone()))
 
     def _load(self, lens_dev, roots_dev) -> None:
         if lens_dev.shape != (self.max_requests,) or roots_dev.shape != (self.max_requests,):
             raise ValueError(f"lens and roots must be [{self.max_requests}]")
-        self._lens.copy_(lens_dev)
-        self._roots.copy_(roots_dev)
+        self._lens.copy_(self.slots.local(lens_dev))
+        self._roots.copy_(self.slots.local(roots_dev))
 
     def fused_sample_step(self, cache_lens, root_tokens, key: int,
                           scfg: SamplingConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -596,12 +644,14 @@ class SpecEngine:
                                   n: int, window=None):
         """Pipelined sampling horizon (see ``fused_step_n_async``), issued
         eagerly; iteration i draws from ``fold_in(key, i)``."""
-        sc = self._scfg(scfg)
-        lens, roots, produced, n_acc = lens_dev, roots_dev, [], []
+        sl = self.slots
+        sc = self._scfg(SamplingConfig(*(sl.local(np.asarray(f)) for f in scfg)))
+        lens, roots, produced, n_acc = sl.local(lens_dev), sl.local(roots_dev), [], []
         with torch.no_grad():
             for i in range(n):
                 walk = self._sample_walk(sampling_lib.fold_in(key, i), sc)
                 p, a, lens, roots = self._fused_iteration(lens, roots, walk, window)
                 produced.append(p)
                 n_acc.append(a)
-        return torch.stack(produced), torch.stack(n_acc), lens, roots
+        return (sl.gather(torch.stack(produced), 1), sl.gather(torch.stack(n_acc), 1),
+                sl.gather(lens), sl.gather(roots))

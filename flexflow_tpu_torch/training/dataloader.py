@@ -20,7 +20,7 @@ class SingleDataLoader:
         if mesh is not None:
             raise NotImplementedError(
                 "a data-parallel mesh is not in the port yet: it comes with the sharding "
-                "rules (ROADMAP.md Queue A, A8)")
+                "rules (ROADMAP.md Queue A, A8b)")
         self.arrays = [np.asarray(a) for a in arrays]
         n = self.arrays[0].shape[0]
         if any(a.shape[0] != n for a in self.arrays):

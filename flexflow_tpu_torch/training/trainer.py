@@ -13,7 +13,7 @@ gradient of integer leaves either. ``mesh="auto"`` runs the layout search
 (``parallel/auto.optimize_train_layout``: on one device it measures the
 only layout, dp = pp = tp = 1, and trains under it; its report is
 ``auto_report``). A mesh and pipeline stages are not in the port yet and
-raise ``NotImplementedError`` naming their ROADMAP items (A8, A9; the
+raise ``NotImplementedError`` naming their ROADMAP items (A8b, A9; the
 search over more than one device, A11c).
 """
 
@@ -67,7 +67,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (data and tensor parallel training) is not in the port yet "
-                "(ROADMAP.md Queue A, A8)")
+                "(ROADMAP.md Queue A, A8b)")
         if pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline stages are not in the port yet (ROADMAP.md Queue A, A9)")

@@ -126,6 +126,7 @@ def load_params(
     quantize_group_size: int = 128,
     device="cpu",
     host_layers: bool = False,
+    mesh=None,
 ):
     """Load a local HF model dir into the decoder params on ``device``, with
     optional weight-only quantize-on-load (4 or 8 bits). Layers are read,
@@ -133,9 +134,12 @@ def load_params(
     quantized load never holds the full-precision tree on the device; the
     carriers are byte for byte those of ``quantize_params`` on the whole
     converted tree. ``host_layers``: the layer stack goes to (pinned) host
-    memory for CPU offload (``build_params``)."""
+    memory for CPU offload (``build_params``). ``mesh``: this rank's cut
+    (``parallel/sharding``), each layer's tensors read from the memory-mapped
+    shards and cut before the next layer is read, so no rank holds more of
+    the whole model than one layer (and one top-level tensor)."""
     spec = spec or load_spec(model_dir)
     params = params_lib.convert_hf_state_dict(
         spec, LazyStateDict(model_dir), dtype, device, bits=quantize_bits,
-        group_size=quantize_group_size, host_layers=host_layers)
+        group_size=quantize_group_size, host_layers=host_layers, mesh=mesh)
     return spec, params

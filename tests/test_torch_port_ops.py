@@ -123,7 +123,7 @@ def test_sample_greedy_and_distribution():
     # a request's draw depends on (key, global row) only
     cfg = t_samp.SamplingConfig(torch.ones(3), torch.ones(3), torch.zeros(3, dtype=torch.int32))
     a = t_samp.sample(logits, 9, cfg)
-    b = t_samp.sample(logits[1:], 9, t_samp.SamplingConfig(*(f[1:] for f in cfg)), row_offset=1)
+    b = t_samp.sample(logits[1:], 9, t_samp.SamplingConfig(*(f[1:] for f in cfg)), rows=[1, 2])
     assert torch.equal(a[1:], b)
     # distribution: empirical frequencies of one row vs its softmax (5000
     # draws: 4 standard errors of a frequency <= 0.5 is < 0.03)
