@@ -4,8 +4,11 @@ example (examples/cpp/mixture_of_experts/moe.cc: MNIST
 classifier whose hidden layer is a top-k-gated expert ensemble, built from
 the gate->topk->group_by->experts->aggregate composite, src/ops/moe.cc:20-60).
 
-A mesh (expert parallel training) is not in the port yet: ``main(mesh=...)``
-raises naming ROADMAP A8b.
+``main(mesh=...)`` takes a ``parallel/mesh.Mesh`` and passes it to
+``FFModel``, which keeps it and shards nothing, exactly as the JAX
+package's ``FFModel`` (its example's docstring says the expert stacks
+shard; they do not there either): the model trains as without a mesh, on
+``mesh.device`` unless ``device`` names another.
 """
 
 import numpy as np

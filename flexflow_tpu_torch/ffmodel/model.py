@@ -15,9 +15,12 @@ changes the optimizer's rate without rebuilding anything.
 
 ``compile(auto_parallel=True)`` runs JAX's joint rewrite x placement
 search (``parallel/joint.py``) and keeps its graph, planned as JAX plans it
-for at least two devices; on one device nothing is sharded, as in JAX. A
-device mesh (ROADMAP A8b), and the search on one (A11c), are not in the port
-and raise.
+for at least two devices; on one device nothing is sharded, as in JAX.
+``FFModel(mesh=)`` takes a ``parallel/mesh.Mesh`` and keeps it as JAX
+keeps its mesh, unread: the graph is not sharded (JAX's executor never
+reads ``_mesh`` either); the model runs on ``mesh.device`` unless
+``device`` names another. The search over more than one device is ROADMAP
+A11c and raises.
 ``load_numpy`` takes the JAX model's ``params`` / ``state`` as numpy trees,
 so both packages can compute the same thing.
 """
@@ -153,11 +156,13 @@ class FFModel:
     """Layer-graph builder and its executor on one device."""
 
     def __init__(self, seed: int = 0, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (data, tensor and expert parallel graphs) is not in the port "
-                "yet (ROADMAP.md Queue A, A8b)")
-        self.device = resolve_device(device)
+        from flexflow_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+        self._mesh = mesh  # stored as JAX stores it; nothing reads it
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         self._nodes: List[_Node] = []
         self._inputs: List[int] = []
         self._seed = seed
@@ -850,13 +855,16 @@ class FFModel:
         dimensions, ``config.search_budget * 4`` expansions and
         ``config.search_alpha``. Its graph replaces the model's, the plan is
         ``self.joint_plan`` and its rewrites join ``substitution_report``.
-        One device runs the graph unsharded; more raise (A8b, A11c)."""
+        One device runs the graph unsharded; more raise (the search on a
+        mesh, A11c)."""
         from flexflow_tpu_torch.config import config as _ffconfig
         from flexflow_tpu_torch.ffmodel.substitutions import load_rules, optimize_graph
         from flexflow_tpu_torch.parallel import auto as auto_lib
 
         if auto_parallel:
             n_devices = auto_lib.device_count(self.device)
+            if self._mesh is not None:
+                n_devices = max(n_devices, self._mesh.data * self._mesh.model)
             auto_lib.refuse_mesh(n_devices, "compile(auto_parallel=True)")
         self.substitution_report = {}
         self.joint_plan = None

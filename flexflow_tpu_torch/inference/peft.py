@@ -15,6 +15,13 @@ step per scheduler iteration of ``generate`` and the rest after it, up to
 ``--max-training-steps``; ``--save-peft`` exports it as an HF PEFT
 directory. Runs on the card unless ``--device cpu`` is given. Legion
 resource flags (``-ll:*``) are ignored.
+
+``-tensor-parallelism-degree`` / ``-data-parallelism-degree`` serve and
+finetune over that many ranks, one process each under ``torchrun`` (as
+``incr_decoding``); rank 0 prints and writes ``--save-peft``:
+
+    torchrun --standalone --nproc-per-node 2 -m flexflow_tpu_torch.inference.peft \
+        -llm-model DIR -enable-peft ... --device cpu -tensor-parallelism-degree 2
 """
 
 import argparse
@@ -62,9 +69,6 @@ def main(argv=None):
     if not args.enable_peft and args.peft_model:
         print("PEFT model id passed, but PEFT is not enabled", file=sys.stderr)
         return 1
-    if max(args.tp, args.dp) > 1:
-        raise SystemExit("PEFT serving and finetuning under a device mesh are not in the port "
-                         "yet (ROADMAP.md Queue A, A8b)")
 
     import numpy as np
 
@@ -89,7 +93,9 @@ def main(argv=None):
             llm._peft[0][0] if args.peft_model else base_cfg)
     llm.compile(max_requests_per_batch=args.max_requests_per_batch,
                 max_seq_length=args.max_sequence_length,
-                max_tokens_per_batch=args.max_tokens_per_batch)
+                max_tokens_per_batch=args.max_tokens_per_batch,
+                tensor_parallelism_degree=args.tp, data_parallelism_degree=args.dp)
+    speaks = llm.mesh is None or llm.mesh.rank == 0  # every rank holds the same results
 
     session = None
     if args.enable_peft and args.dataset:
@@ -115,7 +121,7 @@ def main(argv=None):
     results = llm.generate(prompts, max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature if args.do_sample else 0.0,
                            top_p=args.topp, adapter_id=serve_adapter)
-    for r in results:
+    for r in results if speaks else ():
         print(f"=== guid {r.guid} (steps {r.decoding_steps}, "
               f"latency {r.latency_ms:.1f}ms) ===")
         print(r.prompt + r.output_text)
@@ -123,11 +129,13 @@ def main(argv=None):
         # the finetuning steps serving left, after it drained
         while not session.tick(llm.rm.engine):
             pass
-        print(f"[Finetune] steps {len(session.losses)} "
-              f"losses {['%.4f' % v for v in session.losses]}")
+        if speaks:
+            print(f"[Finetune] steps {len(session.losses)} "
+                  f"losses {['%.4f' % v for v in session.losses]}")
         if args.save_peft:
             llm.save_peft_adapter(args.save_peft, finetune_adapter)
-            print(f"[Finetune] adapter saved to {args.save_peft}")
+            if speaks:
+                print(f"[Finetune] adapter saved to {args.save_peft}")
     return 0
 
 

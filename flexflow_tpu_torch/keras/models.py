@@ -59,7 +59,8 @@ class Model:
     def compile(self, optimizer=None, loss="sparse_categorical_crossentropy",
                 metrics=("accuracy",), auto_parallel=False):
         """``auto_parallel=True`` runs ``FFModel.compile``'s joint rewrite x
-        placement search (on one device; more raise, ROADMAP A8b / A11c)."""
+        placement search (on one device; more raise: the search on a mesh,
+        ROADMAP A11c)."""
         self.ff.compile(optimizer=optimizer, loss_type=_LOSS_MAP[loss],
                         metrics=metrics, auto_parallel=auto_parallel)
 

@@ -38,6 +38,17 @@ A MoE FFN gets none, as in JAX. A row routed to -1 keeps the projection's
 output bit for bit. The routing reads nothing on the host, so a CUDA graph
 captures it.
 
+Tensor parallelism (``shard=``, this rank's ``parallel/sharding.Shard``;
+the tree holds the rank's cut): the row-parallel sums, the vocab-parallel
+embedding sum and the logits' gather go through ``parallel/mesh``'s
+conjugate collectives, and ``copy_to_model`` marks every column-parallel
+input (the normed hidden state into wq/wk/wv and wg/wu, the router logits
+and expert inputs of a MoE FFN, the lm_head's input), so a gradient
+through a rank's cut is the one-device gradient's cut. LoRA follows the
+cut (``sharding.shard_lora``): a column target's delta is its rank's
+columns; a row target's (wo, wd) ``x_local @ a[rows]`` is summed over
+``model`` in float32, then ``@ b``, the delta added after the base sum.
+
 CPU offload (JAX ``_stream_in``): ``params["layers"]`` may be a
 :class:`~flexflow_tpu_torch.models.layer_store.LayerStore` (layers in pinned
 host memory, two device slots) instead of the stacked dict. Both forwards
@@ -69,6 +80,7 @@ from flexflow_tpu_torch.ops.kernels.decode_attention import (
 )
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
+from flexflow_tpu_torch.parallel.mesh import copy_to_model, gather_from_model, reduce_from_model
 from flexflow_tpu_torch.peft.lora import RoutedLora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
 from flexflow_tpu_torch.models.layer_store import LayerStore
@@ -141,19 +153,23 @@ def _linear(x, w, b=None, *, dims: int = 1, out_dtype=None):
     return out.to(out_dtype or x.dtype)
 
 
-def _apply_lora(p: Params, mod: str, x, out):
+def _apply_lora(p: Params, mod: str, x, out, row_parallel: bool = False):
     """``out`` plus module ``mod``'s routed LoRA delta: ``x @ a`` over every
     adapter, weighted by the scale on each row's own adapter and by 0 on
     the others, ``@ b``, in float32, cast once to ``out``'s dtype. Rows
     routed to -1 keep ``out`` bit for bit. ``p["_lora"]`` holds the layer's
     (a [D_in, N*r], b [N*r, D_out]) per module (keyed by module name: fused
-    carriers hold no wq...wu)."""
+    carriers hold no wq...wu). ``row_parallel``: ``x`` and ``a`` are the
+    rank's input features, ``x @ a`` is summed over the model axis."""
     lora = p.get("_lora")
     if lora is None or mod not in lora:
         return out
     a, b = lora[mod]
     bsz = out.shape[0]
-    xa = torch.matmul(x.reshape(bsz, -1, a.shape[0]).float(), a) * p["_lora_weight"]
+    xa = torch.matmul(x.reshape(bsz, -1, a.shape[0]).float(), a)
+    if row_parallel:
+        xa = reduce_from_model(xa, p["_shard"].mesh)
+    xa = xa * p["_lora_weight"]
     delta = torch.matmul(xa, b).reshape(out.shape).to(out.dtype)
     keep = p["_lora_keep"].reshape((bsz,) + (1,) * (out.dim() - 1))
     return torch.where(keep, out + delta, out)
@@ -163,6 +179,8 @@ def _qkv(spec: ModelSpec, p: Params, h):
     """h [B,T,D] -> q [B,T,H,Dh], k/v [B,T,KH,Dh] (a tensor-parallel rank's
     own heads, and the KV heads its cache keeps)."""
     sh = p.get("_shard")
+    if sh is not None and sh.heads is not None:
+        h = copy_to_model(h, sh.mesh)
     if "wqkv" in p:
         out = _linear(h, p["wqkv"], p.get("bqkv"))
         hh, kh = ((spec.num_heads, spec.num_kv_heads) if sh is None
@@ -171,23 +189,24 @@ def _qkv(spec: ModelSpec, p: Params, h):
     else:
         q, k, v = (_linear(h, p["wq"], p.get("bq")), _linear(h, p["wk"], p.get("bk")),
                    _linear(h, p["wv"], p.get("bv")))
+    hf = h.float() if "_lora" in p else h  # one cast for the three deltas
+    q, k, v = _apply_lora(p, "wq", hf, q), _apply_lora(p, "wk", hf, k), _apply_lora(p, "wv", hf, v)
     if sh is not None and sh.kv_take is not None:
         take = sh.index("kv_take", k.device)
         k, v = k.index_select(-2, take), v.index_select(-2, take)
-    hf = h.float() if "_lora" in p else h  # one cast for the three deltas
-    return _apply_lora(p, "wq", hf, q), _apply_lora(p, "wk", hf, k), _apply_lora(p, "wv", hf, v)
+    return q, k, v
 
 
-def fuse_qkv_params(spec: ModelSpec, params: Params) -> Params:
+def fuse_qkv_params(spec: ModelSpec, params: Params, shard=None) -> Params:
     """Concatenate wq|wk|wv into ``wqkv`` [L, D, H+2KH, Dh] and wg|wu into
     ``wgu`` [L, D, 2F] so a step pays one kernel call per group. Column-exact
-    (quantized groups included, via ``concat_rest``)."""
+    (quantized groups included, via ``concat_rest``). ``shard``: the cut
+    ``params`` is (a tensor-parallel rank's)."""
     layers = dict(params["layers"])
-    sh = params.get("_shard")
-    hh, kh = ((spec.num_heads, spec.num_kv_heads) if sh is None
-              else (sh.num_heads(spec), sh.num_kv_proj(spec)))
-    f = spec.intermediate_size if sh is None or sh.ffn is None else sum(
-        b - a for a, b in sh.ffn)
+    hh, kh = ((spec.num_heads, spec.num_kv_heads) if shard is None
+              else (shard.num_heads(spec), shard.num_kv_proj(spec)))
+    f = spec.intermediate_size if shard is None or shard.ffn is None else sum(
+        b - a for a, b in shard.ffn)
 
     def _fusable(names):
         ws = [layers.get(n) for n in names]
@@ -237,7 +256,7 @@ def _row_parallel(p: Params, what: str) -> bool:
 def _reduced(p: Params, partial, bias, dtype):
     """A row-parallel float32 partial summed over the model axis, the bias
     added once after the sum, rounded once to ``dtype``."""
-    out = p["_shard"].mesh.all_reduce(partial.float())
+    out = reduce_from_model(partial.float(), p["_shard"].mesh)
     if bias is not None:
         out = out + bias
     return out.to(dtype)
@@ -255,12 +274,15 @@ def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
     # every row through the router in both forms, so a row's routing never
     # depends on which rows the ragged form keeps (nor on the row count)
     router_logits = moe_lib.router_logits(x, p["router"])  # [N, E]
+    tp = _row_parallel(p, "ffn")
+    if tp:  # each rank's experts see the router's outputs and the rows
+        x = copy_to_model(x, p["_shard"].mesh)
+        router_logits = copy_to_model(router_logits, p["_shard"].mesh)
     rows = None
     if spec.moe.impl == "ragged" and valid is not None:
         rows = valid.reshape(-1).nonzero()[:, 0]
         x, router_logits = x[rows], router_logits[rows]
     ffn = moe_lib.moe_ffn_ragged if spec.moe.impl == "ragged" else moe_lib.moe_ffn_dense
-    tp = _row_parallel(p, "ffn")
     out = ffn(x, router_logits, p["wg"], p["wu"], p["wd"], spec.moe.top_k, partial=tp)
     if rows is not None:
         out = torch.zeros(b * t, d, dtype=out.dtype, device=out.device).index_copy_(0, rows, out)
@@ -272,6 +294,9 @@ def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
 def _mlp(spec: ModelSpec, p: Params, h, valid=None):
     if spec.moe is not None:
         return _moe_mlp(spec, p, h, valid)
+    tp = _row_parallel(p, "ffn")
+    if tp:
+        h = copy_to_model(h, p["_shard"].mesh)
     if spec.act == "silu_gate":
         if "wgu" in p:
             gate, up = torch.chunk(_linear(h, p["wgu"]), 2, dim=-1)
@@ -283,9 +308,10 @@ def _mlp(spec: ModelSpec, p: Params, h, valid=None):
     else:
         inner = act_lib.get_activation(spec.act)(
             _apply_lora(p, "wu", h, _linear(h, p["wu"], p.get("bu"))))
-    if _row_parallel(p, "ffn"):
-        return _reduced(p, _linear(inner, p["wd"], out_dtype=torch.float32), p.get("bd"),
-                        h.dtype)
+    if tp:
+        out = _reduced(p, _linear(inner, p["wd"], out_dtype=torch.float32), p.get("bd"),
+                       h.dtype)
+        return _apply_lora(p, "wd", inner, out, row_parallel=True)
     out = _linear(inner, p["wd"])
     if p.get("bd") is not None:
         out = out + p["bd"]
@@ -296,8 +322,9 @@ def _attn_out(spec: ModelSpec, p: Params, a):
     """a [B,T,H,Dh] -> [B,T,D] via wo [H,Dh,D]."""
     wo = p["wo"]
     if _row_parallel(p, "heads"):
-        return _reduced(p, _linear(a, wo, dims=2, out_dtype=torch.float32), p.get("bo"),
-                        a.dtype)
+        out = _reduced(p, _linear(a, wo, dims=2, out_dtype=torch.float32), p.get("bo"),
+                       a.dtype)
+        return _apply_lora(p, "wo", a, out, row_parallel=True)
     if isinstance(wo, LayerQuant):
         out = quant_matmul(a, wo.qa, layer=wo.layer)
     elif isinstance(wo, QuantizedArray):
@@ -362,15 +389,14 @@ def _lora_routing(lora: Optional[RoutedLora], adapter_ids: Optional[torch.Tensor
 
 
 def _layer_views(spec: ModelSpec, params: Params, lora: Optional[RoutedLora],
-                 routing: Optional[Params]) -> Iterator[Tuple[int, Params]]:
-    """(i, layer i's parameters) in layer order, with the layer's adapter
-    weights and the routing when the forward has LoRA. From a
-    :class:`LayerStore` (CPU offload) layer i is read from its staged slot
-    and released once the caller's work on it is enqueued, which starts the
-    copy of layer i + 2 into that slot."""
+                 routing: Optional[Params], shard=None) -> Iterator[Tuple[int, Params]]:
+    """(i, layer i's parameters) in layer order, with the rank's ``shard``
+    (under ``"_shard"``), the layer's adapter weights and the routing when
+    the forward has LoRA. From a :class:`LayerStore` (CPU offload) layer i
+    is read from its staged slot and released once the caller's work on it
+    is enqueued, which starts the copy of layer i + 2 into that slot."""
     layers = params["layers"]
     store = layers if isinstance(layers, LayerStore) else None
-    shard = params.get("_shard")
     for i in range(spec.num_layers):
         p = store.acquire(i) if store is not None else _layer_params(layers, i)
         if shard is not None:
@@ -382,8 +408,7 @@ def _layer_views(spec: ModelSpec, params: Params, lora: Optional[RoutedLora],
             store.release(i)
 
 
-def _embed(spec: ModelSpec, params: Params, tokens, positions):
-    sh = params.get("_shard")
+def _embed(spec: ModelSpec, params: Params, tokens, positions, sh=None):
     emb = params["embed_tokens"]
     if sh is not None and sh.vocab is not None:
         # vocab-parallel: the rank's rows, zero elsewhere, summed (exact:
@@ -391,7 +416,7 @@ def _embed(spec: ModelSpec, params: Params, tokens, positions):
         local = tokens.long() - sh.vocab[0]
         mine = (local >= 0) & (local < emb.shape[0])
         h = torch.where(mine[..., None], emb[local.clamp(0, emb.shape[0] - 1)].float(), 0.0)
-        h = sh.mesh.all_reduce(h).to(emb.dtype)
+        h = reduce_from_model(h, sh.mesh).to(emb.dtype)
     else:
         h = emb[tokens.long()]
     if spec.embed_scale != 1.0:
@@ -401,10 +426,13 @@ def _embed(spec: ModelSpec, params: Params, tokens, positions):
     return h
 
 
-def _unembed(spec: ModelSpec, params: Params, h):
+def _unembed(spec: ModelSpec, params: Params, h, sh=None):
     """h [..., D] -> f32 logits [..., V]."""
     if spec.final_norm:
         h = _norm(spec, h, params["final_norm_scale"], params.get("final_norm_bias"))
+    vocab_cut = sh is not None and sh.vocab is not None
+    if vocab_cut:
+        h = copy_to_model(h, sh.mesh)
     w = params.get("lm_head")
     if isinstance(w, QuantizedArray):
         logits = quant_matmul(h, w, out_dtype=torch.float32)
@@ -413,9 +441,8 @@ def _unembed(spec: ModelSpec, params: Params, h):
         logits = torch.tensordot(h.float(), w.float(), dims=1)
     if params.get("lm_head_bias") is not None:
         logits = logits + params["lm_head_bias"].float()
-    sh = params.get("_shard")
-    if sh is not None and sh.vocab is not None:
-        logits = sh.mesh.all_gather(logits, dim=-1)  # vocab-parallel: exact
+    if vocab_cut:
+        logits = gather_from_model(logits, sh.mesh, logits.dim() - 1)  # vocab-parallel: exact
     return logits
 
 
@@ -468,6 +495,7 @@ def forward(
     adapter_ids: Optional[torch.Tensor] = None,  # [B] adapter per row, -1: none
     lora_scale: float = 1.0,
     traces: Optional[Dict[str, torch.Tensor]] = None,
+    shard=None,  # parallel/sharding.Shard: the cut ``params`` is
 ):
     """Self-attention forward (prefill). Returns ``(logits, kv)``.
 
@@ -482,8 +510,8 @@ def forward(
     """
     b, t = tokens.shape
     dev = tokens.device
-    slopes = _alibi_slopes(spec, dev, params.get("_shard"))
-    h = _embed(spec, params, tokens, positions)
+    slopes = _alibi_slopes(spec, dev, shard)
+    h = _embed(spec, params, tokens, positions, shard)
     if traces is not None:
         traces["embed_tokens.output"] = h
     use_flash = flash and slopes is None and spec.attn_logit_softcap is None
@@ -517,7 +545,7 @@ def forward(
         return out
 
     ks, vs = [], []
-    for i, p in _layer_views(spec, params, lora, routing):
+    for i, p in _layer_views(spec, params, lora, routing, shard):
         kvs = []
         h = _layer(spec, p, h, attend, valid)
         if traces is not None:
@@ -530,7 +558,7 @@ def forward(
             vs.append(v)
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
-    logits = _unembed(spec, params, h)
+    logits = _unembed(spec, params, h, shard)
     if traces is not None:
         traces["lm_head.output"] = logits
     return logits, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
@@ -583,6 +611,7 @@ def forward_cached(
     lora: Optional[RoutedLora] = None,
     adapter_ids: Optional[torch.Tensor] = None,  # [B] adapter per row, -1: none
     lora_scale: float = 1.0,
+    shard=None,  # parallel/sharding.Shard: the cut ``params`` is
 ):
     """Cached decode / chunk / tree forward. Returns ``(logits [B, T, V] f32,
     cache)`` with the cache updated in place, or ``(logits, (k_new, v_new))``
@@ -607,11 +636,11 @@ def forward_cached(
     b, t = tokens.shape
     dev = tokens.device
     s = cache.max_seq_len
-    slopes = _alibi_slopes(spec, dev, params.get("_shard"))
+    slopes = _alibi_slopes(spec, dev, shard)
     cache_lens = cache_lens.to(device=dev, dtype=torch.int32)
     if positions is None:
         positions = cache_lens[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]
-    h = _embed(spec, params, tokens, positions)
+    h = _embed(spec, params, tokens, positions, shard)
 
     if write_cache:
         if write_start is None:
@@ -643,7 +672,7 @@ def forward_cached(
     routing = _lora_routing(lora, adapter_ids, lora_scale)
 
     new_k, new_v = [], []
-    for i, p in _layer_views(spec, params, lora, routing):
+    for i, p in _layer_views(spec, params, lora, routing, shard):
         ck_l, cv_l = cache.k[i], cache.v[i]  # [B, KH, S, D]
 
         def attend(q, k, v):
@@ -686,7 +715,7 @@ def forward_cached(
         h = _layer(spec, p, h, attend)
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
-    logits = _unembed(spec, params, h)
+    logits = _unembed(spec, params, h, shard)
     if not write_cache:
         return logits, (torch.stack(new_k), torch.stack(new_v))
     return logits, cache

@@ -129,13 +129,11 @@ def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
     device = torch.device(device)
     make = _maker(generator, dtype, device)
     layer_leaves, top_leaves = _leaves(spec)
-    shard, cut = layer_cutter(spec, mesh, None)
+    cut = layer_cutter(spec, mesh, None)
     layers = {n: cut(n, make((spec.num_layers, *shape), init))
               for n, (shape, init) in layer_leaves.items()}
     params = {n: cut(n, make(shape, init), top=True) for n, (shape, init) in top_leaves.items()}
     params["layers"] = layers
-    if shard is not None:
-        params["_shard"] = shard
     return params
 
 
@@ -213,8 +211,8 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
     n_layers = spec.num_layers
     if mesh is not None and host_layers:
         raise NotImplementedError("CPU offload under a device mesh is not in the port yet "
-                                  "(ROADMAP.md Queue A, A8b)")
-    shard, cut = layer_cutter(spec, mesh, bits)
+                                  "(ROADMAP.md Queue A, A8c)")
+    cut = layer_cutter(spec, mesh, bits)
     fuse = host_layers and _ffconfig.fuse_qkv
     if host_layers:
         pin = device.type == "cuda"
@@ -250,8 +248,6 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
         else:
             params[k] = _leaf(cut(k, _leaf(v, "cpu", dtype), top=True), device, dtype)
     params["layers"] = layers
-    if shard is not None:
-        params["_shard"] = shard
     return params
 
 
@@ -533,7 +529,6 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32, *, spec=None, mes
 
         out = {k: cut(k, v, True) for k, v in tree.items() if k != "layers"}
         out["layers"] = {k: cut(k, v, False) for k, v in layers.items()}
-        out["_shard"] = shard
         return out
     device = torch.device(device)
     if _is_quantized(tree):

@@ -1,6 +1,8 @@
-"""The serving mesh and its sharding rules (``mesh``, ``sharding``: tensor and
-data parallelism over ``torch.distributed`` ranks) and the search over
-placements on one device (port of ``flexflow_tpu/parallel``'s ``mesh``,
-``sharding``, ``auto``, ``joint``, ``topology`` and
-``pipeline.balance_stages``). A training mesh, pipeline stages and the
-multi-process controller are ROADMAP A8b–A10."""
+"""The mesh and its sharding rules (``mesh``, ``sharding``: tensor and data
+parallelism over ``torch.distributed`` ranks, for serving and training,
+with collectives autograd understands) and the search over placements on
+one device (port of ``flexflow_tpu/parallel``'s ``mesh``, ``sharding``,
+``auto``, ``joint``, ``topology`` and ``pipeline.balance_stages``).
+Offload, ``hybrid_ffn`` and expert parallelism under a mesh, pipeline
+stages, the multi-process controller and the search on a mesh are ROADMAP
+A8c–A11c."""

@@ -21,10 +21,12 @@ Differences from the JAX module:
 
 - ``MachineModel``'s defaults are the H100 SXM's datasheet figures (dense
   bf16 rate, HBM3 rate and size, one direction of NVLink 4), not a v5e's.
-- The port runs on one device: ``layout_mesh`` gives ``None`` for
+- The search places on one device: ``layout_mesh`` gives ``None`` for
   ``Layout(1, 1, 1)`` and refuses any other layout, and
   ``optimize_train_layout`` / ``optimize_serving_layout`` refuse more than
-  one device before measuring anything (ROADMAP A8b, A9, A11c). Without
+  one device before measuring anything (the search over a mesh, ROADMAP
+  A11c; pipeline stages, A9). The meshes themselves are in the port
+  (``parallel/mesh.make_mesh``: serving and training). Without
   ``n_devices`` they count the CUDA devices for a CUDA device and one for
   the CPU.
 - A candidate that fails to build or run is skipped, as in JAX, but the
@@ -88,9 +90,9 @@ def device_count(device=None) -> int:
 
 
 def refuse_mesh(n_devices: int, what: str, serving: bool = False) -> None:
-    """The search places on one device. Over more, serving has its mesh
-    (A8a: pass the degrees) but not the search over it (A11c); training
-    has neither (A8b, A11c)."""
+    """The search places on one device. Over more, serving and training
+    have their meshes (pass the degrees, or ``Trainer(mesh=make_mesh(...))``)
+    but not the search over them (A11c)."""
     if n_devices > 1:
         if serving:
             raise NotImplementedError(
@@ -98,8 +100,9 @@ def refuse_mesh(n_devices: int, what: str, serving: bool = False) -> None:
                 "is in the port (pass tensor_parallelism_degree / data_parallelism_degree), "
                 "the layout search on it (A11c) is not yet")
         raise NotImplementedError(
-            f"{what} over {n_devices} devices needs a training mesh (ROADMAP.md Queue A, A8b) "
-            "and the search on a mesh (A11c), which are not in the port yet")
+            f"{what} over {n_devices} devices: the training mesh is in the port (pass "
+            "mesh=parallel.mesh.make_mesh(data=, model=)), the layout search on it (ROADMAP.md "
+            "Queue A, A11c) is not yet")
 
 
 def _sync(device: torch.device) -> None:
@@ -299,13 +302,14 @@ def optimize_layout(
 
 def layout_mesh(layout: Layout):
     """The mesh a Layout describes: ``None`` (one device) for
-    ``Layout(1, 1, 1)``; any other layout needs a mesh the port does not
-    have yet."""
+    ``Layout(1, 1, 1)``; any other layout is a result of the search over a
+    mesh, which the port does not run yet."""
     if (layout.data, layout.pipe, layout.model) == (1, 1, 1) and not layout.hybrid_ffn:
         return None
     raise NotImplementedError(
-        f"layout {layout} needs a training mesh (ROADMAP.md Queue A, A8b; pipeline stages, "
-        "A9), which is not in the port yet")
+        f"layout {layout}: training under a searched layout over more than one device needs "
+        "the search on a mesh (ROADMAP.md Queue A, A11c) and, with pipe > 1, pipeline stages "
+        "(A9), which are not in the port yet")
 
 
 def optimize_train_layout(

@@ -15,6 +15,16 @@ NCCL and gloo take all three on CUDA tensors, so two ranks may share one
 card over gloo (``backend="gloo"``). NCCL collectives can be captured in a
 CUDA graph once their communicator exists; gloo's cannot.
 
+Under a gradient the decoder's collectives are Megatron's conjugate pairs,
+``torch.autograd.Function``s: ``reduce_from_model`` (sum forward, identity
+backward), ``copy_to_model`` (identity forward, sum backward) and
+``gather_from_model`` (gather forward, the rank's own slice backward).
+Every model rank holds the same loss, so the gradient reaching a
+replicated tensor is replicated and is never summed twice (the
+``torch.distributed.nn`` all-reduce sums it again in its backward: T times
+the gradient). Outside a gradient they are the in-place calls below, so a
+served step's graph holds plain in-place collectives.
+
 Pipeline stages (``pipe > 1``, ROADMAP A9) and context parallelism
 (``seq > 1``, A10) are not in the port yet and raise.
 """
@@ -101,6 +111,77 @@ class Mesh:
         its first collective, which must not happen under graph capture)."""
         for axis in (MODEL_AXIS, DATA_AXIS):
             self.all_reduce(torch.zeros(1, device=device), axis)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone()), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.width = mesh, dim, x.shape[dim]
+        return mesh.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        own = g.narrow(ctx.dim, ctx.mesh.model_rank * ctx.width, ctx.width)
+        return own.contiguous(), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over the ``model`` axis. Backward: the identity (the
+    sum's gradient, replicated on every rank, is each partial's). Without
+    a gradient: ``mesh.all_reduce`` in place on ``x``."""
+    return _ReduceFromModel.apply(x, mesh) if _tracked(x) else mesh.all_reduce(x)
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` itself, entering a column-parallel region. Backward: the ranks'
+    partial gradients summed over ``model``."""
+    return _CopyToModel.apply(x, mesh) if _tracked(x) else x
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' ``x`` concatenated along ``dim`` (equal widths).
+    Backward: this rank's own slice of the gradient."""
+    return _GatherFromModel.apply(x, mesh, dim) if _tracked(x) else mesh.all_gather(x, dim)
+
+
+def all_reduce_grads(grads, mesh: Mesh, axis: str = DATA_AXIS) -> None:
+    """Sum every gradient tensor of the list ``grads`` over ``axis`` in place,
+    in float32 (one flat buffer a dtype and device, one collective each)."""
+    groups: dict = {}
+    for g in grads:
+        groups.setdefault((g.dtype, g.device), []).append(g)
+    for gs in groups.values():
+        flat = torch.cat([g.reshape(-1).float() for g in gs])
+        mesh.all_reduce(flat, axis)
+        off = 0
+        for g in gs:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
 
 def _free_port() -> int:

@@ -38,6 +38,14 @@ Two departures from JAX, both exact:
 A row slice whose boundary falls inside a quantization group takes a
 smaller group size (halved until it divides), the scales and offsets
 repeated: exact.
+
+The tree carries no mark of its cut: :func:`shard_params` keeps a leaf
+whose axis has the rank's width already, so it is idempotent, and the
+engines and the Trainer hold the :class:`Shard` beside the tree
+(``decoder.forward(shard=)``). :func:`gather_params` is its inverse for
+float leaves; :func:`shard_lora` / :func:`gather_lora` cut and gather LoRA
+stacks alike (``B``'s columns for wq, wk, wv, wg, wu; ``A``'s rows for wo
+and wd); :func:`data_rows` is a data rank's block of a batch.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from flexflow_tpu_torch.parallel.mesh import Mesh
+from flexflow_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, _rest_pad
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -84,6 +92,7 @@ class Shard:
     kv_take: Optional[Tuple[int, ...]]  # of the projected KV heads, those the cache holds
     ffn: Optional[Blocks]  # FFN columns of wg / wu, rows of wd
     vocab: Optional[Tuple[int, int]]  # embed_tokens rows, lm_head columns
+    sizes: Dict[str, int] = dataclasses.field(default_factory=dict)  # each cut's full width
     _index: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
 
     def num_heads(self, spec: ModelSpec) -> int:
@@ -134,7 +143,8 @@ def rank_shard(spec: ModelSpec, mesh: Mesh, *, int4_wo: bool = False,
     ffn = _even_blocks(spec.intermediate_size, t, r, int4_wd)  # an expert's width too
     v = spec.vocab_size
     vocab = (r * v // t, (r + 1) * v // t) if v % t == 0 and v >= t else None
-    return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab)
+    sizes = dict(heads=hh, kv=kh, ffn=spec.intermediate_size, vocab=v)
+    return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab, sizes)
 
 
 def slot_block(num_slots: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
@@ -221,6 +231,16 @@ def slice_carrier_rows(qa: QuantizedArray, rows: Blocks) -> QuantizedArray:
                                group_size=g2)
 
 
+def _cut_already(name: str, width: int, shard: Shard, cut: str, blocks: Blocks) -> bool:
+    """Whether a leaf's axis of ``width`` is the rank's cut (True) or the
+    whole axis (False); any other width raises."""
+    full, mine = shard.sizes[cut], sum(b - a for a, b in blocks)
+    if width not in (full, mine):
+        raise ValueError(f"{name}: an axis of {width} is neither the whole {cut} axis ({full}) "
+                         f"nor this rank's cut of it ({mine})")
+    return width == mine and mine != full
+
+
 def shard_leaf(name: str, leaf, shard: Shard, *, top: bool = False):
     """This rank's cut of the leaf ``name`` (a layer leaf stacked [L, ...],
     or a top-level leaf with ``top``): a tensor or a carrier. Leaves the
@@ -230,7 +250,8 @@ def shard_leaf(name: str, leaf, shard: Shard, *, top: bool = False):
         return leaf
     axis, cut = rule
     blocks = _blocks_of(shard, cut)
-    if blocks is None:
+    if blocks is None or _cut_already(name, leaf.shape[len(leaf.shape) + axis], shard, cut,
+                                      blocks):
         return leaf
     if not isinstance(leaf, QuantizedArray):
         return _take(leaf, leaf.dim() + axis, blocks)
@@ -249,27 +270,177 @@ def _int4(leaf) -> bool:
     return isinstance(leaf, QuantizedArray) and leaf.bits == 4
 
 
-def shard_params(spec: ModelSpec, params, mesh: Mesh):
-    """This rank's parameter tree, cut from a whole (one-device) tree; the
-    result carries its :class:`Shard` under ``"_shard"``. A tree whose
-    q/k/v or gate/up carriers are fused already (``wqkv``, ``wgu``) is
-    refused: the rank fuses its own cuts."""
+def tree_shard(spec: ModelSpec, params, mesh: Mesh) -> Shard:
+    """The :class:`Shard` of this rank for ``params`` (whole or cut): its
+    row-parallel carriers say whether the cuts are planar (INT4)."""
     layers = params["layers"]
-    if "wqkv" in layers or "wgu" in layers:
-        raise ValueError("shard_params takes an unfused tree (wq/wk/wv, wg/wu)")
-    shard = rank_shard(spec, mesh, int4_wo=_int4(layers.get("wo")),
-                       int4_wd=_int4(layers.get("wd")))
+    return rank_shard(spec, mesh, int4_wo=_int4(layers.get("wo")),
+                      int4_wd=_int4(layers.get("wd")))
+
+
+def shard_params(spec: ModelSpec, params, mesh: Mesh):
+    """This rank's parameter tree, cut from a whole (one-device) tree; a
+    leaf cut already is kept, so a rank's own tree comes back as it is. A
+    fused tree (``wqkv``, ``wgu``) must be a rank's tree already (an
+    engine's): the rank fuses its own cuts, and a whole fused tree is
+    refused."""
+    layers = params["layers"]
+    shard = tree_shard(spec, params, mesh)
+    fused = {"wqkv": (-2, shard.num_heads(spec) + 2 * shard.num_kv_proj(spec)),
+             "wgu": (-1, 2 * sum(b - a for a, b in shard.ffn or ((0, spec.intermediate_size),)))}
+    for name, (axis, width) in fused.items():
+        if name in layers and layers[name].shape[len(layers[name].shape) + axis] != width:
+            raise ValueError("shard_params takes an unfused tree (wq/wk/wv, wg/wu) or a "
+                             f"rank's fused one; {name} has the wrong width")
     out = {k: shard_leaf(k, v, shard, top=True) for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: shard_leaf(k, v, shard) for k, v in params["layers"].items()}
-    out["_shard"] = shard
+    out["layers"] = {k: shard_leaf(k, v, shard) for k, v in layers.items()}
     return out
 
 
+def _rank_blocks(shard: Shard, cut: str, spec: ModelSpec):
+    """Every model rank's blocks of ``cut`` (rank order), or None when the
+    axis is whole."""
+    blocks = _blocks_of(shard, cut)
+    if blocks is None:
+        return None
+    planar = len(blocks) == 2  # INT4's two half-plane blocks
+    return [_blocks_of(rank_shard(spec, Mesh.fake(1, shard.mesh.model, r),
+                                  int4_wo=planar and cut in ("heads", "kv"),
+                                  int4_wd=planar and cut == "ffn"), cut)
+            for r in range(shard.mesh.model)]
+
+
+def _gather_axis(x: torch.Tensor, dim: int, per_rank, inner: int, full: int, mesh: Mesh):
+    """The whole axis ``dim`` of ``x`` from every model rank's cut (each
+    rank's blocks, scaled by ``inner`` elements a unit)."""
+    parts = mesh.all_gather(x, dim, MODEL_AXIS).split(x.shape[dim], dim)
+    shape = list(x.shape)
+    shape[dim] = full * inner
+    out = x.new_empty(shape)
+    for part, blocks in zip(parts, per_rank):
+        off = 0
+        for a, b in blocks:
+            n = (b - a) * inner
+            out.narrow(dim, a * inner, n).copy_(part.narrow(dim, off, n))
+            off += n
+    return out
+
+
+def gather_params(spec: ModelSpec, params, mesh: Mesh):
+    """The whole (one-device) tree on every rank from each rank's cut: the
+    inverse of :func:`shard_params` for float leaves (a cut carrier
+    raises). A collective over ``model``: every rank calls it."""
+    shard = tree_shard(spec, params, mesh)
+
+    def whole(name, leaf, top):
+        rule = (_TOP_AXES if top else _LAYER_AXES).get(name)
+        if rule is None or leaf is None:
+            return leaf
+        axis, cut = rule
+        per_rank = _rank_blocks(shard, cut, spec)
+        if per_rank is None:
+            return leaf
+        if isinstance(leaf, QuantizedArray):
+            raise TypeError(f"gather_params takes float leaves; {name} is quantized")
+        return _gather_axis(leaf, leaf.dim() + axis, per_rank, 1, shard.sizes[cut], mesh)
+
+    out = {k: whole(k, v, True) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: whole(k, v, False) for k, v in params["layers"].items()}
+    return out
+
+
+# LoRA module -> (stack, axis of the JAX stack layout [L, N, ...], cut); the
+# flat feature axis counts head_dim elements a head
+_LORA_AXES: Dict[str, Tuple[str, int, str]] = {
+    "wq": ("b", 3, "heads"), "wk": ("b", 3, "kv"), "wv": ("b", 3, "kv"),
+    "wg": ("b", 3, "ffn"), "wu": ("b", 3, "ffn"),
+    "wo": ("a", 2, "heads"), "wd": ("a", 2, "ffn"),
+}
+
+
+def _lora_inner(spec: ModelSpec, cut: str) -> int:
+    return spec.head_dim if cut in ("heads", "kv") else 1
+
+
+def shard_lora(spec: ModelSpec, lora, shard: Shard):
+    """This rank's cut of LoRA stacks ({mod: {"a": [L, N, D_in, r], "b":
+    [L, N, r, D_out]}}): a column-parallel module's ``b`` takes the rank's
+    output columns (``a`` replicated), a row-parallel one's ``a`` the
+    rank's input rows (``b`` replicated). Where the K/V heads are projected
+    whole (``kv_take``) wk / wv keep whole ``b``s: the decoder adds their
+    deltas before it takes the rank's heads, as it projects them."""
+    out = {}
+    for mod, ab in lora.items():
+        which, axis, cut = _LORA_AXES[mod]
+        blocks = _blocks_of(shard, cut)
+        ab = dict(ab)
+        if blocks is not None:
+            inner = _lora_inner(spec, cut)
+            ab[which] = _take(ab[which], axis, tuple((a * inner, b * inner) for a, b in blocks))
+        out[mod] = ab
+    return out
+
+
+def gather_lora(spec: ModelSpec, lora, shard: Shard):
+    """The whole stacks on every rank from each rank's :func:`shard_lora`
+    cut (a collective over ``model``)."""
+    out = {}
+    for mod, ab in lora.items():
+        which, axis, cut = _LORA_AXES[mod]
+        per_rank = _rank_blocks(shard, cut, spec)
+        ab = dict(ab)
+        if per_rank is not None:
+            ab[which] = _gather_axis(ab[which], axis, per_rank, _lora_inner(spec, cut),
+                                     shard.sizes[cut], shard.mesh)
+        out[mod] = ab
+    return out
+
+
+def lora_partial_grads(shard: Optional[Shard]) -> Tuple[Tuple[str, str], ...]:
+    """The (module, "a" or "b") LoRA leaves whose gradient on a rank is
+    partial over ``model``: a column target's replicated ``a`` where its
+    region is cut (each rank's columns give their share), and wk / wv's
+    whole ``b`` where the K/V heads are projected whole. A row target's
+    ``a`` is the rank's own rows and its ``b`` sees the summed ``x @ a``:
+    neither is partial."""
+    if shard is None:
+        return ()
+    out = []
+    for mod, region in (("wq", shard.heads), ("wk", shard.heads), ("wv", shard.heads),
+                        ("wg", shard.ffn), ("wu", shard.ffn)):
+        if region is not None:
+            out.append((mod, "a"))
+            if mod in ("wk", "wv") and shard.kv_heads is None:
+                out.append((mod, "b"))
+    return tuple(out)
+
+
+def data_rows(x, mesh: Optional[Mesh]):
+    """Data rank d's contiguous block of a batch's rows (JAX's ``P("data")``
+    shard); raises where the batch does not divide over ``data``, as JAX's
+    ``device_put`` does."""
+    if mesh is None or mesh.data == 1:
+        return x
+    b = x.shape[0]
+    if b % mesh.data:
+        raise ValueError(f"a batch of {b} rows does not divide over {mesh.data} data ranks")
+    w = b // mesh.data
+    return x[mesh.data_rank * w:(mesh.data_rank + 1) * w]
+
+
+def partial_grads(shard: Optional[Shard]) -> Tuple[str, ...]:
+    """Replicated layer leaves whose gradient on a rank is partial over
+    ``model``: wk / wv (and their biases) projected whole while the Q heads
+    are cut, each rank's K/V feeding only its own heads."""
+    if shard is None or shard.heads is None or shard.kv_heads is not None:
+        return ()
+    return ("wk", "wv", "bk", "bv")
+
+
 def layer_cutter(spec: ModelSpec, mesh: Optional[Mesh], bits: Optional[int]):
-    """For loaders that build a tree layer by layer: ``(shard, cut(name,
-    leaf, top))`` with the rank's cut of each slab (identity without a
-    mesh)."""
+    """For loaders that build a tree layer by layer: ``cut(name, leaf,
+    top)``, the rank's cut of each slab (identity without a mesh)."""
     if mesh is None:
-        return None, lambda name, leaf, top=False: leaf
+        return lambda name, leaf, top=False: leaf
     shard = rank_shard(spec, mesh, int4_wo=bits == 4, int4_wd=bits == 4)
-    return shard, lambda name, leaf, top=False: shard_leaf(name, leaf, shard, top=top)
+    return lambda name, leaf, top=False: shard_leaf(name, leaf, shard, top=top)

@@ -16,6 +16,14 @@ forward or replay, in stream order, reads the updated adapter, and every
 other slot keeps its bits. The losses stay on the device until read, so a
 step waits for nothing on the host and pipelined horizons keep running
 ahead.
+
+On a mesh engine (``engine.shard``) the slot's views are the rank's cut
+(``sharding.shard_lora``) and the forward runs the rank's tree through the
+decoder's conjugate collectives. The gradients that are partial over
+``model`` (``sharding.lora_partial_grads``: a column target's ``a``) are
+summed before the update; each rank updates its own cut. Every data rank
+runs the same step on the same sequence (JAX computes the replicated step
+once), so the adapters stay equal across data ranks, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.models import decoder
+from flexflow_tpu_torch.parallel.mesh import MODEL_AXIS, all_reduce_grads
+from flexflow_tpu_torch.parallel.sharding import lora_partial_grads
 from flexflow_tpu_torch.peft.lora import LoraConfig, RoutedLora, lora_scaling
 from flexflow_tpu_torch.specs import ModelSpec
 from flexflow_tpu_torch.training.losses import sparse_categorical_crossentropy
@@ -53,6 +63,7 @@ class FinetuneSession:
                      else SGDOptimizer(lr=config.learning_rate))
         self._opt_state = None
         self.params: Optional[dict] = None  # {module: {"a", "b"}}: views of the engine's slot
+        self._shard = None  # the engine's Shard (a mesh engine's)
 
     @property
     def losses(self) -> List[float]:
@@ -70,6 +81,7 @@ class FinetuneSession:
                            "b": lora.b[m][:, s * r:(s + 1) * r].detach().requires_grad_()}
                        for m in lora.a}
         self._opt_state = self._opt.init(self.params)
+        self._shard = engine.shard
 
     def loss(self, engine, tokens, labels) -> torch.Tensor:
         """The forward of one step on a (tokens, labels) batch: the loss, with
@@ -87,13 +99,17 @@ class FinetuneSession:
             logits, _ = decoder.forward(
                 self.spec, engine.params, tokens, positions, lora=routed,
                 adapter_ids=torch.zeros(b, dtype=torch.int64, device=engine.device),
-                lora_scale=lora_scaling(self.config))
+                lora_scale=lora_scaling(self.config), shard=engine.shard)
             return sparse_categorical_crossentropy(logits, labels)
 
     def update(self) -> None:
         """The optimizer step from the gradients in ``self.params`` (in place
         on the engine's slot); the gradients are dropped after it."""
         grads = {m: {k: p.grad for k, p in ab.items()} for m, ab in self.params.items()}
+        partial = [grads[m][k] for m, k in lora_partial_grads(self._shard)
+                   if m in grads and grads[m][k] is not None]
+        if partial:
+            all_reduce_grads(partial, self._shard.mesh, MODEL_AXIS)
         self._opt.update(grads, self._opt_state, self.params)
         for ab in self.params.values():
             for p in ab.values():

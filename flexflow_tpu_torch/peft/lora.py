@@ -197,10 +197,19 @@ def load_hf_adapter_into_slot(adapter_dir: str, spec: ModelSpec, lora: Stacks, s
 
 
 def export_hf_adapter(adapter_dir: str, spec: ModelSpec, lora: Stacks, slot: int,
-                      cfg: LoraConfig) -> None:
+                      cfg: LoraConfig, shard=None) -> None:
     """Write slot ``slot`` as an HF-PEFT-layout adapter directory
-    (``adapter_config.json`` + ``adapter_model.safetensors``, float32)."""
+    (``adapter_config.json`` + ``adapter_model.safetensors``, float32).
+    ``shard``: ``lora`` is a tensor-parallel rank's cut; every rank calls
+    this, the stacks are gathered over ``model`` and rank 0 writes them."""
     from flexflow_tpu_torch.utils.hf_weights import save_safetensors
+
+    if shard is not None:
+        from flexflow_tpu_torch.parallel.sharding import gather_lora
+
+        lora = gather_lora(spec, lora, shard)
+        if shard.mesh.rank != 0:
+            return
 
     os.makedirs(adapter_dir, exist_ok=True)
     key_to_hf: Dict[str, str] = {}

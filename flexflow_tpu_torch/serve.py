@@ -23,9 +23,11 @@ tokenizer is imported lazily (``transformers``). Runs on ``cuda`` unless
 on ``T * D`` ranks (one process each, e.g. under ``torchrun``): every rank
 calls the same methods with the same prompts, loads only its own cut of
 the weights (``parallel/sharding``) and gets the same results
-(``parallel/mesh``). Pipeline and context degrees above 1 are ROADMAP A9
-and A10; LoRA, PEFT and offload under a mesh A8b; ``start_server`` under a
-mesh A10 (JAX's request broadcaster).
+(``parallel/mesh``). Registered LoRA adapters are cut with the model and
+a co-scheduled finetuning session steps on every rank alike;
+``save_peft_adapter`` gathers the slot and writes it from rank 0. Pipeline
+and context degrees above 1 are ROADMAP A9 and A10; offload under a mesh
+A8c; ``start_server`` under a mesh A10 (JAX's request broadcaster).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lora_params,
                                          load_hf_adapter_config, load_hf_adapter_into_slot,
                                          unroute_lora)
-from flexflow_tpu_torch.serving.engine import NO_MESH_ADAPTERS, InferenceEngine
+from flexflow_tpu_torch.serving.engine import NO_MESH_OFFLOAD, InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import (NO_ADAPTERS, MultiSSMSpecManager,
                                                      SpecRequestManager)
@@ -132,11 +134,14 @@ class LLM:
         """Export adapter slot ``slot`` as an HF PEFT directory, as the
         engine holds it now: a slot trained by a co-scheduled
         ``FinetuneSession`` is read back from the engine's routed adapters
-        (``self.lora`` keeps the stacks as they were at ``compile``)."""
+        (``self.lora`` keeps the stacks as they were at ``compile``). Under
+        a mesh every rank calls it (the slot is gathered over the model
+        ranks) and rank 0 writes it."""
         if self.rm is None or self.rm.engine.lora is None:
             raise RuntimeError("no adapters: register them and call compile() first")
-        export_hf_adapter(adapter_dir, self.spec, unroute_lora(self.rm.engine.lora), slot,
-                          self.lora_config)
+        engine = self.rm.engine
+        export_hf_adapter(adapter_dir, self.spec, unroute_lora(engine.lora), slot,
+                          self.lora_config, shard=engine.shard)
 
     def _load_params(self, host_layers: bool = False, mesh=None):
         _, params = hf_weights.load_params(
@@ -188,8 +193,8 @@ class LLM:
         ``tensor_parallelism_degree`` x ``data_parallelism_degree`` (JAX's
         signature) serve over that many ranks (``parallel/mesh.make_mesh``;
         every rank calls ``compile`` and ``generate`` alike). Pipeline and
-        context degrees above 1 raise (A9, A10), as do adapters and offload
-        under a mesh (A8b)."""
+        context degrees above 1 raise (A9, A10), as does offload under a
+        mesh (A8c). LoRA adapters are cut with the model."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
@@ -202,8 +207,8 @@ class LLM:
                 and self.quant_bits is None):
             auto_lib.refuse_mesh(auto_lib.device_count(self.device),
                                  "LLM.compile(auto_parallel=True)", serving=True)
-        if max(degrees) > 1 and (offload or self._peft):
-            raise NotImplementedError(NO_MESH_ADAPTERS)
+        if max(degrees) > 1 and offload:
+            raise NotImplementedError(NO_MESH_OFFLOAD)
         self.mesh = self._make_mesh(*degrees)
         if self._ssms and offload:
             raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "

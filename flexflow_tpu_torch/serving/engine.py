@@ -60,7 +60,11 @@ the tokens are gathered over the ``data`` axis, so every rank's manager
 sees every slot. Each rank takes the prefill bucket of the whole batch.
 The decoder's collectives run inside the greedy step, so a graph captures
 them under NCCL; gloo's cannot be captured (``graphs.capturable``). LoRA
-and CPU offload under a mesh are ROADMAP A8b.
+stacks are cut with the model (``sharding.shard_lora``: a column target's
+``b``, a row target's ``a``) and each data rank routes its own slots; the
+engine holds the rank's :class:`~flexflow_tpu_torch.parallel.sharding.Shard`
+(``self.shard``) beside its tree and passes it to every forward. CPU
+offload under a mesh is ROADMAP A8c.
 """
 
 from __future__ import annotations
@@ -81,11 +85,11 @@ from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 from flexflow_tpu_torch.serving.graphs import step_graphs
 from flexflow_tpu_torch.models.layer_store import LayerStore
 from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
-from flexflow_tpu_torch.parallel.sharding import shard_params, slot_block
+from flexflow_tpu_torch.parallel.sharding import shard_lora, shard_params, slot_block, tree_shard
 from flexflow_tpu_torch.specs import ModelSpec
 
-NO_MESH_ADAPTERS = ("LoRA adapters, PEFT finetuning and CPU offload under a device mesh are "
-                    "not in the port yet (ROADMAP.md Queue A, A8b)")
+NO_MESH_OFFLOAD = ("CPU offload under a device mesh is not in the port yet (ROADMAP.md "
+                   "Queue A, A8c)")
 
 
 def _round_up_pow2(n: int, lo: int) -> int:
@@ -104,15 +108,18 @@ def _params_to(params, device):
 
 
 def place_params(spec: ModelSpec, params, device, mesh):
-    """The engine's tree on ``device``: this rank's cut under a mesh (a
-    tree cut already, with its ``"_shard"``, is kept), fused (wqkv / wgu)
-    under ``config.fuse_qkv``."""
-    if mesh is not None and "_shard" not in params:
+    """``(tree, shard)``: the engine's tree on ``device``, this rank's cut
+    under a mesh (a rank's tree, fused or not, is kept: ``shard_params`` is
+    idempotent), fused (wqkv / wgu) under ``config.fuse_qkv``; and the
+    rank's :class:`Shard` (None without a mesh)."""
+    shard = None
+    if mesh is not None:
+        shard = tree_shard(spec, params, mesh)
         params = shard_params(spec, params, mesh)
     params = _params_to(params, device)
     if _ffconfig.fuse_qkv:
-        params = decoder.fuse_qkv_params(spec, params)
-    return params
+        params = decoder.fuse_qkv_params(spec, params, shard)
+    return params, shard
 
 
 class SlotBlock:
@@ -173,9 +180,11 @@ class InferenceEngine:
         self.device = resolve_device(device if mesh is None or device is not None
                                      else mesh.device)
         self.offload = bool(offload)
-        if mesh is not None and (lora is not None or self.offload):
-            raise NotImplementedError(NO_MESH_ADAPTERS)
-        if mesh is not None and "_shard" not in params:
+        if mesh is not None and self.offload:
+            raise NotImplementedError(NO_MESH_OFFLOAD)
+        self.shard = None
+        if mesh is not None:
+            self.shard = tree_shard(spec, params, mesh)
             params = shard_params(spec, params, mesh)
         if self.offload:  # the layers stay where they are until the store takes them
             params = {**_params_to({k: v for k, v in params.items() if k != "layers"},
@@ -186,12 +195,16 @@ class InferenceEngine:
             # before the store pins anything, so offload and resident run the
             # same launches and bits (a stack built with ``host_layers`` comes
             # fused already and is left as it is)
-            params = decoder.fuse_qkv_params(spec, params)
+            params = decoder.fuse_qkv_params(spec, params, self.shard)
         if self.offload:
             params = {**params, "layers": LayerStore(params["layers"], spec.num_layers,
                                                      self.device)}
         self.params = params
-        self.lora = None if lora is None else route_lora(_params_to(lora, self.device))
+        if lora is not None:
+            lora = _params_to(lora, self.device)
+            if self.shard is not None:
+                lora = shard_lora(spec, lora, self.shard)
+        self.lora = None if lora is None else route_lora(lora)
         self.lora_scale = lora_scaling(lora_config) if lora is not None and lora_config else 1.0
         self.num_adapters = 0 if lora is None else self.lora.num_adapters
         self.max_requests = max_requests_per_batch
@@ -199,10 +212,9 @@ class InferenceEngine:
         self.max_tokens_per_batch = max_tokens_per_batch
         self.min_prefill_bucket = min_prefill_bucket
         self.slots = SlotBlock(max_requests_per_batch, mesh)
-        shard = params.get("_shard")
         self.cache = decoder.init_kv_cache(
             spec, self.slots.n, max_seq_len, cache_dtype, self.device,
-            num_kv_heads=None if shard is None else shard.num_kv_cache(spec))
+            num_kv_heads=None if self.shard is None else self.shard.num_kv_cache(spec))
         # the greedy step's static buffers (this rank's slots) and, on the
         # card, its graph
         self._lens = torch.zeros(self.slots.n, dtype=torch.int32, device=self.device)
@@ -243,9 +255,10 @@ class InferenceEngine:
         return None if self.lora is None else to_device(ids, self.device, np.int64)
 
     def _routing(self, ids: Optional[torch.Tensor]) -> dict:
-        """The decoder's LoRA arguments for rows routed to ``ids`` (device;
-        None: no adapters)."""
-        return {} if ids is None else dict(lora=self.lora, adapter_ids=ids,
+        """The decoder's rank and LoRA arguments for rows routed to ``ids``
+        (device; None: no adapters)."""
+        kw = {} if self.shard is None else dict(shard=self.shard)
+        return kw if ids is None else dict(kw, lora=self.lora, adapter_ids=ids,
                                            lora_scale=self.lora_scale)
 
     def fetch(self, x) -> np.ndarray:
@@ -438,7 +451,8 @@ class InferenceEngine:
     def _load(self, lens: np.ndarray, tokens, adapter_ids=None) -> None:
         self._lens.copy_(to_device(self.slots.local(lens), self.device))
         self._tokens.copy_(self.slots.local(self._tokens_in(tokens)))
-        ids = self._adapter_ids(adapter_ids, self.max_requests)
+        ids = self._adapter_ids(None if adapter_ids is None else
+                                self.slots.local(np.asarray(adapter_ids)), self.slots.n)
         if ids is not None:
             self._adapters.copy_(ids)
 

@@ -28,7 +28,9 @@ when ``run_until_idle`` drains. ``register_finetune`` queues LoRA
 finetuning sessions (``peft/finetune.py``): ``run_until_idle`` runs one
 step of the first after every scheduling iteration, as JAX does, on the
 engine's stream behind the horizons already dispatched; the background
-server does not run them (nor does JAX's).
+server does not run them (nor does JAX's). Under a mesh every rank makes
+the same calls in the same order (a pipelined fetch is applied at the
+same iteration on every rank), so the finetuning steps' collectives meet.
 """
 
 from __future__ import annotations
@@ -441,7 +443,11 @@ class RequestManager(BackgroundServing):
             self._process_horizon(out, entries)
 
     def _step_pipelined(self) -> bool:
-        while self._inflight_q and self._inflight_q[0][1].done():
+        # under a mesh a fetch is applied only where every rank applies it
+        # (below): a finished one picked up early on one rank would change
+        # that rank's admissions, and the ranks' collectives would part
+        while (self._inflight_q and getattr(self.engine, "mesh", None) is None
+               and self._inflight_q[0][1].done()):
             kind, fut, entries = self._inflight_q.pop(0)
             self._apply_fetched(kind, fut.result(), entries)
         with self._phase("admit"):

@@ -89,12 +89,12 @@ def _log_softmax_topk(logits: torch.Tensor, k: int):
     return vals, idx.to(torch.int32)
 
 
-def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int):
+def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int, shard=None):
     """The draft-tree expansion as a function ``draft_phase(ssm_params,
     ssm_cache, cache_lens, roots, window=None) -> (tree_tokens [B, T],
     tree_parents [B, T], anc_self [B, T, T], (buf_k, buf_v) [L, B, T, KH,
     D])``. The tree K/V stays in the buffers; the draft cache is not
-    written."""
+    written. ``shard``: the draft's cut (a tensor-parallel rank's)."""
     w, dmax = width, depth
     tree = tree_size(w, dmax)
 
@@ -105,7 +105,7 @@ def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int):
         cdt = ssm_cache.k.dtype
         logits, (k0, v0) = decoder.forward_cached(
             ssm_spec, ssm_params, roots[:, None], ssm_cache, cache_lens,
-            write_cache=False)
+            write_cache=False, shard=shard)
         shape = (ssm_spec.num_layers, b, tree, k0.shape[3], ssm_spec.head_dim)
         buf_k = torch.zeros(shape, dtype=cdt, device=dev)
         buf_v = torch.zeros(shape, dtype=cdt, device=dev)
@@ -132,7 +132,7 @@ def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int):
                 ssm_spec, ssm_params, beam_tokens, ssm_cache, cache_lens,
                 positions=positions, tree_mask=eye_w, extra_kv=(buf_k, buf_v),
                 extra_mask=anc, extra_positions=ex_pos, write_cache=False,
-                attn_window=window)
+                attn_window=window, shard=shard)
             buf_k[:, :, base:base + w] = kd
             buf_v[:, :, base:base + w] = vd
             if d == dmax:
@@ -244,21 +244,20 @@ class SpecEngine:
         self.llm_spec, self.ssm_spec = llm_spec, ssm_spec
         # draft and verifier fuse together (config.fuse_qkv), so decode,
         # draft expansion and tree verification stay mutually consistent
-        llm_params = place_params(llm_spec, llm_params, self.device, mesh)
-        ssm_params = place_params(ssm_spec, ssm_params, self.device, mesh)
+        llm_params, self.llm_shard = place_params(llm_spec, llm_params, self.device, mesh)
+        ssm_params, self.ssm_shard = place_params(ssm_spec, ssm_params, self.device, mesh)
         self.llm_params, self.ssm_params = llm_params, ssm_params
         self.slots = SlotBlock(max_requests_per_batch, mesh)
         nb = self.slots.n
         self.width, self.depth, self.tree = beam_width, beam_depth, t
         self.max_requests = max_requests_per_batch
         self.max_seq_len = max_seq_len
-        def kv_heads(spec, params):
-            sh = params.get("_shard")
+        def kv_heads(spec, sh):
             return None if sh is None else sh.num_kv_cache(spec)
 
         if llm_cache is None:
             llm_cache = decoder.init_kv_cache(llm_spec, nb, max_seq_len, cache_dtype,
-                                              self.device, kv_heads(llm_spec, llm_params))
+                                              self.device, kv_heads(llm_spec, self.llm_shard))
         elif ((llm_cache.num_slots, llm_cache.max_seq_len) != (nb, max_seq_len)
               or llm_cache.k.device.type != self.device.type):
             raise ValueError(f"a shared verifier cache {tuple(llm_cache.k.shape)} on "
@@ -266,8 +265,8 @@ class SpecEngine:
                              f"x {max_seq_len} positions on {self.device}")
         self.llm_cache = llm_cache
         self.ssm_cache = decoder.init_kv_cache(ssm_spec, nb, max_seq_len, cache_dtype,
-                                               self.device, kv_heads(ssm_spec, ssm_params))
-        self._draft_phase = build_draft_phase(ssm_spec, beam_width, beam_depth)
+                                               self.device, kv_heads(ssm_spec, self.ssm_shard))
+        self._draft_phase = build_draft_phase(ssm_spec, beam_width, beam_depth, self.ssm_shard)
         self._depths = make_depths_vec(beam_width, beam_depth, self.device)
         # the greedy iteration's static buffers and, on the card, its graphs
         b, i32 = nb, torch.int32
@@ -346,8 +345,10 @@ class SpecEngine:
                 v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
 
         with torch.no_grad():
+            shard = self.llm_shard if params is self.llm_params else self.ssm_shard
             return decoder.forward(spec, params, self._h(padded), positions, lengths=lens_d,
-                                   flash=True, kv_sink=sink, logits_at=lens_d - 1)[0]
+                                   flash=True, kv_sink=sink, logits_at=lens_d - 1,
+                                   shard=shard)[0]
 
     def prefill_both_batch(self, prompts, slots, key: Optional[int] = None,
                            scfg: Optional[SamplingConfig] = None):
@@ -396,7 +397,7 @@ class SpecEngine:
         with torch.no_grad():
             decoder.forward_cached(self.ssm_spec, self.ssm_params,
                                    self._h(sl.local(np.asarray(tokens))), self.ssm_cache,
-                                   self._h(sl.local(np.asarray(ssm_lens))))
+                                   self._h(sl.local(np.asarray(ssm_lens))), shard=self.ssm_shard)
 
     # ------------------------------------------------------------------
     # stepwise path: draft tree, verify and commit as three host calls
@@ -425,7 +426,7 @@ class SpecEngine:
         with torch.no_grad():
             logits, _ = decoder.forward_cached(
                 self.ssm_spec, self.ssm_params, self._h(root_tokens)[:, None],
-                self.ssm_cache, lens, write_start=lens_np)
+                self.ssm_cache, lens, write_start=lens_np, shard=self.ssm_shard)
             beam_logp, beam_tokens = _log_softmax_topk(logits[:, 0], w)
             anc = torch.zeros((b, w, t), dtype=torch.bool, device=self.device)
             anc[:, :, 0] = True
@@ -448,7 +449,8 @@ class SpecEngine:
                 logits, _ = decoder.forward_cached(
                     self.ssm_spec, self.ssm_params, beam_tokens, self.ssm_cache, lens,
                     positions=(lens + d)[:, None].expand(b, w).to(torch.int32),
-                    kv_mask=kv_mask, tree_mask=eye_w, write_start=lens_np + base)
+                    kv_mask=kv_mask, tree_mask=eye_w, write_start=lens_np + base,
+                    shard=self.ssm_shard)
                 if d == dmax:
                     break
                 self_slots = base + torch.arange(w, device=self.device)
@@ -484,7 +486,7 @@ class SpecEngine:
             logits, _ = decoder.forward_cached(
                 self.llm_spec, self.llm_params, self._h(tree_tokens), self.llm_cache,
                 self._h(lens_np), positions=self._h(lens_np[:, None] + depths),
-                tree_mask=self._h(anc, np.bool_), write_start=lens_np)
+                tree_mask=self._h(anc, np.bool_), write_start=lens_np, shard=self.llm_shard)
             return self.fetch(sl.gather(torch.argmax(logits, dim=-1), 0))
 
     def commit(self, cache_lens, from_slots) -> None:
@@ -524,7 +526,8 @@ class SpecEngine:
         positions = cache_lens[:, None] + self._depths[None, :]
         return decoder.forward_cached(
             self.llm_spec, self.llm_params, tree_tokens, self.llm_cache, cache_lens,
-            positions=positions.to(torch.int32), tree_mask=anc_self, write_cache=False)
+            positions=positions.to(torch.int32), tree_mask=anc_self, write_cache=False,
+            shard=self.llm_shard)
 
     def _fused_iteration(self, lens, roots, walk: Callable, window=None):
         """One speculative iteration on device tensors: returns (produced

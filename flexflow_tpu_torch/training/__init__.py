@@ -1,5 +1,6 @@
-"""Training on one device (port of ``flexflow_tpu/training``): losses,
-metrics, the SGD and Adam optimizers, the data loader and the Trainer."""
+"""Training on one device or over a ``data x model`` mesh (port of
+``flexflow_tpu/training``): losses, metrics, the SGD and Adam optimizers,
+the data loader and the Trainer."""
 
 from flexflow_tpu_torch.training.losses import LOSSES  # noqa: F401
 from flexflow_tpu_torch.training.metrics import PerfMetrics  # noqa: F401

@@ -1,7 +1,9 @@
 """Training metrics (port of ``flexflow_tpu/training/metrics.py``).
 
 ``classification_metrics`` and ``regression_metrics`` return device
-tensors; ``PerfMetrics`` accumulates host numbers from them.
+tensors; ``PerfMetrics`` accumulates host numbers from them. A data-parallel
+Trainer sums ``count`` and ``correct`` over its data ranks
+(``global_counts``) before they reach the host.
 """
 
 from __future__ import annotations
@@ -42,6 +44,17 @@ def classification_metrics(logits: torch.Tensor, labels: torch.Tensor) -> Dict[s
     mask = labels != IGNORE_INDEX
     pred = torch.argmax(logits, dim=-1)
     return {"count": mask.sum(), "correct": ((pred == labels) & mask).sum()}
+
+
+def global_counts(m: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """``count`` and ``correct`` summed over the data ranks of ``mesh`` (one
+    collective; None or one data rank: ``m`` as it is)."""
+    if mesh is None or mesh.data == 1:
+        return m
+    from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
+
+    both = mesh.all_reduce(torch.stack([m["count"], m["correct"]]).long(), DATA_AXIS)
+    return {**m, "count": both[0], "correct": both[1]}
 
 
 def regression_metrics(pred: torch.Tensor, target: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
-"""Trainer: train and eval steps and the fit loop on one device (port of
-``flexflow_tpu/training/trainer.py``).
+"""Trainer: train and eval steps and the fit loop, on one device or over a
+``data x model`` mesh (port of ``flexflow_tpu/training/trainer.py``).
 
 JAX jits one program per step (forward, ``value_and_grad``, the optimizer
 update, metrics). Here a step runs eagerly: ``decoder.forward`` (its plain
@@ -12,9 +12,21 @@ Quantized parameters are refused (``TypeError``): JAX cannot take a
 gradient of integer leaves either. ``mesh="auto"`` runs the layout search
 (``parallel/auto.optimize_train_layout``: on one device it measures the
 only layout, dp = pp = tp = 1, and trains under it; its report is
-``auto_report``). A mesh and pipeline stages are not in the port yet and
-raise ``NotImplementedError`` naming their ROADMAP items (A8b, A9; the
-search over more than one device, A11c).
+``auto_report``); over more than one device it raises (the search on a
+mesh, ROADMAP A11c), as do pipeline stages (A9).
+
+``mesh=`` a ``parallel/mesh.Mesh`` (JAX: Megatron shardings for the
+parameters, ``P("data")`` for the batch, GSPMD's gradient sums): each rank
+trains its cut of the unfused float tree (``sharding.shard_params``) on its
+data rank's rows of each global batch (``sharding.data_rows``; a
+``SingleDataLoader(mesh=)`` batch is those rows already). The forward runs
+the decoder's conjugate collectives, so after ``backward()`` a rank holds
+its cut of the gradient of its rows' loss sum over the global count of
+labels (``losses.LOSS_PARTS``): the replicated leaves whose gradient is
+partial over ``model`` (``sharding.partial_grads``) are summed there, then
+every gradient over ``data``, in float32, and the optimizer (elementwise)
+updates the cut. The loss, ``evaluate`` and the metrics are global;
+``full_params()`` gathers the whole tree.
 """
 
 from __future__ import annotations
@@ -27,10 +39,14 @@ import torch
 
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.models import decoder
+from flexflow_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_grads
+from flexflow_tpu_torch.parallel.sharding import (data_rows, gather_params, partial_grads,
+                                                  shard_params, tree_shard)
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 from flexflow_tpu_torch.specs import ModelSpec
 from flexflow_tpu_torch.training import losses as loss_lib
 from flexflow_tpu_torch.training import metrics as metrics_lib
+from flexflow_tpu_torch.training.dataloader import RankRows
 from flexflow_tpu_torch.training.optimizers import tree_map, zip_leaves
 
 
@@ -46,7 +62,7 @@ def _trainable(device):
 
 
 class Trainer:
-    """Causal-LM trainer on one device."""
+    """Causal-LM trainer on one device or one rank of a mesh."""
 
     def __init__(self, spec: ModelSpec, params: Any, optimizer, *, mesh=None,
                  pipeline_stages: int = 1, loss: str = "sparse_categorical_crossentropy",
@@ -64,23 +80,34 @@ class Trainer:
                 spec, params, optimizer, batch_size=auto_batch_size, seq_len=auto_seq_len,
                 loss=loss, device=device)
             mesh = auto_lib.layout_mesh(layout)
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (data and tensor parallel training) is not in the port yet "
-                "(ROADMAP.md Queue A, A8b)")
         if pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline stages are not in the port yet (ROADMAP.md Queue A, A9)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh or 'auto', got "
+                            f"{type(mesh).__name__}")
         self.spec = spec
         self.optimizer = optimizer
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         self.loss_name = loss
         self.loss_fn = loss_lib.LOSSES[loss]
+        self.loss_parts = loss_lib.LOSS_PARTS[loss]
+        self.shard = None
+        if mesh is not None:
+            self.shard = tree_shard(spec, params, mesh)
+            params = shard_params(spec, params, mesh)
         self.params = tree_map(_trainable(self.device), params)
+        self._partial = [self.params["layers"][n] for n in partial_grads(self.shard)
+                         if self.params["layers"].get(n) is not None]
         self.opt_state = optimizer.init(self.params)
         self.metrics = metrics_lib.PerfMetrics()
 
     def _as_tensor(self, a) -> torch.Tensor:
+        """This data rank's rows of a global batch, on the device."""
+        if not isinstance(a, RankRows):
+            a = data_rows(a, self.mesh)
         if isinstance(a, torch.Tensor):
             return a.to(self.device)
         return decoder.to_device(a, self.device)
@@ -88,23 +115,48 @@ class Trainer:
     def _logits(self, tokens: torch.Tensor) -> torch.Tensor:
         b, t = tokens.shape
         positions = torch.arange(t, dtype=torch.int32, device=self.device)[None].expand(b, t)
-        logits, _ = decoder.forward(self.spec, self.params, tokens, positions)
+        logits, _ = decoder.forward(self.spec, self.params, tokens, positions, shard=self.shard)
         return logits
 
+    def _loss(self, logits, labels):
+        """(the loss to differentiate: this rank's sum over the global count,
+        and the global loss, detached)."""
+        if self.mesh is None or self.mesh.data == 1:
+            loss = self.loss_fn(logits, labels)
+            return loss, loss.detach()
+        total, count = self.loss_parts(logits, labels)
+        whole, denom = self.mesh.all_reduce(
+            torch.stack([total.detach().double(), count.double()]), DATA_AXIS)
+        denom = denom.clamp_min(1)
+        return total / denom.float(), (whole / denom).float()
+
     def train_step(self, tokens, labels) -> float:
-        """One step on a [B, T] batch; returns its loss."""
+        """One step on a [B, T] global batch (this rank's rows of it under a
+        mesh); returns its loss."""
         tokens, labels = self._as_tensor(tokens), self._as_tensor(labels)
         with torch.enable_grad():
             logits = self._logits(tokens)
-            loss = self.loss_fn(logits, labels)
+            loss, value = self._loss(logits, labels)
             loss.backward()
+        if self._partial:
+            all_reduce_grads([p.grad for p in self._partial], self.mesh, MODEL_AXIS)
+        if self.mesh is not None and self.mesh.data > 1:
+            all_reduce_grads([p.grad for p, in zip_leaves(self.params) if p.grad is not None],
+                             self.mesh, DATA_AXIS)
         grads = tree_map(lambda p: p.grad, self.params)
         self.params, self.opt_state = self.optimizer.update(grads, self.opt_state, self.params)
         for p, in zip_leaves(self.params):
             p.grad = None
-        m = metrics_lib.classification_metrics(logits.detach(), labels)
+        m = metrics_lib.global_counts(
+            metrics_lib.classification_metrics(logits.detach(), labels), self.mesh)
         self.metrics.update({k: int(v) for k, v in m.items()})
-        return float(loss.detach())
+        return float(value)
+
+    def full_params(self):
+        """The whole (one-device) parameter tree, detached: this rank's cut
+        gathered over ``model`` under a mesh (every rank calls it)."""
+        params = tree_map(lambda p: p.detach(), self.params)
+        return params if self.mesh is None else gather_params(self.spec, params, self.mesh)
 
     def fit(self, data: Iterable[Tuple[np.ndarray, np.ndarray]], *, epochs: int = 1,
             log_every: int = 0, log_fn: Callable[[str], None] = print) -> list:
@@ -134,8 +186,9 @@ class Trainer:
         for tokens, labels in data:
             tokens, labels = self._as_tensor(tokens), self._as_tensor(labels)
             logits = self._logits(tokens)
-            total += float(self.loss_fn(logits, labels))
-            m = metrics_lib.classification_metrics(logits, labels)
+            total += float(self._loss(logits, labels)[1])
+            m = metrics_lib.global_counts(
+                metrics_lib.classification_metrics(logits, labels), self.mesh)
             count += int(m["count"])
             correct += int(m["correct"])
             n += 1

@@ -142,10 +142,19 @@ def load_checkpoint(path, *, namedtuple_registry=None, device="cpu") -> Any:
     return build("")
 
 
-def save_lora_adapter(path: str, lora, adapter: int) -> None:
+def save_lora_adapter(path: str, lora, adapter: int, *, spec=None, shard=None) -> None:
     """Export one adapter slot of JAX-layout stacks ({module: {"a": [L, N,
     D_in, r], "b": [L, N, r, D_out]}}; an engine's routed adapters through
     ``peft/lora.unroute_lora``) as a checkpoint of [L, D_in, r] / [L, r,
-    D_out] leaves (the reference's save_updated_weights)."""
+    D_out] leaves (the reference's save_updated_weights). ``shard`` (with
+    the model's ``spec``): ``lora`` is a tensor-parallel rank's cut; every
+    rank calls this, the stacks are gathered over ``model`` and rank 0
+    writes them."""
+    if shard is not None:
+        from flexflow_tpu_torch.parallel.sharding import gather_lora
+
+        lora = gather_lora(spec, lora, shard)
+        if shard.mesh.rank != 0:
+            return
     save_checkpoint(path, {mod: {k: v[:, adapter] for k, v in ab.items()}
                            for mod, ab in lora.items()})

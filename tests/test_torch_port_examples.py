@@ -141,5 +141,11 @@ def test_mnist_mlp_first_step_loss_matches_jax():
 
 
 def test_moe_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A8"):
+    """Only a ``parallel.mesh.Mesh`` is taken; with one the example trains
+    as without (JAX's FFModel keeps its mesh unread: nothing shards)."""
+    from flexflow_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         moe.main(mesh=object(), device="cpu")
+    kw = dict(batch_size=16, epochs=1, samples=32)
+    assert moe.main(mesh=Mesh.fake(1, 2, 0), **kw) == moe.main(device="cpu", **kw)

@@ -539,12 +539,21 @@ def test_regularizer_and_set_learning_rate_match_jax():
 
 
 def test_refusals(monkeypatch):
-    """A mesh names A8; the search runs on one device (``test_torch_port_search``)
-    and names A11c over more than one."""
+    """A mesh that is not a ``parallel.mesh.Mesh`` is a TypeError; a Mesh is
+    kept unread, as JAX keeps its own, and names the device; the search
+    runs on one device (``test_torch_port_search``) and names A11c over
+    more than one, a two-rank mesh included."""
     from flexflow_tpu_torch.parallel import auto as auto_lib
+    from flexflow_tpu_torch.parallel.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         FFModel(mesh=object(), device="cpu")
+    mesh = Mesh.fake(1, 2, 0)
+    meshed = FFModel(mesh=mesh)
+    assert meshed._mesh is mesh and meshed.device == torch.device("cpu")
+    meshed.dense(meshed.create_tensor((2, 4)), 3)
+    with pytest.raises(NotImplementedError, match="A11c"):
+        meshed.compile(auto_parallel=True)
     ff = FFModel(device="cpu")
     ff.dense(ff.create_tensor((2, 4)), 3)
     monkeypatch.setattr(auto_lib, "device_count", lambda device=None: 2)

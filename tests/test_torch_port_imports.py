@@ -56,6 +56,8 @@ PORT_MODULES = [
     "flexflow_tpu_torch.training.optimizers",
     "flexflow_tpu_torch.training.dataloader",
     "flexflow_tpu_torch.training.trainer",
+    "flexflow_tpu_torch.peft",
+    "flexflow_tpu_torch.peft.lora",
     "flexflow_tpu_torch.peft.finetune",
     "flexflow_tpu_torch.utils.checkpoint",
     "flexflow_tpu_torch.models.layer_store",

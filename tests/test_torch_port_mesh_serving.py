@@ -122,13 +122,15 @@ def _run_cases(cases, model_dir):
     return out
 
 
-def _rank_main(rank, world, init, cases, out_path, model_dir):
+def _rank_main(rank, world, init, cases, out_path, model_dir, runner=None):
+    """One rank: ``runner(cases, model_dir)`` (default ``_run_cases``; a
+    module-level function of a test file that imports no JAX at its top)."""
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     try:
-        res = _run_cases(cases, model_dir)
+        res = (runner or _run_cases)(cases, model_dir)
         res["jax imported"] = "jax" in sys.modules  # the port and the ranks import none
         with open(f"{out_path}.{rank}", "wb") as f:
             pickle.dump(res, f)
@@ -141,10 +143,10 @@ def _rank_main(rank, world, init, cases, out_path, model_dir):
 # ---------------------------------------------------------------------------
 
 
-def _start(tmp_path, world, cases, model_dir=None):
+def _start(tmp_path, world, cases, model_dir=None, runner=None):
     ctx = mp.start_processes(
         _rank_main, args=(world, f"file://{tmp_path}/rendezvous", cases, str(tmp_path / "out"),
-                          model_dir),
+                          model_dir, runner),
         nprocs=world, join=False, start_method="spawn")
     return ctx, time.monotonic() + LIMIT_S
 
@@ -276,8 +278,10 @@ def test_tp8_pipelined_and_jax_mesh_engine(tmp_path, unfused_jax):
 
 
 def test_refusals():
-    """Pipeline (A9) and context (A10) degrees; LoRA, offload and PEFT
-    under a mesh (A8b); start_server under a mesh (A10)."""
+    """Pipeline (A9) and context (A10) degrees; offload under a mesh (A8c);
+    start_server under a mesh (A10). LoRA under a mesh is taken (the rank's
+    cut of the stacks: ``test_torch_port_mesh_lora``), as is the PEFT CLI's
+    mesh."""
     from flexflow_tpu_torch.inference import peft as peft_cli
     from flexflow_tpu_torch.models import params as tp
     from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -291,14 +295,17 @@ def test_refusals():
     spec = _tspec(SPEC)
     params = tp.init_params(spec, 0)
     mesh = Mesh.fake(1, 2, 0)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        InferenceEngine(spec, params, device="cpu", mesh=mesh, lora={"wq": {}})
-    with pytest.raises(NotImplementedError, match="A8b"):
+    lora = {m: {"a": torch.zeros(2, 1, i, 4), "b": torch.zeros(2, 1, 4, 64)}
+            for m, i in (("wq", 64), ("wd", 128))}
+    eng = InferenceEngine(spec, params, device="cpu", mesh=mesh, lora=lora)
+    assert eng.lora.b["wq"].shape == (2, 4, 32) and eng.lora.a["wd"].shape == (2, 64, 4)
+    with pytest.raises(NotImplementedError, match="A8c"):
         InferenceEngine(spec, params, device="cpu", mesh=mesh, offload=True)
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(NotImplementedError, match="A8c"):
         tp.init_quantized_params(spec, 0, bits=8, host_layers=True, mesh=mesh)
-    with pytest.raises(SystemExit, match="A8b"):
-        peft_cli.main(["-llm-model", "unused", "-tensor-parallelism-degree", "2"])
+    with pytest.raises(OSError):  # past the mesh: the model directory is read
+        peft_cli.main(["-llm-model", "unused", "-tensor-parallelism-degree", "2",
+                       "--device", "cpu"])
     llm = LLM.__new__(LLM)
     llm.mesh = mesh
     with pytest.raises(NotImplementedError, match="A10"):

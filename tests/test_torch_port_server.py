@@ -506,9 +506,17 @@ def test_profiling_reports_jax_phases_and_ops(monkeypatch, capsys):
             outs.append((toks, capsys.readouterr().out))
         (jt, jout), (tt, tout) = outs[-2:]
         assert tt == jt
-        assert _phase_names(tout) == _phase_names(jout)
+        # horizon_fetch times a blocking wait for a horizon's tokens: a fetch
+        # already done when the manager polls it is applied without one, so
+        # under CPU load either package may print none. The phases both
+        # always print are held equal; horizon_fetch wherever the port timed one.
+        steady = [n for n in _phase_names(tout) if n != "horizon_fetch"]
+        assert steady == [n for n in _phase_names(jout) if n != "horizon_fetch"]
+        if "horizon_fetch" in _phase_names(tout):
+            assert pipelined and _phase_names(tout) == ["admit", "decode_dispatch",
+                                                        "horizon_fetch"]
         assert _op_rows(tout) == _op_rows(jout) and len(_op_rows(tout)) == 7
-    assert _phase_names(outs[0][1]) == ["admit", "decode_dispatch", "horizon_fetch"]
+    assert {"admit", "decode_dispatch"} <= set(_phase_names(outs[0][1]))
 
     skw = dict(beam_width=2, beam_depth=2, max_requests_per_batch=2, max_seq_len=64)
     JSRM(JSpecEngine(js, jparams, js, jparams, cache_dtype=jnp.float32, **skw)).generate(

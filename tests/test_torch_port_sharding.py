@@ -30,7 +30,7 @@ from flexflow_tpu_torch.models import params as tp
 from flexflow_tpu_torch.parallel.mesh import Mesh
 from flexflow_tpu_torch.parallel.sharding import (_LAYER_AXES, _TOP_AXES, _blocks_of, _take,
                                                   rank_shard, shard_leaf, shard_params,
-                                                  slot_block)
+                                                  slot_block, tree_shard)
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, dequantize, quantize
 
 torch.set_num_threads(2)
@@ -114,9 +114,12 @@ def test_rank_cut_equals_jax_placement(tree, data, model):
     placed = j_shard_params(js, jparams, jmesh)
     devices = list(jmesh.devices.reshape(-1))
     for rank in range(data * model):
-        mine = shard_params(ts, tparams, Mesh.fake(data, model, rank))
-        shard = mine["_shard"]
+        mesh = Mesh.fake(data, model, rank)
+        mine = shard_params(ts, tparams, mesh)
+        shard = tree_shard(ts, tparams, mesh)
         assert shard.mesh.model_rank == rank % model
+        assert "_shard" not in mine  # the tree carries no mark of its cut
+        _assert_trees_equal(shard_params(ts, mine, mesh), mine)  # idempotent
         for name, leaf in tparams["layers"].items():
             _check_leaf(name, mine["layers"][name], leaf, placed["layers"][name], shard,
                         devices[rank], top=False)
@@ -201,9 +204,7 @@ def test_random_inits_cut_as_they_draw(bits):
 def _assert_trees_equal(a, b):
     assert set(a) == set(b)
     for k in a:
-        if k == "_shard":
-            assert (a[k].heads, a[k].ffn, a[k].vocab) == (b[k].heads, b[k].ffn, b[k].vocab)
-        elif isinstance(a[k], dict):
+        if isinstance(a[k], dict):
             _assert_trees_equal(a[k], b[k])
         elif isinstance(a[k], QuantizedArray):
             assert (a[k].shape, a[k].group_size, a[k].rest_pad) == (

@@ -249,27 +249,35 @@ def test_dataloader_batches_equal_jax(drop_last, shuffle):
 
 
 def test_refusals(monkeypatch):
-    """The sharded and pipelined Trainers, and the auto one over more than one
-    device (on one it trains: ``test_torch_port_search``), name their ROADMAP
-    items; a quantized parameter tree is a TypeError, as a gradient of JAX's
-    integer leaves is; without ``device`` the Trainer runs on the card or
-    raises."""
+    """The pipelined Trainer, and the auto one over more than one device (on
+    one it trains: ``test_torch_port_search``), name their ROADMAP items; a
+    mesh that is not a ``parallel.mesh.Mesh`` is a TypeError, and a Mesh is
+    taken (each rank's cut: ``test_torch_port_mesh_training``); a quantized
+    parameter tree is a TypeError, as a gradient of JAX's integer leaves
+    is; without ``device`` the Trainer runs on the card or raises."""
     from flexflow_tpu_torch.parallel import auto as auto_lib
+    from flexflow_tpu_torch.parallel.mesh import Mesh
+    from flexflow_tpu_torch.training.dataloader import RankRows
 
     js, jparams, ts, npp = _models(TINY)
     params = tp.params_from_numpy(npp)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Trainer(ts, params, SGDOptimizer(), mesh=object(), device="cpu")
+    mesh = Mesh.fake(1, 2, 1)  # a rank's cut, made without a process group
+    tr = Trainer(ts, params, SGDOptimizer(), mesh=mesh)
+    assert tr.device == torch.device("cpu") and tr.shard.mesh is mesh
+    assert tr.params["layers"]["wq"].shape[-2] == TINY["num_heads"] // 2
     with monkeypatch.context() as m:
         m.setattr(auto_lib, "device_count", lambda device=None: 2)
-        with pytest.raises(NotImplementedError, match="A8.*A11c"):
+        with pytest.raises(NotImplementedError, match="A11c"):
             Trainer(ts, params, SGDOptimizer(), mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="'auto'"):
         Trainer(ts, params, SGDOptimizer(), mesh="manual", device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         Trainer(ts, params, SGDOptimizer(), pipeline_stages=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        SingleDataLoader([np.zeros((4, 2))], batch_size=2, mesh=object())
+    rows = next(SingleDataLoader([np.arange(8)[:, None]], batch_size=4, shuffle=False,
+                                 mesh=Mesh.fake(2, 1, 1)).epoch())[0]
+    assert isinstance(rows, RankRows) and rows[:, 0].tolist() == [2, 3]
     quantized = tp.params_from_numpy(jax.tree.map(np.asarray, j_quant_params(
         js, jparams, bits=8, group_size=16, compute_dtype=jnp.float32)))
     with pytest.raises(TypeError, match="quantized or integer"):
