@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only card,build,graph
     python3 chip_smoke.py --only card,build,search
     python3 chip_smoke.py --only card,build,meshtrain
+    python3 chip_smoke.py --only card,build,layouts
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -321,7 +322,48 @@ Phases, in order; any failure exits non-zero:
               gathered over the ranks within 1e-3 relative of one device's.
               (f) With more than one GPU, (b)-(e) over NCCL at min(4, count)
               ranks; otherwise it says why it did not run.
-18. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+18. layouts — the serving layouts left under a mesh (``parallel/sharding.py``'s
+              ``hybrid_ffn`` and ``expert_parallel`` cuts, offload through
+              ``models/layer_store.py`` under a mesh). (a) CPU offload under a
+              mesh: LLaMA-2-7B INT8 (32 layers, ``build_params(host_layers=True,
+              mesh=)``: each layer made, quantized whole, cut, fused and pinned)
+              on one rank over NCCL through the sharded path, the serve
+              traffic resident then offload from one pinned build: every token
+              of the offload run equal to the resident run's; then two ranks
+              sharing the card over gloo at T = 2, ``LAYOUT_OFFLOAD_LAYERS``
+              layers (cut for time), ``LAYOUT_NEW_TOKENS`` new tokens, each
+              rank pinning its own cut: offload tokens equal to the resident
+              ones. Prints each rank's pinned GiB, the copy-alone time (every
+              layer through the copy stream, no compute) and an offload decode
+              step's wall. (b) ``hybrid_ffn`` at data = 2 x model = 1 over two
+              gloo ranks (attention whole on each, half the FFN on each, every
+              slot on every rank): LLaMA-2-7B INT8 and INT4 at
+              ``LAYOUT_LAYERS`` layers in f32 activations and cache
+              (``LAYOUT_HYBRID_DTYPE``: at bf16 two first tokens parted at
+              near-ties), each layer's slab quantized whole then cut: every
+              first token equal to one device's at that depth (near-ties
+              counted and held all the same), prefill logits within
+              ``LAYOUT_F32_REL``; then INT8 with offload once (tokens equal
+              to the resident hybrid run's, first tokens as before). (c)
+              ``expert_parallel`` at T = 2 over two gloo ranks: Mixtral-8x7B
+              at ``TP_MIXTRAL_LAYERS`` layers, each rank holding 4 whole
+              experts (``shard_params(expert_parallel=True)``), through
+              ``decoder.forward`` (flash prefill) and ``forward_cached``
+              (``LAYOUT_EP_STEPS`` greedy decode steps), in bf16 and in f32
+              (``LAYOUT_EP_DTYPES``). bf16: every layer's router logits over
+              the prompts' tokens are recorded on both sides and the tokens
+              routed to other experts than on one device are counted, a
+              layer at a time; up to a request's first such layer its
+              router logits agree within ``TP_LOGITS_REL``, and the requests
+              routed as on one device throughout keep their prefill logits
+              within ``TP_LOGITS_REL`` and their first tokens. f32: prefill
+              logits within ``LAYOUT_F32_REL``, every greedy token equal to
+              one device's. The prefill's difference by request is printed.
+              The expert FFN is a ``torch.matmul`` there, as on one device.
+              (d) With more than one GPU, (a)-(c) over NCCL at min(4, count)
+              ranks; otherwise it says why it did not run. Prints the phase's
+              wall time.
+19. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -360,7 +402,7 @@ PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
           "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "tp", "meshtrain",
-          "profile")
+          "layouts", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -4265,11 +4307,11 @@ TP_CASES = {"b": _tp_case_b, "c": _tp_case_c, "d": _tp_case_d, "e": _tp_case_e}
 
 
 def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
-    """One rank of the tp and meshtrain phases' spawned cases: ``backend``
-    gloo shares card 0, NCCL takes card ``rank``. Each case builds its own
-    mesh over the group (all ranks on ``data`` for (c) and meshtrain's
-    (c), else on ``model``); the results go to ``tmp`` for the parent to
-    hold against one device."""
+    """One rank of the tp, meshtrain and layouts phases' spawned cases:
+    ``backend`` gloo shares card 0, NCCL takes card ``rank``. Each case
+    builds its own mesh over the group (all ranks on ``data`` for (c),
+    meshtrain's (c) and layouts' (b), else on ``model``); the results go to
+    ``tmp`` for the parent to hold against one device."""
     import torch
     import torch.distributed as dist
 
@@ -4288,9 +4330,9 @@ def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
         out = {}
         for case in cases:
             t0 = time.perf_counter()
-            degrees = dict(data=world) if case in ("c", "mt-c") else dict(model=world)
+            degrees = dict(data=world) if case in ("c", "mt-c", "la-b") else dict(model=world)
             mesh = make_mesh(**degrees, backend=backend, device=dev)
-            out[case] = {**TP_CASES, **MT_CASES}[case](mesh, dev, None)
+            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES}[case](mesh, dev, None)
             out[case]["seconds"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
@@ -4776,6 +4818,510 @@ def meshtrain_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving layouts left under a mesh (the layouts phase)
+# ---------------------------------------------------------------------------
+
+LAYOUT_LAYERS = 4  # (b): LLaMA-2-7B INT8 and INT4 under hybrid_ffn, full width
+# (a)'s two gloo ranks: LLaMA-2-7B INT8 at T = 2, resident and offload; the
+# one NCCL rank serves all 32 layers
+LAYOUT_OFFLOAD_LAYERS = 8
+LAYOUT_NEW_TOKENS = 32  # (a)'s gloo runs and (b): new tokens a request
+# (b) runs f32 activations and an f32 KV cache over the INT8 / INT4 carriers
+# (the kernels take f32): at bf16 the hybrid ranks round each layer's FFN
+# output from two f32 partials where one device rounds one call's, and two
+# of the eight first tokens parted at rows whose top-2 margin lay within
+# twice the logits' difference (which any flip must), as in meshtrain (d)
+LAYOUT_HYBRID_DTYPE = "float32"
+LAYOUT_EP_STEPS = 8  # (c): greedy decode steps after the prefill
+# (c) runs Mixtral twice, in bf16 (the served dtype) and in f32 (weights,
+# activations and KV cache). The bf16 run records every layer's router
+# logits over the prefill's tokens on both sides and counts the tokens
+# whose top-k experts differ from one device's: a request's logits are
+# held to TP_LOGITS_REL only while its routing agrees everywhere, and up
+# to its first differing layer its router logits must agree to
+# TP_LOGITS_REL of their magnitude. The f32 run holds every request.
+LAYOUT_EP_DTYPES = ("bfloat16", "float32")
+# (b) and (c)'s f32 runs: the T-rank prefill logits against one device's,
+# max |difference| over the largest |logit|; calls 4 and 5 of the slice that
+# added the phase measured 2.0e-6 to 3.1e-6
+LAYOUT_F32_REL = 1e-4
+
+
+def _copy_alone_s(store) -> float:
+    """Every layer of an offload engine's ``LayerStore`` copied once into its
+    slots, no compute (the stream alone), synchronised; the ring restarted
+    after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for layer in range(store.num_layers):
+        store._copy(layer % 2, layer)
+    torch.cuda.synchronize()
+    out = time.perf_counter() - t0
+    store.restart(0)
+    return out
+
+
+def _la_offload_pair(spec, mesh, dev, max_new: int, what: str, hybrid_ffn: bool = False,
+                     bits: int = 8, dtype: str = "bfloat16") -> dict:
+    """One host build of ``spec`` (this rank's cut under ``mesh``, pinned,
+    ``build_params(host_layers=True, mesh=)``), served resident then
+    offload: each run's tokens and stats, the pinned GiB, the copy-alone
+    time and the offload run's decode step wall (8 requests decode
+    together: 8 / tok/s)."""
+    import torch
+
+    from flexflow_tpu_torch.models import layer_store as offload_lib
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+
+    pinned0, t0 = offload_lib.pinned_bytes, time.perf_counter()
+    dt = getattr(torch, dtype)
+    if hybrid_ffn:  # the hybrid cut: (b)'s draw, each layer cut as it is quantized
+        params = _la_hybrid_model(spec, mesh, dev, bits, dtype, host_layers=True)
+    else:
+        params = params_lib.init_quantized_params(
+            spec, torch.Generator(device=dev).manual_seed(0), bits=bits, group_size=128,
+            dtype=dt, device=dev, host_layers=True, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "pinned_gib": (offload_lib.pinned_bytes - pinned0) / 2**30}
+    prompts = _prompts(spec.vocab_size)
+    for offload in (False, True):
+        name = "offload" if offload else "resident"
+        engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                                 max_tokens_per_batch=0, cache_dtype=dt, device=dev,
+                                 offload=offload, mesh=mesh, hybrid_ffn=hybrid_ffn)
+        rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+        try:
+            reqs, st = _served(rm, prompts, max_new, spec.vocab_size, f"{what} {name}",
+                               replayed=engine.graphs is not None)
+        finally:
+            rm.close()
+        st["tokens"] = [r.output_tokens for r in reqs]
+        if offload:
+            store = engine.params["layers"]
+            require(store.layer_bytes * spec.num_layers
+                    == offload_lib.pinned_bytes - pinned0,
+                    f"{what}: the rank pins more than its cut of the layers once")
+            out["copy_alone_s"] = _copy_alone_s(store)
+            out["step_wall_s"] = len(prompts) / st["decode_tok_s"]
+            out["logits"], out["first"] = _prefill_logits(engine, spec, prompts)
+            del store
+        out[name] = st
+        del engine, rm
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    require(out["offload"]["tokens"] == out["resident"]["tokens"],
+            f"{what}: offload tokens differ from the resident run's")
+    for k in ("decode_attention", "flash_prefill"):
+        require(out["offload"]["launches"][k] > 0, f"{what}: {k} was never launched")
+    return out
+
+
+def _la_case_a(mesh, dev, refs) -> dict:
+    """(a) over the spawned ranks: LLaMA-2-7B INT8 at LAYOUT_OFFLOAD_LAYERS
+    layers, T ranks, resident then offload over one pinned build of the
+    rank's cut."""
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": LAYOUT_OFFLOAD_LAYERS})
+    return _la_offload_pair(spec, mesh, dev, LAYOUT_NEW_TOKENS,
+                            f"layouts (a) offload T={mesh.model}")
+
+
+def _la_hybrid_model(spec, mesh, dev, bits: int, dtype: str, host_layers: bool = False):
+    """LLaMA-2-7B at ``spec``'s depth from seed 0 (a ``dtype`` draw), each
+    layer's slab quantized whole at ``bits`` and cut (the hybrid FFN cut
+    under ``mesh``; the whole model without), in host memory with
+    ``host_layers``."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+
+    dt = getattr(torch, dtype)
+    whole = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0), dt, dev)
+    layers = whole.pop("layers")
+    return params_lib.build_params(spec, whole, lambda i: ((n, v[i]) for n, v in layers.items()),
+                                   dtype=dt, device=dev, bits=bits, group_size=128,
+                                   host_layers=host_layers, mesh=mesh,
+                                   hybrid_ffn=mesh is not None)
+
+
+def _la_case_b(mesh, dev, refs) -> dict:
+    """(b): ``hybrid_ffn`` over the data ranks, LLaMA-2-7B INT8 and INT4 at
+    LAYOUT_LAYERS layers in LAYOUT_HYBRID_DTYPE (prefill logits, first
+    tokens, the served run), then INT8 with offload once."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": LAYOUT_LAYERS})
+    prompts = _prompts(spec.vocab_size)
+    out = {}
+    for bits in (8, 4):
+        params = _la_hybrid_model(spec, mesh, dev, bits, LAYOUT_HYBRID_DTYPE)
+        engine = InferenceEngine(spec, params, max_requests_per_batch=8, max_seq_len=1024,
+                                 max_tokens_per_batch=0,
+                                 cache_dtype=getattr(torch, LAYOUT_HYBRID_DTYPE), device=dev,
+                                 mesh=mesh, hybrid_ffn=True)
+        del params
+        require(engine.slots.n == 8 and engine.shard.ffn is not None,
+                f"layouts (b) INT{bits}: a hybrid rank holds every slot and its FFN cut")
+        rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+        try:
+            reqs, st = _served(rm, prompts, LAYOUT_NEW_TOKENS, spec.vocab_size,
+                               f"layouts (b) hybrid INT{bits} D={mesh.data}",
+                               replayed=engine.graphs is not None)
+            st["tokens"] = [r.output_tokens for r in reqs]
+            st["logits"], st["first"] = _prefill_logits(engine, spec, prompts)
+        finally:
+            rm.close()
+        out[f"int{bits}"] = st
+        del engine, rm
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["offload"] = _la_offload_pair(spec, mesh, dev, LAYOUT_NEW_TOKENS,
+                                      f"layouts (b) hybrid INT8 D={mesh.data} offload",
+                                      hybrid_ffn=True, dtype=LAYOUT_HYBRID_DTYPE)
+    return out
+
+
+def _la_ep_logits(spec, params, shard, prompts, steps: int, dev, dtype: str):
+    """A batched flash prefill of ``prompts`` (K/V into a fresh cache) and
+    ``steps`` greedy decode steps through ``forward_cached`` on ``params``
+    (this rank's cut under ``shard``), the launch counts set to 0 before
+    and read after. Returns (f32 logits [steps + 1, n, V] on the host,
+    launches, the prefill's router logits [L, n, bucket, E] on the host)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models.decoder import to_device
+    from flexflow_tpu_torch.ops import moe as moe_lib
+
+    n = len(prompts)
+    bucket = 1024
+    cache = decoder.init_kv_cache(spec, n, bucket + steps, getattr(torch, dtype), dev,
+                                  num_kv_heads=None if shard is None else shard.num_kv_cache(spec))
+    toks = np.zeros((n, bucket), np.int32)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tk, ln = to_device(toks, dev), to_device(lens, dev)
+    pos = torch.arange(bucket, dtype=torch.int32, device=dev)[None].expand(n, bucket)
+
+    def sink(layer, k, v):
+        decoder.commit_kv_windows(cache.k[layer:layer + 1], cache.v[layer:layer + 1],
+                                  k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
+                                  v.permute(0, 2, 1, 3)[None].to(cache.v.dtype),
+                                  np.zeros(n, np.int64), list(range(n)))
+
+    routes, router_logits = [], moe_lib.router_logits
+
+    def recorded(x, router):  # each layer's router logits, one call a layer
+        out = router_logits(x, router)
+        routes.append(out.reshape(n, bucket, -1).cpu())
+        return out
+
+    torch.cuda.synchronize()
+    _launches(reset=True)
+    out = []
+    with torch.no_grad():
+        moe_lib.router_logits = recorded
+        try:
+            lg, _ = decoder.forward(spec, params, tk, pos, lengths=ln, flash=True, kv_sink=sink,
+                                    logits_at=ln - 1, shard=shard)
+        finally:
+            moe_lib.router_logits = router_logits
+        out.append(lg)
+        cur, cl = lg.argmax(-1).to(torch.int32), ln.clone()
+        for _ in range(steps):
+            lg, _ = decoder.forward_cached(spec, params, cur[:, None], cache, cl, shard=shard)
+            out.append(lg[:, 0])
+            cur, cl = lg[:, 0].argmax(-1).to(torch.int32), cl + 1
+    torch.cuda.synchronize()
+    return torch.stack(out).float().cpu(), _launches(), torch.stack(routes)
+
+
+def _la_case_c(mesh, dev, refs) -> dict:
+    """(c): ``expert_parallel`` at T ranks, Mixtral-8x7B at
+    TP_MIXTRAL_LAYERS layers in each of LAYOUT_EP_DTYPES (the whole draw
+    cut at once, ``shard_params(expert_parallel=True)``), through
+    ``decoder.forward`` and ``forward_cached`` as JAX reaches EP."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.parallel.sharding import shard_params, tree_shard
+
+    spec = mixtral_spec(TP_MIXTRAL_LAYERS)
+    out = {}
+    for dtype in LAYOUT_EP_DTYPES:
+        whole = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                       getattr(torch, dtype), dev)
+        params = shard_params(spec, whole, mesh, expert_parallel=True)
+        shard = tree_shard(spec, params, mesh, expert_parallel=True)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(shard.expert_ids() is not None
+                and params["layers"]["wg"].shape[1] == spec.moe.num_experts // mesh.model,
+                f"layouts (c): rank {mesh.rank} holds {params['layers']['wg'].shape[1]} experts")
+        rank_gib = sum(t.nbytes for _, t in _param_leaves(params)) / 2**30
+        t0 = time.perf_counter()
+        logits, launches, routes = _la_ep_logits(spec, params, shard, _prompts(spec.vocab_size),
+                                                 LAYOUT_EP_STEPS, dev, dtype)
+        out[dtype] = dict(logits=logits, launches=launches, routes=routes,
+                          experts=shard.expert_ids(), rank_gib=rank_gib,
+                          run_s=time.perf_counter() - t0)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+LA_CASES = {"la-a": _la_case_a, "la-b": _la_case_b, "la-c": _la_case_c}
+
+
+def _la_nccl_rank(card: str, dev) -> dict:
+    """(a) on one NCCL rank in this process: LLaMA-2-7B INT8, 32 layers, the
+    serve traffic, resident then offload over one pinned build through the
+    sharded path."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    mesh = make_mesh(model=1, device=dev)
+    require(mesh.backend == "nccl", f"layouts (a): backend {mesh.backend}, not nccl")
+    try:
+        out = _la_offload_pair(ModelSpec(**LLAMA2_7B), mesh, dev, 64,
+                               "layouts (a) offload, one NCCL rank")
+    finally:
+        dist.destroy_process_group()
+    for name in ("resident", "offload"):
+        _log_served(f"layouts (a) LLaMA-2-7B INT8 one NCCL rank, {name}", out[name], card)
+    log(f"  layouts (a) one NCCL rank: every token of the offload run equal to the resident "
+        f"run's (8 x 64); {out['pinned_gib']:.2f} GiB pinned, built in {out['init_s']:.1f} s; "
+        f"copy alone {out['copy_alone_s']:.3f} s, an offload decode step "
+        f"{out['step_wall_s']:.3f} s; decode {out['offload']['decode_tok_s']:.1f} tok/s offload "
+        f"against {out['resident']['decode_tok_s']:.1f} resident [{card}]")
+    out.pop("logits"), out.pop("first")
+    return out
+
+
+def _la_one_device_refs(dev) -> dict:
+    """The one-device side of (b) and (c): LLaMA-2-7B INT8 and INT4 at
+    LAYOUT_LAYERS layers in LAYOUT_HYBRID_DTYPE (prefill logits, first
+    tokens) and Mixtral-8x7B in each of LAYOUT_EP_DTYPES at
+    TP_MIXTRAL_LAYERS layers (the prefill's router logits, the prefill and
+    decode steps)."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": LAYOUT_LAYERS})
+    prompts = _prompts(spec.vocab_size)
+    refs = {}
+    for bits in (8, 4):
+        engine = InferenceEngine(spec, _la_hybrid_model(spec, None, dev, bits,
+                                                        LAYOUT_HYBRID_DTYPE),
+                                 max_requests_per_batch=8, max_seq_len=1024,
+                                 max_tokens_per_batch=0,
+                                 cache_dtype=getattr(torch, LAYOUT_HYBRID_DTYPE), device=dev)
+        refs[f"int{bits}"] = _prefill_logits(engine, spec, prompts)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    mspec = mixtral_spec(TP_MIXTRAL_LAYERS)
+    for dtype in LAYOUT_EP_DTYPES:
+        mparams = params_lib.init_params(mspec, torch.Generator(device=dev).manual_seed(0),
+                                         getattr(torch, dtype), dev)
+        logits, _, routes = _la_ep_logits(mspec, mparams, None, _prompts(mspec.vocab_size),
+                                          LAYOUT_EP_STEPS, dev, dtype)
+        refs[f"mixtral-{dtype}"] = (logits, routes)
+        del mparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _la_routing_rule(what: str, got, want, got_routes, want_routes) -> dict:
+    """(c)'s bf16 check. ``*_routes``: the prefill's router logits [L, n,
+    bucket, E] of the T ranks and of one device. Per request and layer it
+    counts the prompt tokens whose top-k experts differ from one device's.
+    Up to a request's first such layer its router logits must agree to
+    ``TP_LOGITS_REL`` of their magnitude (the hidden states then differ by
+    rounding alone); a request routed as on one device at every layer is
+    held to ``_first_token_rule``. A differing token's top-k margin on one
+    device lies within twice the router logits' difference, as any flip's
+    must; the margins and differences are reported."""
+    from flexflow_tpu_torch.ops.moe import route_topk
+
+    top_k = mixtral_spec(1).moe.top_k
+    n_layers = want_routes.shape[0]
+    flips = [0] * n_layers  # prompt tokens routed otherwise than on one device, a layer
+    first = [None] * len(PROMPT_LENS)  # each request's first layer with such a token
+    at_first = []  # each first such layer: its tokens, their margins, the router error
+    pre = 0.0  # the largest router error / magnitude before any routing differs
+    for i, t in enumerate(PROMPT_LENS):
+        for layer in range(n_layers):
+            g, w = got_routes[layer, i, :t].float(), want_routes[layer, i, :t].float()
+            apart = (route_topk(g, top_k)[1].sort(-1).values
+                     != route_topk(w, top_k)[1].sort(-1).values).any(-1)
+            flips[layer] += int(apart.sum())
+            if first[i] is not None:
+                continue
+            err, scale = (g - w).abs().max().item(), w.abs().max().item()
+            require(err <= TP_LOGITS_REL * scale,
+                    f"{what}: request {i} layer {layer}: router logits max|diff| {err} > "
+                    f"{TP_LOGITS_REL} x {scale} before any routing differs")
+            pre = max(pre, err / scale)
+            if apart.any():
+                first[i] = layer
+                top = w[apart].sort(-1, descending=True).values
+                at_first.append(dict(request=i, layer=layer, tokens=int(apart.sum()),
+                                     margins=(top[:, top_k - 1] - top[:, top_k]).tolist(),
+                                     router_err=err))
+    clean = [i for i in range(len(PROMPT_LENS)) if first[i] is None]
+    res = dict(flips_per_layer=flips, tokens=sum(PROMPT_LENS), first_flip_layer=first,
+               at_first=at_first, router_rel_before=pre, clean_requests=clean)
+    log(f"  {what}: prompt tokens routed otherwise than on one device, by layer {flips} of "
+        f"{sum(PROMPT_LENS)}; each request's first such layer {first}; before it the router "
+        f"logits within {pre:.3g} of their magnitude (limit {TP_LOGITS_REL}); at it "
+        + "; ".join(f"request {a['request']} layer {a['layer']}: {a['tokens']} token(s), "
+                    f"top-{top_k} margins {[round(m, 5) for m in a['margins'][:4]]} against "
+                    f"a router max|diff| {a['router_err']:.4g}" for a in at_first))
+    if clean:
+        res.update(_first_token_rule(f"{what}, the {len(clean)} requests routed as on one "
+                                     f"device", got[0][clean], want[0][clean],
+                                     got[0][clean].argmax(-1).tolist(),
+                                     want[0][clean].argmax(-1).tolist()))
+    else:
+        log(f"  {what}: every request has a token routed otherwise, so no request's logits "
+            "are held to one device's")
+    return res
+
+
+def _la_check(what: str, ranks: list, refs: dict, card: str) -> dict:
+    """Rank 0's (a)-(c) of one spawned run against each other and one
+    device (every rank's tokens equal to rank 0's)."""
+    r0, n = ranks[0], len(ranks)
+    for r in ranks[1:]:
+        for run in (("la-a", "resident"), ("la-a", "offload"), ("la-b", "int8"),
+                    ("la-b", "int4")):
+            require(r[run[0]][run[1]]["tokens"] == r0[run[0]][run[1]]["tokens"],
+                    f"layouts {what} {run}: ranks disagree on the tokens")
+    out = {}
+    a = r0["la-a"]
+    out["a"] = dict(pinned_gib=[r["la-a"]["pinned_gib"] for r in ranks],
+                    copy_alone_s=[r["la-a"]["copy_alone_s"] for r in ranks],
+                    step_wall_s=a["step_wall_s"], resident=a["resident"], offload=a["offload"],
+                    seconds=a["seconds"])
+    log(f"  layouts (a) T={n} {what}, LLaMA-2-7B INT8 {LAYOUT_OFFLOAD_LAYERS} layers: every "
+        f"token of the offload run equal to the resident run's (8 x {LAYOUT_NEW_TOKENS}); pinned "
+        f"GiB per rank {[round(g, 3) for g in out['a']['pinned_gib']]}, copy alone "
+        f"{[round(c, 3) for c in out['a']['copy_alone_s']]} s, an offload decode step "
+        f"{a['step_wall_s']:.3f} s; decode {a['offload']['decode_tok_s']:.1f} tok/s offload "
+        f"against {a['resident']['decode_tok_s']:.1f} resident [{card}]")
+    b = r0["la-b"]
+    out["b"] = {}
+    for bits in (8, 4):
+        st = b[f"int{bits}"]
+        want_logits, want_first = refs[f"int{bits}"]
+        out["b"][f"int{bits}"] = dict(
+            _first_token_rule(f"layouts (b) hybrid INT{bits} D={n} {what}", st["logits"],
+                              want_logits, st["first"], want_first, LAYOUT_F32_REL),
+            decode_tok_s=st["decode_tok_s"], launches=st["launches"])
+    off = b["offload"]
+    out["b"]["offload"] = dict(
+        _first_token_rule(f"layouts (b) hybrid INT8 D={n} offload {what}", off["logits"],
+                          refs["int8"][0], off["first"], refs["int8"][1], LAYOUT_F32_REL),
+        pinned_gib=off["pinned_gib"], copy_alone_s=off["copy_alone_s"],
+        step_wall_s=off["step_wall_s"], launches=off["offload"]["launches"],
+        resident_launches=off["resident"]["launches"])
+    log(f"  layouts (b) hybrid D={n} {what}: INT8 decode {b['int8']['decode_tok_s']:.1f} tok/s, "
+        f"INT4 {b['int4']['decode_tok_s']:.1f}; with offload every token equal to the resident "
+        f"hybrid run's, {off['pinned_gib']:.3f} GiB pinned a rank, copy alone "
+        f"{off['copy_alone_s']:.3f} s, a decode step {off['step_wall_s']:.3f} s; "
+        f"{b['seconds']:.1f} s [{card}]")
+    c = r0["la-c"]
+    out["c"] = {"launches": {k: sum(c[dt]["launches"][k] for dt in LAYOUT_EP_DTYPES)
+                             for k in c[LAYOUT_EP_DTYPES[0]]["launches"]},
+                "experts": [r["la-c"][LAYOUT_EP_DTYPES[0]]["experts"] for r in ranks]}
+    for dtype in LAYOUT_EP_DTYPES:
+        cd, (want, want_routes) = c[dtype], refs[f"mixtral-{dtype}"]
+        got = cd["logits"]
+        label = f"layouts (c) EP T={n} {what}, Mixtral-8x7B {dtype} {TP_MIXTRAL_LAYERS} layers"
+        require(bool(got.isfinite().all()) and got.shape == want.shape,
+                f"{label}: logits not finite or shaped {tuple(got.shape)}")
+        steps_same = [next((j for j in range(got.shape[0])
+                            if got[j, i].argmax() != want[j, i].argmax()), got.shape[0])
+                      for i in range(got.shape[1])]
+        if dtype == "float32":
+            res = _first_token_rule(label, got[0], want[0], got[0].argmax(-1).tolist(),
+                                    want[0].argmax(-1).tolist(), LAYOUT_F32_REL)
+            require(all(k == got.shape[0] for k in steps_same),
+                    f"{label}: greedy tokens part from one device's after {steps_same} positions")
+        else:
+            res = _la_routing_rule(label, got, want, cd["routes"], want_routes)
+        worst = ((got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2))).tolist()
+        rows = ((got[0] - want[0]).abs().amax(-1) / want[0].abs().amax()).tolist()
+        res.update(rank_gib=[r["la-c"][dtype]["rank_gib"] for r in ranks],
+                   greedy_equal_steps=steps_same, step_rel=worst, prefill_row_rel=rows,
+                   run_s=cd["run_s"])
+        out["c"][dtype] = res
+        log(f"  {label}: {[round(g, 2) for g in res['rank_gib']]} GiB a rank; greedy tokens "
+            f"equal to one device's for the first {steps_same} of {got.shape[0]} positions per "
+            f"request; each step's max|diff| / max|logit| {[f'{w:.3g}' for w in worst]}, the "
+            f"prefill's by request {[f'{r:.3g}' for r in rows]}; prefill + {LAYOUT_EP_STEPS} "
+            f"steps {cd['run_s']:.2f} s [{card}]")
+    log(f"  layouts (c) EP T={n} {what}: experts a rank {out['c']['experts']}")
+    return out
+
+
+def layouts_phase(card: str) -> dict:
+    """The serving layouts left under a mesh (see the module docstring,
+    phase layouts): (a) offload on one NCCL rank in this process; the
+    one-device side of (b) and (c); two ranks sharing the card over gloo for
+    (a)-(c), spawned; (d) NCCL across GPUs when the machine has more than
+    one."""
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {"card": card, "a_nccl": _la_nccl_rank(card, dev)}
+    refs = _la_one_device_refs(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_la_")
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_tp(2, "gloo", tmp, tuple(LA_CASES), 600)
+        out["ranks_s"] = time.perf_counter() - t0
+        out.update(_la_check("over gloo", ranks, refs, card))
+        n = torch.cuda.device_count()
+        if n > 1:
+            out["d"] = _la_check("over NCCL", _spawn_tp(min(4, n), "nccl", tmp, tuple(LA_CASES),
+                                                        600), refs, card)
+        else:
+            log(f"  layouts (d) did not run: the machine shows {n} GPU (NCCL takes one device a "
+                "rank)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  layouts phase wall {out['seconds']:.1f} s, the spawned ranks' {out['ranks_s']:.1f} s "
+        f"of it [{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -4946,6 +5492,16 @@ def main(argv=None) -> int:
             "are several")
         summary["meshtrain"] = meshtrain_phase(card)
         lap("meshtrain")
+    if "layouts" in phases:
+        log("[layouts] the serving layouts left under a mesh: (a) CPU offload under a mesh, "
+            "LLaMA-2-7B INT8 on one NCCL rank (32 layers) and at T=2 over two gloo ranks "
+            f"({LAYOUT_OFFLOAD_LAYERS} layers); (b) hybrid_ffn at data=2 x model=1, INT8 and INT4 "
+            f"at {LAYOUT_LAYERS} layers ({LAYOUT_HYBRID_DTYPE}), with offload once; (c) expert "
+            f"parallelism at T=2, Mixtral-8x7B {' and '.join(LAYOUT_EP_DTYPES)} at "
+            f"{TP_MIXTRAL_LAYERS} layers; "
+            "(d) NCCL across GPUs when there are several")
+        summary["layouts"] = layouts_phase(card)
+        lap("layouts")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a
@@ -4958,6 +5514,12 @@ def main(argv=None) -> int:
     served += [tp.get("a", {}), tp.get("b", {}), tp.get("c", {}), tp.get("d", {}),
                {"launches": tp.get("d", {}).get("incremental_launches", {})}]
     served.append(summary.get("meshtrain", {}).get("d", {}))  # (d) + (e) on rank 0
+    la = summary.get("layouts", {})  # (a) one NCCL rank in this process; the rest on rank 0
+    served += [la.get("a_nccl", {}).get(r, {}) for r in ("resident", "offload")]
+    served += [la.get("a", {}).get(r, {}) for r in ("resident", "offload")]
+    lb = la.get("b", {})
+    served += [lb.get("int8", {}), lb.get("int4", {}), lb.get("offload", {}),
+               {"launches": lb.get("offload", {}).get("resident_launches", {})}, la.get("c", {})]
     offload = summary.get("offload", {})
     served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
     served.append(offload.get("mixtral", {}))

@@ -48,6 +48,11 @@ through a rank's cut is the one-device gradient's cut. LoRA follows the
 cut (``sharding.shard_lora``): a column target's delta is its rank's
 columns; a row target's (wo, wd) ``x_local @ a[rows]`` is summed over
 ``model`` in float32, then ``@ b``, the delta added after the base sum.
+Under ``hybrid_ffn`` the FFN's copy, its row-parallel sum and wd's LoRA
+sum run over the FFN's group (``Shard.ffn_axis``: every model and data
+rank) while attention keeps its ``model`` sum; under ``expert_parallel``
+a MoE FFN computes the rank's whole experts (``Shard.experts``) and sums
+its float32 combine over ``model``.
 
 CPU offload (JAX ``_stream_in``): ``params["layers"]`` may be a
 :class:`~flexflow_tpu_torch.models.layer_store.LayerStore` (layers in pinned
@@ -80,7 +85,8 @@ from flexflow_tpu_torch.ops.kernels.decode_attention import (
 )
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
-from flexflow_tpu_torch.parallel.mesh import copy_to_model, gather_from_model, reduce_from_model
+from flexflow_tpu_torch.parallel.mesh import (MODEL_AXIS, copy_to_model, gather_from_model,
+                                             reduce_from_model)
 from flexflow_tpu_torch.peft.lora import RoutedLora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
 from flexflow_tpu_torch.models.layer_store import LayerStore
@@ -153,22 +159,23 @@ def _linear(x, w, b=None, *, dims: int = 1, out_dtype=None):
     return out.to(out_dtype or x.dtype)
 
 
-def _apply_lora(p: Params, mod: str, x, out, row_parallel: bool = False):
+def _apply_lora(p: Params, mod: str, x, out, row_axis=None):
     """``out`` plus module ``mod``'s routed LoRA delta: ``x @ a`` over every
     adapter, weighted by the scale on each row's own adapter and by 0 on
     the others, ``@ b``, in float32, cast once to ``out``'s dtype. Rows
     routed to -1 keep ``out`` bit for bit. ``p["_lora"]`` holds the layer's
     (a [D_in, N*r], b [N*r, D_out]) per module (keyed by module name: fused
-    carriers hold no wq...wu). ``row_parallel``: ``x`` and ``a`` are the
-    rank's input features, ``x @ a`` is summed over the model axis."""
+    carriers hold no wq...wu). ``row_axis`` (a row-parallel target): ``x``
+    and ``a`` are the rank's input features, ``x @ a`` is summed over that
+    group."""
     lora = p.get("_lora")
     if lora is None or mod not in lora:
         return out
     a, b = lora[mod]
     bsz = out.shape[0]
     xa = torch.matmul(x.reshape(bsz, -1, a.shape[0]).float(), a)
-    if row_parallel:
-        xa = reduce_from_model(xa, p["_shard"].mesh)
+    if row_axis is not None:
+        xa = reduce_from_model(xa, p["_shard"].mesh, row_axis)
     xa = xa * p["_lora_weight"]
     delta = torch.matmul(xa, b).reshape(out.shape).to(out.dtype)
     keep = p["_lora_keep"].reshape((bsz,) + (1,) * (out.dim() - 1))
@@ -248,15 +255,19 @@ def fuse_qkv_params(spec: ModelSpec, params: Params, shard=None) -> Params:
 
 def _row_parallel(p: Params, what: str) -> bool:
     """Whether this rank's ``what`` ("heads" or "ffn") is a row-parallel
-    cut whose partial outputs are summed over the mesh's model axis."""
+    cut (or, for "ffn", a share of the experts) whose partial outputs are
+    summed over the mesh."""
     sh = p.get("_shard")
-    return sh is not None and getattr(sh, what) is not None
+    if sh is None:
+        return False
+    return sh.ffn_partial if what == "ffn" else sh.heads is not None
 
 
-def _reduced(p: Params, partial, bias, dtype):
-    """A row-parallel float32 partial summed over the model axis, the bias
-    added once after the sum, rounded once to ``dtype``."""
-    out = reduce_from_model(partial.float(), p["_shard"].mesh)
+def _reduced(p: Params, partial, bias, dtype, axis=MODEL_AXIS):
+    """A row-parallel float32 partial summed over ``axis`` (the model axis,
+    or a hybrid FFN's group), the bias added once after the sum, rounded
+    once to ``dtype``."""
+    out = reduce_from_model(partial.float(), p["_shard"].mesh, axis)
     if bias is not None:
         out = out + bias
     return out.to(dtype)
@@ -266,28 +277,32 @@ def _moe_mlp(spec: ModelSpec, p: Params, h, valid=None):
     """Mixtral's sparse MoE FFN (JAX ``_moe_mlp``): an f32 router, then the
     dense or the ragged form of ``ops/moe.py``. ``valid`` [B, T] marks the
     rows the ragged form computes (None: every row). Under tensor
-    parallelism each expert is cut (JAX's ``_MOE_RULES``): the f32 combine
-    of the rank's partial experts is summed over the model axis and rounded
-    once."""
+    parallelism each expert is cut (JAX's ``_MOE_RULES``; a quantized one
+    over the hybrid FFN's group under ``hybrid_ffn``); under expert
+    parallelism the rank holds whole experts (``_MOE_EP_RULES``). Either
+    way the f32 combine of the rank's share is summed over the FFN's group
+    and rounded once."""
     b, t, d = h.shape
     x = h.reshape(b * t, d)
     # every row through the router in both forms, so a row's routing never
     # depends on which rows the ragged form keeps (nor on the row count)
     router_logits = moe_lib.router_logits(x, p["router"])  # [N, E]
     tp = _row_parallel(p, "ffn")
+    sh = p.get("_shard")
     if tp:  # each rank's experts see the router's outputs and the rows
-        x = copy_to_model(x, p["_shard"].mesh)
-        router_logits = copy_to_model(router_logits, p["_shard"].mesh)
+        x = copy_to_model(x, sh.mesh, sh.ffn_axis)
+        router_logits = copy_to_model(router_logits, sh.mesh, sh.ffn_axis)
     rows = None
     if spec.moe.impl == "ragged" and valid is not None:
         rows = valid.reshape(-1).nonzero()[:, 0]
         x, router_logits = x[rows], router_logits[rows]
     ffn = moe_lib.moe_ffn_ragged if spec.moe.impl == "ragged" else moe_lib.moe_ffn_dense
-    out = ffn(x, router_logits, p["wg"], p["wu"], p["wd"], spec.moe.top_k, partial=tp)
+    out = ffn(x, router_logits, p["wg"], p["wu"], p["wd"], spec.moe.top_k, partial=tp,
+              experts=None if sh is None else sh.expert_ids())
     if rows is not None:
         out = torch.zeros(b * t, d, dtype=out.dtype, device=out.device).index_copy_(0, rows, out)
     if tp:
-        out = _reduced(p, out, None, h.dtype)
+        out = _reduced(p, out, None, h.dtype, sh.ffn_axis)
     return out.reshape(b, t, d)
 
 
@@ -295,8 +310,9 @@ def _mlp(spec: ModelSpec, p: Params, h, valid=None):
     if spec.moe is not None:
         return _moe_mlp(spec, p, h, valid)
     tp = _row_parallel(p, "ffn")
+    axis = p["_shard"].ffn_axis if tp else None
     if tp:
-        h = copy_to_model(h, p["_shard"].mesh)
+        h = copy_to_model(h, p["_shard"].mesh, axis)
     if spec.act == "silu_gate":
         if "wgu" in p:
             gate, up = torch.chunk(_linear(h, p["wgu"]), 2, dim=-1)
@@ -310,8 +326,8 @@ def _mlp(spec: ModelSpec, p: Params, h, valid=None):
             _apply_lora(p, "wu", h, _linear(h, p["wu"], p.get("bu"))))
     if tp:
         out = _reduced(p, _linear(inner, p["wd"], out_dtype=torch.float32), p.get("bd"),
-                       h.dtype)
-        return _apply_lora(p, "wd", inner, out, row_parallel=True)
+                       h.dtype, axis)
+        return _apply_lora(p, "wd", inner, out, row_axis=axis)
     out = _linear(inner, p["wd"])
     if p.get("bd") is not None:
         out = out + p["bd"]
@@ -324,7 +340,7 @@ def _attn_out(spec: ModelSpec, p: Params, a):
     if _row_parallel(p, "heads"):
         out = _reduced(p, _linear(a, wo, dims=2, out_dtype=torch.float32), p.get("bo"),
                        a.dtype)
-        return _apply_lora(p, "wo", a, out, row_parallel=True)
+        return _apply_lora(p, "wo", a, out, row_axis=MODEL_AXIS)
     if isinstance(wo, LayerQuant):
         out = quant_matmul(a, wo.qa, layer=wo.layer)
     elif isinstance(wo, QuantizedArray):

@@ -33,7 +33,7 @@ import torch
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.models.decoder import fuse_qkv_params
 from flexflow_tpu_torch.models.layer_store import leaf_fields, host_empty
-from flexflow_tpu_torch.parallel.sharding import layer_cutter, rank_shard, shard_leaf
+from flexflow_tpu_torch.parallel.sharding import layer_shard, rank_shard, shard_leaf
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, layer_quant_layout, quantize
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -125,14 +125,15 @@ def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
     each leaf cut as it is drawn."""
     if host_layers:
         return init_quantized_params(spec, generator, bits=None, dtype=dtype, device=device,
-                                     host_layers=True)
+                                     host_layers=True, mesh=mesh)
     device = torch.device(device)
     make = _maker(generator, dtype, device)
     layer_leaves, top_leaves = _leaves(spec)
-    cut = layer_cutter(spec, mesh, None)
-    layers = {n: cut(n, make((spec.num_layers, *shape), init))
+    shard = layer_shard(spec, mesh, None)
+    layers = {n: shard_leaf(n, make((spec.num_layers, *shape), init), shard)
               for n, (shape, init) in layer_leaves.items()}
-    params = {n: cut(n, make(shape, init), top=True) for n, (shape, init) in top_leaves.items()}
+    params = {n: shard_leaf(n, make(shape, init), shard, top=True)
+              for n, (shape, init) in top_leaves.items()}
     params["layers"] = layers
     return params
 
@@ -184,7 +185,7 @@ def _stacked(one, num_layers: int, empty):
 def build_params(spec: ModelSpec, top: Mapping[str, Any],
                  layer: Callable[[int], Iterable[Tuple[str, Any]]], *, dtype, device,
                  bits: Optional[int] = None, group_size: int = 128,
-                 host_layers: bool = False, mesh=None) -> Params:
+                 host_layers: bool = False, mesh=None, hybrid_ffn: bool = False) -> Params:
     """The decoder's parameters on ``device``, built one layer at a time.
 
     ``layer(i)`` yields layer i's ``(name, slab)`` pairs (numpy arrays or
@@ -206,13 +207,12 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
 
     ``mesh``: this rank's tree; each slab is cut once it is made (and
     quantized), the top leaves before they reach ``device`` (a quantized
-    lm_head after it is quantized whole)."""
+    lm_head after it is quantized whole); with ``host_layers`` the rank
+    fuses its own cut and pins only that. ``hybrid_ffn``: the FFN cut over
+    the model and data ranks (``parallel/sharding``)."""
     device = torch.device(device)
     n_layers = spec.num_layers
-    if mesh is not None and host_layers:
-        raise NotImplementedError("CPU offload under a device mesh is not in the port yet "
-                                  "(ROADMAP.md Queue A, A8c)")
-    cut = layer_cutter(spec, mesh, bits)
+    shard = layer_shard(spec, mesh, bits, hybrid_ffn=hybrid_ffn)
     fuse = host_layers and _ffconfig.fuse_qkv
     if host_layers:
         pin = device.type == "cuda"
@@ -231,9 +231,9 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
             if layout is not None:
                 t = quantize(t, bits, group_size, batch_dims=layout[0],
                              contract_dims=layout[1], compute_dtype=dtype)
-            one[name] = cut(name, t)
+            one[name] = shard_leaf(name, t, shard)
         if fuse:
-            one = fuse_qkv_params(spec, {"layers": one})["layers"]
+            one = fuse_qkv_params(spec, {"layers": one}, shard)["layers"]
         for name, leaf in one.items():
             if name not in layers:
                 layers[name] = _stacked(leaf, n_layers, empty)
@@ -243,10 +243,11 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
     params = {}
     for k, v in top.items():
         if bits and k == "lm_head":
-            params[k] = cut(k, quantize(_leaf(v, device, dtype), bits, group_size,
-                                        compute_dtype=dtype), top=True)
+            params[k] = shard_leaf(k, quantize(_leaf(v, device, dtype), bits, group_size,
+                                               compute_dtype=dtype), shard, top=True)
         else:
-            params[k] = _leaf(cut(k, _leaf(v, "cpu", dtype), top=True), device, dtype)
+            params[k] = _leaf(shard_leaf(k, _leaf(v, "cpu", dtype), shard, top=True), device,
+                              dtype)
     params["layers"] = layers
     return params
 

@@ -22,7 +22,12 @@ order onto zero either way.
 Under tensor parallelism (``partial=True``) each expert holds a rank's
 columns of ``wg`` / ``wu`` and rows of ``wd``: its ``wd`` product stays
 float32, and the combine comes back float32 and unrounded, for the caller
-to sum over the model axis and round once.
+to sum over the model axis and round once. Under expert parallelism
+(``experts``: the global ids of the rank's stack, whole experts) both forms
+compute only those experts, each as one device computes it, routed by its
+global id's combine weight; the combine comes back float32 and unrounded,
+for the caller to sum over the model axis. With top-2 routing a row's sum
+then has the one-device terms, two of them non-zero, so the bits agree.
 
 The router logits (``router_logits``) are one f32 GEMM in blocks of
 ``ROUTER_ROWS`` rows, so a row's logits do not depend on how many rows the
@@ -32,7 +37,7 @@ incremental decode step did.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -86,25 +91,35 @@ def _swiglu_expert(x, wg, wu, wd, e: int, partial: bool = False) -> torch.Tensor
     return expert_matmul(inner, wd, e, torch.float32 if partial else None)
 
 
+def _stack_ids(n_exp: int, experts: Optional[Sequence[int]]):
+    """(index in the stack, global expert id) of each expert the stacks hold."""
+    return list(enumerate(range(n_exp) if experts is None else experts))
+
+
 def moe_ffn_dense(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu: Experts,
-                  wd: Experts, top_k: int, partial: bool = False) -> torch.Tensor:
-    """x [N, D], router logits [N, E] -> [N, D]: every expert on every row,
-    weighted by the routing (zero where a row is not routed); float32 and
-    unrounded with ``partial`` (a tensor-parallel rank's share)."""
+                  wd: Experts, top_k: int, partial: bool = False,
+                  experts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """x [N, D], router logits [N, E] -> [N, D]: every expert of the stacks
+    (``experts``: their global ids; default all E) on every row, weighted
+    by the routing (zero where a row is not routed); float32 and unrounded
+    with ``partial`` (a tensor- or expert-parallel rank's share)."""
     topw, topi = route_topk(router_logits, top_k)
     combine = torch.zeros(router_logits.shape, dtype=torch.float32,
                           device=x.device).scatter_(-1, topi, topw)  # [N, E]
+    cut = partial and experts is None  # each expert a TP cut: its wd product in f32
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(router_logits.shape[-1]):
-        out += _swiglu_expert(x, wg, wu, wd, e, partial).float() * combine[:, e:e + 1]
+    for j, e in _stack_ids(router_logits.shape[-1], experts):
+        out += _swiglu_expert(x, wg, wu, wd, j, cut).float() * combine[:, e:e + 1]
     return out if partial else out.to(x.dtype)
 
 
 def moe_ffn_ragged(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu: Experts,
-                   wd: Experts, top_k: int, partial: bool = False) -> torch.Tensor:
-    """x [N, D], router logits [N, E] -> [N, D]: each expert on the rows
-    routed to it (sort-based dispatch), weighted scatter-add back (float32
-    and unrounded with ``partial``)."""
+                   wd: Experts, top_k: int, partial: bool = False,
+                   experts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """x [N, D], router logits [N, E] -> [N, D]: each expert of the stacks
+    (``experts``: their global ids; default all E) on the rows routed to
+    it (sort-based dispatch), weighted scatter-add back (float32 and
+    unrounded with ``partial``)."""
     n_exp = router_logits.shape[-1]
     topw, topi = route_topk(router_logits, top_k)
     flat_expert = topi.reshape(-1)
@@ -113,12 +128,12 @@ def moe_ffn_ragged(x: torch.Tensor, router_logits: torch.Tensor, wg: Experts, wu
     x_sorted = x[token_idx]
     w_sorted = topw.reshape(-1)[order]
     sizes = torch.bincount(flat_expert, minlength=n_exp).tolist()  # the host read
+    starts = [sum(sizes[:e]) for e in range(n_exp)]
+    cut = partial and experts is None
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    start = 0
-    for e, size in enumerate(sizes):
-        if size:
-            rows = slice(start, start + size)
-            y = _swiglu_expert(x_sorted[rows], wg, wu, wd, e, partial)
+    for j, e in _stack_ids(n_exp, experts):
+        if sizes[e]:
+            rows = slice(starts[e], starts[e] + sizes[e])
+            y = _swiglu_expert(x_sorted[rows], wg, wu, wd, j, cut)
             out.index_add_(0, token_idx[rows], y.float() * w_sorted[rows, None])
-        start += size
     return out if partial else out.to(x.dtype)

@@ -8,7 +8,10 @@ KV cache, and the explicit collectives below make every value the host
 reads identical on every rank. Rank ``r`` of a ``data x pipe x model x
 seq`` mesh sits at JAX's coordinate ``np.arange(n).reshape(data, pipe,
 model, seq)``: its model rank is ``r % model`` and its data rank
-``r // model``.
+``r // model``. Besides the ``model`` and ``data`` groups a mesh holds the
+group over ``("model", "data")`` (``FFN_AXES``: every rank while pipe = seq
+= 1), over which ``hybrid_ffn``'s FFN sums run: a group of its own only
+where both degrees exceed 1, else the ``model`` or ``data`` group itself.
 
 Only ``all_reduce``, list-form ``all_gather`` and ``broadcast`` are used:
 NCCL and gloo take all three on CUDA tensors, so two ranks may share one
@@ -34,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
-from typing import Any, List, Optional, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -46,14 +49,16 @@ PIPE_AXIS = "pipe"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 AXES = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS, SEQ_AXIS)
+FFN_AXES = (MODEL_AXIS, DATA_AXIS)  # hybrid_ffn's FFN: model-major over both
+Axis = Union[str, Tuple[str, str]]
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """One rank's view of a ``data x pipe x model x seq`` mesh: its
-    coordinate, its device and the ``model`` and ``data`` process groups
-    (None for a rank made by :meth:`fake`, which shards parameters but
-    runs no collective)."""
+    coordinate, its device and the ``model``, ``data`` and ``FFN_AXES``
+    process groups (None for a rank made by :meth:`fake`, which shards
+    parameters but runs no collective)."""
 
     data: int
     pipe: int
@@ -64,6 +69,7 @@ class Mesh:
     backend: Optional[str] = None
     model_group: Any = None
     data_group: Any = None
+    ffn_group: Any = None
 
     @classmethod
     def fake(cls, data: int = 1, model: int = 1, rank: int = 0, device="cpu") -> "Mesh":
@@ -86,52 +92,64 @@ class Mesh:
         """Whether a CUDA graph may capture this mesh's collectives (NCCL)."""
         return self.backend == "nccl"
 
-    def _group(self, axis: str):
-        group = self.model_group if axis == MODEL_AXIS else self.data_group
+    def group_ranks(self, axis: Axis = MODEL_AXIS) -> List[int]:
+        """The ranks of this rank's ``axis`` group, in the group's order
+        (``FFN_AXES``: every rank, in rank order)."""
+        d, m = self.data_rank, self.model_rank
+        if axis == MODEL_AXIS:
+            return [d * self.model + j for j in range(self.model)]
+        if axis == DATA_AXIS:
+            return [j * self.model + m for j in range(self.data)]
+        return list(range(self.data * self.model))
+
+    def _group(self, axis: Axis):
+        group = {MODEL_AXIS: self.model_group, DATA_AXIS: self.data_group,
+                 FFN_AXES: self.ffn_group}[axis]
         if group is None:
             raise RuntimeError("this mesh has no process group (Mesh.fake): it shards "
                                "parameters but runs no collective")
         return group
 
-    def all_reduce(self, x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axis: Axis = MODEL_AXIS) -> torch.Tensor:
         """Sum ``x`` over ``axis`` in place; returns it."""
         dist.all_reduce(x, group=self._group(axis))
         return x
 
-    def all_gather(self, x: torch.Tensor, dim: int, axis: str = MODEL_AXIS) -> torch.Tensor:
-        """The ``axis`` ranks' ``x`` concatenated along ``dim`` in rank order."""
+    def all_gather(self, x: torch.Tensor, dim: int, axis: Axis = MODEL_AXIS) -> torch.Tensor:
+        """The ``axis`` ranks' ``x`` concatenated along ``dim`` in the
+        group's order (:meth:`group_ranks`)."""
         x = x.contiguous()
-        n = self.model if axis == MODEL_AXIS else self.data
-        parts: List[torch.Tensor] = [torch.empty_like(x) for _ in range(n)]
+        parts: List[torch.Tensor] = [torch.empty_like(x) for _ in self.group_ranks(axis)]
         dist.all_gather(parts, x, group=self._group(axis))
         return torch.cat(parts, dim=dim)
 
     def warm(self, device) -> None:
         """One eager collective on each group (NCCL makes a communicator at
         its first collective, which must not happen under graph capture)."""
-        for axis in (MODEL_AXIS, DATA_AXIS):
+        own = self.ffn_group is not self.model_group and self.ffn_group is not self.data_group
+        for axis in (MODEL_AXIS, DATA_AXIS) + ((FFN_AXES,) if own else ()):
             self.all_reduce(torch.zeros(1, device=device), axis)
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.all_reduce(x.clone())
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(), axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_reduce(g.contiguous().clone()), None
+        return ctx.mesh.all_reduce(g.contiguous().clone(), ctx.axis), None, None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -150,17 +168,18 @@ def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``x`` summed over the ``model`` axis. Backward: the identity (the
-    sum's gradient, replicated on every rank, is each partial's). Without
-    a gradient: ``mesh.all_reduce`` in place on ``x``."""
-    return _ReduceFromModel.apply(x, mesh) if _tracked(x) else mesh.all_reduce(x)
+def reduce_from_model(x: torch.Tensor, mesh: Mesh, axis: Axis = MODEL_AXIS) -> torch.Tensor:
+    """``x`` summed over ``axis`` (the ``model`` axis, or ``FFN_AXES`` for a
+    hybrid FFN). Backward: the identity (the sum's gradient, replicated on
+    every rank, is each partial's). Without a gradient: ``mesh.all_reduce``
+    in place on ``x``."""
+    return _ReduceFromModel.apply(x, mesh, axis) if _tracked(x) else mesh.all_reduce(x, axis)
 
 
-def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``x`` itself, entering a column-parallel region. Backward: the ranks'
-    partial gradients summed over ``model``."""
-    return _CopyToModel.apply(x, mesh) if _tracked(x) else x
+def copy_to_model(x: torch.Tensor, mesh: Mesh, axis: Axis = MODEL_AXIS) -> torch.Tensor:
+    """``x`` itself, entering a column-parallel region cut over ``axis``.
+    Backward: the ranks' partial gradients summed over ``axis``."""
+    return _CopyToModel.apply(x, mesh, axis) if _tracked(x) else x
 
 
 def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
@@ -245,7 +264,9 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
                          f"has {world}")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    model_group = data_group = None
+    model_group = data_group = ffn_group = None
+    if data > 1 and model > 1:  # else one of the two groups below holds every rank
+        ffn_group = dist.new_group(list(range(world)), backend=backend)  # pipe = seq = 1
     for d in range(data):  # every rank creates every group, in one order
         g = dist.new_group([d * model + m for m in range(model)], backend=backend)
         if d == rank // model:
@@ -254,7 +275,8 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
         g = dist.new_group([d * model + m for d in range(data)], backend=backend)
         if m == rank % model:
             data_group = g
-    mesh = Mesh(data, pipe, model, seq, rank, device, backend, model_group, data_group)
+    mesh = Mesh(data, pipe, model, seq, rank, device, backend, model_group, data_group,
+                ffn_group or (model_group if data == 1 else data_group))
     if rank == 0:
         print(f"[mesh] data={data} model={model} over {world} rank(s), backend {backend}, "
               f"rank 0 on {device}", flush=True)

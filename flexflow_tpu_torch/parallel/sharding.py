@@ -16,6 +16,26 @@ arrays and insert the collectives. The port cuts each rank's own tree
   replicated;
 - request slots: data rank ``d`` owns a contiguous block of ``B / data``.
 
+Two more layouts, JAX's ``shard_params(expert_parallel=, hybrid_ffn=)``:
+
+- ``hybrid_ffn``: the FFN (``wg``, ``wu``, ``bu``, ``wd``) cut over the
+  ``("model", "data")`` ranks, attention on ``model`` alone. The FFN's
+  block is JAX's for ``P(("model", "data"))``, model-major: block
+  ``model_rank * data + data_rank`` of ``T * D``, so each rank's carrier is
+  byte for byte JAX's shard although the port numbers its ranks data-major.
+  The FFN's row-parallel sum runs over that group (``Shard.ffn_axis``). A
+  float MoE expert stack is not hybrid-cut (it stays TP within each expert
+  on ``model``) while a quantized one is, as JAX's rules place them. Every
+  rank holds every request slot: the data axis carries the FFN, not
+  requests (JAX shards its cache's slots on ``data``; the values agree).
+- ``expert_parallel``: a float MoE layer's ``[L, E, ...]`` stacks keep the
+  rank's ``E / T`` whole experts (``Shard.experts``; JAX's
+  ``_MOE_EP_RULES``), the router replicated; the decoder computes the
+  rank's experts and sums the combine over ``model``. Where ``E % T != 0``
+  the stacks stay whole (not cut within experts either). Quantized expert
+  carriers ignore it and keep TP within each expert: JAX's
+  ``_QUANT_RULES`` have no EP form.
+
 Where a size does not divide its axis the leaf is replicated, as JAX's
 ``_divisible`` does: heads (attention whole), KV heads (K/V computed whole,
 each rank keeping the KV heads its Q heads read), the FFN width, the
@@ -56,7 +76,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from flexflow_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
+from flexflow_tpu_torch.parallel.mesh import FFN_AXES, MODEL_AXIS, Axis, Mesh
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, _rest_pad
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -82,9 +102,9 @@ def _even_blocks(n: int, t: int, r: int, planar: bool) -> Optional[Blocks]:
 
 @dataclasses.dataclass(eq=False)
 class Shard:
-    """One rank's cut of a model: which global heads, KV heads, FFN columns
-    and vocabulary rows it holds (None: the whole axis, replicated), and
-    the mesh whose collectives the decoder runs."""
+    """One rank's cut of a model: which global heads, KV heads, FFN columns,
+    experts and vocabulary rows it holds (None: the whole axis,
+    replicated), and the mesh whose collectives the decoder runs."""
 
     mesh: Mesh
     heads: Optional[Blocks]  # Q heads of wq / wo (None: attention replicated)
@@ -93,7 +113,20 @@ class Shard:
     ffn: Optional[Blocks]  # FFN columns of wg / wu, rows of wd
     vocab: Optional[Tuple[int, int]]  # embed_tokens rows, lm_head columns
     sizes: Dict[str, int] = dataclasses.field(default_factory=dict)  # each cut's full width
+    ffn_axis: Axis = MODEL_AXIS  # the ranks the FFN's row-parallel sum runs over
+    experts: Optional[Blocks] = None  # expert_parallel: the rank's global expert ids
+    layout: Dict[str, bool] = dataclasses.field(default_factory=dict)  # rank_shard's flags
     _index: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def ffn_partial(self) -> bool:
+        """Whether the rank's FFN output is a partial sum: its FFN columns
+        (or its experts) are a cut."""
+        return self.ffn is not None or self.experts is not None
+
+    def expert_ids(self) -> Optional[Tuple[int, ...]]:
+        """The global ids of the rank's experts, in stack order (None: all)."""
+        return None if self.experts is None else _expand(self.experts)
 
     def num_heads(self, spec: ModelSpec) -> int:
         return spec.num_heads if self.heads is None else len(_expand(self.heads))
@@ -118,9 +151,13 @@ class Shard:
 
 
 def rank_shard(spec: ModelSpec, mesh: Mesh, *, int4_wo: bool = False,
-               int4_wd: bool = False) -> Shard:
+               int4_wd: bool = False, hybrid_ffn: bool = False,
+               expert_parallel: bool = False, quant_ffn: bool = False) -> Shard:
     """This rank's :class:`Shard` of ``spec``. ``int4_wo`` / ``int4_wd``:
-    those row-parallel weights are planar INT4 carriers (two-block cuts)."""
+    those row-parallel weights are planar INT4 carriers (two-block cuts).
+    ``hybrid_ffn`` / ``expert_parallel``: the layouts of the module
+    docstring; ``quant_ffn``: the FFN's weights are quantized carriers
+    (a MoE model's expert stacks then follow JAX's quantized rules)."""
     t, r = mesh.model, mesh.model_rank
     hh, kh = spec.num_heads, spec.num_kv_heads
     heads = _even_blocks(hh, t, r, int4_wo)
@@ -140,17 +177,29 @@ def rank_shard(spec: ModelSpec, mesh: Mesh, *, int4_wo: bool = False,
                 need[j] == uniq[j // (len(q) // len(uniq))] for j in range(len(q)))
             take = tuple(uniq if even else need)
             kv_take = None if take == tuple(range(kh)) else take
-    ffn = _even_blocks(spec.intermediate_size, t, r, int4_wd)  # an expert's width too
+    moe = spec.moe is not None
+    f = spec.intermediate_size  # an expert's width too
+    ffn_axis, experts = MODEL_AXIS, None
+    if hybrid_ffn and (quant_ffn or not moe):
+        ffn = _even_blocks(f, t * mesh.data, r * mesh.data + mesh.data_rank, int4_wd)
+        ffn_axis = FFN_AXES
+    elif moe and expert_parallel and not quant_ffn:
+        ffn, experts = None, _even_blocks(spec.moe.num_experts, t, r, False)
+    else:
+        ffn = _even_blocks(f, t, r, int4_wd)
     v = spec.vocab_size
     vocab = (r * v // t, (r + 1) * v // t) if v % t == 0 and v >= t else None
-    sizes = dict(heads=hh, kv=kh, ffn=spec.intermediate_size, vocab=v)
-    return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab, sizes)
+    sizes = dict(heads=hh, kv=kh, ffn=f, vocab=v, experts=spec.moe.num_experts if moe else 0)
+    layout = dict(int4_wo=int4_wo, int4_wd=int4_wd, hybrid_ffn=hybrid_ffn,
+                  expert_parallel=expert_parallel, quant_ffn=quant_ffn)
+    return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab, sizes, ffn_axis, experts, layout)
 
 
-def slot_block(num_slots: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+def slot_block(num_slots: int, mesh: Optional[Mesh], hybrid_ffn: bool = False) -> Tuple[int, int]:
     """Data rank d's request slots ``[lo, hi)``: a contiguous block of
-    ``num_slots / data``, or every slot when the count does not divide."""
-    if mesh is None or mesh.data == 1 or num_slots % mesh.data:
+    ``num_slots / data``, or every slot when the count does not divide or
+    the data axis carries a hybrid FFN."""
+    if mesh is None or mesh.data == 1 or num_slots % mesh.data or hybrid_ffn:
         return 0, num_slots
     w = num_slots // mesh.data
     return mesh.data_rank * w, (mesh.data_rank + 1) * w
@@ -168,12 +217,21 @@ _LAYER_AXES: Dict[str, Tuple[int, str]] = {
 _TOP_AXES: Dict[str, Tuple[int, str]] = {
     "embed_tokens": (-2, "vocab"), "lm_head": (-1, "vocab"), "lm_head_bias": (-1, "vocab"),
 }
+_EXPERT_STACKS = ("wg", "wu", "wd")  # [L, E, ...]: the expert axis is -3
+
+
+def _rule(name: str, shard: Shard, top: bool) -> Optional[Tuple[int, str]]:
+    """(axis, cut) of the leaf ``name`` under ``shard``, or None."""
+    if not top and shard.experts is not None and name in _EXPERT_STACKS:
+        return -3, "experts"
+    return (_TOP_AXES if top else _LAYER_AXES).get(name)
 
 
 def _blocks_of(shard: Shard, cut: str) -> Optional[Blocks]:
     if cut == "vocab":
         return None if shard.vocab is None else (shard.vocab,)
-    return {"heads": shard.heads, "kv": shard.kv_heads, "ffn": shard.ffn}[cut]
+    return {"heads": shard.heads, "kv": shard.kv_heads, "ffn": shard.ffn,
+            "experts": shard.experts}[cut]
 
 
 def _take(x: torch.Tensor, dim: int, blocks: Blocks) -> torch.Tensor:
@@ -232,20 +290,25 @@ def slice_carrier_rows(qa: QuantizedArray, rows: Blocks) -> QuantizedArray:
 
 
 def _cut_already(name: str, width: int, shard: Shard, cut: str, blocks: Blocks) -> bool:
-    """Whether a leaf's axis of ``width`` is the rank's cut (True) or the
-    whole axis (False); any other width raises."""
+    """Whether a leaf's axis of ``width`` needs no cut (True): it is the
+    rank's cut already, or the rank's cut is the whole axis (one rank on
+    it: the leaf is kept, not copied); False for the whole axis of a cut.
+    Any other width raises."""
     full, mine = shard.sizes[cut], sum(b - a for a, b in blocks)
     if width not in (full, mine):
         raise ValueError(f"{name}: an axis of {width} is neither the whole {cut} axis ({full}) "
                          f"nor this rank's cut of it ({mine})")
-    return width == mine and mine != full
+    return width == mine
 
 
-def shard_leaf(name: str, leaf, shard: Shard, *, top: bool = False):
+def shard_leaf(name: str, leaf, shard: Optional[Shard], *, top: bool = False):
     """This rank's cut of the leaf ``name`` (a layer leaf stacked [L, ...],
     or a top-level leaf with ``top``): a tensor or a carrier. Leaves the
-    rules do not name, and axes that do not divide, come back whole."""
-    rule = (_TOP_AXES if top else _LAYER_AXES).get(name)
+    rules do not name, axes that do not divide, and every leaf without a
+    shard (None) come back whole."""
+    if shard is None:
+        return leaf
+    rule = _rule(name, shard, top)
     if rule is None or leaf is None:
         return leaf
     axis, cut = rule
@@ -255,6 +318,9 @@ def shard_leaf(name: str, leaf, shard: Shard, *, top: bool = False):
         return leaf
     if not isinstance(leaf, QuantizedArray):
         return _take(leaf, leaf.dim() + axis, blocks)
+    if cut == "experts":
+        raise ValueError(f"{name}: expert_parallel cuts float expert stacks; a quantized one "
+                         "keeps TP within each expert (a Shard built with quant_ffn)")
     shape = qa_shape = leaf.shape
     p = len(qa_shape) + axis
     end_contract = leaf.batch_dims + leaf.contract_dims
@@ -270,22 +336,29 @@ def _int4(leaf) -> bool:
     return isinstance(leaf, QuantizedArray) and leaf.bits == 4
 
 
-def tree_shard(spec: ModelSpec, params, mesh: Mesh) -> Shard:
-    """The :class:`Shard` of this rank for ``params`` (whole or cut): its
-    row-parallel carriers say whether the cuts are planar (INT4)."""
+def tree_shard(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool = False,
+               hybrid_ffn: bool = False) -> Shard:
+    """The :class:`Shard` of this rank for ``params`` (whole or cut) under
+    the layout the flags name: its row-parallel carriers say whether the
+    cuts are planar (INT4) and whether the FFN is quantized."""
     layers = params["layers"]
     return rank_shard(spec, mesh, int4_wo=_int4(layers.get("wo")),
-                      int4_wd=_int4(layers.get("wd")))
+                      int4_wd=_int4(layers.get("wd")), hybrid_ffn=hybrid_ffn,
+                      expert_parallel=expert_parallel,
+                      quant_ffn=isinstance(layers.get("wd"), QuantizedArray))
 
 
-def shard_params(spec: ModelSpec, params, mesh: Mesh):
-    """This rank's parameter tree, cut from a whole (one-device) tree; a
-    leaf cut already is kept, so a rank's own tree comes back as it is. A
-    fused tree (``wqkv``, ``wgu``) must be a rank's tree already (an
-    engine's): the rank fuses its own cuts, and a whole fused tree is
-    refused."""
+def shard_params(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool = False,
+                 hybrid_ffn: bool = False):
+    """This rank's parameter tree, cut from a whole (one-device) tree (JAX's
+    signature: tensor parallelism, or the ``expert_parallel`` /
+    ``hybrid_ffn`` layouts of the module docstring); a leaf cut already is
+    kept, so a rank's own tree comes back as it is. A fused tree
+    (``wqkv``, ``wgu``) must be a rank's tree already (an engine's): the
+    rank fuses its own cuts, and a whole fused tree is refused."""
     layers = params["layers"]
-    shard = tree_shard(spec, params, mesh)
+    shard = tree_shard(spec, params, mesh, expert_parallel=expert_parallel,
+                       hybrid_ffn=hybrid_ffn)
     fused = {"wqkv": (-2, shard.num_heads(spec) + 2 * shard.num_kv_proj(spec)),
              "wgu": (-1, 2 * sum(b - a for a, b in shard.ffn or ((0, spec.intermediate_size),)))}
     for name, (axis, width) in fused.items():
@@ -298,22 +371,22 @@ def shard_params(spec: ModelSpec, params, mesh: Mesh):
 
 
 def _rank_blocks(shard: Shard, cut: str, spec: ModelSpec):
-    """Every model rank's blocks of ``cut`` (rank order), or None when the
-    axis is whole."""
-    blocks = _blocks_of(shard, cut)
-    if blocks is None:
+    """(the group ``cut`` is split over, every rank's blocks of it in the
+    group's order), or None when the axis is whole."""
+    if _blocks_of(shard, cut) is None:
         return None
-    planar = len(blocks) == 2  # INT4's two half-plane blocks
-    return [_blocks_of(rank_shard(spec, Mesh.fake(1, shard.mesh.model, r),
-                                  int4_wo=planar and cut in ("heads", "kv"),
-                                  int4_wd=planar and cut == "ffn"), cut)
-            for r in range(shard.mesh.model)]
+    mesh = shard.mesh
+    axis = shard.ffn_axis if cut == "ffn" else MODEL_AXIS
+    return axis, [_blocks_of(rank_shard(spec, Mesh.fake(mesh.data, mesh.model, r),
+                                        **shard.layout), cut)
+                  for r in mesh.group_ranks(axis)]
 
 
 def _gather_axis(x: torch.Tensor, dim: int, per_rank, inner: int, full: int, mesh: Mesh):
-    """The whole axis ``dim`` of ``x`` from every model rank's cut (each
-    rank's blocks, scaled by ``inner`` elements a unit)."""
-    parts = mesh.all_gather(x, dim, MODEL_AXIS).split(x.shape[dim], dim)
+    """The whole axis ``dim`` of ``x`` from every rank's cut (``per_rank``:
+    the group and each rank's blocks, scaled by ``inner`` elements a unit)."""
+    axis, per_rank = per_rank
+    parts = mesh.all_gather(x, dim, axis).split(x.shape[dim], dim)
     shape = list(x.shape)
     shape[dim] = full * inner
     out = x.new_empty(shape)
@@ -327,13 +400,13 @@ def _gather_axis(x: torch.Tensor, dim: int, per_rank, inner: int, full: int, mes
 
 
 def gather_params(spec: ModelSpec, params, mesh: Mesh):
-    """The whole (one-device) tree on every rank from each rank's cut: the
-    inverse of :func:`shard_params` for float leaves (a cut carrier
-    raises). A collective over ``model``: every rank calls it."""
+    """The whole (one-device) tree on every rank from each rank's tensor
+    parallel cut: the inverse of :func:`shard_params` for float leaves (a
+    cut carrier raises). A collective over ``model``: every rank calls it."""
     shard = tree_shard(spec, params, mesh)
 
     def whole(name, leaf, top):
-        rule = (_TOP_AXES if top else _LAYER_AXES).get(name)
+        rule = _rule(name, shard, top)
         if rule is None or leaf is None:
             return leaf
         axis, cut = rule
@@ -366,7 +439,8 @@ def shard_lora(spec: ModelSpec, lora, shard: Shard):
     """This rank's cut of LoRA stacks ({mod: {"a": [L, N, D_in, r], "b":
     [L, N, r, D_out]}}): a column-parallel module's ``b`` takes the rank's
     output columns (``a`` replicated), a row-parallel one's ``a`` the
-    rank's input rows (``b`` replicated). Where the K/V heads are projected
+    rank's input rows (``b`` replicated); under ``hybrid_ffn`` wg / wu /
+    wd follow the hybrid FFN cut. Where the K/V heads are projected
     whole (``kv_take``) wk / wv keep whole ``b``s: the decoder adds their
     deltas before it takes the rank's heads, as it projects them."""
     out = {}
@@ -383,7 +457,7 @@ def shard_lora(spec: ModelSpec, lora, shard: Shard):
 
 def gather_lora(spec: ModelSpec, lora, shard: Shard):
     """The whole stacks on every rank from each rank's :func:`shard_lora`
-    cut (a collective over ``model``)."""
+    cut (a collective over each cut's group)."""
     out = {}
     for mod, ab in lora.items():
         which, axis, cut = _LORA_AXES[mod]
@@ -396,22 +470,24 @@ def gather_lora(spec: ModelSpec, lora, shard: Shard):
     return out
 
 
-def lora_partial_grads(shard: Optional[Shard]) -> Tuple[Tuple[str, str], ...]:
-    """The (module, "a" or "b") LoRA leaves whose gradient on a rank is
-    partial over ``model``: a column target's replicated ``a`` where its
-    region is cut (each rank's columns give their share), and wk / wv's
-    whole ``b`` where the K/V heads are projected whole. A row target's
-    ``a`` is the rank's own rows and its ``b`` sees the summed ``x @ a``:
-    neither is partial."""
+def lora_partial_grads(shard: Optional[Shard]) -> Tuple[Tuple[str, str, Axis], ...]:
+    """The (module, "a" or "b", the group it is partial over) LoRA leaves
+    whose gradient on a rank is partial: a column target's replicated ``a``
+    where its region is cut (each rank's columns give their share; over
+    ``model``, or the FFN's group for wg / wu), and wk / wv's whole ``b``
+    where the K/V heads are projected whole. A row target's ``a`` is the
+    rank's own rows and its ``b`` sees the summed ``x @ a``: neither is
+    partial."""
     if shard is None:
         return ()
     out = []
-    for mod, region in (("wq", shard.heads), ("wk", shard.heads), ("wv", shard.heads),
-                        ("wg", shard.ffn), ("wu", shard.ffn)):
+    for mod, region, axis in (("wq", shard.heads, MODEL_AXIS), ("wk", shard.heads, MODEL_AXIS),
+                              ("wv", shard.heads, MODEL_AXIS), ("wg", shard.ffn, shard.ffn_axis),
+                              ("wu", shard.ffn, shard.ffn_axis)):
         if region is not None:
-            out.append((mod, "a"))
+            out.append((mod, "a", axis))
             if mod in ("wk", "wv") and shard.kv_heads is None:
-                out.append((mod, "b"))
+                out.append((mod, "b", axis))
     return tuple(out)
 
 
@@ -437,10 +513,13 @@ def partial_grads(shard: Optional[Shard]) -> Tuple[str, ...]:
     return ("wk", "wv", "bk", "bv")
 
 
-def layer_cutter(spec: ModelSpec, mesh: Optional[Mesh], bits: Optional[int]):
-    """For loaders that build a tree layer by layer: ``cut(name, leaf,
-    top)``, the rank's cut of each slab (identity without a mesh)."""
+def layer_shard(spec: ModelSpec, mesh: Optional[Mesh], bits: Optional[int], *,
+                hybrid_ffn: bool = False) -> Optional[Shard]:
+    """For loaders that build a tree layer by layer, quantizing every matmul
+    weight with ``bits`` (or none): the rank's :class:`Shard` (None without
+    a mesh)."""
     if mesh is None:
-        return lambda name, leaf, top=False: leaf
-    shard = rank_shard(spec, mesh, int4_wo=bits == 4, int4_wd=bits == 4)
-    return lambda name, leaf, top=False: shard_leaf(name, leaf, shard, top=top)
+        return None
+    return rank_shard(spec, mesh, int4_wo=bits == 4, int4_wd=bits == 4, hybrid_ffn=hybrid_ffn,
+                      quant_ffn=bool(bits))
+

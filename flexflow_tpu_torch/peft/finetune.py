@@ -19,9 +19,9 @@ ahead.
 
 On a mesh engine (``engine.shard``) the slot's views are the rank's cut
 (``sharding.shard_lora``) and the forward runs the rank's tree through the
-decoder's conjugate collectives. The gradients that are partial over
-``model`` (``sharding.lora_partial_grads``: a column target's ``a``) are
-summed before the update; each rank updates its own cut. Every data rank
+decoder's conjugate collectives. The gradients that are partial over a
+group (``sharding.lora_partial_grads``: a column target's ``a``, over
+``model`` or a hybrid FFN's group) are summed before the update; each rank updates its own cut. Every data rank
 runs the same step on the same sequence (JAX computes the replicated step
 once), so the adapters stay equal across data ranks, bit for bit.
 """
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.models import decoder
-from flexflow_tpu_torch.parallel.mesh import MODEL_AXIS, all_reduce_grads
+from flexflow_tpu_torch.parallel.mesh import all_reduce_grads
 from flexflow_tpu_torch.parallel.sharding import lora_partial_grads
 from flexflow_tpu_torch.peft.lora import LoraConfig, RoutedLora, lora_scaling
 from flexflow_tpu_torch.specs import ModelSpec
@@ -106,10 +106,12 @@ class FinetuneSession:
         """The optimizer step from the gradients in ``self.params`` (in place
         on the engine's slot); the gradients are dropped after it."""
         grads = {m: {k: p.grad for k, p in ab.items()} for m, ab in self.params.items()}
-        partial = [grads[m][k] for m, k in lora_partial_grads(self._shard)
-                   if m in grads and grads[m][k] is not None]
-        if partial:
-            all_reduce_grads(partial, self._shard.mesh, MODEL_AXIS)
+        partial: dict = {}  # group -> the gradients partial over it
+        for m, k, axis in lora_partial_grads(self._shard):
+            if m in grads and grads[m][k] is not None:
+                partial.setdefault(axis, []).append(grads[m][k])
+        for axis, gs in partial.items():
+            all_reduce_grads(gs, self._shard.mesh, axis)
         self._opt.update(grads, self._opt_state, self.params)
         for ab in self.params.values():
             for p in ab.values():

@@ -200,8 +200,8 @@ def export_hf_adapter(adapter_dir: str, spec: ModelSpec, lora: Stacks, slot: int
                       cfg: LoraConfig, shard=None) -> None:
     """Write slot ``slot`` as an HF-PEFT-layout adapter directory
     (``adapter_config.json`` + ``adapter_model.safetensors``, float32).
-    ``shard``: ``lora`` is a tensor-parallel rank's cut; every rank calls
-    this, the stacks are gathered over ``model`` and rank 0 writes them."""
+    ``shard``: ``lora`` is a mesh rank's cut; every rank calls this, the
+    stacks are gathered over each cut's group and rank 0 writes them."""
     from flexflow_tpu_torch.utils.hf_weights import save_safetensors
 
     if shard is not None:

@@ -25,9 +25,10 @@ calls the same methods with the same prompts, loads only its own cut of
 the weights (``parallel/sharding``) and gets the same results
 (``parallel/mesh``). Registered LoRA adapters are cut with the model and
 a co-scheduled finetuning session steps on every rank alike;
-``save_peft_adapter`` gathers the slot and writes it from rank 0. Pipeline
-and context degrees above 1 are ROADMAP A9 and A10; offload under a mesh
-A8c; ``start_server`` under a mesh A10 (JAX's request broadcaster).
+``save_peft_adapter`` gathers the slot and writes it from rank 0; with
+``offload`` each rank pins and streams its own cut of the layers. Pipeline
+and context degrees above 1 are ROADMAP A9 and A10; ``start_server`` under
+a mesh A10 (JAX's request broadcaster).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lora_params,
                                          load_hf_adapter_config, load_hf_adapter_into_slot,
                                          unroute_lora)
-from flexflow_tpu_torch.serving.engine import NO_MESH_OFFLOAD, InferenceEngine
+from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import (NO_ADAPTERS, MultiSSMSpecManager,
                                                      SpecRequestManager)
@@ -193,8 +194,9 @@ class LLM:
         ``tensor_parallelism_degree`` x ``data_parallelism_degree`` (JAX's
         signature) serve over that many ranks (``parallel/mesh.make_mesh``;
         every rank calls ``compile`` and ``generate`` alike). Pipeline and
-        context degrees above 1 raise (A9, A10), as does offload under a
-        mesh (A8c). LoRA adapters are cut with the model."""
+        context degrees above 1 raise (A9, A10). LoRA adapters are cut with
+        the model; with ``offload`` every rank pins its own cut of the
+        layers."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
@@ -207,8 +209,6 @@ class LLM:
                 and self.quant_bits is None):
             auto_lib.refuse_mesh(auto_lib.device_count(self.device),
                                  "LLM.compile(auto_parallel=True)", serving=True)
-        if max(degrees) > 1 and offload:
-            raise NotImplementedError(NO_MESH_OFFLOAD)
         self.mesh = self._make_mesh(*degrees)
         if self._ssms and offload:
             raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "

@@ -63,8 +63,18 @@ them under NCCL; gloo's cannot be captured (``graphs.capturable``). LoRA
 stacks are cut with the model (``sharding.shard_lora``: a column target's
 ``b``, a row target's ``a``) and each data rank routes its own slots; the
 engine holds the rank's :class:`~flexflow_tpu_torch.parallel.sharding.Shard`
-(``self.shard``) beside its tree and passes it to every forward. CPU
-offload under a mesh is ROADMAP A8c.
+(``self.shard``) beside its tree and passes it to every forward.
+
+Under a mesh, offload cuts, fuses and then hands the rank's layers to its
+``LayerStore`` (each rank pins and streams only its cut, as JAX keeps each
+layer's TP spec in pinned host memory). ``hybrid_ffn`` (JAX's) cuts the
+FFN over the model and data ranks while attention stays on ``model``;
+the data axis then carries the FFN, not requests, so every rank holds
+every slot and computes every row (JAX shards the cache's slots on
+``data``; the values agree). Expert parallelism never reaches JAX's
+engine (its ``shard_params(expert_parallel=True)`` tree is re-placed by
+the engine's TP rules); the port's engines refuse a tree cut that way
+and take the full tree.
 """
 
 from __future__ import annotations
@@ -88,8 +98,6 @@ from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
 from flexflow_tpu_torch.parallel.sharding import shard_lora, shard_params, slot_block, tree_shard
 from flexflow_tpu_torch.specs import ModelSpec
 
-NO_MESH_OFFLOAD = ("CPU offload under a device mesh is not in the port yet (ROADMAP.md "
-                   "Queue A, A8c)")
 
 
 def _round_up_pow2(n: int, lo: int) -> int:
@@ -107,6 +115,18 @@ def _params_to(params, device):
     return params
 
 
+def refuse_expert_cut(spec: ModelSpec, params) -> None:
+    """Raise for a tree whose float MoE expert stacks hold fewer than the
+    spec's experts (cut by ``shard_params(expert_parallel=True)``): an
+    engine cuts a full tree itself, by its own rules."""
+    wg = params["layers"].get("wg")
+    if (spec.moe is not None and isinstance(wg, torch.Tensor)
+            and wg.shape[1] != spec.moe.num_experts):
+        raise ValueError(f"the expert stacks hold {wg.shape[1]} of {spec.moe.num_experts} "
+                         "experts (an expert_parallel cut): pass the engine the full tree; "
+                         "it cuts each rank's share itself")
+
+
 def place_params(spec: ModelSpec, params, device, mesh):
     """``(tree, shard)``: the engine's tree on ``device``, this rank's cut
     under a mesh (a rank's tree, fused or not, is kept: ``shard_params`` is
@@ -114,6 +134,7 @@ def place_params(spec: ModelSpec, params, device, mesh):
     rank's :class:`Shard` (None without a mesh)."""
     shard = None
     if mesh is not None:
+        refuse_expert_cut(spec, params)
         shard = tree_shard(spec, params, mesh)
         params = shard_params(spec, params, mesh)
     params = _params_to(params, device)
@@ -124,12 +145,13 @@ def place_params(spec: ModelSpec, params, device, mesh):
 
 class SlotBlock:
     """A data rank's block ``[lo, hi)`` of the request slots and the
-    gathers that give every rank every slot (one data rank, or a slot count
-    the data axis does not divide: the whole batch, no collective)."""
+    gathers that give every rank every slot (one data rank, a slot count
+    the data axis does not divide, or a data axis that carries a hybrid
+    FFN: the whole batch, no collective)."""
 
-    def __init__(self, num_slots: int, mesh):
+    def __init__(self, num_slots: int, mesh, hybrid_ffn: bool = False):
         self.mesh = mesh
-        self.lo, self.hi = slot_block(num_slots, mesh)
+        self.lo, self.hi = slot_block(num_slots, mesh, hybrid_ffn)
         self.split = self.hi - self.lo < num_slots
         self.n = self.hi - self.lo
 
@@ -174,18 +196,18 @@ class InferenceEngine:
         lora_config=None,  # its LoraConfig (alpha / rank gives the scale)
         offload: bool = False,  # layers in pinned host memory, streamed per layer
         mesh=None,  # parallel/mesh.Mesh: this rank's cut of a TP x DP mesh
+        hybrid_ffn: bool = False,  # under a mesh: the FFN over model x data ranks
     ):
         self.spec = spec
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None or device is not None
                                      else mesh.device)
         self.offload = bool(offload)
-        if mesh is not None and self.offload:
-            raise NotImplementedError(NO_MESH_OFFLOAD)
         self.shard = None
         if mesh is not None:
-            self.shard = tree_shard(spec, params, mesh)
-            params = shard_params(spec, params, mesh)
+            refuse_expert_cut(spec, params)
+            self.shard = tree_shard(spec, params, mesh, hybrid_ffn=hybrid_ffn)
+            params = shard_params(spec, params, mesh, hybrid_ffn=hybrid_ffn)
         if self.offload:  # the layers stay where they are until the store takes them
             params = {**_params_to({k: v for k, v in params.items() if k != "layers"},
                                    self.device), "layers": params["layers"]}
@@ -211,7 +233,7 @@ class InferenceEngine:
         self.max_seq_len = max_seq_len
         self.max_tokens_per_batch = max_tokens_per_batch
         self.min_prefill_bucket = min_prefill_bucket
-        self.slots = SlotBlock(max_requests_per_batch, mesh)
+        self.slots = SlotBlock(max_requests_per_batch, mesh, hybrid_ffn)
         self.cache = decoder.init_kv_cache(
             spec, self.slots.n, max_seq_len, cache_dtype, self.device,
             num_kv_heads=None if self.shard is None else self.shard.num_kv_cache(spec))

@@ -147,9 +147,9 @@ def save_lora_adapter(path: str, lora, adapter: int, *, spec=None, shard=None) -
     D_in, r], "b": [L, N, r, D_out]}}; an engine's routed adapters through
     ``peft/lora.unroute_lora``) as a checkpoint of [L, D_in, r] / [L, r,
     D_out] leaves (the reference's save_updated_weights). ``shard`` (with
-    the model's ``spec``): ``lora`` is a tensor-parallel rank's cut; every
-    rank calls this, the stacks are gathered over ``model`` and rank 0
-    writes them."""
+    the model's ``spec``): ``lora`` is a mesh rank's cut; every rank calls
+    this, the stacks are gathered over each cut's group and rank 0 writes
+    them."""
     if shard is not None:
         from flexflow_tpu_torch.parallel.sharding import gather_lora
 

@@ -278,10 +278,10 @@ def test_tp8_pipelined_and_jax_mesh_engine(tmp_path, unfused_jax):
 
 
 def test_refusals():
-    """Pipeline (A9) and context (A10) degrees; offload under a mesh (A8c);
-    start_server under a mesh (A10). LoRA under a mesh is taken (the rank's
-    cut of the stacks: ``test_torch_port_mesh_lora``), as is the PEFT CLI's
-    mesh."""
+    """Pipeline (A9) and context (A10) degrees; start_server under a mesh
+    (A10). LoRA under a mesh is taken (the rank's cut of the stacks:
+    ``test_torch_port_mesh_lora``), as are the PEFT CLI's mesh and offload
+    under a mesh (``test_torch_port_mesh_layouts``)."""
     from flexflow_tpu_torch.inference import peft as peft_cli
     from flexflow_tpu_torch.models import params as tp
     from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -299,10 +299,6 @@ def test_refusals():
             for m, i in (("wq", 64), ("wd", 128))}
     eng = InferenceEngine(spec, params, device="cpu", mesh=mesh, lora=lora)
     assert eng.lora.b["wq"].shape == (2, 4, 32) and eng.lora.a["wd"].shape == (2, 64, 4)
-    with pytest.raises(NotImplementedError, match="A8c"):
-        InferenceEngine(spec, params, device="cpu", mesh=mesh, offload=True)
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tp.init_quantized_params(spec, 0, bits=8, host_layers=True, mesh=mesh)
     with pytest.raises(OSError):  # past the mesh: the model directory is read
         peft_cli.main(["-llm-model", "unused", "-tensor-parallelism-degree", "2",
                        "--device", "cpu"])
