@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only card,build,search
     python3 chip_smoke.py --only card,build,meshtrain
     python3 chip_smoke.py --only card,build,layouts
+    python3 chip_smoke.py --only card,build,pp
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -363,7 +364,32 @@ Phases, in order; any failure exits non-zero:
               (d) With more than one GPU, (a)-(c) over NCCL at min(4, count)
               ranks; otherwise it says why it did not run. Prints the phase's
               wall time.
-19. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+19. pp      — pipeline-parallel serving (``serving/pp_engine.py``: each rank holds
+              its stage's layers, KV cache and top leaves; hidden states hop
+              between stages as broadcasts over two-rank gloo groups, the
+              overlapped horizon's tokens return to stage 0 on a group of
+              their own). Two ranks share the card over gloo (spawned; the
+              engine captures no graph, every horizon runs eagerly): (a)
+              LLaMA-2-7B INT8 at the serve phase's configuration (32 layers,
+              the serve phase's draw, each layer's slab quantized whole and
+              kept on its stage only; the 8 prompts, 64 greedy tokens,
+              max_seq_len 1024, decode_horizon 16, pipelined) at P = 2,
+              ``PP_MICROBATCHES`` = 2 (the overlapped horizon): every
+              request's 64 tokens bitwise equal to the serve phase's (run
+              here when serve is not selected); (b) INT4 at
+              ``PP_INT4_LAYERS`` layers, P = 2, ``PP_INT4_MICROBATCHES`` = 4
+              (tokens banked), chunked prefill at ``PP_CHUNK`` tokens: every
+              token bitwise equal to the one-device engine's at the same
+              settings. Each rank's layers and top leaves must be its
+              stage's. Prints each rank's layer and KV GiB beside one
+              device's (the stages' sum), its hops and their bytes, tok/s
+              beside one device's (two ranks share one card over gloo: no
+              pipeline speed) and the wall times; the ranks' launches of
+              qmm_int8 / qmm_int4, decode_attention and flash_prefill are
+              counted into the kernels line. (c) With more than one GPU,
+              (a) and (b) over NCCL at min(4, count) ranks; otherwise it says
+              why it did not run.
+20. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -402,7 +428,7 @@ PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
           "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "tp", "meshtrain",
-          "layouts", "profile")
+          "layouts", "pp", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -4307,11 +4333,12 @@ TP_CASES = {"b": _tp_case_b, "c": _tp_case_c, "d": _tp_case_d, "e": _tp_case_e}
 
 
 def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
-    """One rank of the tp, meshtrain and layouts phases' spawned cases:
+    """One rank of the tp, meshtrain, layouts and pp phases' spawned cases:
     ``backend`` gloo shares card 0, NCCL takes card ``rank``. Each case
     builds its own mesh over the group (all ranks on ``data`` for (c),
-    meshtrain's (c) and layouts' (b), else on ``model``); the results go to
-    ``tmp`` for the parent to hold against one device."""
+    meshtrain's (c) and layouts' (b), on ``pipe`` for pp's, else on
+    ``model``); the results go to ``tmp`` for the parent to hold against
+    one device."""
     import torch
     import torch.distributed as dist
 
@@ -4330,9 +4357,10 @@ def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
         out = {}
         for case in cases:
             t0 = time.perf_counter()
-            degrees = dict(data=world) if case in ("c", "mt-c", "la-b") else dict(model=world)
+            degrees = (dict(data=world) if case in ("c", "mt-c", "la-b") else
+                       dict(pipe=world) if case in PP_CASES else dict(model=world))
             mesh = make_mesh(**degrees, backend=backend, device=dev)
-            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES}[case](mesh, dev, None)
+            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES, **PP_CASES}[case](mesh, dev, None)
             out[case]["seconds"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
@@ -5322,6 +5350,230 @@ def layouts_phase(card: str) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel serving (the pp phase)
+# ---------------------------------------------------------------------------
+
+PP_MICROBATCHES = 2  # (a): M = P, the overlapped horizon
+PP_INT4_LAYERS = 8  # (b): LLaMA-2-7B INT4 cut to 8 layers (time), full width
+PP_INT4_MICROBATCHES = 4  # (b): M = 2P, tokens banked in the return hop
+PP_CHUNK = 128  # (b): max_tokens_per_batch (the 600-, 400- and 256-token prompts in chunks)
+
+
+def _tree_gib(tree) -> float:
+    """The bytes of a parameter tree's tensors and carriers, in GiB."""
+    import torch
+
+    from flexflow_tpu_torch.quant.weight_only import QuantizedArray
+
+    if isinstance(tree, dict):
+        return sum(_tree_gib(v) for v in tree.values())
+    if isinstance(tree, QuantizedArray):
+        return sum(_tree_gib(t) for t in (tree.q, tree.scale, tree.offset) if t is not None)
+    return tree.numel() * tree.element_size() / 2**30 if isinstance(tree, torch.Tensor) else 0.0
+
+
+def _pp_llama(mesh, dev, bits: int, layers: int, **engine_kw):
+    """LLaMA-2-7B (``layers`` layers) quantized at ``bits`` on this rank's
+    pipeline stage: the serve phase's draw (``_quant_params``: whole bf16
+    leaves from seed 0), each layer's slab quantized whole and kept only on
+    its stage (``build_params(mesh=)``), the lm_head quantized whole on the
+    last stage; served through ``PipelineInferenceEngine`` (horizon 16,
+    pipelined)."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": layers})
+    whole = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                   torch.bfloat16, dev)
+    stack = whole.pop("layers")
+    params = params_lib.build_params(spec, whole, lambda i: ((n, v[i]) for n, v in stack.items()),
+                                     dtype=torch.bfloat16, device=dev, bits=bits,
+                                     group_size=128, mesh=mesh)
+    del whole, stack
+    torch.cuda.empty_cache()
+    engine = PipelineInferenceEngine(spec, params, mesh=mesh, max_requests_per_batch=8,
+                                     max_seq_len=1024, cache_dtype=torch.bfloat16, device=dev,
+                                     **engine_kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return spec, engine, RequestManager(engine, decode_horizon=16, pipelined=True)
+
+
+def _pp_serve(mesh, dev, what: str, bits: int, layers: int, **engine_kw) -> dict:
+    """One pipelined run of the 8 prompts x 64 tokens on this rank's stage:
+    the tokens, the run's stats and launches, the rank's hops and what it
+    holds."""
+    import torch
+
+    t0 = time.perf_counter()
+    spec, engine, rm = _pp_llama(mesh, dev, bits, layers, **engine_kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = dict(layer_gib=_tree_gib(engine.params["layers"]),
+                top_gib=_tree_gib({k: v for k, v in engine.params.items() if k != "layers"}),
+                kv_gib=_tree_gib(engine.cache._asdict()), top=sorted(
+                    k for k in engine.params if k != "layers"),
+                layers=engine.layers, allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    hops0, bytes0 = mesh.hops, mesh.hop_bytes
+    try:
+        reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size, what,
+                           replayed=False)
+    finally:
+        rm.close()
+    st.update(held, tokens=[r.output_tokens for r in reqs], build_s=build_s,
+              hops=mesh.hops - hops0, hop_bytes=mesh.hop_bytes - bytes0)
+    return st
+
+
+def _pp_case_a(mesh, dev, refs) -> dict:
+    """(a): LLaMA-2-7B INT8, 32 layers, M = P (the overlapped horizon)."""
+    return _pp_serve(mesh, dev, f"pp (a) P={mesh.pipe}", 8, LLAMA2_7B["num_layers"],
+                     num_microbatches=PP_MICROBATCHES)
+
+
+def _pp_case_b(mesh, dev, refs) -> dict:
+    """(b): INT4 at PP_INT4_LAYERS layers, chunked prefill, M = 2P."""
+    return _pp_serve(mesh, dev, f"pp (b) INT4 P={mesh.pipe}", 4, PP_INT4_LAYERS,
+                     num_microbatches=PP_INT4_MICROBATCHES, max_tokens_per_batch=PP_CHUNK)
+
+
+PP_CASES = {"pp-a": _pp_case_a, "pp-b": _pp_case_b}
+
+
+def _pp_one_device_int4(dev) -> dict:
+    """(b)'s one-device run at the same settings: the same draw, quantized
+    whole (``_quant_params``), InferenceEngine with the same chunk budget."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": PP_INT4_LAYERS})
+    engine = InferenceEngine(spec, _quant_params(spec, 0, dev, bits=4),
+                             max_requests_per_batch=8, max_seq_len=1024,
+                             max_tokens_per_batch=PP_CHUNK, cache_dtype=torch.bfloat16,
+                             device=dev)
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size,
+                           "pp (b) one device")
+    finally:
+        rm.close()
+    st["tokens"] = [r.output_tokens for r in reqs]
+    del engine, rm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def _pp_check(what: str, ranks: list, one: dict, card: str) -> dict:
+    """Every rank's tokens equal, every request's 64 tokens bitwise one
+    device's (the serve phase's for (a), (b)'s one-device run); each rank's
+    layers, cache and top leaves beside one device's; the hops."""
+    p = len(ranks)
+    out = {}
+    for case, ref, label in (("pp-a", _SERVED, "(a) LLaMA-2-7B INT8"),
+                             ("pp-b", one, f"(b) INT4 {PP_INT4_LAYERS} layers, chunked")):
+        rs = [r[case] for r in ranks]
+        require(all(r["tokens"] == rs[0]["tokens"] for r in rs[1:]),
+                f"pp {label} {what}: the ranks disagree on the tokens")
+        apart = [i for i, (g, w) in enumerate(zip(rs[0]["tokens"], ref["tokens"])) if g != w]
+        require(not apart, f"pp {label} {what}: requests {apart} differ from one device's; "
+                           f"common prefixes {_common_prefix(rs[0]['tokens'], ref['tokens'])}")
+        layer_one = sum(r["layer_gib"] for r in rs)
+        kv_one = sum(r["kv_gib"] for r in rs)
+        depth = (LLAMA2_7B["num_layers"] if case == "pp-a" else PP_INT4_LAYERS) // p
+        for s, r in enumerate(rs):
+            require(r["layers"] == (s * depth, (s + 1) * depth),
+                    f"pp {label}: rank {s} holds layers {r['layers']}")
+            want_top = (["embed_tokens"] if s == 0 else []) + (
+                ["final_norm_scale", "lm_head"] if s == p - 1 else [])
+            require(r["top"] == want_top, f"pp {label}: rank {s} holds top leaves {r['top']}")
+            log(f"  pp {label} {what} rank {s}: layers {r['layers'][0]}-{r['layers'][1] - 1}, "
+                f"{r['layer_gib']:.3f} GiB of layers (one device {layer_one:.3f}), "
+                f"{r['kv_gib']:.3f} GiB of KV cache (one device {kv_one:.3f}), top leaves "
+                f"{r['top']} {r['top_gib']:.3f} GiB, {r['allocated_gib']:.3f} GiB allocated "
+                f"after the build; {r['hops']} hops sent, {r['hop_bytes']} bytes "
+                "(the warm-up request included)")
+        st = rs[0]
+        log(f"  pp {label} {what}: every request's 64 tokens bitwise equal to one device's "
+            f"({len(ref['tokens'])} of {len(ref['tokens'])}); decode "
+            f"{st['decode_tok_s']:.1f} tok/s against one device's {ref['decode_tok_s']:.1f} "
+            f"(two ranks share one card over gloo: no pipeline speed); mean TTFT "
+            f"{st['mean_ttft_ms']:.1f} ms; run wall {st['wall_s']:.2f} s, build "
+            f"{st['build_s']:.1f} s, case {st['seconds']:.1f} s [{card}]")
+        out[case] = dict(decode_tok_s=st["decode_tok_s"], one_device_tok_s=ref["decode_tok_s"],
+                         wall_s=st["wall_s"], seconds=st["seconds"],
+                         layer_gib=[r["layer_gib"] for r in rs],
+                         kv_gib=[r["kv_gib"] for r in rs], hops=[r["hops"] for r in rs],
+                         hop_bytes=[r["hop_bytes"] for r in rs],
+                         launches={k: sum(r["launches"][k] for r in rs)
+                                   for k in rs[0]["launches"]})
+        log(f"  launches during pp {label} {what}, every rank's: "
+            f"{json.dumps(out[case]['launches'])}")
+        for k in ("qmm_int8" if case == "pp-a" else "qmm_int4", "decode_attention",
+                  "flash_prefill"):
+            require(out[case]["launches"][k] > 0, f"pp {label}: {k} was never launched")
+    return out
+
+
+def pp_phase(card: str) -> dict:
+    """Pipeline-parallel serving (see the module docstring, phase pp): the
+    one-device references; two ranks sharing the card over gloo for (a) and
+    (b), spawned; (c) NCCL across GPUs when the machine has more than one."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {"card": card}
+    if "tokens" not in _SERVED:  # the serve phase did not run: its run here
+        spec = ModelSpec(**LLAMA2_7B)
+        engine = InferenceEngine(spec, _quant_params(spec, 0, dev), max_requests_per_batch=8,
+                                 max_seq_len=1024, max_tokens_per_batch=0,
+                                 cache_dtype=torch.bfloat16, device=dev)
+        rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+        try:
+            reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size,
+                               "pp one device")
+        finally:
+            rm.close()
+        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+        del engine, rm
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = _pp_one_device_int4(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_tp(2, "gloo", tmp, tuple(PP_CASES), 600)
+        out["ranks_s"] = time.perf_counter() - t0
+        out.update(_pp_check("P=2 over gloo", ranks, one, card))
+        n = torch.cuda.device_count()
+        if n > 1:
+            out["c"] = _pp_check(f"P={min(4, n)} over NCCL",
+                                 _spawn_tp(min(4, n), "nccl", tmp, ("pp-a", "pp-b"), 600),
+                                 one, card)
+        else:
+            log(f"  pp (c) did not run: the machine shows {n} GPU (NCCL takes one device a rank)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  pp phase wall {out['seconds']:.1f} s, the spawned ranks' {out['ranks_s']:.1f} s of "
+        f"it [{card}]")
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -5502,6 +5754,13 @@ def main(argv=None) -> int:
             "(d) NCCL across GPUs when there are several")
         summary["layouts"] = layouts_phase(card)
         lap("layouts")
+    if "pp" in phases:
+        log("[pp] pipeline-parallel serving, two ranks sharing the card over gloo: (a) "
+            f"LLaMA-2-7B INT8, 32 layers, P=2, M={PP_MICROBATCHES} (the overlapped horizon); (b) "
+            f"INT4 at {PP_INT4_LAYERS} layers, P=2, M={PP_INT4_MICROBATCHES}, chunked prefill at "
+            f"{PP_CHUNK} tokens; (c) NCCL across GPUs when there are several")
+        summary["pp"] = pp_phase(card)
+        lap("pp")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a
@@ -5520,6 +5779,8 @@ def main(argv=None) -> int:
     lb = la.get("b", {})
     served += [lb.get("int8", {}), lb.get("int4", {}), lb.get("offload", {}),
                {"launches": lb.get("offload", {}).get("resident_launches", {})}, la.get("c", {})]
+    pp = summary.get("pp", {})  # every rank's launches, each case's
+    served += [pp.get("pp-a", {}), pp.get("pp-b", {})]
     offload = summary.get("offload", {})
     served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
     served.append(offload.get("mixtral", {}))

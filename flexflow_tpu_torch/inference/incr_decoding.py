@@ -6,13 +6,18 @@
         -prompt prompts.json --max-new-tokens 16 --device cuda
 
 ``--offload`` keeps the layer stack in pinned host memory and streams it
-in per layer (``LLM.compile(offload=True)``). Tensor and data parallelism
-serve over ``T * D`` ranks, one process each (rank 0 prints):
+in per layer (``LLM.compile(offload=True)``). Tensor, data and pipeline
+parallelism serve over ``T * D`` or ``P * T`` ranks, one process each
+(rank 0 prints):
 
     torchrun --nproc-per-node 2 -m flexflow_tpu_torch.inference.incr_decoding \
         -llm-model DIR -tensor-parallelism-degree 2 [--device cpu]
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.inference.incr_decoding \
+        -llm-model DIR --pp 2 [--device cpu]
 
-Pipeline and context degrees above 1 are refused (ROADMAP A9, A10).
+``--pp`` (``-pipeline-parallelism-degree``) serves through the pipeline
+engine, each rank holding its stage's layers. Context degrees above 1 are
+refused (ROADMAP A10).
 ``-auto-parallelism`` is accepted for compatibility (one device). Legion
 resource flags (``-ll:*``) are ignored.
 """
@@ -38,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topk", "--top-k", dest="topk", type=int, default=0)
     p.add_argument("-tensor-parallelism-degree", "--tensor-parallelism-degree",
                    dest="tp", type=int, default=1)
-    p.add_argument("-pipeline-parallelism-degree", "--pipeline-parallelism-degree",
+    p.add_argument("-pipeline-parallelism-degree", "--pipeline-parallelism-degree", "--pp",
                    dest="pp", type=int, default=1)
     p.add_argument("-data-parallelism-degree", "--data-parallelism-degree",
                    dest="dp", type=int, default=1)

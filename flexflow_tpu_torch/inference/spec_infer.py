@@ -11,8 +11,8 @@ draft models, lossless greedy verification (or stochastic verification with
 Several drafts rotate, one a speculative iteration; ``--merge-ssm-trees``
 verifies all their trees in one merged pass instead (greedy requests only).
 Tensor and data parallelism serve over ``T * D`` ranks, one process each
-(under ``torchrun``; rank 0 prints); pipeline degrees above 1 are refused
-(ROADMAP A9). Legion resource flags (``-ll:*``) are ignored.
+(under ``torchrun``; rank 0 prints); speculation under pipeline degrees
+above 1 (``--pp``) is refused (ROADMAP A9b). Legion resource flags (``-ll:*``) are ignored.
 """
 
 import argparse
@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="verify every draft's tree in one merged pass per iteration")
     p.add_argument("-tensor-parallelism-degree", "--tensor-parallelism-degree",
                    dest="tp", type=int, default=1)
-    p.add_argument("-pipeline-parallelism-degree", "--pipeline-parallelism-degree",
+    p.add_argument("-pipeline-parallelism-degree", "--pipeline-parallelism-degree", "--pp",
                    dest="pp", type=int, default=1)
     p.add_argument("-data-parallelism-degree", "--data-parallelism-degree",
                    dest="dp", type=int, default=1)

@@ -61,6 +61,17 @@ then read layer i from its staged slot (plain leaves at index 0, quantized
 ones as ``LayerQuant(slot, 0)``) and release it after the layer, so dense,
 MoE and LoRA layers, prefill, chunked prefill and decode all stream.
 
+Pipeline stages (``serving/pp_engine.py``): the tree may hold one stage's
+block of layers, whose count the forwards take from the tree (its stacked
+leaves' leading axis) and whose cache holds that many layers. On a stage
+after the first both forwards take the hidden state entering its first
+layer (``hidden=``) in place of embedding tokens, and on a stage before
+the last they return the hidden state (``head=False``) in place of
+logits; ``first_layer`` (the stage's first global layer) names the
+layers' traces. ``kv_sink`` and the cache index the tree's own layers. The
+kernel routing, the masks and the ALiBi slopes are the one-device
+decoder's, so a stage launches the kernels where one device does.
+
 KV cache layout: ``[L, B, KH, S, D]`` — one contiguous D-row per position
 for coalesced reads on the GPU (JAX keeps ``[L, B, KH, D, S]`` for the TPU's
 (8, 128) tiling). Public shapes stay as in JAX: logits ``[B, T, V]`` f32 and
@@ -112,10 +123,11 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(spec: ModelSpec, num_slots: int, max_seq_len: int,
-                  dtype=torch.bfloat16, device="cpu", num_kv_heads: Optional[int] = None) -> KVCache:
+                  dtype=torch.bfloat16, device="cpu", num_kv_heads: Optional[int] = None,
+                  num_layers: Optional[int] = None) -> KVCache:
     """``num_kv_heads``: a tensor-parallel rank's own count (default the
-    spec's)."""
-    shape = (spec.num_layers, num_slots, num_kv_heads or spec.num_kv_heads, max_seq_len,
+    spec's); ``num_layers``: a pipeline stage's (default the spec's)."""
+    shape = (num_layers or spec.num_layers, num_slots, num_kv_heads or spec.num_kv_heads, max_seq_len,
              spec.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
@@ -404,16 +416,25 @@ def _lora_routing(lora: Optional[RoutedLora], adapter_ids: Optional[torch.Tensor
             "_lora_keep": ids >= 0}
 
 
+def _stack_depth(layers) -> int:
+    """The number of layers a stacked layer tree (or a LayerStore) holds:
+    the spec's, or a pipeline stage's."""
+    if isinstance(layers, LayerStore):
+        return layers.num_layers
+    return next(iter(layers.values())).shape[0]
+
+
 def _layer_views(spec: ModelSpec, params: Params, lora: Optional[RoutedLora],
                  routing: Optional[Params], shard=None) -> Iterator[Tuple[int, Params]]:
-    """(i, layer i's parameters) in layer order, with the rank's ``shard``
-    (under ``"_shard"``), the layer's adapter weights and the routing when
-    the forward has LoRA. From a :class:`LayerStore` (CPU offload) layer i
-    is read from its staged slot and released once the caller's work on it
-    is enqueued, which starts the copy of layer i + 2 into that slot."""
+    """(i, layer i's parameters) in the tree's layer order, with the rank's
+    ``shard`` (under ``"_shard"``), the layer's adapter weights and the
+    routing when the forward has LoRA. From a :class:`LayerStore` (CPU
+    offload) layer i is read from its staged slot and released once the
+    caller's work on it is enqueued, which starts the copy of layer i + 2
+    into that slot."""
     layers = params["layers"]
     store = layers if isinstance(layers, LayerStore) else None
-    for i in range(spec.num_layers):
+    for i in range(_stack_depth(layers)):
         p = store.acquire(i) if store is not None else _layer_params(layers, i)
         if shard is not None:
             p["_shard"] = shard
@@ -512,6 +533,9 @@ def forward(
     lora_scale: float = 1.0,
     traces: Optional[Dict[str, torch.Tensor]] = None,
     shard=None,  # parallel/sharding.Shard: the cut ``params`` is
+    hidden: Optional[torch.Tensor] = None,  # [B, T, D] entering the tree's first layer
+    head: bool = True,  # False: return the last layer's hidden state
+    first_layer: int = 0,  # the tree's first global layer (traces' names)
 ):
     """Self-attention forward (prefill). Returns ``(logits, kv)``.
 
@@ -523,13 +547,22 @@ def forward(
     intermediate under the reference's names: ``embed_tokens.output``,
     ``layers.<i>.{q_proj,k_proj,v_proj}`` (before rotary),
     ``layers.<i>.attn_output``, ``layers.<i>.output`` and ``lm_head.output``.
+
+    A pipeline stage: ``hidden`` [B, T, D] enters its first layer in place
+    of ``tokens`` (which may then be None), and with ``head=False`` the
+    first return value is the last layer's hidden state [B, T, D] (or
+    [B, D] at ``logits_at``) in place of the logits.
     """
-    b, t = tokens.shape
-    dev = tokens.device
+    src = tokens if hidden is None else hidden
+    b, t = src.shape[:2]
+    dev = src.device
     slopes = _alibi_slopes(spec, dev, shard)
-    h = _embed(spec, params, tokens, positions, shard)
-    if traces is not None:
-        traces["embed_tokens.output"] = h
+    if hidden is None:
+        h = _embed(spec, params, tokens, positions, shard)
+        if traces is not None:
+            traces["embed_tokens.output"] = h
+    else:
+        h = hidden
     use_flash = flash and slopes is None and spec.attn_logit_softcap is None
 
     mask = positions[:, None, :] <= positions[:, :, None]  # [B, T, T]
@@ -545,8 +578,9 @@ def forward(
 
     def attend(q, k, v):
         if traces is not None:
-            traces.update({f"layers.{i}.q_proj": q, f"layers.{i}.k_proj": k,
-                           f"layers.{i}.v_proj": v})
+            g = first_layer + i
+            traces.update({f"layers.{g}.q_proj": q, f"layers.{g}.k_proj": k,
+                           f"layers.{g}.v_proj": v})
         q, k = _maybe_rope(q, k, rope)
         kvs.append((k, v))
         if use_flash:
@@ -557,7 +591,7 @@ def forward(
                 tree_mask=mask, q_positions=positions, slopes=slopes,
                 logit_softcap=spec.attn_logit_softcap)
         if traces is not None:
-            traces[f"layers.{i}.attn_output"] = out
+            traces[f"layers.{first_layer + i}.attn_output"] = out
         return out
 
     ks, vs = [], []
@@ -565,7 +599,7 @@ def forward(
         kvs = []
         h = _layer(spec, p, h, attend, valid)
         if traces is not None:
-            traces[f"layers.{i}.output"] = h
+            traces[f"layers.{first_layer + i}.output"] = h
         (k, v), = kvs
         if kv_sink is not None:
             kv_sink(i, k, v)
@@ -574,10 +608,13 @@ def forward(
             vs.append(v)
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
+    kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
+    if not head:
+        return h, kv
     logits = _unembed(spec, params, h, shard)
     if traces is not None:
         traces["lm_head.output"] = logits
-    return logits, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
+    return logits, kv
 
 
 def _window_index(starts: HostInts, t: int, s: int, device):
@@ -628,6 +665,8 @@ def forward_cached(
     adapter_ids: Optional[torch.Tensor] = None,  # [B] adapter per row, -1: none
     lora_scale: float = 1.0,
     shard=None,  # parallel/sharding.Shard: the cut ``params`` is
+    hidden: Optional[torch.Tensor] = None,  # [B, T, D] entering the tree's first layer
+    head: bool = True,  # False: return the last layer's hidden state
 ):
     """Cached decode / chunk / tree forward. Returns ``(logits [B, T, V] f32,
     cache)`` with the cache updated in place, or ``(logits, (k_new, v_new))``
@@ -648,15 +687,19 @@ def forward_cached(
     ``attn_window`` (>= every row's committed length) limits the plain
     attention path's cache read to the first ``attn_window`` positions; the
     decode kernel reads only positions below ``cache_lens`` anyway.
+
+    A pipeline stage: ``hidden`` and ``head`` as in :func:`forward`; the
+    hidden state returned in place of the logits.
     """
-    b, t = tokens.shape
-    dev = tokens.device
+    src = tokens if hidden is None else hidden
+    b, t = src.shape[:2]
+    dev = src.device
     s = cache.max_seq_len
     slopes = _alibi_slopes(spec, dev, shard)
     cache_lens = cache_lens.to(device=dev, dtype=torch.int32)
     if positions is None:
         positions = cache_lens[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]
-    h = _embed(spec, params, tokens, positions, shard)
+    h = _embed(spec, params, tokens, positions, shard) if hidden is None else hidden
 
     if write_cache:
         if write_start is None:
@@ -731,10 +774,10 @@ def forward_cached(
         h = _layer(spec, p, h, attend)
     if logits_at is not None:
         h = _gather_rows(h, logits_at)
-    logits = _unembed(spec, params, h, shard)
+    out = _unembed(spec, params, h, shard) if head else h
     if not write_cache:
-        return logits, (torch.stack(new_k), torch.stack(new_v))
-    return logits, cache
+        return out, (torch.stack(new_k), torch.stack(new_v))
+    return out, cache
 
 
 def commit_kv_windows(

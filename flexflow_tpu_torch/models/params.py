@@ -20,6 +20,10 @@ here returns this rank's tree (``parallel/sharding``): each leaf or layer slab i
 cut as soon as it is made, a quantized slab after it is quantized whole, so
 no rank ever holds more than one leaf or layer of the whole model, and the
 result equals ``shard_params`` of the one-device tree from the same inputs.
+Under pipeline stages a rank builds only its stage's layers and the top
+leaves its stage runs (``sharding.stage_keeps``), so it never holds the
+whole stack (random draws still run through every layer in order, so a
+stage's values are the one-device tree's).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.models.decoder import fuse_qkv_params
 from flexflow_tpu_torch.models.layer_store import leaf_fields, host_empty
-from flexflow_tpu_torch.parallel.sharding import layer_shard, rank_shard, shard_leaf
+from flexflow_tpu_torch.parallel.sharding import layer_shard, rank_shard, shard_leaf, stage_keeps
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, layer_quant_layout, quantize
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -132,8 +136,10 @@ def init_params(spec: ModelSpec, generator: Union[int, torch.Generator] = 0,
     shard = layer_shard(spec, mesh, None)
     layers = {n: shard_leaf(n, make((spec.num_layers, *shape), init), shard)
               for n, (shape, init) in layer_leaves.items()}
+    tied = "lm_head" not in top_leaves
     params = {n: shard_leaf(n, make(shape, init), shard, top=True)
               for n, (shape, init) in top_leaves.items()}
+    params = {n: v for n, v in params.items() if stage_keeps(n, shard, tied)}
     params["layers"] = layers
     return params
 
@@ -208,11 +214,17 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
     ``mesh``: this rank's tree; each slab is cut once it is made (and
     quantized), the top leaves before they reach ``device`` (a quantized
     lm_head after it is quantized whole); with ``host_layers`` the rank
-    fuses its own cut and pins only that. ``hybrid_ffn``: the FFN cut over
+    fuses its own cut and pins only that; under pipeline stages only the
+    stage's layers are made (``layer(i)`` is still iterated for every i, in
+    order) and only its top leaves kept. ``hybrid_ffn``: the FFN cut over
     the model and data ranks (``parallel/sharding``)."""
     device = torch.device(device)
-    n_layers = spec.num_layers
     shard = layer_shard(spec, mesh, bits, hybrid_ffn=hybrid_ffn)
+    lo, hi = (0, spec.num_layers) if shard is None or shard.layers is None else shard.layers
+    n_layers = hi - lo
+    # a slab is one layer: cut over the model axis only
+    slab_shard = shard if lo == 0 and hi == spec.num_layers else dataclasses.replace(
+        shard, layers=None)
     fuse = host_layers and _ffconfig.fuse_qkv
     if host_layers:
         pin = device.type == "cuda"
@@ -223,7 +235,11 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
         def empty(shape, dt):
             return torch.empty(shape, dtype=dt, device=device)
     layers: Params = {}
-    for i in range(n_layers):
+    for i in range(spec.num_layers):
+        if not lo <= i < hi:  # another stage's layer: drawn (in order), not kept
+            for _ in layer(i):
+                pass
+            continue
         one: Params = {}  # layer i's leaves as [1, ...]
         for name, slab in layer(i):
             t = _leaf(slab, device, dtype)[None]
@@ -231,17 +247,20 @@ def build_params(spec: ModelSpec, top: Mapping[str, Any],
             if layout is not None:
                 t = quantize(t, bits, group_size, batch_dims=layout[0],
                              contract_dims=layout[1], compute_dtype=dtype)
-            one[name] = shard_leaf(name, t, shard)
+            one[name] = shard_leaf(name, t, slab_shard)
         if fuse:
             one = fuse_qkv_params(spec, {"layers": one}, shard)["layers"]
         for name, leaf in one.items():
             if name not in layers:
                 layers[name] = _stacked(leaf, n_layers, empty)
             for dst, src in zip(leaf_fields(layers[name]), leaf_fields(leaf)):
-                dst[i] = src[0]
+                dst[i - lo] = src[0]
         del one
     params = {}
+    tied = "lm_head" not in top
     for k, v in top.items():
+        if not stage_keeps(k, shard, tied):
+            continue
         if bits and k == "lm_head":
             params[k] = shard_leaf(k, quantize(_leaf(v, device, dtype), bits, group_size,
                                                compute_dtype=dtype), shard, top=True)
@@ -514,7 +533,8 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32, *, spec=None, mes
     byte and get ``dtype`` as their compute dtype.
 
     ``mesh`` (with the model's ``spec``): this rank's tree, each leaf cut on
-    the host as it is converted, before it reaches ``device``.
+    the host as it is converted, before it reaches ``device`` (under
+    pipeline stages only the stage's layers and top leaves are converted).
     """
     if mesh is not None:
         if spec is None:
@@ -525,10 +545,14 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32, *, spec=None, mes
         shard = rank_shard(spec, mesh, int4_wo=int4[0], int4_wd=int4[1])
 
         def cut(name, leaf, top):
+            if not top and shard.layers is not None:  # the stage's layers only
+                leaf = _numpy_stage(leaf, *shard.layers)
             return _to(shard_leaf(name, params_from_numpy(leaf, "cpu", dtype), shard, top=top),
                        torch.device(device))
 
-        out = {k: cut(k, v, True) for k, v in tree.items() if k != "layers"}
+        tied = "lm_head" not in tree
+        out = {k: cut(k, v, True) for k, v in tree.items()
+               if k != "layers" and stage_keeps(k, shard, tied)}
         out["layers"] = {k: cut(k, v, False) for k, v in layers.items()}
         return out
     device = torch.device(device)
@@ -557,6 +581,21 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32, *, spec=None, mes
     if arr.dtype.kind == "f":
         t = t.to(dtype)
     return t.to(device)
+
+
+def _numpy_stage(leaf, lo: int, hi: int):
+    """Layers [lo, hi) of a numpy ``[L, ...]`` leaf or quantized carrier
+    (object or dict), before it is converted."""
+    if leaf is None:
+        return None
+    if _is_quantized(leaf):
+        out = {f: _field(leaf, f) for f in _QFIELDS}
+        for f in ("q", "scale", "offset"):
+            if out[f] is not None:
+                out[f] = np.asarray(out[f])[lo:hi]
+        out["shape"] = (hi - lo, *tuple(int(n) for n in out["shape"])[1:])
+        return out
+    return np.asarray(leaf)[lo:hi]
 
 
 def _field(leaf, name: str):

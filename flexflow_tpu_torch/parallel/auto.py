@@ -25,7 +25,7 @@ Differences from the JAX module:
   ``Layout(1, 1, 1)`` and refuses any other layout, and
   ``optimize_train_layout`` / ``optimize_serving_layout`` refuse more than
   one device before measuring anything (the search over a mesh, ROADMAP
-  A11c; pipeline stages, A9). The meshes themselves are in the port
+  A11c; training under pipeline stages, A9c). The meshes themselves are in the port
   (``parallel/mesh.make_mesh``: serving and training). Without
   ``n_devices`` they count the CUDA devices for a CUDA device and one for
   the CPU.
@@ -308,8 +308,8 @@ def layout_mesh(layout: Layout):
         return None
     raise NotImplementedError(
         f"layout {layout}: training under a searched layout over more than one device needs "
-        "the search on a mesh (ROADMAP.md Queue A, A11c) and, with pipe > 1, pipeline stages "
-        "(A9), which are not in the port yet")
+        "the search on a mesh (ROADMAP.md Queue A, A11c) and, with pipe > 1, training under "
+        "pipeline stages (A9c), which are not in the port yet")
 
 
 def optimize_train_layout(

@@ -7,11 +7,28 @@ engine on the same requests with its own shard of the parameters and of the
 KV cache, and the explicit collectives below make every value the host
 reads identical on every rank. Rank ``r`` of a ``data x pipe x model x
 seq`` mesh sits at JAX's coordinate ``np.arange(n).reshape(data, pipe,
-model, seq)``: its model rank is ``r % model`` and its data rank
-``r // model``. Besides the ``model`` and ``data`` groups a mesh holds the
-group over ``("model", "data")`` (``FFN_AXES``: every rank while pipe = seq
-= 1), over which ``hybrid_ffn``'s FFN sums run: a group of its own only
+model, seq)``: its model rank is ``r % model``, its pipe rank (stage)
+``(r // model) % pipe`` and its data rank ``r // (pipe * model)``. Groups
+are made per coordinate: ``model`` per (data, pipe), ``data`` per (pipe,
+model), ``pipe`` per (data, model). Besides them a mesh holds the group
+over ``("model", "data")`` (``FFN_AXES``: one pipe stage's model x data
+ranks), over which ``hybrid_ffn``'s FFN sums run: a group of its own only
 where both degrees exceed 1, else the ``model`` or ``data`` group itself.
+
+Pipeline stages (``pipe > 1``) pass hidden states along the stage ranks of
+one (data, model) coordinate: :meth:`Mesh.send_next` / :meth:`Mesh.recv_prev`
+between neighbouring stages, and a return hop from the last stage to stage
+0 (:meth:`Mesh.send_first` / :meth:`Mesh.recv_last`) for the tokens an
+overlapped decode horizon feeds back. Each hop is a ``broadcast`` from the
+sender over a two-rank group of its own: gloo's ``send`` / ``recv`` take
+CPU tensors only, while its ``broadcast`` takes CUDA tensors as NCCL's
+does. The two directions use separate groups: at P = 2 the forward hop
+(0 -> 1) and the return hop (1 -> 0) join the same two ranks, and one
+group would meet stage 0's *h(mb0), h(mb1), t(mb0)* against stage 1's
+*h(mb0), t(mb0), h(mb1)*. A hop is sent asynchronously (the sender never
+waits for its receiver, so a stage's sends cannot block against the return
+hop it waits on) and received blocking; :meth:`Mesh.wait_sends` ends the
+sends in flight.
 
 Only ``all_reduce``, list-form ``all_gather`` and ``broadcast`` are used:
 NCCL and gloo take all three on CUDA tensors, so two ranks may share one
@@ -28,8 +45,8 @@ replicated tensor is replicated and is never summed twice (the
 the gradient). Outside a gradient they are the in-place calls below, so a
 served step's graph holds plain in-place collectives.
 
-Pipeline stages (``pipe > 1``, ROADMAP A9) and context parallelism
-(``seq > 1``, A10) are not in the port yet and raise.
+Context parallelism (``seq > 1``, ROADMAP A10) is not in the port yet and
+raises.
 """
 
 from __future__ import annotations
@@ -56,9 +73,10 @@ Axis = Union[str, Tuple[str, str]]
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """One rank's view of a ``data x pipe x model x seq`` mesh: its
-    coordinate, its device and the ``model``, ``data`` and ``FFN_AXES``
-    process groups (None for a rank made by :meth:`fake`, which shards
-    parameters but runs no collective)."""
+    coordinate, its device, the ``model``, ``data``, ``pipe`` and
+    ``FFN_AXES`` process groups and the stage hops' two-rank groups (None
+    for a rank made by :meth:`fake`, which shards parameters but runs no
+    collective)."""
 
     data: int
     pipe: int
@@ -70,41 +88,71 @@ class Mesh:
     model_group: Any = None
     data_group: Any = None
     ffn_group: Any = None
+    pipe_group: Any = None
+    next_group: Any = None  # (this stage, the next): the forward hop out
+    prev_group: Any = None  # (the stage before, this stage): the forward hop in
+    return_group: Any = None  # (last stage, stage 0), on those two ranks only
+    hops: int = 0  # hops sent by this rank
+    hop_bytes: int = 0
+    _sends: list = dataclasses.field(default_factory=list, repr=False)
 
     @classmethod
-    def fake(cls, data: int = 1, model: int = 1, rank: int = 0, device="cpu") -> "Mesh":
+    def fake(cls, data: int = 1, model: int = 1, rank: int = 0, device="cpu", *,
+             pipe: int = 1) -> "Mesh":
         """The mesh coordinate ``rank`` without a process group: what
         ``shard_params`` needs to cut that rank's tree."""
-        if not 0 <= rank < data * model:
-            raise ValueError(f"rank {rank} outside a {data} x {model} mesh")
-        return cls(data, 1, model, 1, rank, torch.device(device))
+        if not 0 <= rank < data * pipe * model:
+            raise ValueError(f"rank {rank} outside a {data} x {pipe} x {model} mesh")
+        return cls(data, pipe, model, 1, rank, torch.device(device))
 
     @property
     def model_rank(self) -> int:
         return self.rank % self.model
 
     @property
+    def pipe_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return (self.rank // self.model) % self.pipe
+
+    @property
     def data_rank(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.pipe * self.model)
+
+    @property
+    def first_stage(self) -> bool:
+        return self.pipe_rank == 0
+
+    @property
+    def last_stage(self) -> bool:
+        return self.pipe_rank == self.pipe - 1
 
     @property
     def capturable(self) -> bool:
         """Whether a CUDA graph may capture this mesh's collectives (NCCL)."""
         return self.backend == "nccl"
 
+    def _at(self, d: int, p: int, m: int) -> int:
+        return (d * self.pipe + p) * self.model + m
+
     def group_ranks(self, axis: Axis = MODEL_AXIS) -> List[int]:
         """The ranks of this rank's ``axis`` group, in the group's order
-        (``FFN_AXES``: every rank, in rank order)."""
-        d, m = self.data_rank, self.model_rank
+        (``FFN_AXES``: this stage's model x data ranks, in rank order)."""
+        d, p, m = self.data_rank, self.pipe_rank, self.model_rank
         if axis == MODEL_AXIS:
-            return [d * self.model + j for j in range(self.model)]
+            return [self._at(d, p, j) for j in range(self.model)]
         if axis == DATA_AXIS:
-            return [j * self.model + m for j in range(self.data)]
-        return list(range(self.data * self.model))
+            return [self._at(j, p, m) for j in range(self.data)]
+        if axis == PIPE_AXIS:
+            return [self._at(d, j, m) for j in range(self.pipe)]
+        return [self._at(j, p, k) for j in range(self.data) for k in range(self.model)]
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of ``stage`` in this rank's pipe group."""
+        return self._at(self.data_rank, stage % self.pipe, self.model_rank)
 
     def _group(self, axis: Axis):
         group = {MODEL_AXIS: self.model_group, DATA_AXIS: self.data_group,
-                 FFN_AXES: self.ffn_group}[axis]
+                 PIPE_AXIS: self.pipe_group, FFN_AXES: self.ffn_group}[axis]
         if group is None:
             raise RuntimeError("this mesh has no process group (Mesh.fake): it shards "
                                "parameters but runs no collective")
@@ -123,12 +171,69 @@ class Mesh:
         dist.all_gather(parts, x, group=self._group(axis))
         return torch.cat(parts, dim=dim)
 
+    def broadcast_from_stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
+        """``x`` of pipeline stage ``stage`` on every stage of this rank's
+        pipe group, in place (the other stages pass a buffer of its shape)."""
+        if self.pipe > 1:
+            dist.broadcast(x, self.stage_rank(stage), group=self._group(PIPE_AXIS))
+        return x
+
+    def _send(self, x: torch.Tensor, group) -> None:
+        if group is None:
+            raise RuntimeError("no stage hop from this rank (Mesh.fake, or no such neighbour)")
+        x = x.contiguous()
+        self._sends.append((dist.broadcast(x, self.rank, group=group, async_op=True), x))
+        self.hops += 1
+        self.hop_bytes += x.numel() * x.element_size()
+
+    def _recv(self, like: torch.Tensor, src_stage: int, group) -> torch.Tensor:
+        if group is None:
+            raise RuntimeError("no stage hop into this rank (Mesh.fake, or no such neighbour)")
+        out = torch.empty_like(like, memory_format=torch.contiguous_format)
+        dist.broadcast(out, self.stage_rank(src_stage), group=group)
+        return out
+
+    def send_next(self, x: torch.Tensor) -> None:
+        """Send ``x`` to the next pipeline stage (asynchronous)."""
+        self._send(x, self.next_group)
+
+    def recv_prev(self, like: torch.Tensor) -> torch.Tensor:
+        """The previous stage's tensor of ``like``'s shape and dtype."""
+        return self._recv(like, self.pipe_rank - 1, self.prev_group)
+
+    def send_first(self, x: torch.Tensor) -> None:
+        """The return hop: send ``x`` from the last stage to stage 0
+        (asynchronous)."""
+        self._send(x, self.return_group if self.last_stage else None)
+
+    def recv_last(self, like: torch.Tensor) -> torch.Tensor:
+        """On stage 0: the last stage's tensor of ``like``'s shape and dtype."""
+        return self._recv(like, self.pipe - 1, self.return_group if self.first_stage else None)
+
+    def wait_sends(self) -> None:
+        """Wait for every hop this rank has sent (each ends once its
+        receiver has it)."""
+        sends, self._sends = self._sends, []
+        for work, _ in sends:
+            work.wait()
+
     def warm(self, device) -> None:
         """One eager collective on each group (NCCL makes a communicator at
-        its first collective, which must not happen under graph capture)."""
+        its first collective, which must not happen under graph capture).
+        The hop groups are warmed in one global order: stage pairs (0, 1),
+        (1, 2), ..., then (last, 0), each rank joining those it is in."""
         own = self.ffn_group is not self.model_group and self.ffn_group is not self.data_group
-        for axis in (MODEL_AXIS, DATA_AXIS) + ((FFN_AXES,) if own else ()):
+        axes = (MODEL_AXIS, DATA_AXIS) + ((FFN_AXES,) if own else ()) + (
+            (PIPE_AXIS,) if self.pipe > 1 else ())
+        for axis in axes:
             self.all_reduce(torch.zeros(1, device=device), axis)
+        s = self.pipe_rank
+        for k in range(self.pipe - 1):
+            if k in (s - 1, s):
+                g = self.prev_group if k == s - 1 else self.next_group
+                dist.all_reduce(torch.zeros(1, device=device), group=g)
+        if self.pipe > 1 and (self.first_stage or self.last_stage):
+            dist.all_reduce(torch.zeros(1, device=device), group=self.return_group)
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -231,10 +336,8 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
     ``data * pipe * model * seq`` must equal the world size. The backend is
     NCCL for CUDA devices and gloo for the CPU unless ``backend`` names
     one; the device is ``cuda:LOCAL_RANK`` unless ``device`` names one
-    (without CUDA that raises: only ``device="cpu"`` gives a CPU mesh)."""
-    if pipe > 1:
-        raise NotImplementedError("pipeline-parallel serving (pipe > 1) is not in the port "
-                                  "yet (ROADMAP.md Queue A, A9)")
+    (without CUDA that raises: only ``device="cpu"`` gives a CPU mesh).
+    Every rank creates every group, in one order."""
     if seq > 1:
         raise NotImplementedError("context parallelism (seq > 1) is not in the port yet "
                                   "(ROADMAP.md Queue A, A10)")
@@ -264,20 +367,39 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
                          f"has {world}")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    model_group = data_group = ffn_group = None
-    if data > 1 and model > 1:  # else one of the two groups below holds every rank
-        ffn_group = dist.new_group(list(range(world)), backend=backend)  # pipe = seq = 1
-    for d in range(data):  # every rank creates every group, in one order
-        g = dist.new_group([d * model + m for m in range(model)], backend=backend)
-        if d == rank // model:
-            model_group = g
-    for m in range(model):
-        g = dist.new_group([d * model + m for d in range(data)], backend=backend)
-        if m == rank % model:
-            data_group = g
-    mesh = Mesh(data, pipe, model, seq, rank, device, backend, model_group, data_group,
-                ffn_group or (model_group if data == 1 else data_group))
+    mesh = Mesh(data, pipe, model, seq, rank, device, backend)
+    mine = {}  # axis -> this rank's group
+
+    def group(axis, ranks):
+        g = dist.new_group(ranks, backend=backend)
+        if rank in ranks:
+            mine[axis] = g
+
+    at = mesh._at
+    for d in range(data):
+        for p in range(pipe):
+            group(MODEL_AXIS, [at(d, p, m) for m in range(model)])
+    for p in range(pipe):
+        for m in range(model):
+            group(DATA_AXIS, [at(d, p, m) for d in range(data)])
+    if data > 1 and model > 1:  # else the model or the data group is the FFN's
+        for p in range(pipe):
+            group(FFN_AXES, [at(d, p, m) for d in range(data) for m in range(model)])
+    if pipe > 1:
+        for d in range(data):
+            for m in range(model):
+                group(PIPE_AXIS, [at(d, p, m) for p in range(pipe)])
+                for p in range(pipe - 1):
+                    g = dist.new_group([at(d, p, m), at(d, p + 1, m)], backend=backend)
+                    if rank == at(d, p, m):
+                        mesh.next_group = g
+                    elif rank == at(d, p + 1, m):
+                        mesh.prev_group = g
+                group("return", [at(d, pipe - 1, m), at(d, 0, m)])
+    mesh.model_group, mesh.data_group = mine[MODEL_AXIS], mine[DATA_AXIS]
+    mesh.ffn_group = mine.get(FFN_AXES) or (mesh.model_group if data == 1 else mesh.data_group)
+    mesh.pipe_group, mesh.return_group = mine.get(PIPE_AXIS), mine.get("return")
     if rank == 0:
-        print(f"[mesh] data={data} model={model} over {world} rank(s), backend {backend}, "
-              f"rank 0 on {device}", flush=True)
+        print(f"[mesh] data={data} pipe={pipe} model={model} over {world} rank(s), backend "
+              f"{backend}, rank 0 on {device}", flush=True)
     return mesh

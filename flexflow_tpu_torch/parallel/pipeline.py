@@ -1,18 +1,74 @@
-"""Pipeline stage balancing (port of ``balance_stages`` in
-``flexflow_tpu/parallel/pipeline.py``).
+"""Pipeline stages: the stage cut of a layer stack and stage balancing
+(port of ``flexflow_tpu/parallel/pipeline.py``'s ``stage_params`` and
+``balance_stages``).
 
-Only the linear-partition DP is here: ``parallel.joint.joint_optimize``
-with ``pipe > 1`` uses it to split the chosen graph's per-op costs into
-stages, which needs no mesh. The rest of the JAX module (``stage_params``,
-``pipeline_forward``: stage-sliced layers and the microbatched loop over a
-pipe axis) is ROADMAP A9.
+``stage_range`` / ``stage_params`` give a pipeline stage's contiguous block
+of layers, as JAX's ``[P, L/P, ...]`` stage-major reshape places them; the
+port's serving stages (``serving/pp_engine.py``) hold only their own
+``[L/P, ...]`` slice. ``balance_stages`` is the linear-partition DP that
+``parallel.joint.joint_optimize`` with ``pipe > 1`` uses to split the
+chosen graph's per-op costs into stages. ``stage_params_uneven`` and
+``pipeline_forward`` (the GPipe training loop) are ROADMAP A9c.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from flexflow_tpu_torch.quant.weight_only import QuantizedArray
+
+
+def stage_range(num_layers: int, num_stages: int, stage: int) -> Tuple[int, int]:
+    """Stage ``stage``'s layers ``[lo, hi)`` of ``num_layers`` cut into
+    ``num_stages`` equal blocks; raises where they do not divide, as JAX's
+    ``stage_params`` does."""
+    if num_layers % num_stages:
+        raise ValueError(f"num_layers {num_layers} not divisible by pipeline stages "
+                         f"{num_stages}")
+    if not 0 <= stage < num_stages:
+        raise ValueError(f"stage {stage} outside {num_stages} pipeline stages")
+    w = num_layers // num_stages
+    return stage * w, (stage + 1) * w
+
+
+def stage_slice(leaf, lo: int, hi: int):
+    """Layers ``[lo, hi)`` of a ``[L, ...]`` leaf (a tensor or a stacked
+    carrier), copied: the whole stack's storage is not kept alive."""
+    if isinstance(leaf, QuantizedArray):
+        def cut(t):
+            return None if t is None else t[lo:hi].clone()
+
+        return dataclasses.replace(leaf, q=cut(leaf.q), scale=cut(leaf.scale),
+                                   offset=cut(leaf.offset),
+                                   shape=(hi - lo, *leaf.shape[1:]))
+    return leaf[lo:hi].clone()
+
+
+def _stage_major(leaf: torch.Tensor, num_stages: int) -> torch.Tensor:
+    """``[L, ...]`` -> ``[P, L/P, ...]``."""
+    l = leaf.shape[0]
+    stage_range(l, num_stages, 0)
+    return leaf.reshape(num_stages, l // num_stages, *leaf.shape[1:])
+
+
+def stage_params(params, num_stages: int, stage: Optional[int] = None):
+    """A tree of stacked ``[L, ...]`` layer leaves cut into pipeline stages.
+
+    With ``stage``: that stage's ``[L/P, ...]`` slice of every leaf, tensor
+    or carrier (what a stage rank holds). Without: JAX's stage-major
+    ``[P, L/P, ...]`` form of every (float) leaf, stage ``s`` at index
+    ``s``. ``L % P != 0`` raises."""
+    if isinstance(params, dict):
+        return {k: stage_params(v, num_stages, stage) for k, v in params.items()}
+    if params is None:
+        return None
+    if stage is None:
+        return _stage_major(params, num_stages)
+    return stage_slice(params, *stage_range(params.shape[0], num_stages, stage))
 
 
 def balance_stages(costs: Sequence[float], num_stages: int) -> List[int]:

@@ -59,6 +59,14 @@ A row slice whose boundary falls inside a quantization group takes a
 smaller group size (halved until it divides), the scales and offsets
 repeated: exact.
 
+Pipeline stages (``pipe > 1``): a rank holds only its stage's contiguous
+block of layers (``parallel/pipeline.stage_range``; ``Shard.layers``),
+each ``[L, ...]`` layer leaf cut to ``[L/P, ...]`` before the tensor
+parallel cut, and only the top leaves its stage runs: stage 0 the
+embeddings, the last stage the final norm and ``lm_head`` (and
+``embed_tokens`` too where the embeddings are tied). JAX replicates every
+top leaf on every stage (``pp_engine.py:182-184``).
+
 The tree carries no mark of its cut: :func:`shard_params` keeps a leaf
 whose axis has the rank's width already, so it is idempotent, and the
 engines and the Trainer hold the :class:`Shard` beside the tree
@@ -77,6 +85,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from flexflow_tpu_torch.parallel.mesh import FFN_AXES, MODEL_AXIS, Axis, Mesh
+from flexflow_tpu_torch.parallel.pipeline import stage_range, stage_slice
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, _rest_pad
 from flexflow_tpu_torch.specs import ModelSpec
 
@@ -103,8 +112,9 @@ def _even_blocks(n: int, t: int, r: int, planar: bool) -> Optional[Blocks]:
 @dataclasses.dataclass(eq=False)
 class Shard:
     """One rank's cut of a model: which global heads, KV heads, FFN columns,
-    experts and vocabulary rows it holds (None: the whole axis,
-    replicated), and the mesh whose collectives the decoder runs."""
+    experts, vocabulary rows and (its pipeline stage's) layers it holds
+    (None: the whole axis, replicated), and the mesh whose collectives the
+    decoder runs."""
 
     mesh: Mesh
     heads: Optional[Blocks]  # Q heads of wq / wo (None: attention replicated)
@@ -116,6 +126,7 @@ class Shard:
     ffn_axis: Axis = MODEL_AXIS  # the ranks the FFN's row-parallel sum runs over
     experts: Optional[Blocks] = None  # expert_parallel: the rank's global expert ids
     layout: Dict[str, bool] = dataclasses.field(default_factory=dict)  # rank_shard's flags
+    layers: Optional[Tuple[int, int]] = None  # pipeline stage: its global layers [lo, hi)
     _index: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -189,10 +200,14 @@ def rank_shard(spec: ModelSpec, mesh: Mesh, *, int4_wo: bool = False,
         ffn = _even_blocks(f, t, r, int4_wd)
     v = spec.vocab_size
     vocab = (r * v // t, (r + 1) * v // t) if v % t == 0 and v >= t else None
-    sizes = dict(heads=hh, kv=kh, ffn=f, vocab=v, experts=spec.moe.num_experts if moe else 0)
+    sizes = dict(heads=hh, kv=kh, ffn=f, vocab=v, experts=spec.moe.num_experts if moe else 0,
+                 layers=spec.num_layers)
     layout = dict(int4_wo=int4_wo, int4_wd=int4_wd, hybrid_ffn=hybrid_ffn,
                   expert_parallel=expert_parallel, quant_ffn=quant_ffn)
-    return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab, sizes, ffn_axis, experts, layout)
+    layers = (stage_range(spec.num_layers, mesh.pipe, mesh.pipe_rank) if mesh.pipe > 1
+              else None)
+    return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab, sizes, ffn_axis, experts, layout,
+                 layers)
 
 
 def slot_block(num_slots: int, mesh: Optional[Mesh], hybrid_ffn: bool = False) -> Tuple[int, int]:
@@ -218,6 +233,23 @@ _TOP_AXES: Dict[str, Tuple[int, str]] = {
     "embed_tokens": (-2, "vocab"), "lm_head": (-1, "vocab"), "lm_head_bias": (-1, "vocab"),
 }
 _EXPERT_STACKS = ("wg", "wu", "wd")  # [L, E, ...]: the expert axis is -3
+_FIRST_STAGE_TOP = ("embed_tokens", "embed_pos")
+_LAST_STAGE_TOP = ("final_norm_scale", "final_norm_bias", "lm_head", "lm_head_bias")
+
+
+def stage_keeps(name: str, shard: Optional[Shard], tied: bool) -> bool:
+    """Whether this rank's pipeline stage holds the top leaf ``name``:
+    stage 0 the embeddings, the last stage the final norm and the head
+    (``embed_tokens`` too where ``tied``: no ``lm_head``); every top leaf
+    without stages."""
+    if shard is None or shard.layers is None:
+        return True
+    mesh = shard.mesh
+    if name in _FIRST_STAGE_TOP or name in _LAST_STAGE_TOP:
+        return ((mesh.first_stage and name in _FIRST_STAGE_TOP)
+                or (mesh.last_stage and (name in _LAST_STAGE_TOP
+                                         or (tied and name == "embed_tokens"))))
+    return True
 
 
 def _rule(name: str, shard: Shard, top: bool) -> Optional[Tuple[int, str]]:
@@ -308,6 +340,13 @@ def shard_leaf(name: str, leaf, shard: Optional[Shard], *, top: bool = False):
     shard (None) come back whole."""
     if shard is None:
         return leaf
+    if not top and shard.layers is not None and leaf is not None:
+        lo, hi = shard.layers
+        if leaf.shape[0] == shard.sizes["layers"]:
+            leaf = stage_slice(leaf, lo, hi)
+        elif leaf.shape[0] != hi - lo:
+            raise ValueError(f"{name}: {leaf.shape[0]} layers are neither the whole stack "
+                             f"({shard.sizes['layers']}) nor this stage's {hi - lo}")
     rule = _rule(name, shard, top)
     if rule is None or leaf is None:
         return leaf
@@ -353,9 +392,11 @@ def shard_params(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool =
     """This rank's parameter tree, cut from a whole (one-device) tree (JAX's
     signature: tensor parallelism, or the ``expert_parallel`` /
     ``hybrid_ffn`` layouts of the module docstring); a leaf cut already is
-    kept, so a rank's own tree comes back as it is. A fused tree
-    (``wqkv``, ``wgu``) must be a rank's tree already (an engine's): the
-    rank fuses its own cuts, and a whole fused tree is refused."""
+    kept, so a rank's own tree comes back as it is. Under pipeline stages
+    it keeps the rank's stage of the layers and the top leaves its stage
+    runs (:func:`stage_keeps`). A fused tree (``wqkv``, ``wgu``) must be a
+    rank's tree already (an engine's): the rank fuses its own cuts, and a
+    whole fused tree is refused."""
     layers = params["layers"]
     shard = tree_shard(spec, params, mesh, expert_parallel=expert_parallel,
                        hybrid_ffn=hybrid_ffn)
@@ -365,7 +406,9 @@ def shard_params(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool =
         if name in layers and layers[name].shape[len(layers[name].shape) + axis] != width:
             raise ValueError("shard_params takes an unfused tree (wq/wk/wv, wg/wu) or a "
                              f"rank's fused one; {name} has the wrong width")
-    out = {k: shard_leaf(k, v, shard, top=True) for k, v in params.items() if k != "layers"}
+    tied = "lm_head" not in params
+    out = {k: shard_leaf(k, v, shard, top=True) for k, v in params.items()
+           if k != "layers" and stage_keeps(k, shard, tied)}
     out["layers"] = {k: shard_leaf(k, v, shard) for k, v in layers.items()}
     return out
 
@@ -377,8 +420,8 @@ def _rank_blocks(shard: Shard, cut: str, spec: ModelSpec):
         return None
     mesh = shard.mesh
     axis = shard.ffn_axis if cut == "ffn" else MODEL_AXIS
-    return axis, [_blocks_of(rank_shard(spec, Mesh.fake(mesh.data, mesh.model, r),
-                                        **shard.layout), cut)
+    return axis, [_blocks_of(rank_shard(spec, Mesh.fake(mesh.data, mesh.model, r,
+                                                  pipe=mesh.pipe), **shard.layout), cut)
                   for r in mesh.group_ranks(axis)]
 
 

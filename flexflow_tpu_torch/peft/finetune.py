@@ -71,6 +71,10 @@ class FinetuneSession:
         return torch.stack(self._losses).tolist() if self._losses else []
 
     def _build(self, engine) -> None:
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.pipe > 1:
+            raise NotImplementedError("finetuning under pipeline stages (the GPipe backward) is "
+                                      "not in the port yet (ROADMAP.md Queue A, A9c)")
         if engine.lora is None:
             raise ValueError("the engine holds no LoRA adapters")
         lora: RoutedLora = engine.lora

@@ -26,9 +26,13 @@ the weights (``parallel/sharding``) and gets the same results
 (``parallel/mesh``). Registered LoRA adapters are cut with the model and
 a co-scheduled finetuning session steps on every rank alike;
 ``save_peft_adapter`` gathers the slot and writes it from rank 0; with
-``offload`` each rank pins and streams its own cut of the layers. Pipeline
-and context degrees above 1 are ROADMAP A9 and A10; ``start_server`` under
-a mesh A10 (JAX's request broadcaster).
+``offload`` each rank pins and streams its own cut of the layers.
+``compile(pipeline_parallelism_degree=P)`` serves over ``P * T`` ranks:
+each rank loads only its pipeline stage's layers (and its cut of them
+under ``T``) and serves through ``serving/pp_engine.PipelineInferenceEngine``
+(JAX's refusals kept: data > 1, LoRA with T > 1, offload; a draft model
+under pipeline stages is ROADMAP A9b). Context degrees above 1 are A10;
+``start_server`` under a mesh A10 (JAX's request broadcaster).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lo
                                          load_hf_adapter_config, load_hf_adapter_into_slot,
                                          unroute_lora)
 from flexflow_tpu_torch.serving.engine import InferenceEngine
+from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import (NO_ADAPTERS, MultiSSMSpecManager,
                                                      SpecRequestManager)
@@ -193,10 +198,13 @@ class LLM:
 
         ``tensor_parallelism_degree`` x ``data_parallelism_degree`` (JAX's
         signature) serve over that many ranks (``parallel/mesh.make_mesh``;
-        every rank calls ``compile`` and ``generate`` alike). Pipeline and
-        context degrees above 1 raise (A9, A10). LoRA adapters are cut with
-        the model; with ``offload`` every rank pins its own cut of the
-        layers."""
+        every rank calls ``compile`` and ``generate`` alike). LoRA adapters
+        are cut with the model; with ``offload`` every rank pins its own cut
+        of the layers. ``pipeline_parallelism_degree`` P x the tensor degree
+        serve through ``PipelineInferenceEngine``, each rank loading only its
+        stage; JAX's refusals are kept (data > 1, LoRA with T > 1, PEFT with
+        drafts, offload) and drafts under pipeline stages raise (A9b).
+        Context degrees above 1 raise (A10)."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
@@ -209,6 +217,24 @@ class LLM:
                 and self.quant_bits is None):
             auto_lib.refuse_mesh(auto_lib.device_count(self.device),
                                  "LLM.compile(auto_parallel=True)", serving=True)
+        use_pp = pipeline_parallelism_degree > 1
+        if use_pp:
+            # JAX's refusals under pipeline stages (flexflow_tpu/serve.py:250-268)
+            if data_parallelism_degree > 1:
+                raise NotImplementedError("pipeline-parallel serving requires data axis == 1")
+            if self._peft and tensor_parallelism_degree > 1:
+                raise NotImplementedError("LoRA adapters under pipeline parallelism require "
+                                          "tensor_parallelism_degree == 1")
+            if self._peft and self._ssms:
+                raise NotImplementedError("PEFT with speculative decoding under PP is not "
+                                          "supported")
+            if offload:
+                raise NotImplementedError(
+                    "--offload under pipeline_parallelism_degree>1 is not supported "
+                    "(stage-resident weights already hold only 1/P of the stack per device)")
+            if self._ssms:
+                raise NotImplementedError("speculative decoding under pipeline stages is not in "
+                                          "the port yet (ROADMAP.md Queue A, A9b)")
         self.mesh = self._make_mesh(*degrees)
         if self._ssms and offload:
             raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "
@@ -246,12 +272,23 @@ class LLM:
             return
         if self._peft:
             self.lora = self._build_lora()
+        budget = max_tokens_per_batch if max_tokens_per_batch < max_seq_length else 0
+        if use_pp:
+            engine = PipelineInferenceEngine(
+                self.spec, self.params, mesh=self.mesh,
+                max_requests_per_batch=max_requests_per_batch, max_seq_len=max_seq_length,
+                max_tokens_per_batch=budget, cache_dtype=self.dtype, device=self.device,
+                lora=self.lora, lora_config=self.lora_config)
+            self.params = engine.params
+            self.rm = RequestManager(engine, decode_horizon=_ffconfig.decode_horizon,
+                                     pipelined=_ffconfig.decode_horizon > 1,
+                                     pipeline_depth=_ffconfig.pipeline_depth)
+            return
         engine = InferenceEngine(
             self.spec, self.params,
             max_requests_per_batch=max_requests_per_batch,
             max_seq_len=max_seq_length,
-            max_tokens_per_batch=(max_tokens_per_batch
-                                  if max_tokens_per_batch < max_seq_length else 0),
+            max_tokens_per_batch=budget,
             cache_dtype=self.dtype,
             device=self.device,
             lora=self.lora,

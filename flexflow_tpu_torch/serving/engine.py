@@ -198,6 +198,9 @@ class InferenceEngine:
         mesh=None,  # parallel/mesh.Mesh: this rank's cut of a TP x DP mesh
         hybrid_ffn: bool = False,  # under a mesh: the FFN over model x data ranks
     ):
+        if mesh is not None and mesh.pipe > 1:
+            raise ValueError("a mesh with pipeline stages is served by "
+                             "serving/pp_engine.PipelineInferenceEngine")
         self.spec = spec
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None or device is not None

@@ -238,6 +238,9 @@ class SpecEngine:
         t = tree_size(beam_width, beam_depth)
         if t > MAX_SPEC_TREE_TOKEN_NUM:
             raise ValueError(f"tree {t} exceeds the cap {MAX_SPEC_TREE_TOKEN_NUM}")
+        if mesh is not None and mesh.pipe > 1:
+            raise NotImplementedError("speculative decoding under pipeline stages is not in the "
+                                      "port yet (ROADMAP.md Queue A, A9b)")
         self.device = resolve_device(device if mesh is None or device is not None
                                      else mesh.device)
         self.mesh = mesh

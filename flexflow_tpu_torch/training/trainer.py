@@ -13,7 +13,8 @@ gradient of integer leaves either. ``mesh="auto"`` runs the layout search
 (``parallel/auto.optimize_train_layout``: on one device it measures the
 only layout, dp = pp = tp = 1, and trains under it; its report is
 ``auto_report``); over more than one device it raises (the search on a
-mesh, ROADMAP A11c), as do pipeline stages (A9).
+mesh, ROADMAP A11c), as do pipeline stages (``pipeline_stages > 1`` or a
+mesh with ``pipe > 1``: the GPipe loop, A9c).
 
 ``mesh=`` a ``parallel/mesh.Mesh`` (JAX: Megatron shardings for the
 parameters, ``P("data")`` for the batch, GSPMD's gradient sums): each rank
@@ -80,9 +81,10 @@ class Trainer:
                 spec, params, optimizer, batch_size=auto_batch_size, seq_len=auto_seq_len,
                 loss=loss, device=device)
             mesh = auto_lib.layout_mesh(layout)
-        if pipeline_stages > 1:
+        if pipeline_stages > 1 or (isinstance(mesh, Mesh) and mesh.pipe > 1):
             raise NotImplementedError(
-                "pipeline stages are not in the port yet (ROADMAP.md Queue A, A9)")
+                "training under pipeline stages (the GPipe loop) is not in the port yet "
+                "(ROADMAP.md Queue A, A9c)")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh or 'auto', got "
                             f"{type(mesh).__name__}")

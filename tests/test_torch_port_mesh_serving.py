@@ -278,20 +278,25 @@ def test_tp8_pipelined_and_jax_mesh_engine(tmp_path, unfused_jax):
 
 
 def test_refusals():
-    """Pipeline (A9) and context (A10) degrees; start_server under a mesh
-    (A10). LoRA under a mesh is taken (the rank's cut of the stacks:
-    ``test_torch_port_mesh_lora``), as are the PEFT CLI's mesh and offload
-    under a mesh (``test_torch_port_mesh_layouts``)."""
+    """Context degrees (A10) and a draft under pipeline stages (A9b);
+    start_server under a mesh (A10). Pipeline stages are taken
+    (``test_torch_port_pp_serving``), as is LoRA under a mesh (the rank's
+    cut of the stacks: ``test_torch_port_mesh_lora``), the PEFT CLI's mesh
+    and offload under a mesh (``test_torch_port_mesh_layouts``)."""
     from flexflow_tpu_torch.inference import peft as peft_cli
     from flexflow_tpu_torch.models import params as tp
     from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
-    from flexflow_tpu_torch.serve import LLM
+    from flexflow_tpu_torch.serve import LLM, SSM
     from flexflow_tpu_torch.serving.engine import InferenceEngine
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_mesh(pipe=2, model=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_mesh(pipe=2, seq=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         make_mesh(model=2, seq=2, device="cpu")
+    drafted = LLM.__new__(LLM)
+    drafted._ssms, drafted._peft, drafted.quant_bits = [SSM.__new__(SSM)], [], None
+    with pytest.raises(NotImplementedError, match="A9b"):
+        drafted.compile(pipeline_parallelism_degree=2)
     spec = _tspec(SPEC)
     params = tp.init_params(spec, 0)
     mesh = Mesh.fake(1, 2, 0)
