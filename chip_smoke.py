@@ -386,9 +386,21 @@ Phases, in order; any failure exits non-zero:
               beside one device's (two ranks share one card over gloo: no
               pipeline speed) and the wall times; the ranks' launches of
               qmm_int8 / qmm_int4, decode_attention and flash_prefill are
-              counted into the kernels line. (c) With more than one GPU,
-              (a) and (b) over NCCL at min(4, count) ranks; otherwise it says
-              why it did not run.
+              counted into the kernels line. (d) Tree speculation under the
+              stages (``serving/pp_spec.py``): the spec phase's pair (the
+              LLaMA-2-7B INT4 verifier at full width and all 32 layers,
+              block-embedding the 160M bf16 draft) through
+              ``PipelineSpecEngine`` at P = 2, ``PP_SPEC_MICROBATCHES`` = 2,
+              each rank its stage of the verifier and the draft whole; width
+              3, depth 4, the 8 prompts, 64 greedy tokens, the spec phase's
+              horizon and manager: every request's 64 tokens bitwise equal
+              to the spec phase's one-device run (run here when spec is not
+              selected), more than one verified token a step, qmm_int4,
+              decode_attention and flash_prefill launched; prints each
+              rank's layer, KV and draft GiB beside one device's, its hops
+              and tok/s beside the spec phase's. (c) With more than one GPU,
+              (a), (b) and (d) over NCCL at min(4, count) ranks; otherwise
+              it says why it did not run.
 20. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
@@ -2048,6 +2060,41 @@ def two_draft_runs(engine, dspec, dparams, prompts, card) -> dict:
     return runs
 
 
+_SPEC_SERVED: dict = {}  # the spec phase's one-device tokens and decode tok/s, for the pp phase
+
+
+def _spec_pair(dev):
+    """The spec phase's pair: the 160M-class bf16 draft (seed 0) and the
+    LLaMA-2-7B INT4 verifier (group 128) block-embedding it, whole.
+    Returns (draft spec, verifier spec, draft params, verifier params)."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.specs import ModelSpec
+    from flexflow_tpu_torch.utils.spec_pair import embed_draft_in_verifier
+
+    dspec, vspec = ModelSpec(**DRAFT_160M), ModelSpec(**LLAMA2_7B)
+    dparams = params_lib.init_params(dspec, torch.Generator(device=dev).manual_seed(0),
+                                     torch.bfloat16, dev)
+    vparams = embed_draft_in_verifier(dspec, dparams, vspec, bits=4, group_size=128,
+                                      dtype=torch.bfloat16, device=dev)
+    return dspec, vspec, dparams, vparams
+
+
+def _spec_managers(engine) -> list:
+    """Two fused, pipelined managers on ``engine`` at ``LLM.compile``'s
+    clamp of the horizon (the speculation margin stays within a quarter of
+    the context): a warm-up one and the measured one."""
+    from flexflow_tpu_torch.config import config as ffconfig
+    from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
+    from flexflow_tpu_torch.serving.speculative import tree_size
+
+    horizon = max(1, min(ffconfig.spec_horizon,
+                         engine.max_seq_len // (4 * (tree_size(engine.width, engine.depth) + 1))))
+    return [SpecRequestManager(engine, fused=True, spec_horizon=horizon, pipelined=horizon > 1,
+                               pipeline_depth=ffconfig.pipeline_depth) for _ in range(2)]
+
+
 def spec_phase(card: str, with_profile: bool) -> dict:
     """Tree-speculative serving of LLaMA-2-7B INT4 with a 160M-class bf16
     draft that the verifier block-embeds (``utils/spec_pair``), through
@@ -2056,39 +2103,29 @@ def spec_phase(card: str, with_profile: bool) -> dict:
     incremental INT4 run of the same verifier they must all agree with."""
     import torch
 
-    from flexflow_tpu_torch.config import config as ffconfig
-    from flexflow_tpu_torch.models import params as params_lib
     from flexflow_tpu_torch.serving.engine import InferenceEngine
     from flexflow_tpu_torch.serving.request_manager import RequestManager
-    from flexflow_tpu_torch.serving.spec_manager import SpecRequestManager
-    from flexflow_tpu_torch.serving.speculative import SpecEngine, tree_size
-    from flexflow_tpu_torch.specs import ModelSpec
-    from flexflow_tpu_torch.utils.spec_pair import embed_draft_in_verifier
+    from flexflow_tpu_torch.serving.speculative import SpecEngine
 
     dev = torch.device("cuda")
-    dspec, vspec = ModelSpec(**DRAFT_160M), ModelSpec(**LLAMA2_7B)
     t0 = time.perf_counter()
-    dparams = params_lib.init_params(dspec, torch.Generator(device=dev).manual_seed(0),
-                                     torch.bfloat16, dev)
-    vparams = embed_draft_in_verifier(dspec, dparams, vspec, bits=4, group_size=128,
-                                      dtype=torch.bfloat16, device=dev)
+    dspec, vspec, dparams, vparams = _spec_pair(dev)
     torch.cuda.synchronize()
     log(f"  weights: 160M-class bf16 draft and the LLaMA-2-7B INT4 verifier embedding it "
         f"in {time.perf_counter() - t0:.1f} s")
     width, depth, seq = 3, 4, 1024
-    # LLM.compile's clamp: the speculation margin stays within a quarter of the context
-    horizon = max(1, min(ffconfig.spec_horizon, seq // (4 * (tree_size(width, depth) + 1))))
     prompts = _prompts(vspec.vocab_size)
     engine = SpecEngine(vspec, vparams, dspec, dparams, beam_width=width, beam_depth=depth,
                         max_requests_per_batch=8, max_seq_len=seq, cache_dtype=torch.bfloat16,
                         device=dev)
-    managers = [SpecRequestManager(engine, fused=True, spec_horizon=horizon,
-                                   pipelined=horizon > 1, pipeline_depth=ffconfig.pipeline_depth)
-                for _ in range(2)]  # a warm-up one, so the measured one counts only its run
+    managers = _spec_managers(engine)  # a warm-up one, so the measured one counts only its run
     rm = managers[1]
+    horizon = rm.spec_horizon
     spec_reqs, out = _served(rm, prompts, 64, vspec.vocab_size, "spec", warm=managers[0])
     out.update(spec_horizon=horizon, pipeline_depth=rm.pipeline_depth,
                mean_verified_tokens_per_step=rm.mean_verified_tokens_per_step)
+    _SPEC_SERVED.update(tokens=[r.output_tokens for r in spec_reqs],
+                        decode_tok_s=out["decode_tok_s"])
     lens = engine._h([len(p) for p in prompts])
     roots = engine._h([(r.output_tokens[0] + 1) % vspec.vocab_size for r in spec_reqs])
     _replay_check(f"speculative horizon ({horizon} iterations, 8 slots)",
@@ -5359,6 +5396,7 @@ PP_MICROBATCHES = 2  # (a): M = P, the overlapped horizon
 PP_INT4_LAYERS = 8  # (b): LLaMA-2-7B INT4 cut to 8 layers (time), full width
 PP_INT4_MICROBATCHES = 4  # (b): M = 2P, tokens banked in the return hop
 PP_CHUNK = 128  # (b): max_tokens_per_batch (the 600-, 400- and 256-token prompts in chunks)
+PP_SPEC_MICROBATCHES = 2  # (d): M = P, the spec phase's pair at full width and depth
 
 
 def _tree_gib(tree) -> float:
@@ -5444,7 +5482,48 @@ def _pp_case_b(mesh, dev, refs) -> dict:
                      num_microbatches=PP_INT4_MICROBATCHES, max_tokens_per_batch=PP_CHUNK)
 
 
-PP_CASES = {"pp-a": _pp_case_a, "pp-b": _pp_case_b}
+def _pp_case_d(mesh, dev, refs) -> dict:
+    """(d): the spec phase's pair through ``PipelineSpecEngine``: this rank's
+    stage of the INT4 verifier (built whole, as the spec phase builds it,
+    and cut at once: the whole tree freed) and the draft whole; the spec
+    phase's managers and traffic."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.sharding import shard_params
+    from flexflow_tpu_torch.serving.pp_spec import PipelineSpecEngine
+
+    t0 = time.perf_counter()
+    dspec, vspec, dparams, vparams = _spec_pair(dev)
+    vparams = shard_params(vspec, vparams, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = PipelineSpecEngine(vspec, vparams, dspec, dparams, mesh=mesh, beam_width=3,
+                                beam_depth=4, max_requests_per_batch=8, max_seq_len=1024,
+                                cache_dtype=torch.bfloat16,
+                                num_microbatches=PP_SPEC_MICROBATCHES, device=dev)
+    del vparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = dict(layer_gib=_tree_gib(engine.llm_params["layers"]),
+                top_gib=_tree_gib({k: v for k, v in engine.llm_params.items() if k != "layers"}),
+                kv_gib=_tree_gib(engine.llm_cache._asdict()),
+                draft_gib=_tree_gib(engine.ssm_params) + _tree_gib(engine.ssm_cache._asdict()),
+                top=sorted(k for k in engine.llm_params if k != "layers"),
+                layers=engine._pp.layers, allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    hops0, bytes0 = mesh.hops, mesh.hop_bytes
+    managers = _spec_managers(engine)
+    reqs, st = _served(managers[1], _prompts(vspec.vocab_size), 64, vspec.vocab_size,
+                       f"pp (d) speculative P={mesh.pipe}", warm=managers[0], replayed=False)
+    st.update(held, tokens=[r.output_tokens for r in reqs], build_s=build_s,
+              hops=mesh.hops - hops0, hop_bytes=mesh.hop_bytes - bytes0,
+              spec_horizon=managers[1].spec_horizon,
+              mean_verified_tokens_per_step=managers[1].mean_verified_tokens_per_step)
+    return st
+
+
+PP_CASES = {"pp-a": _pp_case_a, "pp-b": _pp_case_b, "pp-d": _pp_case_d}
 
 
 def _pp_one_device_int4(dev) -> dict:
@@ -5472,6 +5551,74 @@ def _pp_one_device_int4(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return st
+
+
+def _pp_one_device_spec(dev) -> None:
+    """The spec phase's one-draft run (``_SPEC_SERVED``), for (d) when the
+    spec phase is not selected."""
+    import torch
+
+    from flexflow_tpu_torch.serving.speculative import SpecEngine
+
+    dspec, vspec, dparams, vparams = _spec_pair(dev)
+    engine = SpecEngine(vspec, vparams, dspec, dparams, beam_width=3, beam_depth=4,
+                        max_requests_per_batch=8, max_seq_len=1024, cache_dtype=torch.bfloat16,
+                        device=dev)
+    managers = _spec_managers(engine)
+    reqs, st = _served(managers[1], _prompts(vspec.vocab_size), 64, vspec.vocab_size,
+                       "pp (d) one device", warm=managers[0])
+    _SPEC_SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+    del engine, managers, vparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pp_spec_check(what: str, ranks: list, card: str) -> dict:
+    """(d): every rank's tokens equal, every request's 64 tokens bitwise the
+    spec phase's one-device run's, more than one verified token a step;
+    each rank's layers, verifier KV and draft beside one device's; the hops;
+    qmm_int4, decode_attention and flash_prefill launched."""
+    rs = [r["pp-d"] for r in ranks]
+    p, ref, label = len(rs), _SPEC_SERVED, "(d) speculative, LLaMA-2-7B INT4 + 160M draft"
+    require(all(r["tokens"] == rs[0]["tokens"] for r in rs[1:]),
+            f"pp {label} {what}: the ranks disagree on the tokens")
+    apart = [i for i, (g, w) in enumerate(zip(rs[0]["tokens"], ref["tokens"])) if g != w]
+    require(not apart, f"pp {label} {what}: requests {apart} differ from the spec phase's; "
+                       f"common prefixes {_common_prefix(rs[0]['tokens'], ref['tokens'])}")
+    layer_one, kv_one = sum(r["layer_gib"] for r in rs), sum(r["kv_gib"] for r in rs)
+    depth = LLAMA2_7B["num_layers"] // p
+    for s, r in enumerate(rs):
+        require(r["layers"] == (s * depth, (s + 1) * depth),
+                f"pp {label}: rank {s} holds layers {r['layers']}")
+        log(f"  pp {label} {what} rank {s}: verifier layers {r['layers'][0]}-"
+            f"{r['layers'][1] - 1}, {r['layer_gib']:.3f} GiB of layers (one device "
+            f"{layer_one:.3f}), {r['kv_gib']:.3f} GiB of KV cache (one device {kv_one:.3f}), "
+            f"top leaves {r['top']} {r['top_gib']:.3f} GiB, the whole draft and its cache "
+            f"{r['draft_gib']:.3f} GiB (as one device holds it), {r['allocated_gib']:.3f} GiB "
+            f"allocated after the build; {r['hops']} hops sent, {r['hop_bytes']} bytes (the "
+            "warm-up request included)")
+    st = rs[0]
+    require(st["mean_verified_tokens_per_step"] > 1,
+            f"pp {label}: mean verified tokens per step {st['mean_verified_tokens_per_step']}")
+    out = dict(decode_tok_s=st["decode_tok_s"], one_device_tok_s=ref["decode_tok_s"],
+               wall_s=st["wall_s"], seconds=st["seconds"], build_s=[r["build_s"] for r in rs],
+               layer_gib=[r["layer_gib"] for r in rs], kv_gib=[r["kv_gib"] for r in rs],
+               draft_gib=[r["draft_gib"] for r in rs], hops=[r["hops"] for r in rs],
+               hop_bytes=[r["hop_bytes"] for r in rs],
+               mean_verified_tokens_per_step=st["mean_verified_tokens_per_step"],
+               launches={k: sum(r["launches"][k] for r in rs) for k in rs[0]["launches"]})
+    log(f"  pp {label} {what}: every request's 64 tokens bitwise equal to the spec phase's "
+        f"({len(ref['tokens'])} of {len(ref['tokens'])}); "
+        f"{st['mean_verified_tokens_per_step']:.3f} verified tokens a step (horizon "
+        f"{st['spec_horizon']}); decode "
+        f"{st['decode_tok_s']:.1f} tok/s against the spec phase's {ref['decode_tok_s']:.1f} "
+        f"(no pipeline speed: two ranks share one card over gloo, every iteration eager); mean "
+        f"TTFT {st['mean_ttft_ms']:.1f} ms; run wall {st['wall_s']:.2f} s, builds "
+        f"{[round(r['build_s'], 1) for r in rs]} s, case {st['seconds']:.1f} s [{card}]")
+    log(f"  launches during pp {label} {what}, every rank's: {json.dumps(out['launches'])}")
+    for k in ("qmm_int4", "decode_attention", "flash_prefill"):
+        require(out["launches"][k] > 0, f"pp {label}: {k} was never launched")
+    return out
 
 
 def _pp_check(what: str, ranks: list, one: dict, card: str) -> dict:
@@ -5527,8 +5674,9 @@ def _pp_check(what: str, ranks: list, one: dict, card: str) -> dict:
 
 def pp_phase(card: str) -> dict:
     """Pipeline-parallel serving (see the module docstring, phase pp): the
-    one-device references; two ranks sharing the card over gloo for (a) and
-    (b), spawned; (c) NCCL across GPUs when the machine has more than one."""
+    one-device references; two ranks sharing the card over gloo for (a),
+    (b) and (d), spawned; (c) NCCL across GPUs when the machine has more
+    than one."""
     import torch
 
     from flexflow_tpu_torch.serving.engine import InferenceEngine
@@ -5553,6 +5701,8 @@ def pp_phase(card: str) -> dict:
         del engine, rm
         gc.collect()
         torch.cuda.empty_cache()
+    if "tokens" not in _SPEC_SERVED:  # the spec phase did not run: its one-draft run here
+        _pp_one_device_spec(dev)
     one = _pp_one_device_int4(dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
     t0 = time.perf_counter()
@@ -5560,11 +5710,12 @@ def pp_phase(card: str) -> dict:
         ranks = _spawn_tp(2, "gloo", tmp, tuple(PP_CASES), 600)
         out["ranks_s"] = time.perf_counter() - t0
         out.update(_pp_check("P=2 over gloo", ranks, one, card))
+        out["pp-d"] = _pp_spec_check("P=2 over gloo", ranks, card)
         n = torch.cuda.device_count()
         if n > 1:
-            out["c"] = _pp_check(f"P={min(4, n)} over NCCL",
-                                 _spawn_tp(min(4, n), "nccl", tmp, ("pp-a", "pp-b"), 600),
-                                 one, card)
+            ranks = _spawn_tp(min(4, n), "nccl", tmp, tuple(PP_CASES), 600)
+            out["c"] = dict(_pp_check(f"P={min(4, n)} over NCCL", ranks, one, card),
+                            d=_pp_spec_check(f"P={min(4, n)} over NCCL", ranks, card))
         else:
             log(f"  pp (c) did not run: the machine shows {n} GPU (NCCL takes one device a rank)")
     finally:
@@ -5758,7 +5909,9 @@ def main(argv=None) -> int:
         log("[pp] pipeline-parallel serving, two ranks sharing the card over gloo: (a) "
             f"LLaMA-2-7B INT8, 32 layers, P=2, M={PP_MICROBATCHES} (the overlapped horizon); (b) "
             f"INT4 at {PP_INT4_LAYERS} layers, P=2, M={PP_INT4_MICROBATCHES}, chunked prefill at "
-            f"{PP_CHUNK} tokens; (c) NCCL across GPUs when there are several")
+            f"{PP_CHUNK} tokens; (d) the spec phase's INT4 pair (32 layers) through "
+            f"PipelineSpecEngine, P=2, M={PP_SPEC_MICROBATCHES}; (c) NCCL across GPUs when there "
+            "are several")
         summary["pp"] = pp_phase(card)
         lap("pp")
 
@@ -5780,7 +5933,7 @@ def main(argv=None) -> int:
     served += [lb.get("int8", {}), lb.get("int4", {}), lb.get("offload", {}),
                {"launches": lb.get("offload", {}).get("resident_launches", {})}, la.get("c", {})]
     pp = summary.get("pp", {})  # every rank's launches, each case's
-    served += [pp.get("pp-a", {}), pp.get("pp-b", {})]
+    served += [pp.get("pp-a", {}), pp.get("pp-b", {}), pp.get("pp-d", {})]
     offload = summary.get("offload", {})
     served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
     served.append(offload.get("mixtral", {}))

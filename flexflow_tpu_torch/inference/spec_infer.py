@@ -10,9 +10,10 @@ draft models, lossless greedy verification (or stochastic verification with
 
 Several drafts rotate, one a speculative iteration; ``--merge-ssm-trees``
 verifies all their trees in one merged pass instead (greedy requests only).
-Tensor and data parallelism serve over ``T * D`` ranks, one process each
-(under ``torchrun``; rank 0 prints); speculation under pipeline degrees
-above 1 (``--pp``) is refused (ROADMAP A9b). Legion resource flags (``-ll:*``) are ignored.
+Tensor and data parallelism serve over ``T * D`` ranks, and pipeline stages
+(``--pp P``, the verifier staged, each draft whole on every rank) over
+``P * T`` ranks, one process each (under ``torchrun``; rank 0 prints).
+Legion resource flags (``-ll:*``) are ignored.
 """
 
 import argparse

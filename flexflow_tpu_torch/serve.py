@@ -30,8 +30,10 @@ a co-scheduled finetuning session steps on every rank alike;
 ``compile(pipeline_parallelism_degree=P)`` serves over ``P * T`` ranks:
 each rank loads only its pipeline stage's layers (and its cut of them
 under ``T``) and serves through ``serving/pp_engine.PipelineInferenceEngine``
-(JAX's refusals kept: data > 1, LoRA with T > 1, offload; a draft model
-under pipeline stages is ROADMAP A9b). Context degrees above 1 are A10;
+(JAX's refusals kept: data > 1, LoRA with T > 1, offload, PEFT with drafts,
+merged trees); with draft models, through ``serving/pp_spec.PipelineSpecEngine``
+(the verifier staged, each draft whole on every rank; several drafts rotate
+over one staged verifier). Context degrees above 1 are A10;
 ``start_server`` under a mesh A10 (JAX's request broadcaster).
 """
 
@@ -51,6 +53,7 @@ from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lo
                                          unroute_lora)
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
+from flexflow_tpu_torch.serving.pp_spec import PipelineSpecEngine
 from flexflow_tpu_torch.serving.request_manager import FAILED, GenerationConfig, RequestManager
 from flexflow_tpu_torch.serving.spec_manager import (NO_ADAPTERS, MultiSSMSpecManager,
                                                      SpecRequestManager)
@@ -202,9 +205,10 @@ class LLM:
         are cut with the model; with ``offload`` every rank pins its own cut
         of the layers. ``pipeline_parallelism_degree`` P x the tensor degree
         serve through ``PipelineInferenceEngine``, each rank loading only its
-        stage; JAX's refusals are kept (data > 1, LoRA with T > 1, PEFT with
-        drafts, offload) and drafts under pipeline stages raise (A9b).
-        Context degrees above 1 raise (A10)."""
+        stage; with drafts, ``PipelineSpecEngine`` (each draft loaded whole on
+        every rank). JAX's refusals are kept (data > 1, LoRA with T > 1, PEFT
+        with drafts, offload, merged trees of several drafts). Context
+        degrees above 1 raise (A10)."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
@@ -232,9 +236,9 @@ class LLM:
                 raise NotImplementedError(
                     "--offload under pipeline_parallelism_degree>1 is not supported "
                     "(stage-resident weights already hold only 1/P of the stack per device)")
-            if self._ssms:
-                raise NotImplementedError("speculative decoding under pipeline stages is not in "
-                                          "the port yet (ROADMAP.md Queue A, A9b)")
+            if merge_ssm_trees and len(self._ssms) > 1:
+                raise NotImplementedError("merge_ssm_trees with pipeline parallelism is not "
+                                          "supported; use rotation (merge_ssm_trees=False)")
         self.mesh = self._make_mesh(*degrees)
         if self._ssms and offload:
             raise NotImplementedError("CPU offload (A7b) serves the incremental engine only; "
@@ -248,15 +252,23 @@ class LLM:
         if self._ssms:
             engines = []
             for ssm in self._ssms:
-                # the first engine fuses and places the verifier; the others
-                # take its tensors and its cache
+                # the first engine fuses and places (or stages) the verifier;
+                # the others take its tensors and its cache
                 first = engines[0] if engines else None
-                engines.append(SpecEngine(
-                    self.spec, first.llm_params if first else self.params, ssm.spec,
-                    ssm._load_params(mesh=self.mesh), beam_width=beam_width,
-                    beam_depth=beam_depth, max_requests_per_batch=max_requests_per_batch,
-                    max_seq_len=max_seq_length, cache_dtype=self.dtype, device=self.device,
-                    llm_cache=first.llm_cache if first else None, mesh=self.mesh))
+                kw = dict(beam_width=beam_width, beam_depth=beam_depth,
+                          max_requests_per_batch=max_requests_per_batch,
+                          max_seq_len=max_seq_length, cache_dtype=self.dtype, device=self.device)
+                if use_pp:  # the draft whole on every rank, as JAX loads it
+                    engines.append(PipelineSpecEngine(
+                        self.spec, None if first else self.params, ssm.spec,
+                        ssm._load_params(), mesh=self.mesh,
+                        shared_pp=first._pp if first else None, **kw))
+                else:
+                    engines.append(SpecEngine(
+                        self.spec, first.llm_params if first else self.params, ssm.spec,
+                        ssm._load_params(mesh=self.mesh),
+                        llm_cache=first.llm_cache if first else None, mesh=self.mesh, **kw))
+            self.params = engines[0].llm_params  # the engines' tree (fused): no second copy
             if len(engines) > 1:
                 self.rm = MultiSSMSpecManager(engines, merged=merge_ssm_trees,
                                               fused=not merge_ssm_trees)

@@ -89,6 +89,15 @@ def _log_softmax_topk(logits: torch.Tensor, k: int):
     return vals, idx.to(torch.int32)
 
 
+def draft_window(max_len: int, max_seq_len: int) -> Optional[int]:
+    """The draft's cache-read window: a power of two from 128 covering
+    ``max_len``, None once it reaches the full cache. ``max_len`` must bound
+    every active slot's committed length when the step runs (pipelined
+    callers add in-flight iterations x (depth + 1))."""
+    w = _round_up_pow2(max(int(max_len), 1), 128)
+    return None if w >= max_seq_len else w
+
+
 def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int, shard=None):
     """The draft-tree expansion as a function ``draft_phase(ssm_params,
     ssm_cache, cache_lens, roots, window=None) -> (tree_tokens [B, T],
@@ -207,6 +216,48 @@ def greedy_accept_walk(expected, tree_tokens, tree_parents, depth: int):
     return produced, n_acc, from_slots
 
 
+def prefill_into(spec: ModelSpec, params, cache: KVCache, prompts, slots, bucket: int, *,
+                 shard=None) -> torch.Tensor:
+    """One causal forward of ``prompts`` (padded to ``bucket``) through the
+    flash-prefill kernel, each layer's K/V written into ``cache``'s rows
+    ``slots``; returns the logits at each prompt's last position [NB, V]."""
+    nb, dev = len(prompts), cache.k.device
+    padded = np.zeros((nb, bucket), np.int32)
+    lengths = np.zeros((nb,), np.int32)
+    for i, p in enumerate(prompts):
+        if len(p) > cache.max_seq_len:
+            raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {cache.max_seq_len}")
+        padded[i, :len(p)] = p
+        lengths[i] = len(p)
+    lens_d = to_device(lengths, dev)
+    positions = torch.arange(bucket, dtype=torch.int32, device=dev)[None].expand(nb, bucket)
+    starts = np.zeros(nb, np.int64)
+
+    def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows
+        decoder.commit_kv_windows(
+            cache.k[layer:layer + 1], cache.v[layer:layer + 1],
+            k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
+            v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
+
+    with torch.no_grad():
+        return decoder.forward(spec, params, to_device(padded, dev), positions, lengths=lens_d,
+                               flash=True, kv_sink=sink, logits_at=lens_d - 1, shard=shard)[0]
+
+
+def sample_walk(key: int, scfg: SamplingConfig, width: int, depth: int, row_offset: int = 0):
+    """A walk ``walk(logits [B, T, V], tree_tokens, tree_parents)`` that
+    verifies stochastically against each row's target distribution
+    (``scfg`` fields [B] on the device); row r draws from ``fold_in(key,
+    row_offset + r)``."""
+    def walk(logits, tree_tokens, tree_parents):
+        b, t, v = logits.shape
+        rep = SamplingConfig(*(torch.repeat_interleave(f, t) for f in scfg))
+        p_tree = sampling_lib.target_probs(logits.reshape(b * t, v), rep).reshape(b, t, v)
+        return tree_sample_walk(p_tree, tree_tokens, tree_parents, key, width=width,
+                                depth=depth, row_offset=row_offset)
+    return walk
+
+
 class SpecEngine:
     """Draft expansion, tree verification and KV commit for one verifier and
     one draft model, with both KV caches on one device."""
@@ -239,8 +290,8 @@ class SpecEngine:
         if t > MAX_SPEC_TREE_TOKEN_NUM:
             raise ValueError(f"tree {t} exceeds the cap {MAX_SPEC_TREE_TOKEN_NUM}")
         if mesh is not None and mesh.pipe > 1:
-            raise NotImplementedError("speculative decoding under pipeline stages is not in the "
-                                      "port yet (ROADMAP.md Queue A, A9b)")
+            raise ValueError("a mesh with pipeline stages is served by "
+                             "serving/pp_spec.PipelineSpecEngine")
         self.device = resolve_device(device if mesh is None or device is not None
                                      else mesh.device)
         self.mesh = mesh
@@ -297,12 +348,7 @@ class SpecEngine:
             top_p=self._h(scfg.top_p, np.float32), top_k=self._h(scfg.top_k, np.int32))
 
     def attn_window_bucket(self, max_len: int):
-        """Cache-read window: a power of two from 128 covering ``max_len``,
-        None once it reaches the full cache. ``max_len`` must bound every
-        active slot's committed length when the step runs (pipelined callers
-        add in-flight iterations x (depth + 1))."""
-        w = _round_up_pow2(max(int(max_len), 1), 128)
-        return None if w >= self.max_seq_len else w
+        return draft_window(max_len, self.max_seq_len)
 
     def window_buckets(self):
         """Every value ``attn_window_bucket`` can return: the powers of two
@@ -323,36 +369,6 @@ class SpecEngine:
     # admission
     # ------------------------------------------------------------------
 
-    def _prefill_into(self, spec, params, cache, prompts, slots, bucket: int):
-        """One causal forward of ``prompts`` (padded to ``bucket``) through
-        the flash-prefill kernel, each layer's K/V written into this rank's
-        cache rows ``slots``; returns the logits at each prompt's last
-        position [NB, V]."""
-        nb = len(prompts)
-        padded = np.zeros((nb, bucket), np.int32)
-        lengths = np.zeros((nb,), np.int32)
-        for i, p in enumerate(prompts):
-            if len(p) > self.max_seq_len:
-                raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {self.max_seq_len}")
-            padded[i, :len(p)] = p
-            lengths[i] = len(p)
-        lens_d = self._h(lengths)
-        positions = torch.arange(bucket, dtype=torch.int32, device=self.device)[None].expand(
-            nb, bucket)
-        starts = np.zeros(nb, np.int64)
-
-        def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows
-            decoder.commit_kv_windows(
-                cache.k[layer:layer + 1], cache.v[layer:layer + 1],
-                k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
-                v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
-
-        with torch.no_grad():
-            shard = self.llm_shard if params is self.llm_params else self.ssm_shard
-            return decoder.forward(spec, params, self._h(padded), positions, lengths=lens_d,
-                                   flash=True, kv_sink=sink, logits_at=lens_d - 1,
-                                   shard=shard)[0]
-
     def prefill_both_batch(self, prompts, slots, key: Optional[int] = None,
                            scfg: Optional[SamplingConfig] = None):
         """Admit several requests into both caches (one causal forward of
@@ -364,9 +380,10 @@ class SpecEngine:
         toks = None
         if mine:
             ps, ss = [prompts[i] for i in mine], [slots[i] - self.slots.lo for i in mine]
-            last = self._prefill_into(self.llm_spec, self.llm_params, self.llm_cache, ps, ss,
-                                      bucket)
-            self._prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache, ps, ss, bucket)
+            last = prefill_into(self.llm_spec, self.llm_params, self.llm_cache, ps, ss, bucket,
+                                shard=self.llm_shard)
+            prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache, ps, ss, bucket,
+                         shard=self.ssm_shard)
             with torch.no_grad():
                 if scfg is None:
                     toks = torch.argmax(last, dim=-1)
@@ -386,9 +403,9 @@ class SpecEngine:
         bucket = self._bucket(prompts)
         mine = self.slots.rows(slots)
         if mine:
-            self._prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache,
-                               [prompts[i] for i in mine],
-                               [slots[i] - self.slots.lo for i in mine], bucket)
+            prefill_into(self.ssm_spec, self.ssm_params, self.ssm_cache,
+                         [prompts[i] for i in mine], [slots[i] - self.slots.lo for i in mine],
+                         bucket, shard=self.ssm_shard)
 
     def catchup(self, ssm_lens, tokens) -> None:
         """Advance the draft cache over already committed tokens: one
@@ -549,19 +566,6 @@ class SpecEngine:
         expected = torch.argmax(logits, dim=-1)
         return greedy_accept_walk(expected, tree_tokens, tree_parents, self.depth)
 
-    def _sample_walk(self, key: int, scfg: SamplingConfig):
-        """A walk that verifies stochastically against each slot's target
-        distribution (``scfg`` fields [B] on the device; this data rank's
-        slots, whose global indices seed the walk)."""
-        def walk(logits, tree_tokens, tree_parents):
-            b, t, v = logits.shape
-            rep = SamplingConfig(*(torch.repeat_interleave(f, t) for f in scfg))
-            p_tree = sampling_lib.target_probs(logits.reshape(b * t, v), rep).reshape(b, t, v)
-            return tree_sample_walk(p_tree, tree_tokens, tree_parents, key,
-                                    width=self.width, depth=self.depth,
-                                    row_offset=self.slots.lo)
-        return walk
-
     def fused_step(self, cache_lens, root_tokens, window=None) -> Tuple[np.ndarray, np.ndarray]:
         """One speculative iteration; returns host (produced [B, depth+1],
         n_acc [B]) with both caches committed."""
@@ -655,7 +659,9 @@ class SpecEngine:
         lens, roots, produced, n_acc = sl.local(lens_dev), sl.local(roots_dev), [], []
         with torch.no_grad():
             for i in range(n):
-                walk = self._sample_walk(sampling_lib.fold_in(key, i), sc)
+                # this data rank's slots: their global indices seed the walk
+                walk = sample_walk(sampling_lib.fold_in(key, i), sc, self.width, self.depth,
+                                   row_offset=self.slots.lo)
                 p, a, lens, roots = self._fused_iteration(lens, roots, walk, window)
                 produced.append(p)
                 n_acc.append(a)

@@ -278,8 +278,9 @@ def test_tp8_pipelined_and_jax_mesh_engine(tmp_path, unfused_jax):
 
 
 def test_refusals():
-    """Context degrees (A10) and a draft under pipeline stages (A9b);
-    start_server under a mesh (A10). Pipeline stages are taken
+    """Context degrees (A10); ``SpecEngine`` on a pipe mesh names
+    ``PipelineSpecEngine``, and PEFT with drafts under pipeline stages
+    raises; start_server under a mesh (A10). Pipeline stages are taken
     (``test_torch_port_pp_serving``), as is LoRA under a mesh (the rank's
     cut of the stacks: ``test_torch_port_mesh_lora``), the PEFT CLI's mesh
     and offload under a mesh (``test_torch_port_mesh_layouts``)."""
@@ -288,17 +289,20 @@ def test_refusals():
     from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
     from flexflow_tpu_torch.serve import LLM, SSM
     from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.speculative import SpecEngine
 
     with pytest.raises(NotImplementedError, match="A10"):
         make_mesh(pipe=2, seq=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         make_mesh(model=2, seq=2, device="cpu")
     drafted = LLM.__new__(LLM)
-    drafted._ssms, drafted._peft, drafted.quant_bits = [SSM.__new__(SSM)], [], None
-    with pytest.raises(NotImplementedError, match="A9b"):
+    drafted._ssms, drafted._peft, drafted.quant_bits = [SSM.__new__(SSM)], [None], None
+    with pytest.raises(NotImplementedError, match="PEFT with speculative decoding under PP"):
         drafted.compile(pipeline_parallelism_degree=2)
     spec = _tspec(SPEC)
     params = tp.init_params(spec, 0)
+    with pytest.raises(ValueError, match="PipelineSpecEngine"):
+        SpecEngine(spec, params, spec, params, device="cpu", mesh=Mesh.fake(1, 1, 0, pipe=2))
     mesh = Mesh.fake(1, 2, 0)
     lora = {m: {"a": torch.zeros(2, 1, i, 4), "b": torch.zeros(2, 1, 4, 64)}
             for m, i in (("wq", 64), ("wd", 128))}

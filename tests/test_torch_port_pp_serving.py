@@ -6,6 +6,9 @@ spec (4 layers, hidden 64, f32 cache):
 - P = 2, P = 4 and P = 2 x T = 2 give JAX's one-device ``InferenceEngine``
   tokens; P = 2 and P = 2 x T = 2 also give JAX's own
   ``PipelineInferenceEngine``'s on the virtual CPU devices;
+- under a stage, the layouts JAX's one-device engine is held to: GQA (8
+  heads on 4 KV heads) and MQA at P = 2 x T = 2, a Mixtral (MoE) spec and
+  JAX's INT8 and INT4 carriers at P = 2;
 - ALiBi, the stepwise horizon (M < P), the overlapped one (M = P, and M = 2P
   with tokens banked), chunked prefill with a partial last chunk and a final
   window past the cache end, and LoRA at T = 1 through a non-pipelined
@@ -24,13 +27,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_mesh_serving import (_all_ranks, _jax_params, _join, _prompts, _start,
-                                          _tspec)
+from test_torch_port_mesh_serving import (MIXTRAL, MQA, _all_ranks, _jax_params, _join, _prompts,
+                                          _start, _tspec)
 
 SPEC = dict(arch="LlamaForCausalLM", vocab_size=256, hidden_size=64, num_layers=4,
             num_heads=8, num_kv_heads=8, head_dim=8, intermediate_size=128,
             max_position_embeddings=256, norm_eps=1e-6)
 ALIBI = dict(SPEC, pos="alibi")
+GQA = dict(SPEC, num_kv_heads=4)
 ENGINE = dict(max_requests_per_batch=4, max_seq_len=128)
 HORIZON = dict(decode_horizon=8, pipelined=True)
 CHUNK_PROMPTS = [list(range(2, 30)), [7, 8, 9], list(range(40, 60)), [5]]  # 28 = 3 x 8 + 4
@@ -174,12 +178,16 @@ def test_two_stages_equal_jax(tmp_path):
     (tokens banked), the stepwise one at M = 1, chunked prefill with a
     partial last chunk and a final window past the cache end, LoRA at T = 1
     through a non-pipelined manager with a horizon, a sampled overlapped
-    horizon against the port's one-device draws, and stage residency."""
+    horizon against the port's one-device draws, and stage residency; a
+    Mixtral spec and JAX's INT8 and INT4 carriers against JAX's one-device
+    engine."""
     from flexflow_tpu.parallel import make_mesh as j_make_mesh
 
     js, jparams, npp = _jax_params(SPEC, 0)
     ja, jalibi, nalibi = _jax_params(ALIBI, 3)
     jlora, nlora = _jax_lora(js)
+    others = {"mixtral": (MIXTRAL, _jax_params(MIXTRAL, 2)),
+              **{f"int{bits}": (SPEC, _jax_params(SPEC, 5, bits)) for bits in (8, 4)}}
     prompts = _prompts()
     base = dict(kind="serve", spec=SPEC, params=npp, prompts=prompts, max_new=24, mesh=(2, 1))
     cases = [
@@ -196,11 +204,14 @@ def test_two_stages_equal_jax(tmp_path):
         dict(base, kind="sampled", name="sampled"),
         dict(base, kind="residency", name="resident"),
     ]
-    started = _start(tmp_path, 2, cases, runner=run_pp_cases)
+    layouts = [dict(base, name=name, spec=kw, params=jax_p[2], max_new=12, rm=HORIZON)
+               for name, (kw, jax_p) in others.items()]
+    started = _start(tmp_path, 2, cases + layouts, runner=run_pp_cases)
     want = {c["name"]: _jax_run(ja if c["spec"] is ALIBI else js,
                                 jalibi if c["spec"] is ALIBI else jparams, c,
                                 lora=jlora if "lora" in c else None)
             for c in cases if c["kind"] == "serve"}
+    want.update({c["name"]: _jax_run(*others[c["name"]][1][:2], c) for c in layouts})
     want_pp = _jax_run(js, jparams, cases[0], mesh=j_make_mesh(pipe=2))
     want["chunk-end"] = _jax_run(js, jparams, dict(cases[6], engine=dict(max_seq_len=64)))
     sampled = _sampled_horizon(cases[8], None)  # the port's one device
@@ -222,12 +233,13 @@ def test_two_stages_equal_jax(tmp_path):
 
 def test_four_ranks_pipe4_and_pipe2_by_tensor2_equal_jax(tmp_path):
     """P = 4 and P = 2 x T = 2 over four ranks: JAX's one-device tokens
-    (greedy, the overlapped horizon, ALiBi and chunked prefill at
+    (greedy, the overlapped horizon, ALiBi, chunked prefill, GQA and MQA at
     P = 2 x T = 2), and at P = 2 x T = 2 JAX's pipeline engine's."""
     from flexflow_tpu.parallel import make_mesh as j_make_mesh
 
     js, jparams, npp = _jax_params(SPEC, 5)
     ja, jalibi, nalibi = _jax_params(ALIBI, 4)
+    heads = {"p2t2-gqa": (GQA, _jax_params(GQA, 6)), "p2t2-mqa": (MQA, _jax_params(MQA, 7))}
     prompts = _prompts(4)
     base = dict(kind="serve", spec=SPEC, params=npp, prompts=prompts, max_new=16)
     cases = [dict(base, name="p4", mesh=(4, 1)),
@@ -238,10 +250,13 @@ def test_four_ranks_pipe4_and_pipe2_by_tensor2_equal_jax(tmp_path):
              dict(base, name="p2t2-chunk", mesh=(2, 2), prompts=CHUNK_PROMPTS,
                   engine=dict(max_tokens_per_batch=8)),
              dict(base, kind="residency", name="resident", mesh=(2, 2))]
-    started = _start(tmp_path, 4, cases, runner=run_pp_cases)
+    layouts = [dict(base, name=name, spec=kw, params=jax_p[2], mesh=(2, 2), rm=HORIZON)
+               for name, (kw, jax_p) in heads.items()]
+    started = _start(tmp_path, 4, cases + layouts, runner=run_pp_cases)
     want = {c["name"]: _jax_run(ja if c["spec"] is ALIBI else js,
                                 jalibi if c["spec"] is ALIBI else jparams, c)
             for c in cases if c["kind"] == "serve"}
+    want.update({c["name"]: _jax_run(*heads[c["name"]][1][:2], c) for c in layouts})
     want_pp = _jax_run(js, jparams, cases[2], mesh=j_make_mesh(pipe=2, model=2))
     res = _join(tmp_path, 4, started)
     for name, tokens in want.items():
@@ -347,8 +362,11 @@ def test_mesh_coordinates_equal_jax_grid():
 def test_refusals():
     """Every refusal under pipeline stages raises and names its label: data
     > 1, ``L % P``, ``B % M`` and LoRA with T > 1 in the engine (JAX's
-    words); drafts (A9b), offload, LoRA with T > 1 and data > 1 in
-    ``LLM.compile``; ``SpecEngine`` (A9b); the Trainer and finetuning (A9c);
+    words), and data > 1, ``B % M``, a vocabulary mismatch and a tree over
+    the cap in ``PipelineSpecEngine``; merged trees of several drafts,
+    offload, LoRA with T > 1, PEFT with drafts and data > 1 in
+    ``LLM.compile``; ``SpecEngine`` names ``PipelineSpecEngine``; the
+    Trainer and finetuning (A9c);
     the one-device engine takes no pipe mesh; ``make_mesh(seq=2)`` (A10);
     ``layout_mesh`` with pipe > 1 (A11c, A9c)."""
     from flexflow_tpu_torch.models import params as tp
@@ -359,6 +377,7 @@ def test_refusals():
     from flexflow_tpu_torch.serve import LLM, SSM
     from flexflow_tpu_torch.serving.engine import InferenceEngine
     from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
+    from flexflow_tpu_torch.serving.pp_spec import PipelineSpecEngine
     from flexflow_tpu_torch.serving.speculative import SpecEngine
     from flexflow_tpu_torch.training import SGDOptimizer, Trainer
 
@@ -377,8 +396,19 @@ def test_refusals():
         PipelineInferenceEngine(spec, params, mesh=Mesh.fake(1, 2, 0, pipe=2), lora=lora, **pp)
     with pytest.raises(ValueError, match="PipelineInferenceEngine"):
         InferenceEngine(spec, params, device="cpu", mesh=Mesh.fake(1, 1, 0, pipe=2))
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(ValueError, match="PipelineSpecEngine"):
         SpecEngine(spec, params, spec, params, device="cpu", mesh=Mesh.fake(1, 1, 0, pipe=2))
+    staged = Mesh.fake(1, 1, 0, pipe=2)
+    with pytest.raises(NotImplementedError, match="requires data axis == 1"):
+        PipelineSpecEngine(spec, params, spec, params, mesh=Mesh.fake(2, 1, 0, pipe=2), **pp)
+    with pytest.raises(ValueError, match="not divisible by microbatches 3"):
+        PipelineSpecEngine(spec, params, spec, params, mesh=staged, num_microbatches=3, **pp)
+    with pytest.raises(ValueError, match="one vocabulary"):
+        PipelineSpecEngine(spec, params, _tspec(dict(SPEC, vocab_size=128)), params,
+                           mesh=staged, **pp)
+    with pytest.raises(ValueError, match="exceeds the cap 64"):
+        PipelineSpecEngine(spec, params, spec, params, mesh=staged, beam_width=3, beam_depth=22,
+                           **pp)
     with pytest.raises(NotImplementedError, match="A9c"):
         Trainer(spec, params, SGDOptimizer(lr=0.1), pipeline_stages=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A9c"):
@@ -403,7 +433,8 @@ def test_refusals():
     ssm = SSM.__new__(SSM)
     cfg = (LoraConfig(), None)
     for what, model, kw in (
-            ("A9b", llm(), dict(ssms=[ssm])),
+            ("merge_ssm_trees with pipeline parallelism", llm(),
+             dict(ssms=[ssm, ssm], merge_ssm_trees=True)),
             ("offload", llm(), dict(offload=True)),
             ("tensor_parallelism_degree == 1", llm(peft=[cfg]), dict(tensor_parallelism_degree=2)),
             ("PEFT with speculative", llm(ssms=[ssm], peft=[cfg]), {}),
