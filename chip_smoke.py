@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only card,build,meshtrain
     python3 chip_smoke.py --only card,build,layouts
     python3 chip_smoke.py --only card,build,pp
+    python3 chip_smoke.py --only card,build,pptrain
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -401,7 +402,29 @@ Phases, in order; any failure exits non-zero:
               and tok/s beside the spec phase's. (c) With more than one GPU,
               (a), (b) and (d) over NCCL at min(4, count) ranks; otherwise
               it says why it did not run.
-20. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+20. pptrain — training under pipeline stages (``parallel/pipeline.py``'s GPipe
+              step and ``pipeline_forward``, ``Trainer(pipeline_stages=)``). Two
+              ranks share the card over gloo (spawned): (a) the Trainer at
+              LLaMA-2-7B width, ``PT_LAYERS`` = 4 layers (two a stage), f32,
+              P = 2, ``PT_MICROBATCHES`` = 2, on the meshtrain phase's seeded
+              ``TRAIN_BATCH`` x ``TRAIN_LEN`` batch, ``MT_STEPS`` SGD steps at
+              ``MT_SGD_LR``: every rank's losses equal, within ``PT_LOSS_REL``
+              relative of the one-device Trainer's (run on rank 0 from the same
+              parameters), the gathered ``full_params()`` within
+              ``PT_PARAMS_REL`` of each leaf's magnitude; each rank holds its
+              stage's layers and top leaves, about half the parameters (their
+              sum one device's); stage 0 sends ``MT_STEPS`` x M forward hops,
+              stage 1 as many backward hops (gradients). (b)
+              ``pipeline_forward`` over ``PT_SIZES`` = [3, 1] stages on the same
+              layers: finite f32 logits of the batch's shape within
+              ``PT_LOGITS_REL`` of one device's ``decoder.forward``. Prints each
+              rank's GiB beside one device's, the hops and bytes in each
+              direction, the step ms beside one device's (two ranks on one
+              card over gloo: no pipeline speed). No port kernel may launch
+              (the Trainer's plain attention and cuBLAS in f32). (c) With more
+              than one GPU, (a) and (b) over NCCL on two; otherwise it says why
+              it did not run.
+21. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -440,7 +463,7 @@ PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
           "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "tp", "meshtrain",
-          "layouts", "pp", "profile")
+          "layouts", "pp", "pptrain", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -4370,10 +4393,10 @@ TP_CASES = {"b": _tp_case_b, "c": _tp_case_c, "d": _tp_case_d, "e": _tp_case_e}
 
 
 def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
-    """One rank of the tp, meshtrain, layouts and pp phases' spawned cases:
+    """One rank of the tp, meshtrain, layouts, pp and pptrain phases' spawned cases:
     ``backend`` gloo shares card 0, NCCL takes card ``rank``. Each case
     builds its own mesh over the group (all ranks on ``data`` for (c),
-    meshtrain's (c) and layouts' (b), on ``pipe`` for pp's, else on
+    meshtrain's (c) and layouts' (b), on ``pipe`` for pp's and pptrain's, else on
     ``model``); the results go to ``tmp`` for the parent to hold against
     one device."""
     import torch
@@ -4395,9 +4418,10 @@ def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
         for case in cases:
             t0 = time.perf_counter()
             degrees = (dict(data=world) if case in ("c", "mt-c", "la-b") else
-                       dict(pipe=world) if case in PP_CASES else dict(model=world))
+                       dict(pipe=world) if case in {**PP_CASES, **PT_CASES} else dict(model=world))
             mesh = make_mesh(**degrees, backend=backend, device=dev)
-            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES, **PP_CASES}[case](mesh, dev, None)
+            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES, **PP_CASES, **PT_CASES}[case](
+                mesh, dev, None)
             out[case]["seconds"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
@@ -5725,6 +5749,164 @@ def pp_phase(card: str) -> dict:
         f"it [{card}]")
     return out
 
+# ---------------------------------------------------------------------------
+# training under pipeline stages (the pptrain phase)
+# ---------------------------------------------------------------------------
+
+PT_LAYERS = 4  # (a), (b): LLaMA-2-7B width, f32, two layers a stage at P = 2
+PT_MICROBATCHES = 2  # M = P
+PT_SIZES = (3, 1)  # (b)'s uneven stages
+# (a)'s losses against one device's Trainer: the microbatches' sums run in
+# another order than one device's
+PT_LOSS_REL = 1e-5
+PT_PARAMS_REL = 1e-4  # (a)'s full_params() against one device's, of each leaf's magnitude
+PT_LOGITS_REL = 1e-4  # (b)'s logits against one device's decoder.forward, of their magnitude
+
+
+def _pt_case(mesh, dev, refs) -> dict:
+    """(a) and (b) on this rank of a P = 2 mesh: the Trainer through the
+    GPipe step, its gathered parameters, then ``pipeline_forward`` over
+    PT_SIZES stages. Rank 0 then runs the one-device side of both."""
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.parallel.pipeline import pipeline_forward
+    from flexflow_tpu_torch.specs import ModelSpec
+    from flexflow_tpu_torch.training import SGDOptimizer, Trainer
+
+    _launches(reset=True)
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": PT_LAYERS})
+    params = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                    torch.float32, dev)
+    bx, by = _mt_batch(spec.vocab_size)
+    tr = Trainer(spec, params, SGDOptimizer(lr=MT_SGD_LR), mesh=mesh, pipeline_stages=mesh.pipe,
+                 num_microbatches=PT_MICROBATCHES)
+    out = dict(rank_gib=_tree_gib(tr.params), one_gib=_tree_gib(params), stage=mesh.pipe_rank,
+               layers=tr.shard.layers, top=sorted(k for k in tr.params if k != "layers"))
+    hops0, bytes0 = mesh.hops, mesh.hop_bytes
+    out["losses"], out["step_ms"] = _mt_trainer_run(tr, bx, by)
+    out.update(hops=mesh.hops - hops0, hop_bytes=mesh.hop_bytes - bytes0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    full = tr.full_params()  # a collective: every rank gathers
+    del tr
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(bx).to(dev)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=dev)[None].expand(
+        *tokens.shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = pipeline_forward(spec, params, tokens, positions, mesh=mesh,
+                              num_microbatches=PT_MICROBATCHES, stage_sizes=PT_SIZES)
+    torch.cuda.synchronize()
+    out["uneven_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["launches"] = _launches()
+    if mesh.rank == 0:
+        with torch.no_grad():
+            want, _ = decoder.forward(spec, params, tokens, positions)
+        out["uneven_rel"] = ((logits - want).abs().max() / want.abs().max()).item()
+        out["logits_shape"] = tuple(logits.shape)
+        out["logits_finite"] = bool(torch.isfinite(logits).all())
+        del want, logits
+        ref = Trainer(spec, params, SGDOptimizer(lr=MT_SGD_LR), device=dev)
+        out["ref_losses"], out["ref_step_ms"] = _mt_trainer_run(ref, bx, by)
+        mine = dict(_param_leaves(full))
+        worst, worst_leaf = 0.0, ""
+        for name, want in _param_leaves(ref.params):
+            rel = ((mine.pop(name) - want.detach()).abs().max() / want.detach().abs().max()).item()
+            if rel > worst:
+                worst, worst_leaf = rel, name
+        out.update(params_rel=worst, params_worst_leaf=worst_leaf, params_extra=sorted(mine))
+        del ref
+    del full, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+PT_CASES = {"pt": _pt_case}
+
+
+def _pt_check(what: str, ranks: list, card: str) -> dict:
+    """Every rank's losses equal; rank 0's against one device; each rank's
+    stage, leaves, GiB and hops; no port kernel launched."""
+    p, r0 = len(ranks), ranks[0]["pt"]
+    rs = [r["pt"] for r in ranks]
+    require(all(r["losses"] == r0["losses"] for r in rs[1:]),
+            f"pptrain {what}: the ranks disagree on the losses")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
+    require(rel <= PT_LOSS_REL, f"pptrain (a) {what}: losses {r0['losses']} against one "
+                                f"device's {r0['ref_losses']}")
+    require(r0["params_rel"] <= PT_PARAMS_REL and not r0["params_extra"],
+            f"pptrain (a) {what}: full_params {r0['params_worst_leaf']} off by "
+            f"{r0['params_rel']} of its magnitude, extra leaves {r0['params_extra']}")
+    require(r0["logits_finite"] and r0["logits_shape"] == (TRAIN_BATCH, TRAIN_LEN,
+                                                           LLAMA2_7B["vocab_size"]),
+            f"pptrain (b) {what}: logits {r0['logits_shape']}, finite {r0['logits_finite']}")
+    require(r0["uneven_rel"] <= PT_LOGITS_REL,
+            f"pptrain (b) {what}: stages {PT_SIZES} logits {r0['uneven_rel']} off one device's")
+    one_gib = r0["one_gib"]
+    depth = PT_LAYERS // p
+    for s, r in enumerate(rs):
+        want_top = (["embed_tokens"] if s == 0 else []) + (
+            ["final_norm_scale", "lm_head"] if s == p - 1 else [])
+        require(tuple(r["layers"]) == (s * depth, (s + 1) * depth) and r["top"] == want_top,
+                f"pptrain {what}: rank {s} holds layers {r['layers']} and top leaves {r['top']}")
+        require(r["hops"] == MT_STEPS * PT_MICROBATCHES,
+                f"pptrain {what}: rank {s} sent {r['hops']} hops")
+        launched = {k: v for k, v in r["launches"].items() if v}
+        require(not launched, f"pptrain {what}: rank {s} launched port kernels {launched}")
+        log(f"  pptrain (a) {what} rank {s}: layers {r['layers'][0]}-{r['layers'][1] - 1} and "
+            f"{r['top']}, {r['rank_gib']:.3f} GiB of parameters against one device's "
+            f"{one_gib:.3f} ({r['rank_gib'] / one_gib:.1%}); sent {r['hops']} "
+            f"{'forward' if s < p - 1 else 'backward'} hops, {r['hop_bytes']} bytes "
+            f"({'hidden states' if s < p - 1 else 'their gradients'}); peak "
+            f"{r['peak_gib']:.2f} GiB allocated [{card}]")
+    require(abs(sum(r["rank_gib"] for r in rs) - one_gib) < 1e-6 and
+            max(r["rank_gib"] for r in rs) <= 0.6 * one_gib,
+            f"pptrain {what}: the ranks hold {[r['rank_gib'] for r in rs]} GiB of {one_gib}")
+    step = sum(r0["step_ms"][1:]) / (MT_STEPS - 1)
+    ref_step = sum(r0["ref_step_ms"][1:]) / (MT_STEPS - 1)
+    log(f"  pptrain (a) P={p} M={PT_MICROBATCHES} {what}, {PT_LAYERS} layers, {TRAIN_BATCH} x "
+        f"{TRAIN_LEN} tokens, {MT_STEPS} SGD steps: losses {r0['losses']} against one device's "
+        f"{r0['ref_losses']} (within {rel:.3g} relative), full_params within "
+        f"{r0['params_rel']:.3g} of each leaf's magnitude; step {step:.1f} ms against one "
+        f"device's {ref_step:.1f} (steps after the first; two ranks share one card over gloo: "
+        f"no pipeline speed) [{card}]")
+    log(f"  pptrain (b) {what}: pipeline_forward over stages {list(PT_SIZES)}: logits within "
+        f"{r0['uneven_rel']:.3g} of one device's magnitude, {r0['uneven_ms']:.1f} ms [{card}]")
+    return dict(losses=r0["losses"], ref_losses=r0["ref_losses"], loss_rel=rel,
+                params_rel=r0["params_rel"], uneven_rel=r0["uneven_rel"], step_ms=step,
+                ref_step_ms=ref_step, rank_gib=[r["rank_gib"] for r in rs], one_gib=one_gib,
+                hops=[r["hops"] for r in rs], hop_bytes=[r["hop_bytes"] for r in rs],
+                uneven_ms=r0["uneven_ms"], seconds=[r["seconds"] for r in rs])
+
+
+def pptrain_phase(card: str) -> dict:
+    """Training under pipeline stages (see the module docstring, phase
+    pptrain): two ranks sharing the card over gloo, spawned; (c) NCCL over
+    two GPUs when the machine has them."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pt_")
+    try:
+        out.update(_pt_check("over gloo", _spawn_tp(2, "gloo", tmp, tuple(PT_CASES), 600), card))
+        n = torch.cuda.device_count()
+        if n > 1:
+            out["c"] = _pt_check("over NCCL", _spawn_tp(2, "nccl", tmp, tuple(PT_CASES), 600),
+                                 card)
+        else:
+            log(f"  pptrain (c) did not run: the machine shows {n} GPU (NCCL takes one device a "
+                "rank)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  pptrain phase wall {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -5914,6 +6096,13 @@ def main(argv=None) -> int:
             "are several")
         summary["pp"] = pp_phase(card)
         lap("pp")
+    if "pptrain" in phases:
+        log(f"[pptrain] training under pipeline stages, two ranks sharing the card over gloo: (a) "
+            f"the Trainer at LLaMA-2-7B width, {PT_LAYERS} layers, f32, P=2, M={PT_MICROBATCHES}, "
+            f"{MT_STEPS} SGD steps on {TRAIN_BATCH} x {TRAIN_LEN} tokens; (b) pipeline_forward "
+            f"over stages {list(PT_SIZES)}; (c) NCCL across GPUs when there are several")
+        summary["pptrain"] = pptrain_phase(card)
+        lap("pptrain")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a

@@ -2,9 +2,8 @@
 parallelism over ``torch.distributed`` ranks, for serving and training,
 with collectives autograd understands; ``hybrid_ffn`` and expert
 parallelism for serving; pipeline stages for serving, speculation included,
-with the stage hops of ``mesh`` and the stage cut of ``pipeline``) and the
-search over placements on one device (port of ``flexflow_tpu/parallel``'s
-``mesh``, ``sharding``, ``auto``, ``joint``, ``topology`` and
-``pipeline``'s ``stage_params`` and ``balance_stages``). Training under
-pipeline stages, the multi-process controller and the search on a mesh
-are ROADMAP A9c, A10 and A11c."""
+and for training, with the stage hops of ``mesh`` and the stage cut and
+GPipe loop of ``pipeline``) and the search over placements on one device
+(port of ``flexflow_tpu/parallel``'s ``mesh``, ``sharding``, ``auto``,
+``joint``, ``topology`` and ``pipeline``). The multi-process controller
+and the search on a mesh are ROADMAP A10 and A11c."""

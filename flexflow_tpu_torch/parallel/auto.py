@@ -25,8 +25,8 @@ Differences from the JAX module:
   ``Layout(1, 1, 1)`` and refuses any other layout, and
   ``optimize_train_layout`` / ``optimize_serving_layout`` refuse more than
   one device before measuring anything (the search over a mesh, ROADMAP
-  A11c; training under pipeline stages, A9c). The meshes themselves are in the port
-  (``parallel/mesh.make_mesh``: serving and training). Without
+  A11c). The meshes themselves are in the port (``parallel/mesh.make_mesh``:
+  serving, and training with pipeline stages too). Without
   ``n_devices`` they count the CUDA devices for a CUDA device and one for
   the CPU.
 - A candidate that fails to build or run is skipped, as in JAX, but the
@@ -308,8 +308,7 @@ def layout_mesh(layout: Layout):
         return None
     raise NotImplementedError(
         f"layout {layout}: training under a searched layout over more than one device needs "
-        "the search on a mesh (ROADMAP.md Queue A, A11c) and, with pipe > 1, training under "
-        "pipeline stages (A9c), which are not in the port yet")
+        "the search on a mesh (ROADMAP.md Queue A, A11c), which is not in the port yet")
 
 
 def optimize_train_layout(
@@ -342,7 +341,9 @@ def optimize_train_layout(
 
     def step_factory(layout: Layout):
         mesh = layout_mesh(layout)
-        tr = Trainer(spec, params, optimizer, mesh=mesh, loss=loss, device=dev)
+        tr = Trainer(spec, params, optimizer, mesh=mesh,
+                     pipeline_stages=layout.pipe,
+                     num_microbatches=layout.num_microbatches, loss=loss, device=dev)
 
         def run():
             tr.train_step(toks, labels)  # returns the loss as a float: it waits

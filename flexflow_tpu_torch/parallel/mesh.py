@@ -28,7 +28,13 @@ group would meet stage 0's *h(mb0), h(mb1), t(mb0)* against stage 1's
 *h(mb0), t(mb0), h(mb1)*. A hop is sent asynchronously (the sender never
 waits for its receiver, so a stage's sends cannot block against the return
 hop it waits on) and received blocking; :meth:`Mesh.wait_sends` ends the
-sends in flight.
+sends in flight. A training step's backward hops (:meth:`Mesh.send_prev` /
+:meth:`Mesh.recv_next`: a gradient from stage s + 1 to stage s) run over
+the forward hops' pair groups with the other rank as the source; the
+collectives of a group pair up in the order they are issued, so the
+forward's sends are ended before the backward begins.
+:meth:`Mesh.sum_first_last` sums a tied embedding's gradient over the
+return hop's pair.
 
 Only ``all_reduce``, list-form ``all_gather`` and ``broadcast`` are used:
 NCCL and gloo take all three on CUDA tensors, so two ranks may share one
@@ -200,6 +206,24 @@ class Mesh:
     def recv_prev(self, like: torch.Tensor) -> torch.Tensor:
         """The previous stage's tensor of ``like``'s shape and dtype."""
         return self._recv(like, self.pipe_rank - 1, self.prev_group)
+
+    def send_prev(self, x: torch.Tensor) -> None:
+        """The backward hop: send ``x`` (a gradient) to the previous
+        pipeline stage (asynchronous), over the forward hop's pair group."""
+        self._send(x, self.prev_group)
+
+    def recv_next(self, like: torch.Tensor) -> torch.Tensor:
+        """The next stage's tensor of ``like``'s shape and dtype (the
+        backward hop in)."""
+        return self._recv(like, self.pipe_rank + 1, self.next_group)
+
+    def sum_first_last(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over stage 0 and the last stage (the return hop's
+        pair) in place; returns it."""
+        if self.return_group is None:
+            raise RuntimeError("only stage 0 and the last stage of a pipe share a pair group")
+        dist.all_reduce(x, group=self.return_group)
+        return x
 
     def send_first(self, x: torch.Tensor) -> None:
         """The return hop: send ``x`` from the last stage to stage 0

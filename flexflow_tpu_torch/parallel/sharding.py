@@ -61,11 +61,12 @@ repeated: exact.
 
 Pipeline stages (``pipe > 1``): a rank holds only its stage's contiguous
 block of layers (``parallel/pipeline.stage_range``; ``Shard.layers``),
-each ``[L, ...]`` layer leaf cut to ``[L/P, ...]`` before the tensor
-parallel cut, and only the top leaves its stage runs: stage 0 the
-embeddings, the last stage the final norm and ``lm_head`` (and
-``embed_tokens`` too where the embeddings are tied). JAX replicates every
-top leaf on every stage (``pp_engine.py:182-184``).
+each ``[L, ...]`` layer leaf cut to ``[L/P, ...]`` (or to an uneven
+stage's count, ``stage_sizes``) before the tensor parallel cut, and only
+the top leaves its stage runs: stage 0 the embeddings, the last stage the
+final norm and ``lm_head`` (and ``embed_tokens`` too where the embeddings
+are tied). JAX replicates every top leaf on every stage
+(``pp_engine.py:182-184``). :func:`gather_params` gathers the stages too.
 
 The tree carries no mark of its cut: :func:`shard_params` keeps a leaf
 whose axis has the rank's width already, so it is idempotent, and the
@@ -84,7 +85,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from flexflow_tpu_torch.parallel.mesh import FFN_AXES, MODEL_AXIS, Axis, Mesh
+from flexflow_tpu_torch.parallel.mesh import FFN_AXES, MODEL_AXIS, PIPE_AXIS, Axis, Mesh
 from flexflow_tpu_torch.parallel.pipeline import stage_range, stage_slice
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, _rest_pad
 from flexflow_tpu_torch.specs import ModelSpec
@@ -163,12 +164,15 @@ class Shard:
 
 def rank_shard(spec: ModelSpec, mesh: Mesh, *, int4_wo: bool = False,
                int4_wd: bool = False, hybrid_ffn: bool = False,
-               expert_parallel: bool = False, quant_ffn: bool = False) -> Shard:
+               expert_parallel: bool = False, quant_ffn: bool = False,
+               stage_sizes: Optional[Tuple[int, ...]] = None) -> Shard:
     """This rank's :class:`Shard` of ``spec``. ``int4_wo`` / ``int4_wd``:
     those row-parallel weights are planar INT4 carriers (two-block cuts).
     ``hybrid_ffn`` / ``expert_parallel``: the layouts of the module
     docstring; ``quant_ffn``: the FFN's weights are quantized carriers
-    (a MoE model's expert stacks then follow JAX's quantized rules)."""
+    (a MoE model's expert stacks then follow JAX's quantized rules).
+    ``stage_sizes``: uneven pipeline stages' layer counts (default: equal
+    stages)."""
     t, r = mesh.model, mesh.model_rank
     hh, kh = spec.num_heads, spec.num_kv_heads
     heads = _even_blocks(hh, t, r, int4_wo)
@@ -202,10 +206,11 @@ def rank_shard(spec: ModelSpec, mesh: Mesh, *, int4_wo: bool = False,
     vocab = (r * v // t, (r + 1) * v // t) if v % t == 0 and v >= t else None
     sizes = dict(heads=hh, kv=kh, ffn=f, vocab=v, experts=spec.moe.num_experts if moe else 0,
                  layers=spec.num_layers)
+    stage_sizes = None if stage_sizes is None else tuple(int(n) for n in stage_sizes)
     layout = dict(int4_wo=int4_wo, int4_wd=int4_wd, hybrid_ffn=hybrid_ffn,
-                  expert_parallel=expert_parallel, quant_ffn=quant_ffn)
-    layers = (stage_range(spec.num_layers, mesh.pipe, mesh.pipe_rank) if mesh.pipe > 1
-              else None)
+                  expert_parallel=expert_parallel, quant_ffn=quant_ffn, stage_sizes=stage_sizes)
+    layers = (stage_range(spec.num_layers, mesh.pipe, mesh.pipe_rank, stage_sizes)
+              if mesh.pipe > 1 else None)
     return Shard(mesh, heads, kv_heads, kv_take, ffn, vocab, sizes, ffn_axis, experts, layout,
                  layers)
 
@@ -376,7 +381,7 @@ def _int4(leaf) -> bool:
 
 
 def tree_shard(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool = False,
-               hybrid_ffn: bool = False) -> Shard:
+               hybrid_ffn: bool = False, stage_sizes=None) -> Shard:
     """The :class:`Shard` of this rank for ``params`` (whole or cut) under
     the layout the flags name: its row-parallel carriers say whether the
     cuts are planar (INT4) and whether the FFN is quantized."""
@@ -384,22 +389,24 @@ def tree_shard(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool = F
     return rank_shard(spec, mesh, int4_wo=_int4(layers.get("wo")),
                       int4_wd=_int4(layers.get("wd")), hybrid_ffn=hybrid_ffn,
                       expert_parallel=expert_parallel,
-                      quant_ffn=isinstance(layers.get("wd"), QuantizedArray))
+                      quant_ffn=isinstance(layers.get("wd"), QuantizedArray),
+                      stage_sizes=stage_sizes)
 
 
 def shard_params(spec: ModelSpec, params, mesh: Mesh, *, expert_parallel: bool = False,
-                 hybrid_ffn: bool = False):
+                 hybrid_ffn: bool = False, stage_sizes=None):
     """This rank's parameter tree, cut from a whole (one-device) tree (JAX's
     signature: tensor parallelism, or the ``expert_parallel`` /
     ``hybrid_ffn`` layouts of the module docstring); a leaf cut already is
     kept, so a rank's own tree comes back as it is. Under pipeline stages
     it keeps the rank's stage of the layers and the top leaves its stage
-    runs (:func:`stage_keeps`). A fused tree (``wqkv``, ``wgu``) must be a
-    rank's tree already (an engine's): the rank fuses its own cuts, and a
-    whole fused tree is refused."""
+    runs (:func:`stage_keeps`); ``stage_sizes``: uneven stages' layer
+    counts. A fused tree (``wqkv``, ``wgu``) must be a rank's tree already
+    (an engine's): the rank fuses its own cuts, and a whole fused tree is
+    refused."""
     layers = params["layers"]
     shard = tree_shard(spec, params, mesh, expert_parallel=expert_parallel,
-                       hybrid_ffn=hybrid_ffn)
+                       hybrid_ffn=hybrid_ffn, stage_sizes=stage_sizes)
     fused = {"wqkv": (-2, shard.num_heads(spec) + 2 * shard.num_kv_proj(spec)),
              "wgu": (-1, 2 * sum(b - a for a, b in shard.ffn or ((0, spec.intermediate_size),)))}
     for name, (axis, width) in fused.items():
@@ -444,8 +451,11 @@ def _gather_axis(x: torch.Tensor, dim: int, per_rank, inner: int, full: int, mes
 
 def gather_params(spec: ModelSpec, params, mesh: Mesh):
     """The whole (one-device) tree on every rank from each rank's tensor
-    parallel cut: the inverse of :func:`shard_params` for float leaves (a
-    cut carrier raises). A collective over ``model``: every rank calls it."""
+    parallel cut and pipeline stage: the inverse of :func:`shard_params`
+    for float leaves (a cut carrier raises). A collective over ``model``,
+    and over ``pipe`` under (equal) stages: each stage's layers in stage
+    order, each top leaf from the stage that holds it (:func:`stage_keeps`).
+    Every rank calls it."""
     shard = tree_shard(spec, params, mesh)
 
     def whole(name, leaf, top):
@@ -462,6 +472,46 @@ def gather_params(spec: ModelSpec, params, mesh: Mesh):
 
     out = {k: whole(k, v, True) for k, v in params.items() if k != "layers"}
     out["layers"] = {k: whole(k, v, False) for k, v in params["layers"].items()}
+    return out if shard.layers is None else _gather_stages(out, shard)
+
+
+_FLOAT_CODES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+_TOP_DIMS = 2  # a top leaf is [V, H], [P, H], [H, V], [V] or [H]
+
+
+def _gather_stages(tree, shard: Shard):
+    """A stage's whole (model-gathered) tree -> the whole model's, over
+    ``pipe``: every stage's layers in stage order, and each top leaf from
+    the stage that holds it (stage 0 the embeddings, the last stage the
+    final norm and the head), after a header from that stage of which
+    leaves it holds, their dtypes and shapes."""
+    mesh = shard.mesh
+    lo, hi = shard.layers
+    layers = {}
+    for k, v in tree["layers"].items():
+        if v.shape[0] != hi - lo:
+            raise ValueError(f"gather_params gathers equal stages: layer leaf {k} has "
+                             f"{v.shape[0]} layers, stage {mesh.pipe_rank} {hi - lo}")
+        layers[k] = mesh.all_gather(v, 0, PIPE_AXIS)
+    dev = next(iter(layers.values())).device
+    staged = _FIRST_STAGE_TOP + _LAST_STAGE_TOP
+    out = {k: v for k, v in tree.items() if k != "layers" and k not in staged}
+    for stage, names in ((0, _FIRST_STAGE_TOP), (mesh.pipe - 1, _LAST_STAGE_TOP)):
+        mine = mesh.pipe_rank == stage
+        rows = []
+        for k in names:
+            v, row = tree.get(k), [0] * (2 + _TOP_DIMS)
+            if mine and v is not None:
+                row[:2 + v.dim()] = [_FLOAT_CODES.index(v.dtype) + 1, v.dim(), *v.shape]
+            rows.append(row)
+        head = mesh.broadcast_from_stage(torch.tensor(rows, dtype=torch.int64, device=dev),
+                                         stage)
+        for k, (code, nd, *dims) in zip(names, head.tolist()):
+            if code:
+                buf = (tree[k].contiguous() if mine
+                       else torch.empty(dims[:nd], dtype=_FLOAT_CODES[code - 1], device=dev))
+                out[k] = mesh.broadcast_from_stage(buf, stage)
+    out["layers"] = layers
     return out
 
 

@@ -73,8 +73,10 @@ class FinetuneSession:
     def _build(self, engine) -> None:
         mesh = getattr(engine, "mesh", None)
         if mesh is not None and mesh.pipe > 1:
-            raise NotImplementedError("finetuning under pipeline stages (the GPipe backward) is "
-                                      "not in the port yet (ROADMAP.md Queue A, A9c)")
+            raise NotImplementedError(
+                "finetuning on a pipeline engine: its layers are cut into stages, and JAX's "
+                "FinetuneSession cannot run on its PipelineInferenceEngine either (it runs "
+                "decoder.forward on that engine's [P, L/P, ...] stage-stacked layers and fails)")
         if engine.lora is None:
             raise ValueError("the engine holds no LoRA adapters")
         lora: RoutedLora = engine.lora

@@ -13,8 +13,7 @@ gradient of integer leaves either. ``mesh="auto"`` runs the layout search
 (``parallel/auto.optimize_train_layout``: on one device it measures the
 only layout, dp = pp = tp = 1, and trains under it; its report is
 ``auto_report``); over more than one device it raises (the search on a
-mesh, ROADMAP A11c), as do pipeline stages (``pipeline_stages > 1`` or a
-mesh with ``pipe > 1``: the GPipe loop, A9c).
+mesh, ROADMAP A11c).
 
 ``mesh=`` a ``parallel/mesh.Mesh`` (JAX: Megatron shardings for the
 parameters, ``P("data")`` for the batch, GSPMD's gradient sums): each rank
@@ -28,12 +27,23 @@ partial over ``model`` (``sharding.partial_grads``) are summed there, then
 every gradient over ``data``, in float32, and the optimizer (elementwise)
 updates the cut. The loss, ``evaluate`` and the metrics are global;
 ``full_params()`` gathers the whole tree.
+
+Pipeline stages (``pipeline_stages=P``, JAX's: the mesh's ``pipe`` axis
+must be P; a mesh with ``pipe > 1`` alone means P stages): each rank holds
+its stage's layers and top leaves (and its tensor cut), and a step is
+``parallel/pipeline.gpipe_step``: its data rank's rows cut into
+``num_microbatches`` (default P) microbatches, the GPipe forward over the
+stage hops, the loss on the last stage, the explicit backward; then the
+gradient sums of every step (``model``, ``data``, and a tied
+``embed_tokens`` over the first and last stages, each of which holds one
+of its two uses) and this rank's update. The loss and metrics are the last
+stage's, broadcast over ``pipe``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Iterable, Tuple
+from typing import Any, Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +51,7 @@ import torch
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.models import decoder
 from flexflow_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_grads
+from flexflow_tpu_torch.parallel.pipeline import gpipe_step
 from flexflow_tpu_torch.parallel.sharding import (data_rows, gather_params, partial_grads,
                                                   shard_params, tree_shard)
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
@@ -66,7 +77,8 @@ class Trainer:
     """Causal-LM trainer on one device or one rank of a mesh."""
 
     def __init__(self, spec: ModelSpec, params: Any, optimizer, *, mesh=None,
-                 pipeline_stages: int = 1, loss: str = "sparse_categorical_crossentropy",
+                 pipeline_stages: int = 1, num_microbatches: Optional[int] = None,
+                 loss: str = "sparse_categorical_crossentropy",
                  auto_batch_size: int = 8, auto_seq_len: int = 128, device=None):
         """``mesh="auto"`` measures the legal layouts' train steps at
         (``auto_batch_size``, ``auto_seq_len``) and trains under the
@@ -81,13 +93,16 @@ class Trainer:
                 spec, params, optimizer, batch_size=auto_batch_size, seq_len=auto_seq_len,
                 loss=loss, device=device)
             mesh = auto_lib.layout_mesh(layout)
-        if pipeline_stages > 1 or (isinstance(mesh, Mesh) and mesh.pipe > 1):
-            raise NotImplementedError(
-                "training under pipeline stages (the GPipe loop) is not in the port yet "
-                "(ROADMAP.md Queue A, A9c)")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh or 'auto', got "
                             f"{type(mesh).__name__}")
+        if pipeline_stages > 1 and (mesh is None or mesh.pipe != pipeline_stages):
+            raise ValueError(f"pipeline_stages={pipeline_stages} needs a mesh whose pipe axis "
+                             f"is {pipeline_stages}, got "
+                             + ("no mesh" if mesh is None else f"pipe={mesh.pipe}"))
+        self.stages = 1 if mesh is None else mesh.pipe
+        self.num_microbatches = num_microbatches or self.stages
+        self.tied = "lm_head" not in params
         self.spec = spec
         self.optimizer = optimizer
         self.mesh = mesh
@@ -132,31 +147,67 @@ class Trainer:
         denom = denom.clamp_min(1)
         return total / denom.float(), (whole / denom).float()
 
+    def _parts(self, logits, labels):
+        """A microbatch's (loss sum, label count, metric counts)."""
+        m = metrics_lib.classification_metrics(logits.detach(), labels)
+        return (*self.loss_parts(logits, labels), m["count"], m["correct"])
+
+    def _gpipe(self, tokens, labels, backward: bool) -> Tuple[float, dict]:
+        """``gpipe_step`` on this rank: (the global loss, its metrics), the
+        same on every rank."""
+        stats = gpipe_step(self.spec, self.params, self.shard, tokens, labels, self._parts,
+                           num_microbatches=self.num_microbatches, backward=backward)
+        if stats is None:
+            stats = torch.empty(4, dtype=torch.float64, device=self.device)
+        total, count, n, correct = self.mesh.broadcast_from_stage(
+            stats, self.mesh.pipe - 1).tolist()
+        return total / max(count, 1), {"count": int(n), "correct": int(correct)}
+
     def train_step(self, tokens, labels) -> float:
         """One step on a [B, T] global batch (this rank's rows of it under a
         mesh); returns its loss."""
         tokens, labels = self._as_tensor(tokens), self._as_tensor(labels)
+        if self.stages > 1:
+            value, m = self._gpipe(tokens, labels, backward=True)
+            self._sum_grads()
+            self._update()
+            self.metrics.update(m)
+            return value
         with torch.enable_grad():
             logits = self._logits(tokens)
             loss, value = self._loss(logits, labels)
             loss.backward()
-        if self._partial:
-            all_reduce_grads([p.grad for p in self._partial], self.mesh, MODEL_AXIS)
-        if self.mesh is not None and self.mesh.data > 1:
-            all_reduce_grads([p.grad for p, in zip_leaves(self.params) if p.grad is not None],
-                             self.mesh, DATA_AXIS)
-        grads = tree_map(lambda p: p.grad, self.params)
-        self.params, self.opt_state = self.optimizer.update(grads, self.opt_state, self.params)
-        for p, in zip_leaves(self.params):
-            p.grad = None
+        self._sum_grads()
+        self._update()
         m = metrics_lib.global_counts(
             metrics_lib.classification_metrics(logits.detach(), labels), self.mesh)
         self.metrics.update({k: int(v) for k, v in m.items()})
         return float(value)
 
+    def _sum_grads(self) -> None:
+        """This rank's gradient parts summed, in order: the leaves partial
+        over ``model``, every leaf over ``data`` (float32), and a tied
+        ``embed_tokens`` over the first and last stages."""
+        if self._partial:
+            all_reduce_grads([p.grad for p in self._partial], self.mesh, MODEL_AXIS)
+        if self.mesh is not None and self.mesh.data > 1:
+            all_reduce_grads([p.grad for p, in zip_leaves(self.params) if p.grad is not None],
+                             self.mesh, DATA_AXIS)
+        if self.tied and self.stages > 1 and "embed_tokens" in self.params:
+            self.mesh.sum_first_last(self.params["embed_tokens"].grad)
+
+    def _update(self) -> None:
+        """The optimizer's in-place update of this rank's leaves from their
+        gradients, which it then clears."""
+        grads = tree_map(lambda p: p.grad, self.params)
+        self.params, self.opt_state = self.optimizer.update(grads, self.opt_state, self.params)
+        for p, in zip_leaves(self.params):
+            p.grad = None
+
     def full_params(self):
         """The whole (one-device) parameter tree, detached: this rank's cut
-        gathered over ``model`` under a mesh (every rank calls it)."""
+        gathered over ``model`` (and its stage over ``pipe``) under a mesh
+        (every rank calls it)."""
         params = tree_map(lambda p: p.detach(), self.params)
         return params if self.mesh is None else gather_params(self.spec, params, self.mesh)
 
@@ -187,10 +238,14 @@ class Trainer:
         total, count, correct, n = 0.0, 0, 0, 0
         for tokens, labels in data:
             tokens, labels = self._as_tensor(tokens), self._as_tensor(labels)
-            logits = self._logits(tokens)
-            total += float(self._loss(logits, labels)[1])
-            m = metrics_lib.global_counts(
-                metrics_lib.classification_metrics(logits, labels), self.mesh)
+            if self.stages > 1:
+                value, m = self._gpipe(tokens, labels, backward=False)
+            else:
+                logits = self._logits(tokens)
+                value = float(self._loss(logits, labels)[1])
+                m = metrics_lib.global_counts(
+                    metrics_lib.classification_metrics(logits, labels), self.mesh)
+            total += value
             count += int(m["count"])
             correct += int(m["correct"])
             n += 1

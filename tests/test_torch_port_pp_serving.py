@@ -366,9 +366,10 @@ def test_refusals():
     the cap in ``PipelineSpecEngine``; merged trees of several drafts,
     offload, LoRA with T > 1, PEFT with drafts and data > 1 in
     ``LLM.compile``; ``SpecEngine`` names ``PipelineSpecEngine``; the
-    Trainer and finetuning (A9c);
+    Trainer's ``pipeline_stages`` without a mesh (a pipe mesh alone builds
+    it), finetuning on a pipeline engine (JAX fails there too);
     the one-device engine takes no pipe mesh; ``make_mesh(seq=2)`` (A10);
-    ``layout_mesh`` with pipe > 1 (A11c, A9c)."""
+    ``layout_mesh`` with pipe > 1 (A11c)."""
     from flexflow_tpu_torch.models import params as tp
     from flexflow_tpu_torch.parallel import auto
     from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -409,19 +410,18 @@ def test_refusals():
     with pytest.raises(ValueError, match="exceeds the cap 64"):
         PipelineSpecEngine(spec, params, spec, params, mesh=staged, beam_width=3, beam_depth=22,
                            **pp)
-    with pytest.raises(NotImplementedError, match="A9c"):
+    with pytest.raises(ValueError, match="pipeline_stages=2 needs a mesh"):
         Trainer(spec, params, SGDOptimizer(lr=0.1), pipeline_stages=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9c"):
-        Trainer(spec, params, SGDOptimizer(lr=0.1), mesh=Mesh.fake(1, 1, 0, pipe=2))
+    assert Trainer(spec, params, SGDOptimizer(lr=0.1), mesh=Mesh.fake(1, 1, 0, pipe=2)).stages == 2
 
     class Staged:  # what FinetuneSession reads of an engine under stages
         mesh, lora = Mesh.fake(1, 1, 0, pipe=2), None
 
-    with pytest.raises(NotImplementedError, match="A9c"):
+    with pytest.raises(NotImplementedError, match="JAX's FinetuneSession cannot run"):
         FinetuneSession(spec, LoraConfig(), 0, [])._build(Staged())
     with pytest.raises(NotImplementedError, match="A10"):
         make_mesh(pipe=2, seq=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11c.*A9c"):
+    with pytest.raises(NotImplementedError, match="A11c"):
         auto.layout_mesh(auto.Layout(data=1, pipe=2, model=1))
 
     def llm(ssms=(), peft=()):

@@ -273,7 +273,7 @@ def test_refusals(monkeypatch):
             Trainer(ts, params, SGDOptimizer(), mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="'auto'"):
         Trainer(ts, params, SGDOptimizer(), mesh="manual", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="pipeline_stages=2 needs a mesh"):
         Trainer(ts, params, SGDOptimizer(), pipeline_stages=2, device="cpu")
     rows = next(SingleDataLoader([np.arange(8)[:, None]], batch_size=4, shuffle=False,
                                  mesh=Mesh.fake(2, 1, 1)).epoch())[0]
