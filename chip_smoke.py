@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only card,build,layouts
     python3 chip_smoke.py --only card,build,pp
     python3 chip_smoke.py --only card,build,pptrain
+    python3 chip_smoke.py --only card,build,kernels,cp
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -45,7 +46,14 @@ Phases, in order; any failure exits non-zero:
               Mixtral's GQA, and the 19-slot merged tree of two drafts with
               irregular parents and padding slots; every checked node
               bitwise equal to the one-token call), each rotating through
-              caches past the L2. The quant-matmul rows include INT4 at the
+              caches past the L2. decode_attention's shard form (context
+              parallelism) and merge_states on C = 1, 2 and 4 slices of one
+              cache (``SHARD_DEGREES``) at LLaMA-2-7B's heads and Mixtral's
+              GQA over ``SHARD_LENS`` (slots on shard boundaries, shards
+              without a position) and the verify's 13-node tree: within the
+              K5 limit of their plain versions, bitwise the one-device kernel
+              at C = 1, within one bf16 ulp of it at C = 2 and 4; seq rank
+              0's shard call and the merge timed apart. The quant-matmul rows include INT4 at the
               merged verify's 152 rows and the Mixtral expert stacks at the
               speculative verify's 104. ``--parent DIR`` builds each of an earlier
               checkout's quant_matmul.cu, flash_prefill.cu and
@@ -161,8 +169,8 @@ Phases, in order; any failure exits non-zero:
               launch. (b) Mixtral-8x7B bf16 at full width, 4 layers, resident
               then offload over one host build: the batched prefill's logits
               and 16 greedy decode steps' logits bitwise equal. (c)
-              Mixtral-8x7B bf16 at full width, ``OFFLOAD_LAYERS`` layers (the
-              machine's host memory sets the cut), offload only: 8 requests x
+              Mixtral-8x7B bf16 at full width, ``OFFLOAD_LAYERS`` = 16 layers
+              (the run's time limit sets the cut), offload only: 8 requests x
               16 new tokens (horizon 1, not pipelined, so each fetch closes a
               step); prints the init and cudaHostRegister seconds, the
               host-to-device rate of one 1 GiB copy from pinned memory, the
@@ -424,7 +432,35 @@ Phases, in order; any failure exits non-zero:
               (the Trainer's plain attention and cuBLAS in f32). (c) With more
               than one GPU, (a) and (b) over NCCL on two; otherwise it says why
               it did not run.
-21. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+21. cp      — context parallelism (the mesh's ``seq`` axis: the verifier's KV
+              cache cut on its positions, each layer's attention states
+              merged over the seq ranks by decode_attention's shard form and
+              ``merge_states``). Two ranks share the card over gloo
+              (spawned): (a) LLaMA-2-7B INT8, 32 layers, the serve phase's
+              draw (each layer quantized whole, replicated over seq), C = 2,
+              the serve traffic (8 prompts x 64 tokens, horizon 16): the
+              ranks' tokens equal, every first token the serve phase's, each
+              rank's KV half one device's, the first decode step's logits
+              within ``TP_LOGITS_REL`` of one device's on the same tensors,
+              the greedy tokens equal to the serve phase's counted (bf16),
+              tok/s beside one device's (no context-parallel speed on one
+              card), qmm_int8, decode_attention_shard, merge_states and
+              flash_prefill launched and the one-device decode kernel not;
+              (b) the spec phase's INT4 pair at C = 2 (the draft whole on
+              each rank), the spec traffic (8 prompts x 64 tokens): the
+              ranks' tokens equal, every first token the spec phase's, at
+              least ``CP_SPEC_EQUAL`` of the tokens equal to the spec
+              phase's, verified tokens a step within ``CP_SPEC_VERIFIED``
+              of the spec phase's; (c) LLaMA-2-7B width at
+              ``CP_F32_LAYERS`` = 4 layers in f32, prompts ``CP_F32_LENS``
+              (500 + 32 new tokens cross the shard boundary at 512): every
+              greedy token one device's; (d) ``ops/ring_attention``'s ring
+              prefill at ``CP_RING`` (S = 4096, 32 heads, D = 128, bf16)
+              with and without a valid length, within ``CP_RING_TOL`` of the
+              one-device plain prefill. (e) With more than one GPU, (a)-(d)
+              over NCCL at min(4, count) ranks; otherwise it says why it did
+              not run.
+22. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -463,7 +499,7 @@ PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
           "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "tp", "meshtrain",
-          "layouts", "pp", "pptrain", "profile")
+          "layouts", "pp", "pptrain", "cp", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -575,6 +611,11 @@ REPLACES = {
     "qmm_int4": "flexflow_tpu/ops/pallas/quant_matmul.py:58 (_int4_kernel) and :192 "
                 "(_int4_kernel_idx), calls :163 / :304",
     "decode_attention": "flexflow_tpu/ops/pallas/decode_attention.py:54 (kernel), call :106",
+    # K5 over a seq rank's slice of the cache, and its merge kernel across ranks
+    "decode_attention_shard": "flexflow_tpu/ops/pallas/decode_attention.py:54 (kernel), call "
+                              ":106, on a seq-cut cache",
+    "merge_states": "flexflow_tpu/ops/pallas/decode_attention.py:54 (kernel), call :106, its "
+                    "states merged across seq ranks",
     "flash_prefill": "flexflow_tpu/ops/pallas/flash_prefill.py:34 (_kernel), call :139",
     **{name: f"benchmarks/tune_int4_variants.py:{line} (_{name}_kernel), call :227 (_call :211)"
        for name, line in VARIANT_LINES.items()},
@@ -583,6 +624,8 @@ SOURCES = {
     "qmm_int8": "flexflow_tpu_torch/csrc/quant_matmul.cu",
     "qmm_int4": "flexflow_tpu_torch/csrc/quant_matmul.cu",
     "decode_attention": "flexflow_tpu_torch/csrc/decode_attention.cu",
+    "decode_attention_shard": "flexflow_tpu_torch/csrc/decode_attention.cu",
+    "merge_states": "flexflow_tpu_torch/csrc/decode_attention.cu",
     "flash_prefill": "flexflow_tpu_torch/csrc/flash_prefill.cu",
     **{name: "flexflow_tpu_torch/csrc/qmm_variants.cu" for name in VARIANTS},
 }
@@ -1207,6 +1250,186 @@ def tree_phase_case(label, h, kh, parents, lens_l, gen, held, report, timed, tol
     torch.cuda.empty_cache()
 
 
+SHARD_DEGREES = (1, 2, 4)  # the seq degrees the kernels phase cuts one cache into
+# the served decode's lengths (632...49) with 512 and 256 on shard boundaries
+# (512 at C = 2 and 4, 256 at C = 4); at C = 4 the 49-token slot leaves
+# three shards without a position
+SHARD_LENS = [632, 512, 288, 256, 132, 96, 64, 49]
+# past one bf16 ulp of the one-device kernel's value: the f32 summation
+# order's error, of the row's sum p|v| (a few f32 roundings of it)
+SHARD_F32_REL = 2.0 ** -20
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of ``x`` (8 significant bits)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       torch.frexp(x.float()).exponent - 8)
+
+
+def shard_phase_case(label, q, kc, vc, kn, vn, lens, tree, index, reps, records) -> None:
+    """K5's shard form on C = 1, 2 and 4 slices of one cache (``tree``: the
+    tree form's mask, else the one-token form) and the cross-rank merge:
+    the merged output against the plain versions (state and merge), bitwise
+    the one-device kernel's at C = 1 and within one bf16 ulp of it at C = 2
+    and 4; seq rank 0's shard call (the in-flight items and the most
+    positions) and the merge timed, each rotating through copies past L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.benchmarks.tune_quant_kernel import n_copies
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    dev = q.device
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    kh, s = kc.shape[1], kc.shape[2]
+    t = 1 if tree is None else q.shape[1]
+    lens_l = lens.tolist()
+    if tree is None:
+        one = da.decode_attention(q, kc, vc, kn, vn, lens)
+    else:
+        one = da.tree_attention(q, kc, vc, kn, vn, lens, tree, index=index)
+
+    def state(kernel, r, w, kb, vb):
+        if tree is None:
+            f = da.decode_attention_state if kernel else da.decode_attention_state_plain
+            return f(q, kb, vb, kn, vn, lens, first=r * w, inflight=r == 0)
+        if kernel:
+            return da.tree_attention_state(q, kb, vb, kn, vn, lens, tree, first=r * w,
+                                           inflight=r == 0, index=index)
+        return da.tree_attention_state_plain(q, kb, vb, kn, vn, lens, tree, first=r * w,
+                                             inflight=r == 0)
+
+    def stacked(states):  # C states of [B, (T,) H, D + 2] -> [rows, H, C, D + 2]
+        return torch.stack(states, dim=-2).reshape(b * t, h, len(states), d + 2)
+
+    # the plain version on |v|: the scale of the P.V error (attn_within)
+    absv = (q.float(), kc.float(), vc.float().abs(), kn.float(), vn.float().abs(), lens)
+    pv = (da.decode_attention_plain(*absv) if tree is None
+          else da.tree_attention_plain(*absv, tree))
+    for c in SHARD_DEGREES:
+        w = s // c
+        blocks = [(kc[:, :, r * w:(r + 1) * w].contiguous(), vc[:, :, r * w:(r + 1) * w]
+                   .contiguous()) for r in range(c)]
+        held_n = [sum(min(max(n - r * w, 0), w) for n in lens_l) for r in range(c)]
+        k_states = stacked([state(True, r, w, *blk) for r, blk in enumerate(blocks)])
+        p_states = stacked([state(False, r, w, *blk) for r, blk in enumerate(blocks)])
+        got = da.merge_states(k_states, q.dtype).reshape(one.shape)
+        want = da.merge_states_plain(p_states, q.dtype).reshape(one.shape)
+        what = f"decode_attention_shard{label} C={c}"
+        require(bool(torch.isfinite(got).all()), f"{what}: output not finite")
+        err, ratio = attn_within(got, want, pv, 2.0 ** -12)
+        require(ratio <= 1, f"{what}: max|err| {err} against the plain versions, {ratio:.3g} "
+                            "x the limit")
+        diff = (got.float() - one.float()).abs()
+        if c == 1:
+            require(torch.equal(got, one), f"{what}: not bitwise the one-device kernel")
+            vs_one = "bitwise the one-device kernel"
+        else:
+            # one bf16 ulp of the value, plus the f32 summation order's error
+            # (the C states merged after their chunks, not the chunks at once),
+            # which shows on values near zero: SHARD_F32_REL of the row's sum p|v|
+            ulp = _bf16_ulp(one)
+            over = diff > ulp
+            beyond = ((diff - ulp) / pv.float()).max().item()
+            require(beyond <= SHARD_F32_REL,
+                    f"{what}: {beyond:.3g} x sum p|v| past one bf16 ulp of the one-device kernel")
+            vs_one = (f"{int((diff > 0).sum())} of {diff.numel()} values differ from the "
+                      f"one-device kernel, {int(over.sum())} by more than one bf16 ulp (at most "
+                      f"{(diff / ulp).max().item():.3g} ulp, {max(beyond, 0):.3g} x sum p|v| "
+                      f"past it, limit {SHARD_F32_REL:g})")
+        log(f"  {what}: err {err:.3g} ({ratio:.3g} x the limit 2^-7|want| + 2^-12 sum p|v|) "
+            f"against the plain state and merge; {vs_one}; positions a shard {held_n}")
+        # seq rank 0's shard call, rotating through copies of its block
+        copies = _cache_copies(*blocks[0])
+        it = iter(range(10 ** 9))
+
+        def nxt():
+            return copies[next(it) % len(copies)]
+
+        ms = time_ms(lambda: state(True, 0, w, *nxt()), reps)
+        plain_ms = time_ms(lambda: state(False, 0, w, *nxt()), max(2, reps // 4), 1)
+        # yardstick: SDPA over rank 0's positions and the in-flight items
+        # (the output, not the state)
+        pos = torch.arange(w, device=dev)
+        valid = pos[None] < lens[:, None]  # [B, w]
+        if tree is None:
+            alls = [(torch.cat([kb, kn[:, :, None]], 2), torch.cat([vb, vn[:, :, None]], 2))
+                    for kb, vb in copies]
+            mask = torch.cat([valid, torch.ones(b, 1, dtype=torch.bool, device=dev)],
+                             1)[:, None, None]
+            qs = q[:, :, None]
+        else:
+            alls = [(torch.cat([kb, kn.transpose(1, 2)], 2), torch.cat([vb, vn.transpose(1, 2)],
+                                                                       2)) for kb, vb in copies]
+            mask = torch.cat([valid[:, None].expand(b, t, w), tree], -1)[:, None]
+            qs = q.transpose(1, 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, *alls[next(it) % len(alls)], attn_mask=mask, enable_gqa=h != kh), reps)
+        esz = q.element_size()
+        nbytes = ((2 * held_n[0] * kh * d + q.numel() + 2 * kn.numel()) * esz + 4 * b
+                  + 4 * b * t * h * (d + 2))
+        cols = (held_n[0] + b) * t if tree is None else t * held_n[0] + int(tree.sum())
+        b_ms, b_by = bound(nbytes, 4.0 * h * d * cols, PEAK_F32_FLOPS)
+        name = f"decode_attention_shard[C={c} rank 0{label} B={b} H={h} KH={kh} S={s} D={d} bf16]"
+        records.append(dict(name=name, kernel="decode_attention_shard", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"    shard (rank 0, {held_n[0]} positions) kernel {ms:.4f} ms plain {plain_ms:.4f} "
+            f"ms SDPA {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        # the cross-rank merge of the C gathered states, apart
+        st_copies = [k_states] + [k_states.clone() for _ in range(n_copies(
+            k_states.numel() * 4, dev) - 1)]
+        mms = time_ms(lambda: da.merge_states(st_copies[next(it) % len(st_copies)], q.dtype), reps)
+        mplain = time_ms(lambda: da.merge_states_plain(k_states, q.dtype), max(2, reps // 4), 1)
+        m_err = (got.float() - want.float()).abs().max().item()
+        mbytes = k_states.numel() * 4 + got.numel() * esz
+        mb_ms, mb_by = bound(mbytes, 3.0 * k_states.numel(), PEAK_F32_FLOPS)
+        records.append(dict(name=f"merge_states[C={c}{label} rows={b * t} H={h} D={d} bf16]",
+                            kernel="merge_states", max_abs_err=m_err, ms=mms, plain_ms=mplain,
+                            bound_ms=mb_ms, bound_by=mb_by, library_ms=None))
+        log(f"    merge of {c} states kernel {mms:.4f} ms plain {mplain:.4f} ms bound "
+            f"{mb_ms:.4f} ms ({mb_by})")
+        del copies, alls, st_copies
+        torch.cuda.empty_cache()
+
+
+def decode_attention_shard_phase(reps: int, records: list) -> None:
+    """K5's shard form (context parallelism: one slice of the cache's
+    positions a seq rank) and the cross-rank merge on C = 1, 2 and 4 slices
+    at the served shapes: LLaMA-2-7B's heads and Mixtral-8x7B's GQA at the
+    served decode's lengths (``SHARD_LENS``: slots on shard boundaries and
+    shards without a position), and the verify's 13-node tree at the served
+    prompts' lengths."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16 = torch.bfloat16
+    s, d, b = 1024, 128, 8
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    for label, h, kh in ((" serve", 32, 32), (" serve GQA", 32, 8)):
+        lens = torch.tensor(SHARD_LENS, dtype=torch.int32, device=dev)
+        shard_phase_case(label, rnd(b, h, d), rnd(b, kh, s, d), rnd(b, kh, s, d), rnd(b, kh, d),
+                         rnd(b, kh, d), lens, None, None, reps, records)
+    parents = torch.as_tensor(_beam_trees(6, b, 3, 4), dtype=torch.long)
+    t = parents.shape[1]
+    anc = torch.eye(t, dtype=torch.bool).repeat(b, 1, 1)
+    for cc in range(1, t):
+        ok = parents[:, cc] >= 0
+        anc[ok, cc] |= anc[ok.nonzero()[:, 0], parents[ok, cc]]
+    anc = anc.to(dev)
+    lens = torch.tensor(list(PROMPT_LENS), dtype=torch.int32, device=dev)
+    shard_phase_case(" tree", rnd(b, t, 32, d), rnd(b, 32, s, d), rnd(b, 32, s, d),
+                     rnd(b, t, 32, d), rnd(b, t, 32, d), lens, anc, da.tree_index(anc), reps,
+                     records)
+
+
 def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
     """K6 against its plain version (and, with ``parent``, the earlier kernel
     against the same limit) at LLaMA-2-7B heads, GQA, MQA and f32; timed at
@@ -1569,9 +1792,11 @@ def _launches(reset: bool = False) -> dict:
 
     if reset:
         qm.LAUNCHES = qm.LAUNCHES_INT4 = da.LAUNCHES = fp.LAUNCHES = 0
+        da.SHARD_LAUNCHES = da.MERGE_LAUNCHES = 0
         qv.LAUNCHES.update(dict.fromkeys(qv.LAUNCHES, 0))
     return {"qmm_int8": qm.LAUNCHES, "qmm_int4": qm.LAUNCHES_INT4,
-            "decode_attention": da.LAUNCHES, "flash_prefill": fp.LAUNCHES, **qv.LAUNCHES}
+            "decode_attention": da.LAUNCHES, "decode_attention_shard": da.SHARD_LAUNCHES,
+            "merge_states": da.MERGE_LAUNCHES, "flash_prefill": fp.LAUNCHES, **qv.LAUNCHES}
 
 
 def _prompts(vocab_size: int):
@@ -2148,7 +2373,8 @@ def spec_phase(card: str, with_profile: bool) -> dict:
     out.update(spec_horizon=horizon, pipeline_depth=rm.pipeline_depth,
                mean_verified_tokens_per_step=rm.mean_verified_tokens_per_step)
     _SPEC_SERVED.update(tokens=[r.output_tokens for r in spec_reqs],
-                        decode_tok_s=out["decode_tok_s"])
+                        decode_tok_s=out["decode_tok_s"],
+                        verified=rm.mean_verified_tokens_per_step)
     lens = engine._h([len(p) for p in prompts])
     roots = engine._h([(r.output_tokens[0] + 1) % vspec.vocab_size for r in spec_reqs])
     _replay_check(f"speculative horizon ({horizon} iterations, 8 slots)",
@@ -2580,10 +2806,13 @@ def mixtral_spec_run(engine, incr_reqs, prompts, incr: dict, card: str) -> dict:
 # Run (c)'s depth. bf16 Mixtral-8x7B holds 2.903 GB (2.703 GiB) of layer
 # weights a layer, 86.5 GiB for all 32. The one-H100 machine has 101 GiB
 # of memory, and a Python process holding a CUDA context sees 96.5 GiB
-# available (the card phase's "host memory" line): under 100 GiB, so the
-# run takes the most layers that leave 12 GiB free, 31 (83.8 GiB pinned).
-# Fixed here: the phase never shrinks itself at run time.
-OFFLOAD_LAYERS = 31
+# available (the card phase's "host memory" line): 31 layers (83.8 GiB
+# pinned) were the most that leave 12 GiB free, and ran until the full run
+# neared its time limit; 16 (43.2 GiB) keep the streaming, the overlap and
+# the peak-memory gate (two slots and the activations, ~8.6 GiB, under 25%
+# of the stack) at about half the phase's time. Fixed here: the phase never
+# shrinks itself at run time.
+OFFLOAD_LAYERS = 16
 OFFLOAD_NEW_TOKENS = 16  # runs (b) and (c): decode steps / tokens a request
 OFFLOAD_PEAK_SHARE = 0.25  # run (c)'s peak device memory against the layer stack's bytes
 
@@ -4393,11 +4622,11 @@ TP_CASES = {"b": _tp_case_b, "c": _tp_case_c, "d": _tp_case_d, "e": _tp_case_e}
 
 
 def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
-    """One rank of the tp, meshtrain, layouts, pp and pptrain phases' spawned cases:
+    """One rank of the tp, meshtrain, layouts, pp, pptrain and cp phases' spawned cases:
     ``backend`` gloo shares card 0, NCCL takes card ``rank``. Each case
     builds its own mesh over the group (all ranks on ``data`` for (c),
     meshtrain's (c) and layouts' (b), on ``pipe`` for pp's and pptrain's, else on
-    ``model``); the results go to ``tmp`` for the parent to hold against
+    ``model``, on ``seq`` for cp's); the results go to ``tmp`` for the parent to hold against
     one device."""
     import torch
     import torch.distributed as dist
@@ -4418,10 +4647,11 @@ def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
         for case in cases:
             t0 = time.perf_counter()
             degrees = (dict(data=world) if case in ("c", "mt-c", "la-b") else
-                       dict(pipe=world) if case in {**PP_CASES, **PT_CASES} else dict(model=world))
+                       dict(pipe=world) if case in {**PP_CASES, **PT_CASES} else
+                       dict(seq=world) if case in CP_CASES else dict(model=world))
             mesh = make_mesh(**degrees, backend=backend, device=dev)
-            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES, **PP_CASES, **PT_CASES}[case](
-                mesh, dev, None)
+            out[case] = {**TP_CASES, **MT_CASES, **LA_CASES, **PP_CASES, **PT_CASES,
+                         **CP_CASES}[case](mesh, dev, None)
             out[case]["seconds"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
@@ -5591,7 +5821,8 @@ def _pp_one_device_spec(dev) -> None:
     managers = _spec_managers(engine)
     reqs, st = _served(managers[1], _prompts(vspec.vocab_size), 64, vspec.vocab_size,
                        "pp (d) one device", warm=managers[0])
-    _SPEC_SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+    _SPEC_SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"],
+                        verified=managers[1].mean_verified_tokens_per_step)
     del engine, managers, vparams, dparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -5703,28 +5934,11 @@ def pp_phase(card: str) -> dict:
     than one."""
     import torch
 
-    from flexflow_tpu_torch.serving.engine import InferenceEngine
-    from flexflow_tpu_torch.serving.request_manager import RequestManager
-    from flexflow_tpu_torch.specs import ModelSpec
-
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     out: dict = {"card": card}
     if "tokens" not in _SERVED:  # the serve phase did not run: its run here
-        spec = ModelSpec(**LLAMA2_7B)
-        engine = InferenceEngine(spec, _quant_params(spec, 0, dev), max_requests_per_batch=8,
-                                 max_seq_len=1024, max_tokens_per_batch=0,
-                                 cache_dtype=torch.bfloat16, device=dev)
-        rm = RequestManager(engine, decode_horizon=16, pipelined=True)
-        try:
-            reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size,
-                               "pp one device")
-        finally:
-            rm.close()
-        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
-        del engine, rm
-        gc.collect()
-        torch.cuda.empty_cache()
+        _one_device_served(dev, "pp one device")
     if "tokens" not in _SPEC_SERVED:  # the spec phase did not run: its one-draft run here
         _pp_one_device_spec(dev)
     one = _pp_one_device_int4(dev)
@@ -5907,6 +6121,362 @@ def pptrain_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# context parallelism (the cp phase)
+# ---------------------------------------------------------------------------
+
+CP_F32_LAYERS = 4  # (c): LLaMA-2-7B width, f32 weights and cache
+# (c)'s prompts: the served lengths with 500 in place of 400, whose 32 new
+# tokens cross position 512, the shard boundary at C = 2 (600 crosses it in
+# its prefill)
+CP_F32_LENS = (600, 500, 256, 128, 100, 64, 32, 17)
+CP_F32_NEW = 32
+# (b): the share of the spec phase's tokens that must come out equal. The C
+# states merged in another order than one device's chunks may flip a bf16
+# near-tie in the tree's verification, after which a request goes its own way
+# (500 of 512 equal on an H100, PR 23's chip runs); a wrong tree path in the
+# shard form loses most of them
+CP_SPEC_EQUAL = 0.9
+# (b): verified tokens a step within this share of the spec phase's (1.645
+# against 1.638 on an H100, PR 23's chip runs)
+CP_SPEC_VERIFIED = 0.1
+CP_RING = dict(s=4096, h=32, kh=32, d=128)  # (d): the ring prefill's shape, bf16
+CP_RING_LENGTH = 3000  # (d): a valid length inside the last rank's block
+CP_RING_TOL = 2e-2  # (d): JAX's bf16 tolerance for the ring prefill (tests/test_ring_attention.py)
+
+
+def _cp_prefill_logits(engine, prompts):
+    """The engine's batched prefill of ``prompts`` into slots 0... (greedy),
+    then one decode step of the first tokens through ``decoder.forward_cached``:
+    (first tokens [N], that step's f32 logits [N, V])."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import decoder
+    from flexflow_tpu_torch.models.decoder import to_device
+
+    n = len(prompts)
+    with torch.no_grad():
+        first = engine.prefill_batch_to_slots_async(prompts, list(range(n)), 0,
+                                                    _greedy_scfg(n))[:n]
+        lens = to_device(np.asarray([len(p) for p in prompts], np.int32), engine.device)
+        logits, _ = decoder.forward_cached(engine.spec, engine.params, first[:, None].int(),
+                                           engine.cache, lens, **engine._routing(None))
+    return first.cpu(), logits[:, 0].float().cpu()
+
+
+def _cp_case_a(mesh, dev, refs) -> dict:
+    """(a): LLaMA-2-7B INT8, 32 layers, at C = seq ranks: the serve phase's
+    draw (whole bf16 leaves from seed 0), each layer quantized whole
+    (``build_params(mesh=)``: the weights are replicated over seq), the
+    verifier cache cut on its positions; the first decode step's logits
+    beside one device's on the same tensors, then the serve traffic."""
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    t0 = time.perf_counter()
+    spec = ModelSpec(**LLAMA2_7B)
+    whole = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                   torch.bfloat16, dev)
+    stack = whole.pop("layers")
+    params = params_lib.build_params(spec, whole, lambda i: ((n, v[i]) for n, v in stack.items()),
+                                     dtype=torch.bfloat16, device=dev, bits=8, group_size=128,
+                                     mesh=mesh)
+    del whole, stack
+    torch.cuda.empty_cache()
+    kw = dict(max_requests_per_batch=8, max_seq_len=1024, cache_dtype=torch.bfloat16,
+              device=dev)
+    engine = InferenceEngine(spec, params, mesh=mesh, **kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = _prompts(spec.vocab_size)
+    one = InferenceEngine(spec, engine.params, **kw)  # one device, the same weight tensors
+    first_one, logits_one = _cp_prefill_logits(one, prompts)
+    kv_one = _tree_gib(one.cache._asdict())
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    first, logits = _cp_prefill_logits(engine, prompts)
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, st = _served(rm, prompts, 64, spec.vocab_size, f"cp (a) C={mesh.seq}",
+                           replayed=False)
+    finally:
+        rm.close()
+    st.update(tokens=[r.output_tokens for r in reqs], build_s=build_s,
+              kv_gib=_tree_gib(engine.cache._asdict()), kv_one_gib=kv_one,
+              positions=engine.cache.k.shape[3], first=first.tolist(),
+              first_one=first_one.tolist(),
+              logits_rel=((logits - logits_one).abs().max() / logits_one.abs().max()).item(),
+              allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    return st
+
+
+def _cp_case_b(mesh, dev, refs) -> dict:
+    """(b): the spec phase's pair (LLaMA-2-7B INT4 verifier, 160M-class
+    draft) through ``SpecEngine`` at C = seq ranks: the verifier's cache
+    cut, the draft's whole; the spec phase's managers and traffic."""
+    import torch
+
+    from flexflow_tpu_torch.serving.speculative import SpecEngine
+
+    t0 = time.perf_counter()
+    dspec, vspec, dparams, vparams = _spec_pair(dev)
+    engine = SpecEngine(vspec, vparams, dspec, dparams, beam_width=3, beam_depth=4,
+                        max_requests_per_batch=8, max_seq_len=1024, cache_dtype=torch.bfloat16,
+                        device=dev, mesh=mesh)
+    del vparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    managers = _spec_managers(engine)
+    reqs, st = _served(managers[1], _prompts(vspec.vocab_size), 64, vspec.vocab_size,
+                       f"cp (b) speculative C={mesh.seq}", warm=managers[0], replayed=False)
+    st.update(tokens=[r.output_tokens for r in reqs], build_s=build_s,
+              kv_gib=_tree_gib(engine.llm_cache._asdict()),
+              draft_kv_gib=_tree_gib(engine.ssm_cache._asdict()),
+              mean_verified_tokens_per_step=managers[1].mean_verified_tokens_per_step)
+    return st
+
+
+def _cp_case_c(mesh, dev, refs) -> dict:
+    """(c): LLaMA-2-7B width at CP_F32_LAYERS layers in f32 (weights from
+    seed 0, cache f32), the prompts of CP_F32_LENS: one device's engine on
+    the same tensors first, then C = seq ranks'."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": CP_F32_LAYERS})
+    params = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                    torch.float32, dev)
+    kw = dict(max_requests_per_batch=8, max_seq_len=1024, cache_dtype=torch.float32, device=dev)
+    engine = InferenceEngine(spec, params, mesh=mesh, **kw)
+    del params
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(1, spec.vocab_size, size=n).tolist() for n in CP_F32_LENS]
+    out = {}
+    for name, eng in (("one", InferenceEngine(spec, engine.params, **kw)), ("cp", engine)):
+        rm = RequestManager(eng, decode_horizon=16, pipelined=True)
+        try:
+            reqs, st = _served(rm, prompts, CP_F32_NEW, spec.vocab_size,
+                               f"cp (c) f32 {'one device' if name == 'one' else 'C=2'}",
+                               replayed=name == "one")
+        finally:
+            rm.close()
+        out[name] = dict(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+        del rm, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = st["launches"]  # the C = 2 run's
+    return out
+
+
+def _cp_case_d(mesh, dev, refs) -> dict:
+    """(d): ``ops/ring_attention.context_parallel_prefill`` over the seq ranks
+    (bf16 [S, H, D], K/V blocks rotated along the ring) with and without a
+    valid length, against the one-device plain prefill on the same inputs."""
+    import torch
+
+    from flexflow_tpu_torch.ops import attention as attn_lib
+    from flexflow_tpu_torch.ops import ring_attention as ring
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s, h, kh, d = CP_RING["s"], CP_RING["h"], CP_RING["kh"], CP_RING["d"]
+    q = torch.randn(s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(s, kh, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(s, kh, d, generator=gen, device=dev).to(torch.bfloat16)
+    out = {}
+    for length in (None, CP_RING_LENGTH):
+        hops0 = mesh.hops
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ring.context_parallel_prefill(mesh, q, k, v, length=length)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = attn_lib.prefill_attention(q, k, v, length=length)
+        out[f"length={length}"] = dict(
+            err=(got.float() - want.float()).abs().max().item(), wall_ms=1e3 * wall,
+            hops=mesh.hops - hops0, finite=bool(torch.isfinite(got).all()),
+            dtype=str(got.dtype))
+        del got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+CP_CASES = {"cp-a": _cp_case_a, "cp-b": _cp_case_b, "cp-c": _cp_case_c, "cp-d": _cp_case_d}
+
+
+def _cp_check(what: str, ranks: list, card: str) -> dict:
+    """Rank 0's (a)-(d) against one device's: (a) the ranks agree, every
+    first token the serve phase's, each rank half the KV, the first decode
+    step's logits beside one device's, the greedy tokens equal to the serve
+    phase's counted; (b) the ranks agree, every first token the spec
+    phase's, at least CP_SPEC_EQUAL of its tokens equal, verified tokens a
+    step within CP_SPEC_VERIFIED of its; (c) every f32 token one device's; (d) the ring
+    prefill within CP_RING_TOL of the plain prefill."""
+    c = len(ranks)
+    out = {}
+    rs = [r["cp-a"] for r in ranks]
+    label = "(a) LLaMA-2-7B INT8"
+    require(all(r["tokens"] == rs[0]["tokens"] for r in rs[1:]),
+            f"cp {label} {what}: the ranks disagree on the tokens")
+    st, ref = rs[0], _SERVED
+    firsts = sum(g[0] == w[0] for g, w in zip(st["tokens"], ref["tokens"]))
+    require(firsts == len(ref["tokens"]), f"cp {label} {what}: {firsts} of "
+                                          f"{len(ref['tokens'])} first tokens equal the serve "
+                                          "phase's")
+    require(st["first"] == st["first_one"], f"cp {label}: the prefill's tokens differ")
+    equal = sum(g == w for gs, ws in zip(st["tokens"], ref["tokens"]) for g, w in zip(gs, ws))
+    total = sum(len(w) for w in ref["tokens"])
+    for s_, r in enumerate(rs):
+        require(abs(r["kv_gib"] * c - r["kv_one_gib"]) < 1e-6 and r["positions"] == 1024 // c,
+                f"cp {label}: rank {s_} holds {r['kv_gib']:.3f} GiB of KV, one device "
+                f"{r['kv_one_gib']:.3f}")
+        log(f"  cp {label} {what} rank {s_}: {r['kv_gib']:.3f} GiB of KV cache ({r['positions']} "
+            f"positions a slot) against one device's {r['kv_one_gib']:.3f}; "
+            f"{r['allocated_gib']:.3f} GiB allocated; first decode step's logits within "
+            f"{r['logits_rel']:.3g} of one device's magnitude; build {r['build_s']:.1f} s")
+    require(max(r["logits_rel"] for r in rs) <= TP_LOGITS_REL,
+            f"cp {label}: the first decode step's logits apart from one device's")
+    log(f"  cp {label} {what}: {firsts} of {len(ref['tokens'])} first tokens equal the serve "
+        f"phase's; {equal} of {total} greedy tokens equal (bf16: the C states merged in another "
+        f"order than one device's chunks flip near-ties, then the requests go their own way); "
+        f"decode {st['decode_tok_s']:.1f} tok/s against one device's "
+        f"{ref['decode_tok_s']:.1f} (no context-parallel speed: two gloo ranks share one card, "
+        f"every step eager); mean TTFT {st['mean_ttft_ms']:.1f} ms [{card}]")
+    out["a"] = dict(decode_tok_s=st["decode_tok_s"], one_device_tok_s=ref["decode_tok_s"],
+                    first_equal=firsts, tokens_equal=equal, tokens=total,
+                    kv_gib=[r["kv_gib"] for r in rs], kv_one_gib=rs[0]["kv_one_gib"],
+                    logits_rel=[r["logits_rel"] for r in rs], seconds=st["seconds"],
+                    launches={k: sum(r["launches"][k] for r in rs) for k in st["launches"]})
+    rs = [r["cp-b"] for r in ranks]
+    label, st, ref = "(b) speculative, LLaMA-2-7B INT4 + 160M draft", rs[0], _SPEC_SERVED
+    require(all(r["tokens"] == rs[0]["tokens"] for r in rs[1:]),
+            f"cp {label} {what}: the ranks disagree on the tokens")
+    want = ref["tokens"]
+    firsts = sum(g[0] == w[0] for g, w in zip(st["tokens"], want))
+    require(firsts == len(want),
+            f"cp {label} {what}: {firsts} of {len(want)} first tokens equal the spec phase's")
+    equal = sum(g == w for gs, ws in zip(st["tokens"], want) for g, w in zip(gs, ws))
+    total = sum(len(w) for w in want)
+    same = sum(g == w for g, w in zip(st["tokens"], want))
+    require(equal >= CP_SPEC_EQUAL * total,
+            f"cp {label} {what}: {equal} of {total} tokens equal the spec phase's "
+            f"(at least {CP_SPEC_EQUAL:.0%})")
+    verified = st["mean_verified_tokens_per_step"]
+    require(abs(verified - ref["verified"]) <= CP_SPEC_VERIFIED * ref["verified"],
+            f"cp {label} {what}: {verified:.3f} verified tokens a step against the spec "
+            f"phase's {ref['verified']:.3f} (within {CP_SPEC_VERIFIED:.0%})")
+    log(f"  cp {label} {what}: {firsts} of {len(want)} first tokens, {same} of {len(want)} "
+        f"requests and {equal} of {total} tokens equal the spec phase's; {verified:.3f} "
+        f"verified tokens a step (the spec phase's {ref['verified']:.3f}); "
+        f"verifier KV {st['kv_gib']:.3f} GiB a rank, the draft's whole {st['draft_kv_gib']:.3f}; "
+        f"decode {st['decode_tok_s']:.1f} tok/s against {ref['decode_tok_s']:.1f} [{card}]")
+    out["b"] = dict(decode_tok_s=st["decode_tok_s"], one_device_tok_s=ref["decode_tok_s"],
+                    first_equal=firsts, requests_equal=same, tokens_equal=equal, tokens=total,
+                    mean_verified_tokens_per_step=verified,
+                    launches={k: sum(r["launches"][k] for r in rs) for k in st["launches"]})
+    rs = [r["cp-c"] for r in ranks]
+    label = f"(c) f32, {CP_F32_LAYERS} layers"
+    st = rs[0]
+    apart = [i for i, (g, w) in enumerate(zip(st["cp"]["tokens"], st["one"]["tokens"])) if g != w]
+    require(not apart and all(r["cp"]["tokens"] == st["cp"]["tokens"] for r in rs),
+            f"cp {label} {what}: requests {apart} differ from one device's; common prefixes "
+            f"{_common_prefix(st['cp']['tokens'], st['one']['tokens'])}")
+    log(f"  cp {label} {what}: every greedy token of the {len(CP_F32_LENS)} requests x "
+        f"{CP_F32_NEW} equal to one device's (prompt {CP_F32_LENS[1]} + {CP_F32_NEW} crosses "
+        f"position {1024 // c}, {CP_F32_LENS[0]} in its prefill) [{card}]")
+    out["c"] = dict(launches={k: sum(r["cp-c"]["launches"][k] for r in ranks)
+                              for k in st["launches"]})
+    out["d"] = {}
+    for key, res in ranks[0]["cp-d"].items():
+        if key == "seconds":
+            continue
+        require(res["finite"] and res["err"] <= CP_RING_TOL and res["dtype"] == "torch.bfloat16",
+                f"cp (d) ring prefill {key}: max|err| {res['err']} (limit {CP_RING_TOL})")
+        log(f"  cp (d) ring prefill S={CP_RING['s']} H={CP_RING['h']} D={CP_RING['d']} bf16 "
+            f"{key} {what}: max|err| {res['err']:.3g} against the one-device plain prefill "
+            f"(limit {CP_RING_TOL}); {res['hops']} ring hops a rank; {res['wall_ms']:.1f} ms "
+            f"wall, gloo's host copies included [{card}]")
+        out["d"][key] = res
+    launches = out["a"]["launches"]
+    log(f"  launches during cp (a) {what}, every rank's: {json.dumps(launches)}")
+    for k in ("qmm_int8", "decode_attention_shard", "merge_states", "flash_prefill"):
+        require(launches[k] > 0, f"cp (a): {k} was never launched")
+    require(launches["decode_attention"] == 0, "cp (a): the one-device decode kernel launched")
+    for k in ("qmm_int4", "decode_attention_shard", "merge_states"):
+        require(out["b"]["launches"][k] > 0, f"cp (b): {k} was never launched")
+    return out
+
+
+def _one_device_served(dev, what: str) -> None:
+    """The serve phase's run (``_SERVED``) when that phase did not run."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**LLAMA2_7B)
+    engine = InferenceEngine(spec, _quant_params(spec, 0, dev), max_requests_per_batch=8,
+                             max_seq_len=1024, max_tokens_per_batch=0,
+                             cache_dtype=torch.bfloat16, device=dev)
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size, what)
+    finally:
+        rm.close()
+    _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+    del engine, rm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cp_phase(card: str) -> dict:
+    """Context parallelism (see the module docstring, phase cp): two ranks
+    sharing the card over gloo for (a)-(d), spawned; (e) NCCL across GPUs
+    when the machine has more than one."""
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {"card": card}
+    if "tokens" not in _SERVED:
+        _one_device_served(dev, "cp one device")
+    if "tokens" not in _SPEC_SERVED:
+        _pp_one_device_spec(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_tp(2, "gloo", tmp, tuple(CP_CASES), 600)
+        out["ranks_s"] = time.perf_counter() - t0
+        out.update(_cp_check("C=2 over gloo", ranks, card))
+        n = torch.cuda.device_count()
+        if n > 1:
+            out["e"] = _cp_check(f"C={min(4, n)} over NCCL",
+                                 _spawn_tp(min(4, n), "nccl", tmp, tuple(CP_CASES), 600), card)
+        else:
+            log(f"  cp (e) did not run: the machine shows {n} GPU (NCCL takes one device a rank)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  cp phase wall {out['seconds']:.1f} s, the spawned ranks' {out['ranks_s']:.1f} s of "
+        f"it [{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(DEFAULT_PHASES),
@@ -5980,6 +6550,8 @@ def main(argv=None) -> int:
             qmm_phase(bits, args.reps, records, parent.get("quant_matmul"))
         log("[kernels] decode_attention")
         decode_attention_phase(args.reps, records, parent.get("decode_attention"))
+        log(f"[kernels] decode_attention's shard form (C = {SHARD_DEGREES}) and merge_states")
+        decode_attention_shard_phase(args.reps, records)
         log("[kernels] flash_prefill")
         flash_prefill_phase(args.reps, records, parent.get("flash_prefill"))
         lap("kernels")
@@ -6103,6 +6675,15 @@ def main(argv=None) -> int:
             f"over stages {list(PT_SIZES)}; (c) NCCL across GPUs when there are several")
         summary["pptrain"] = pptrain_phase(card)
         lap("pptrain")
+    if "cp" in phases:
+        log("[cp] context parallelism, two ranks sharing the card over gloo, the verifier's KV "
+            "cache cut on its positions: (a) LLaMA-2-7B INT8, 32 layers, C=2, the serve traffic; "
+            "(b) the spec phase's INT4 pair at C=2; (c) LLaMA-2-7B width at "
+            f"{CP_F32_LAYERS} layers in f32, prompts {list(CP_F32_LENS)} x {CP_F32_NEW} tokens; "
+            f"(d) the ring prefill at S={CP_RING['s']}, bf16; (e) NCCL across GPUs when there "
+            "are several")
+        summary["cp"] = cp_phase(card)
+        lap("cp")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a
@@ -6123,6 +6704,8 @@ def main(argv=None) -> int:
                {"launches": lb.get("offload", {}).get("resident_launches", {})}, la.get("c", {})]
     pp = summary.get("pp", {})  # every rank's launches, each case's
     served += [pp.get("pp-a", {}), pp.get("pp-b", {}), pp.get("pp-d", {})]
+    cp = summary.get("cp", {})  # every rank's launches, each case's
+    served += [cp.get("a", {}), cp.get("b", {}), cp.get("c", {})]
     offload = summary.get("offload", {})
     served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
     served.append(offload.get("mixtral", {}))

@@ -51,6 +51,25 @@
 // position alone, never of B, T, KH, the grid or the nodes a block holds,
 // which is what keeps a tree node bitwise equal to the one-token call. No
 // float atomics.
+//
+// Shard form (context parallelism: the cache cut on its position axis over
+// C seq ranks, the block [pos0, pos0 + S) on this rank). The same two
+// kernels, with the rank's committed count clamp(lens - pos0, 0, S)
+// computed in the kernel (the host reads nothing) and a flag saying
+// whether the in-flight items (the token, its tree ancestors and itself)
+// join here: on seq rank 0 only, at the virtual positions after the rank's
+// committed ones, so they are counted once. A row with nothing to attend
+// on a rank leaves the neutral state (max NEG_INF, sum 0). The merge
+// kernel writes the row's unnormalized state (num[D], max, sum) instead of
+// num / sum; the C ranks' states, gathered over the seq group, go through
+// the same merge kernel once more (ff_merge_states: a fixed count of C
+// states in rank order, then the division). Every rank merges the same
+// gathered bits in the same order, so every rank holds the same output. At
+// C = 1 (pos0 = 0, in-flight items here) the result is the one-device
+// kernel's bit for bit: the second merge rescales by __expf(0) = 1 and
+// adds to 0. What bounds the shard form: the rank's cache bytes, as
+// above, plus a C * (D + 2) * 4-byte state a row and head gathered over
+// the seq group (not O(S)).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,15 +141,24 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
   }
 }
 
+// The committed positions of slot b this cache (block) holds: lens[b] -
+// pos0, clamped to [0, S].
+__device__ __forceinline__ int local_len(const int* lens, int b, int pos0, int S) {
+  int len = lens[b] - pos0;
+  return len < 0 ? 0 : (len > S ? S : len);
+}
+
 // Clamped committed length and in-flight ancestor count of row r: the row
-// attends virtual positions 0 .. len + n_in (the last one itself).
+// attends virtual positions 0 .. total = len + n_in (the last one itself);
+// without the in-flight items only the committed ones, total = len - 1
+// (-1: none).
 struct RowExtent {
   int len, total;
 };
 __device__ __forceinline__ RowExtent row_extent(const int* lens, const int* nx, int r, int NT,
-                                                int S) {
-  int len = lens[r / NT];
-  len = len < 0 ? 0 : (len > S ? S : len);
+                                                int S, int pos0, int inflight) {
+  const int len = local_len(lens, r / NT, pos0, S);
+  if (!inflight) return {len, len - 1};
   int n_in = nx ? nx[r] : 0;
   n_in = n_in < 0 ? 0 : (n_in > NT - 1 ? NT - 1 : n_in);
   return {len, len + n_in};
@@ -182,7 +210,9 @@ __host__ __device__ inline Smem smem_layout(int NT, int NG, int G, int D, int es
 // scores, online-softmax step and P.V run while the later tiles land. A
 // head's arithmetic is the same whichever nodes its block holds, and a tile
 // a node attends nowhere in leaves its state exactly as it was. idx / nx /
-// self_m are null for the one-token form (NT = 1).
+// self_m are null for the one-token form (NT = 1). pos0 / inflight: the
+// shard form's block start and whether the in-flight items join (0, 1 for
+// the one-device call).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_chunks(const T* __restrict__ q, const T* __restrict__ kc,
@@ -190,7 +220,7 @@ decode_attention_chunks(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vn, const int* __restrict__ lens,
                         const int* __restrict__ idx, const int* __restrict__ nx,
                         const int* __restrict__ self_m, float* __restrict__ ws, int NT, int H,
-                        int KH, int S, int NC, int NG, float scale) {
+                        int KH, int S, int NC, int NG, float scale, int pos0, int inflight) {
   constexpr int VE = 16 / sizeof(T);  // elements of a 16-byte vector
   constexpr int VR = D / VE;          // vectors of a row
   constexpr int VPL = (VR + LANES_PER_POS - 1) / LANES_PER_POS;  // a lane's vectors of a row
@@ -203,10 +233,9 @@ decode_attention_chunks(const T* __restrict__ q, const T* __restrict__ kc,
   const int t0 = (blockIdx.z % groups) * NG;  // first node held
   const int nn = min(NG, NT - t0);             // nodes held
   const int HB = nn * G;  // query heads held: node t0 + g / G, head kh * G + g % G
-  int len = lens[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
+  const int len = local_len(lens, b, pos0, S);
   const int p0 = c * CHUNK;
-  const int last = len + NT - 1;  // no node attends past it
+  const int last = inflight ? len + NT - 1 : len - 1;  // no node attends past it
   if (p0 > last) return;
   const int ncom = min(CHUNK, max(0, len - p0));  // committed rows of this chunk
   const int tiles = min(TILES, (last - p0) / TILE + 1);  // tiles some node may attend
@@ -232,7 +261,7 @@ decode_attention_chunks(const T* __restrict__ q, const T* __restrict__ kc,
     int row = -1;
     if (p < len) {
       row = pl;
-    } else {
+    } else if (inflight) {
       const size_t r = (size_t)b * NT + node;
       int n_in = nx ? nx[r] : 0;
       n_in = n_in < 0 ? 0 : (n_in > NT - 1 ? NT - 1 : n_in);
@@ -253,7 +282,7 @@ decode_attention_chunks(const T* __restrict__ q, const T* __restrict__ kc,
     const int i = w / (G * VR);
     cp_async16(Qs + w * VE, qb + (size_t)i * H * D + (w % (G * VR)) * VE, true);
   }
-  if (ncom < CHUNK) {
+  if (inflight && ncom < CHUNK) {
     for (int w = threadIdx.x; w < NT * VR; w += THREADS) {
       const size_t src = (((size_t)b * NT + w / VR) * KH + kh) * D + (w % VR) * VE;
       cp_async16(Ks + CHUNK * D + w * VE, kn + src, true);
@@ -374,18 +403,26 @@ decode_attention_chunks(const T* __restrict__ q, const T* __restrict__ kc,
 // of a round of 32 chunks loads chunk c's max and sum, and the accumulators
 // of BATCH chunks are loaded before any of them is summed, so few loads wait
 // on another; the maximum is taken over lanes, and every sum runs in chunk
-// order with the lanes splitting D.
+// order with the lanes splitting D. ``fixed`` > 0: merge that many states
+// (the seq ranks', in rank order; lens and nx unused) in place of the row's
+// live chunks. ``state`` non-null: write the row's unnormalized state
+// (num[D], max, sum) there, [pairs][D + 2], in place of num / sum.
 template <typename T, int D>
 __global__ void __launch_bounds__(MERGE_THREADS)
 decode_attention_merge(const int* __restrict__ lens, const int* __restrict__ nx,
                        const float* __restrict__ ws, T* __restrict__ out, int NT, int H, int S,
-                       int NC, int pairs) {
+                       int NC, int pairs, int pos0, int inflight, int fixed,
+                       float* __restrict__ state) {
   constexpr int DL = (D + 31) / 32;  // columns a lane merges
   constexpr int BATCH = DL > 4 ? 4 : 8;  // chunks whose accumulators load together
   const int pair = blockIdx.x * (MERGE_THREADS / 32) + threadIdx.x / 32;  // r * H + h
   if (pair >= pairs) return;
   const int lane = threadIdx.x % 32;
-  const int live = row_extent(lens, nx, pair / H, NT, S).total / CHUNK + 1;
+  int live = fixed;
+  if (fixed <= 0) {
+    const int total = row_extent(lens, nx, pair / H, NT, S, pos0, inflight).total;
+    live = total < 0 ? 0 : total / CHUNK + 1;
+  }
   const float* part = ws + (size_t)pair * NC * (D + 2);
   float m_first = NEG_INF, l_first = 0.f;  // round 0's max and sum, lane = chunk
   if (lane < live) {
@@ -428,6 +465,18 @@ decode_attention_merge(const int* __restrict__ lens, const int* __restrict__ nx,
       }
     }
   }
+  if (state != nullptr) {
+    float* st = state + (size_t)pair * (D + 2);
+#pragma unroll
+    for (int k = 0; k < DL; ++k) {
+      if (lane + 32 * k < D) st[lane + 32 * k] = num[k];
+    }
+    if (lane == 0) {
+      st[D] = mx;
+      st[D + 1] = den;
+    }
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < DL; ++k) {
     if (lane + 32 * k < D)
@@ -440,7 +489,8 @@ constexpr size_t MAX_SMEM = 232448;  // bytes a block can use on Hopper
 template <typename T, int D>
 int launch(const void* q, const void* kc, const void* vc, const void* kn, const void* vn,
            const void* lens, const void* idx, const void* nx, const void* self_m, void* out,
-           float* ws, int B, int NT, int H, int KH, int S, float scale, cudaStream_t st) {
+           float* ws, int B, int NT, int H, int KH, int S, float scale, int pos0, int inflight,
+           float* state, cudaStream_t st) {
   const int G = H / KH;
   const int NC = (S + NT + CHUNK - 1) / CHUNK;
   // nodes a block holds: all of a slot's while two blocks still fit an SM
@@ -460,24 +510,35 @@ int launch(const void* q, const void* kc, const void* vc, const void* kn, const 
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
       static_cast<const T*>(kn), static_cast<const T*>(vn), static_cast<const int*>(lens),
       static_cast<const int*>(idx), static_cast<const int*>(nx),
-      static_cast<const int*>(self_m), ws, NT, H, KH, S, NC, NG, scale);
+      static_cast<const int*>(self_m), ws, NT, H, KH, S, NC, NG, scale, pos0, inflight);
   const int pairs = B * NT * H;
   const int per_block = MERGE_THREADS / 32;
   decode_attention_merge<T, D><<<(pairs + per_block - 1) / per_block, MERGE_THREADS, 0, st>>>(
       static_cast<const int*>(lens), static_cast<const int*>(nx), ws, static_cast<T*>(out), NT, H,
-      S, NC, pairs);
+      S, NC, pairs, pos0, inflight, 0, state);
+  return (int)cudaGetLastError();
+}
+
+// C seq ranks' states [rows][H][C][D + 2] merged in rank order into
+// out [rows][H][D]
+template <typename T, int D>
+int launch_merge(const float* states, void* out, int rows, int H, int C, cudaStream_t st) {
+  const int pairs = rows * H;
+  const int per_block = MERGE_THREADS / 32;
+  decode_attention_merge<T, D><<<(pairs + per_block - 1) / per_block, MERGE_THREADS, 0, st>>>(
+      nullptr, nullptr, states, static_cast<T*>(out), 1, H, 0, C, pairs, 0, 1, C, nullptr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* kc, const void* vc, const void* kn, const void* vn,
              const void* lens, const void* idx, const void* nx, const void* self_m, void* out,
-             float* ws, int B, int NT, int H, int KH, int S, int D, float scale,
-             cudaStream_t st) {
+             float* ws, int B, int NT, int H, int KH, int S, int D, float scale, int pos0,
+             int inflight, float* state, cudaStream_t st) {
 #define FF_DECODE_CASE(DD)                                                                   \
   case DD:                                                                                   \
     return launch<T, DD>(q, kc, vc, kn, vn, lens, idx, nx, self_m, out, ws, B, NT, H, KH, S, \
-                         scale, st);
+                         scale, pos0, inflight, state, st);
   switch (D) {
     FF_DECODE_CASE(32)
     FF_DECODE_CASE(64)
@@ -490,6 +551,44 @@ int launch_d(const void* q, const void* kc, const void* vc, const void* kn, cons
       return (int)cudaErrorInvalidValue;
   }
 #undef FF_DECODE_CASE
+}
+
+template <typename T>
+int launch_merge_d(const float* states, void* out, int rows, int H, int C, int D,
+                   cudaStream_t st) {
+#define FF_MERGE_CASE(DD) \
+  case DD:                \
+    return launch_merge<T, DD>(states, out, rows, H, C, st);
+  switch (D) {
+    FF_MERGE_CASE(32)
+    FF_MERGE_CASE(64)
+    FF_MERGE_CASE(96)
+    FF_MERGE_CASE(128)
+    FF_MERGE_CASE(160)
+    FF_MERGE_CASE(192)
+    FF_MERGE_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef FF_MERGE_CASE
+}
+
+int decode_attention_any(const void* q, const void* k_cache, const void* v_cache,
+                         const void* k_new, const void* v_new, const void* lens, const void* idx,
+                         const void* nx, const void* self_m, void* out, void* ws, int B, int NT,
+                         int H, int KH, int S, int D, int chunk, float scale, int is_bf16,
+                         int pos0, int inflight, float* state, void* stream) {
+  if (chunk != CHUNK || B < 0 || NT <= 0 || KH <= 0 || H % KH || S < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * NT > 65535 || KH > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;  // nothing to write
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  if (is_bf16)
+    return launch_d<__nv_bfloat16>(q, k_cache, v_cache, k_new, v_new, lens, idx, nx, self_m, out,
+                                   w, B, NT, H, KH, S, D, scale, pos0, inflight, state, st);
+  return launch_d<float>(q, k_cache, v_cache, k_new, v_new, lens, idx, nx, self_m, out, w, B, NT,
+                         H, KH, S, D, scale, pos0, inflight, state, st);
 }
 
 }  // namespace
@@ -509,15 +608,37 @@ extern "C" int ff_decode_attention(const void* q, const void* k_cache, const voi
                                    const void* idx, const void* nx, const void* self_m,
                                    void* out, void* ws, int B, int NT, int H, int KH, int S,
                                    int D, int chunk, float scale, int is_bf16, void* stream) {
-  if (chunk != CHUNK || B < 0 || NT <= 0 || KH <= 0 || H % KH || S < 0)
-    return (int)cudaErrorInvalidValue;
-  if ((long long)B * NT > 65535 || KH > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;  // nothing to write
+  return decode_attention_any(q, k_cache, v_cache, k_new, v_new, lens, idx, nx, self_m, out, ws,
+                              B, NT, H, KH, S, D, chunk, scale, is_bf16, 0, 1, nullptr, stream);
+}
+
+// The shard form: as ff_decode_attention over a seq rank's block of the
+// cache (k_cache / v_cache [B, KH, S, D] hold the global positions pos0 ..
+// pos0 + S - 1; lens is the global count), the in-flight items joining
+// where inflight != 0. Writes each row's unnormalized state to state, f32
+// [B * NT, H, D + 2] (num[D], max, sum), in place of an output.
+extern "C" int ff_decode_attention_shard(const void* q, const void* k_cache,
+                                         const void* v_cache, const void* k_new,
+                                         const void* v_new, const void* lens, const void* idx,
+                                         const void* nx, const void* self_m, void* state,
+                                         void* ws, int B, int NT, int H, int KH, int S, int D,
+                                         int chunk, float scale, int is_bf16, int pos0,
+                                         int inflight, void* stream) {
+  if (state == nullptr) return (int)cudaErrorInvalidValue;
+  return decode_attention_any(q, k_cache, v_cache, k_new, v_new, lens, idx, nx, self_m, nullptr,
+                              ws, B, NT, H, KH, S, D, chunk, scale, is_bf16, pos0, inflight,
+                              static_cast<float*>(state), stream);
+}
+
+// states f32 [rows, H, C, D + 2] (C seq ranks' states of each row, in rank
+// order) -> out [rows, H, D] (bf16 when is_bf16 else f32): the merge
+// kernel over a fixed count of C states. One kernel on `stream`.
+extern "C" int ff_merge_states(const void* states, void* out, int rows, int H, int C, int D,
+                               int is_bf16, void* stream) {
+  if (rows < 0 || H <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(q, k_cache, v_cache, k_new, v_new, lens, idx, nx, self_m, out,
-                                   w, B, NT, H, KH, S, D, scale, st);
-  return launch_d<float>(q, k_cache, v_cache, k_new, v_new, lens, idx, nx, self_m, out, w, B, NT,
-                         H, KH, S, D, scale, st);
+  const float* s = static_cast<const float*>(states);
+  if (is_bf16) return launch_merge_d<__nv_bfloat16>(s, out, rows, H, C, D, st);
+  return launch_merge_d<float>(s, out, rows, H, C, D, st);
 }

@@ -156,10 +156,11 @@ class FFModel:
     """Layer-graph builder and its executor on one device."""
 
     def __init__(self, seed: int = 0, mesh=None, device=None):
-        from flexflow_tpu_torch.parallel.mesh import Mesh
+        from flexflow_tpu_torch.parallel.mesh import Mesh, refuse_seq
 
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+        refuse_seq(mesh, "FFModel (and the search it compiles with)")
         self._mesh = mesh  # stored as JAX stores it; nothing reads it
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)

@@ -16,8 +16,16 @@ parallelism serve over ``T * D`` or ``P * T`` ranks, one process each
         -llm-model DIR --pp 2 [--device cpu]
 
 ``--pp`` (``-pipeline-parallelism-degree``) serves through the pipeline
-engine, each rank holding its stage's layers. Context degrees above 1 are
-refused (ROADMAP A10).
+engine, each rank holding its stage's layers. ``--cp``
+(``-context-parallel-degree``) cuts the KV cache on its positions over
+that many ranks (``LLM.compile(context_parallel_degree=)``), alone or
+with ``-tensor-parallelism-degree`` / ``-data-parallelism-degree``:
+
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.inference.incr_decoding \
+        -llm-model DIR --cp 2 [--device cpu]
+
+Pipeline stages, offload or LoRA under a context degree raise (ROADMAP
+A10c).
 ``-auto-parallelism`` is accepted for compatibility (one device). Legion
 resource flags (``-ll:*``) are ignored.
 """
@@ -47,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="pp", type=int, default=1)
     p.add_argument("-data-parallelism-degree", "--data-parallelism-degree",
                    dest="dp", type=int, default=1)
-    p.add_argument("-context-parallel-degree", "--context-parallel-degree",
+    p.add_argument("-context-parallel-degree", "--context-parallel-degree", "--cp",
                    dest="cp", type=int, default=1)
     p.add_argument("--fusion", action="store_true", help="accepted for parity")
     p.add_argument("-4bit-quantization", "--4bit-quantization", dest="int4",

@@ -72,6 +72,20 @@ layers' traces. ``kv_sink`` and the cache index the tree's own layers. The
 kernel routing, the masks and the ALiBi slopes are the one-device
 decoder's, so a stage launches the kernels where one device does.
 
+Context parallelism (``shard.seq``, a ``parallel/sharding.SeqCut``): the
+cache holds the rank's block of positions ``[lo, hi)`` at local indices
+``[0, hi - lo)``, while positions, ``cache_lens``, the RoPE tables, ALiBi
+distances and "columns past S" stay global. ``forward_cached`` computes
+each layer's attention state over the block (the decode-attention
+kernel's shard form where the one-device path takes the kernel, else
+``ops/attention.split_cached_attention_state``), the in-flight tokens
+counted on seq rank 0 only, gathers the C states over ``seq`` and merges
+them in rank order (``merge_states``: every rank holds the same bits),
+and writes only the block's positions. ``forward`` (the prefill) is the
+one-device forward on every seq rank (JAX's GSPMD replicates it over
+``seq``); the caller's ``kv_sink`` keeps the block's positions
+(``commit_kv_windows(first=)``).
+
 KV cache layout: ``[L, B, KH, S, D]`` — one contiguous D-row per position
 for coalesced reads on the GPU (JAX keeps ``[L, B, KH, D, S]`` for the TPU's
 (8, 128) tiling). Public shapes stay as in JAX: logits ``[B, T, V]`` f32 and
@@ -91,13 +105,18 @@ from flexflow_tpu_torch.ops import moe as moe_lib
 from flexflow_tpu_torch.ops import norms, rotary
 from flexflow_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
+    decode_attention_state,
+    merge_states,
     tree_attention,
+    tree_attention_state,
     tree_index,
 )
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
+from flexflow_tpu_torch.ops.ring_attention import gather_states
 from flexflow_tpu_torch.parallel.mesh import (MODEL_AXIS, copy_to_model, gather_from_model,
                                              reduce_from_model)
+from flexflow_tpu_torch.parallel.sharding import first_position
 from flexflow_tpu_torch.peft.lora import RoutedLora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
 from flexflow_tpu_torch.models.layer_store import LayerStore
@@ -617,31 +636,37 @@ def forward(
     return logits, kv
 
 
-def _window_index(starts: HostInts, t: int, s: int, device):
-    """Host-side (slot, position, update-row) indices of the in-range columns
-    of windows [starts[b], starts[b] + t), clipped at S; None if empty."""
-    st = np.clip(np.asarray(starts, dtype=np.int64), 0, s)
-    pos = st[:, None] + np.arange(t)[None, :]
-    bi, ti = np.nonzero(pos < s)
+def _window_index(starts: HostInts, t: int, s: int, device, first: int = 0):
+    """Host-side (slot, local position, update-row) indices of the in-range
+    columns of windows [starts[b], starts[b] + t), clipped at S, in a cache
+    holding the global positions [first, first + s); None if empty."""
+    st = np.clip(np.asarray(starts, dtype=np.int64), 0, first + s)
+    pos = st[:, None] + np.arange(t)[None, :] - first
+    bi, ti = np.nonzero((pos >= 0) & (pos < s))
     if bi.size == 0:
         return None
     return tuple(to_device(a, device, np.int64) for a in (bi, pos[bi, ti], ti))
 
 
-def device_window(cache_lens: torch.Tensor, t: int, s: int):
+def device_window(cache_lens: torch.Tensor, t: int, s: int, first: int = 0):
     """Device-side indices of the windows [lens[b], lens[b] + t) of a cache of
     S positions, with no host read: (slot [B, t], position [B, t], keep
-    [B, t]). A column at or past S is not kept and is aimed at lens[b] - 1,
-    which no kept column of its row targets, so writing the old value back
-    there drops it. Needs t <= S."""
+    [B, t]). ``first``: the cache holds the global positions [first, first
+    + S) (a seq rank's block; 0 the whole cache) at local indices. A column
+    outside them (at or past S) is not kept and is aimed at a local index
+    no kept column of its row targets (lens[b] - 1, or the one after the
+    kept ones), so writing the old value back there drops it. Needs
+    t <= S."""
     if t > s:
         raise ValueError(f"a window of {t} columns does not fit a cache of {s} positions")
-    lens = cache_lens.long()[:, None]
-    pos = lens + torch.arange(t, device=cache_lens.device)[None, :]
-    keep = pos < s
-    safe = torch.where(keep, pos, (lens - 1).clamp(0, s - 1))
+    start = cache_lens.long()[:, None] - first
+    loc = start + torch.arange(t, device=cache_lens.device)[None, :]
+    keep = (loc >= 0) & (loc < s)
+    # the kept columns are [max(start, 0), min(start + t, s)): the index just
+    # before them, or just after where they begin at 0 (t <= s: one is free)
+    free = torch.where(start >= 1, (start - 1).clamp(0, s - 1), (start + t).clamp(0, s - 1))
     slots = torch.arange(cache_lens.shape[0], device=cache_lens.device)[:, None].expand(-1, t)
-    return slots, safe, keep
+    return slots, torch.where(keep, loc, free), keep
 
 
 def forward_cached(
@@ -694,7 +719,9 @@ def forward_cached(
     src = tokens if hidden is None else hidden
     b, t = src.shape[:2]
     dev = src.device
-    s = cache.max_seq_len
+    s = cache.max_seq_len  # the positions this cache holds (a seq rank's block)
+    cut = None if shard is None else shard.seq
+    first = first_position(shard)  # the block's first global position
     slopes = _alibi_slopes(spec, dev, shard)
     cache_lens = cache_lens.to(device=dev, dtype=torch.int32)
     if positions is None:
@@ -703,12 +730,13 @@ def forward_cached(
 
     if write_cache:
         if write_start is None:
-            dwin = device_window(cache_lens, t, s)
+            dwin = device_window(cache_lens, t, s, first)
         else:
-            widx = _window_index(write_start, t, s, dev)
-    window = attn_window if attn_window is not None and attn_window < s else s
+            widx = _window_index(write_start, t, s, dev, first)
+    # the window's part of this block (one column at least: masked)
+    window = s if attn_window is None else min(max(attn_window - first, 1), s)
     if kv_mask is not None:
-        kv_mask = kv_mask[..., :window]
+        kv_mask = kv_mask[..., first:first + window]
     joint_mask, joint_positions = tree_mask, None
     if extra_kv is not None:
         if extra_mask is None:
@@ -729,6 +757,11 @@ def forward_cached(
             if use_kernel and tree_mask is not None and dev.type == "cuda" else None)
     rope = _rope_tables(spec, positions)
     routing = _lora_routing(lora, adapter_ids, lora_scale)
+    plain_kw = dict(new_mask=joint_mask, kv_mask=kv_mask, q_positions=positions,
+                    new_positions=joint_positions, slopes=slopes,
+                    logit_softcap=spec.attn_logit_softcap)
+    # a seq rank's block: the in-flight columns join on seq rank 0 only
+    seq_kw = None if cut is None else dict(first=first, inflight=cut.rank == 0)
 
     new_k, new_v = [], []
     for i, p in _layer_views(spec, params, lora, routing, shard):
@@ -740,22 +773,26 @@ def forward_cached(
             # later step reads back from the cache
             kc, vc = k.to(ck_l.dtype), v.to(cv_l.dtype)
             if use_kernel and tree_mask is not None:
-                out = tree_attention(q.contiguous(), ck_l, cv_l, kc.contiguous(),
-                                     vc.contiguous(), cache_lens, tree_mask, index=tidx)
+                args = (q.contiguous(), ck_l, cv_l, kc.contiguous(), vc.contiguous(),
+                        cache_lens, tree_mask)
+                out = (tree_attention(*args, index=tidx) if cut is None
+                       else tree_attention_state(*args, index=tidx, **seq_kw))
             elif use_kernel:
-                out = decode_attention(q[:, 0].contiguous(), ck_l, cv_l,
-                                       kc[:, 0].contiguous(), vc[:, 0].contiguous(),
-                                       cache_lens)[:, None]
+                args = (q[:, 0].contiguous(), ck_l, cv_l, kc[:, 0].contiguous(),
+                        vc[:, 0].contiguous(), cache_lens)
+                out = (decode_attention(*args) if cut is None
+                       else decode_attention_state(*args, **seq_kw))[:, None]
             else:
                 kn, vn = kc, vc
                 if extra_kv is not None:
                     kn = torch.cat([extra_kv[0][i].to(kc.dtype), kc], dim=1)
                     vn = torch.cat([extra_kv[1][i].to(vc.dtype), vc], dim=1)
-                out = attn_lib.split_cached_attention(
-                    q, ck_l[:, :, :window], cv_l[:, :, :window], kn, vn, cache_lens,
-                    new_mask=joint_mask, kv_mask=kv_mask, q_positions=positions,
-                    new_positions=joint_positions, slopes=slopes,
-                    logit_softcap=spec.attn_logit_softcap)
+                args = (q, ck_l[:, :, :window], cv_l[:, :, :window], kn, vn, cache_lens)
+                out = (attn_lib.split_cached_attention(*args, **plain_kw) if cut is None
+                       else attn_lib.pack_state(*attn_lib.split_cached_attention_state(
+                           *args, **plain_kw, kv_offset=first, with_new=seq_kw["inflight"])))
+            if cut is not None:  # this seq rank's states, merged over seq
+                out = merge_states(gather_states(out, shard.mesh), q.dtype).reshape(q.shape)
             if write_cache and write_start is None:
                 slots, pos, keep = dwin
                 keep = keep[:, :, None, None]
@@ -787,11 +824,14 @@ def commit_kv_windows(
     upd_v: torch.Tensor,
     starts: HostInts,  # [NB] seq offset per row
     slot_idx: Optional[HostInts] = None,  # [NB] cache row per update; -1 = skip
+    first: int = 0,  # the cache holds the global positions [first, first + S)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write per-row KV windows into the cache with direct indexed copies:
     row i lands at ``cache[:, slot_idx[i], :, starts[i]:starts[i]+T]``.
     Rows with slot -1 write nothing; columns past S are dropped (the start is
-    never shifted). Returns the (same, updated) cache tensors."""
+    never shifted). A seq rank's block (``first``): only the window's
+    columns inside ``[first, first + S)``, at local indices. Returns the
+    (same, updated) cache tensors."""
     s = ck.shape[3]
     t = upd_k.shape[3]
     starts = np.asarray(starts.cpu() if isinstance(starts, torch.Tensor) else starts)
@@ -799,20 +839,21 @@ def commit_kv_windows(
         slot_idx = np.arange(len(starts))
     slots = np.asarray(slot_idx.cpu() if isinstance(slot_idx, torch.Tensor) else slot_idx)
     for i, (slot, st) in enumerate(zip(slots.tolist(), starts.tolist())):
-        st = min(max(int(st), 0), s)
-        n = min(t, s - st)
-        if slot < 0 or n <= 0:
+        st = max(int(st), 0)
+        a, b = max(st, first), min(st + t, first + s)  # global columns written here
+        if slot < 0 or b <= a:
             continue
-        ck[:, slot, :, st:st + n] = upd_k[:, i, :, :n]
-        cv[:, slot, :, st:st + n] = upd_v[:, i, :, :n]
+        ck[:, slot, :, a - first:b - first] = upd_k[:, i, :, a - st:b - st]
+        cv[:, slot, :, a - first:b - first] = upd_v[:, i, :, a - st:b - st]
     return ck, cv
 
 
 def insert_kv(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-              slot: int, length: Optional[int] = None) -> KVCache:
+              slot: int, length: Optional[int] = None, first: int = 0) -> KVCache:
     """Write one prefill's K/V ([L, T, KH, D]) into slot ``slot`` at positions
-    [0, T) (padding included; masked later by cache_lens)."""
+    [0, T) (padding included; masked later by cache_lens); ``first``: a seq
+    rank's block (``commit_kv_windows``)."""
     del length
     commit_kv_windows(cache.k, cache.v, k_new.permute(0, 2, 1, 3)[:, None],
-                      v_new.permute(0, 2, 1, 3)[:, None], [0], [int(slot)])
+                      v_new.permute(0, 2, 1, 3)[:, None], [0], [int(slot)], first=first)
     return cache

@@ -80,24 +80,32 @@ def prefill_attention(
     return out.reshape(s, h, d).to(q.dtype)
 
 
-def split_cached_attention(
+def split_cached_attention_state(
     q: torch.Tensor,  # [B, T, H, D]
-    k_cache: torch.Tensor,  # [B, KH, S, D] committed cache (read-only)
+    k_cache: torch.Tensor,  # [B, KH, S, D] committed cache, or a seq rank's slice of it
     v_cache: torch.Tensor,  # [B, KH, S, D]
     k_new: torch.Tensor,  # [B, T', KH, D] in-flight tokens' K
     v_new: torch.Tensor,  # [B, T', KH, D]
-    cache_lens: torch.Tensor,  # [B]
+    cache_lens: torch.Tensor,  # [B] committed tokens (global count)
     *,
     new_mask: Optional[torch.Tensor] = None,  # [B, T, T'] bool; None => causal
-    kv_mask: Optional[torch.Tensor] = None,  # [B, T, S]; None => committed prefix
+    kv_mask: Optional[torch.Tensor] = None,  # [B, T, S] over this slice; None => committed
     q_positions: Optional[torch.Tensor] = None,  # [B, T]
     new_positions: Optional[torch.Tensor] = None,  # [B, T'] (alibi)
     slopes: Optional[torch.Tensor] = None,  # [H]
     logit_softcap: Optional[float] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Attention of T in-flight tokens against (read-only cache) + (new KV):
-    one joint fp32 softmax over [cache | new] columns."""
+    kv_offset: int = 0,  # the slice's first global position
+    with_new: bool = True,  # False: the in-flight columns are not counted here
+):
+    """The unnormalized softmax state of :func:`split_cached_attention` over
+    a cache slice whose first position is the global ``kv_offset`` (a seq
+    rank's block; positions, the committed-prefix mask and ALiBi distances
+    are global). Returns ``(acc [B, T, H, D], max [B, T, H], sum [B, T,
+    H])`` in f32: ``acc / sum`` is the attention output. Without
+    ``with_new`` (every seq rank but the first) the in-flight columns are
+    masked out, so they are counted once; a row with nothing to attend
+    here gives the neutral state (acc 0, max ``NEG_INF``, sum 0)."""
     b, t, h, d = q.shape
     kh, s = k_cache.shape[1], k_cache.shape[2]
     tn = k_new.shape[1]
@@ -115,7 +123,7 @@ def split_cached_attention(
             q_positions = cache_lens[:, None] + torch.arange(t, device=dev)[None, :]
         if new_positions is None:
             new_positions = q_positions
-        kv_pos = torch.arange(s, device=dev).float()
+        kv_pos = torch.arange(kv_offset, kv_offset + s, device=dev).float()
         rel_c = q_positions[:, :, None].float() - kv_pos[None, None, :]
         rel_n = q_positions[:, :, None].float() - new_positions[:, None, :].float()
         sl = slopes.reshape(kh, h // kh)[None, :, :, None, None]
@@ -123,10 +131,12 @@ def split_cached_attention(
         sn = sn - sl * rel_n[:, None, None]
 
     if kv_mask is None:
-        kv_pos = torch.arange(s, device=dev)[None, None, :]
+        kv_pos = torch.arange(kv_offset, kv_offset + s, device=dev)[None, None, :]
         kv_mask = (kv_pos < cache_lens[:, None, None]).expand(b, t, s)
     if new_mask is None:
         new_mask = torch.tril(torch.ones(t, tn, dtype=torch.bool, device=dev))[None].expand(b, t, tn)
+    if not with_new:
+        new_mask = torch.zeros_like(new_mask)
 
     kvm = kv_mask[:, None, None]
     nm = new_mask[:, None, None]
@@ -139,8 +149,47 @@ def split_cached_attention(
     denom = torch.sum(ec, dim=-1, keepdim=True) + torch.sum(en, dim=-1, keepdim=True)
     oc = torch.einsum("bkgts,bksd->btkgd", ec, v_cache.float())
     on = torch.einsum("bkgtu,bukd->btkgd", en, v_new.float())
-    out = (oc + on) / torch.clamp_min(denom.permute(0, 3, 1, 2, 4), 1e-30)
-    return out.reshape(b, t, h, d).to(q.dtype)
+    return ((oc + on).reshape(b, t, h, d), m.permute(0, 3, 1, 2, 4).reshape(b, t, h),
+            denom.permute(0, 3, 1, 2, 4).reshape(b, t, h))
+
+
+def pack_state(acc, m, l) -> torch.Tensor:
+    """(acc [..., H, D], max [..., H], sum [..., H]) -> one f32 tensor
+    [..., H, D + 2], the layout :func:`merge_states` takes."""
+    return torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+
+
+def split_cached_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_cache: torch.Tensor,  # [B, KH, S, D] committed cache (read-only)
+    v_cache: torch.Tensor,  # [B, KH, S, D]
+    k_new: torch.Tensor,  # [B, T', KH, D] in-flight tokens' K
+    v_new: torch.Tensor,  # [B, T', KH, D]
+    cache_lens: torch.Tensor,  # [B]
+    **kw,
+) -> torch.Tensor:
+    """Attention of T in-flight tokens against (read-only cache) + (new KV):
+    one joint fp32 softmax over [cache | new] columns. Keywords as
+    :func:`split_cached_attention_state` (``new_mask``, ``kv_mask``,
+    ``q_positions``, ``new_positions``, ``slopes``, ``logit_softcap``,
+    ``scale``)."""
+    acc, _, denom = split_cached_attention_state(q, k_cache, v_cache, k_new, v_new,
+                                                 cache_lens, **kw)
+    return (acc / torch.clamp_min(denom, 1e-30)[..., None]).to(q.dtype)
+
+
+def merge_states(states: torch.Tensor) -> torch.Tensor:
+    """Softmax states ``[rows, H, C, D + 2]`` (each: its f32 accumulator,
+    max and sum, as :func:`split_cached_attention_state` gives them; C seq
+    ranks' states of one row, in rank order) merged into the attention
+    output ``[rows, H, D]`` in f32: the states rescaled to their common
+    maximum, accumulators and sums added, one division. Neutral states
+    (max ``NEG_INF``, sum 0) add nothing."""
+    acc, m, l = states[..., :-2], states[..., -2], states[..., -1]
+    f = torch.exp(m - torch.amax(m, dim=-1, keepdim=True))  # [rows, H, C]
+    den = torch.sum(l * f, dim=-1)
+    num = torch.sum(acc * f[..., None], dim=-2)
+    return num / torch.clamp_min(den, 1e-30)[..., None]
 
 
 def cached_attention(

@@ -39,6 +39,8 @@ SIGNATURES = {
     "ff_qmm_int8": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
     "ff_qmm_int4": [_P] * 6 + [_I] * 5 + [_L, _I, _I, _P],
     "ff_decode_attention": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "ff_decode_attention_shard": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I, _P],
+    "ff_merge_states": [_P, _P] + [_I] * 5 + [_P],
     "ff_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "ff_qmm_v_i8_group": [_P] * 4 + [_I] * 6 + [_P],
     **{f"ff_qmm_v_{v}": [_P] * 5 + [_I] * 6 + [_P]

@@ -21,6 +21,17 @@ partial softmax state of each query row it holds (the slot's token, or its
 tree's nodes) to a workspace, and a second kernel merges a row's chunks in
 chunk order. The chunk count and the workspace's shape come from the shapes
 alone (:func:`plan`): no call reads ``cache_lens`` on the host.
+
+The shard form (context parallelism: a seq rank's block of the cache's
+positions, ``first`` its first global position): ``decode_attention_state``
+and ``tree_attention_state`` run the same two kernels over the block, with
+the rank's committed count computed on the device, the in-flight items
+joining only where ``inflight`` (seq rank 0), and return each row's
+unnormalized f32 state ``[..., H, D + 2]`` (accumulator, max, sum);
+``merge_states`` merges C ranks' states ``[rows, H, C, D + 2]`` in rank
+order with the merge kernel (a third entry point) into the output. Each
+has its plain version beside it (``*_plain``), taken only for a CPU
+tensor; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,10 +40,13 @@ import math
 
 import torch
 
+from flexflow_tpu_torch.ops import attention as attn_lib
 from flexflow_tpu_torch.ops.attention import NEG_INF, split_cached_attention
 from flexflow_tpu_torch.ops.kernels import _build
 
 LAUNCHES = 0  # calls that launched the kernels, both forms (two kernels a call)
+SHARD_LAUNCHES = 0  # shard-form calls that launched them, both forms (two kernels a call)
+MERGE_LAUNCHES = 0  # merge_states calls that launched the merge kernel
 _HEAD_DIMS = (32, 64, 96, 128, 160, 192, 256)
 # virtual positions a block attends: the C side refuses any other value
 CHUNK = 64
@@ -80,6 +94,16 @@ def decode_attention(
 ) -> torch.Tensor:
     """Returns [B, H, D] in q's dtype."""
     global LAUNCHES
+    _check_one(q, k_cache, v_cache, k_self, v_self, cache_lens)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, k_self, v_self, cache_lens)
+    out = _launch("decode_attention", q, k_cache, v_cache, k_self, v_self, cache_lens, None, 1)
+    LAUNCHES += 1
+    return out
+
+
+def _check_one(q, k_cache, v_cache, k_self, v_self, cache_lens) -> None:
+    """The one-token form's shape checks."""
     b, h, d = q.shape
     if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
@@ -90,11 +114,20 @@ def decode_attention(
         raise ValueError(f"k_self/v_self must be {(b, kh, d)}")
     if cache_lens.shape != (b,):
         raise ValueError(f"cache_lens must be [{b}]")
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, k_self, v_self, cache_lens)
-    out = _launch("decode_attention", q, k_cache, v_cache, k_self, v_self, cache_lens, None, 1)
-    LAUNCHES += 1
-    return out
+
+
+def _check_tree(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask) -> None:
+    """The tree form's shape checks."""
+    b, t, h, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
+    kh = k_cache.shape[1]
+    if h % kh or v_cache.shape != k_cache.shape:
+        raise ValueError("heads / cache shapes are inconsistent")
+    if k_new.shape != (b, t, kh, d) or v_new.shape != (b, t, kh, d):
+        raise ValueError(f"k_new/v_new must be {(b, t, kh, d)}")
+    if tree_mask.shape != (b, t, t) or cache_lens.shape != (b,):
+        raise ValueError(f"tree_mask must be {(b, t, t)} and cache_lens [{b}]")
 
 
 def tree_index(tree_mask: torch.Tensor):
@@ -130,26 +163,102 @@ def tree_attention(
 ) -> torch.Tensor:
     """Returns [B, T, H, D] in q's dtype."""
     global LAUNCHES
-    b, t, h, d = q.shape
-    if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
-        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
-    kh = k_cache.shape[1]
-    if h % kh or v_cache.shape != k_cache.shape:
-        raise ValueError("heads / cache shapes are inconsistent")
-    if k_new.shape != (b, t, kh, d) or v_new.shape != (b, t, kh, d):
-        raise ValueError(f"k_new/v_new must be {(b, t, kh, d)}")
-    if tree_mask.shape != (b, t, t) or cache_lens.shape != (b,):
-        raise ValueError(f"tree_mask must be {(b, t, t)} and cache_lens [{b}]")
+    _check_tree(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask)
     if q.device.type == "cpu":
         return tree_attention_plain(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask)
     index = tree_index(tree_mask) if index is None else index
-    out = _launch("tree_attention", q, k_cache, v_cache, k_new, v_new, cache_lens, index, t)
+    out = _launch("tree_attention", q, k_cache, v_cache, k_new, v_new, cache_lens, index,
+                  q.shape[1])
     LAUNCHES += 1
     return out
 
 
-def _launch(name, q, k_cache, v_cache, k_new, v_new, cache_lens, index, nt):
-    """Checks for a CUDA launch of either form, then the launch."""
+def tree_attention_state_plain(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask, *,
+                               first: int, inflight: bool):
+    """Plain PyTorch version of :func:`tree_attention_state`
+    (``ops.attention.split_cached_attention_state`` on the block)."""
+    return attn_lib.pack_state(*attn_lib.split_cached_attention_state(
+        q, k_cache, v_cache, k_new, v_new, cache_lens, new_mask=tree_mask, kv_offset=first,
+        with_new=inflight))
+
+
+def decode_attention_state_plain(q, k_cache, v_cache, k_self, v_self, cache_lens, *,
+                                 first: int, inflight: bool):
+    """Plain PyTorch version of :func:`decode_attention_state`."""
+    return tree_attention_state_plain(q[:, None], k_cache, v_cache, k_self[:, None],
+                                      v_self[:, None], cache_lens, None, first=first,
+                                      inflight=inflight)[:, 0]
+
+
+def decode_attention_state(q, k_cache, v_cache, k_self, v_self, cache_lens, *, first: int,
+                           inflight: bool) -> torch.Tensor:
+    """:func:`decode_attention` over a seq rank's block of the cache (the
+    global positions ``[first, first + S)``; ``cache_lens`` global), the
+    token's own K/V joining where ``inflight``. Returns the rows' f32 states
+    [B, H, D + 2] (accumulator, max, sum)."""
+    global SHARD_LAUNCHES
+    _check_one(q, k_cache, v_cache, k_self, v_self, cache_lens)
+    if q.device.type == "cpu":
+        return decode_attention_state_plain(q, k_cache, v_cache, k_self, v_self, cache_lens,
+                                            first=first, inflight=inflight)
+    out = _launch("decode_attention_state", q, k_cache, v_cache, k_self, v_self, cache_lens,
+                  None, 1, shard=(int(first), bool(inflight)))
+    SHARD_LAUNCHES += 1
+    return out
+
+
+def tree_attention_state(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask, *,
+                         first: int, inflight: bool, index=None) -> torch.Tensor:
+    """:func:`tree_attention` over a seq rank's block of the cache, as
+    :func:`decode_attention_state`. Returns [B, T, H, D + 2] f32 states."""
+    global SHARD_LAUNCHES
+    _check_tree(q, k_cache, v_cache, k_new, v_new, cache_lens, tree_mask)
+    if q.device.type == "cpu":
+        return tree_attention_state_plain(q, k_cache, v_cache, k_new, v_new, cache_lens,
+                                          tree_mask, first=first, inflight=inflight)
+    index = tree_index(tree_mask) if index is None else index
+    out = _launch("tree_attention_state", q, k_cache, v_cache, k_new, v_new, cache_lens, index,
+                  q.shape[1], shard=(int(first), bool(inflight)))
+    SHARD_LAUNCHES += 1
+    return out
+
+
+def merge_states_plain(states: torch.Tensor, dtype) -> torch.Tensor:
+    """Plain PyTorch version of :func:`merge_states`
+    (``ops.attention.merge_states``)."""
+    return attn_lib.merge_states(states).to(dtype)
+
+
+def merge_states(states: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """C seq ranks' f32 states [rows, H, C, D + 2] of each row, in rank
+    order, merged into the attention output [rows, H, D] in ``dtype``
+    (bfloat16 or float32) by the merge kernel: the states rescaled to their
+    common maximum and summed in rank order, then one division."""
+    global MERGE_LAUNCHES
+    if states.dim() != 4 or states.dtype != torch.float32:
+        raise ValueError(f"states must be f32 [rows, H, C, D + 2], got {tuple(states.shape)} "
+                         f"{states.dtype}")
+    if states.device.type == "cpu":
+        return merge_states_plain(states, dtype)
+    if states.device.type != "cuda":
+        raise ValueError(f"merge_states runs on cuda or cpu tensors, not {states.device}")
+    rows, h, c, d = states.shape[0], states.shape[1], states.shape[2], states.shape[3] - 2
+    if d not in _HEAD_DIMS or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"merge_states: head_dim {d} not in {_HEAD_DIMS} or dtype {dtype}")
+    states = states.contiguous()
+    out = torch.empty((rows, h, d), dtype=dtype, device=states.device)
+    err = _build.lib().ff_merge_states(states.data_ptr(), out.data_ptr(), rows, h, c, d,
+                                       int(dtype == torch.bfloat16),
+                                       _build.stream_ptr(states.device))
+    _build.check(err, "merge_states")
+    MERGE_LAUNCHES += 1
+    return out
+
+
+def _launch(name, q, k_cache, v_cache, k_new, v_new, cache_lens, index, nt, shard=None):
+    """Checks for a CUDA launch of either form, then the launch; ``shard``
+    (first position, in-flight flag): the shard form, returning the rows'
+    f32 states."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
     tensors = (q, k_cache, v_cache, k_new, v_new)
@@ -171,15 +280,20 @@ def _launch(name, q, k_cache, v_cache, k_new, v_new, cache_lens, index, nt):
     # 16-byte copies: a view that starts off a 16-byte boundary is copied
     q, k_cache, v_cache, k_new, v_new = (x if x.data_ptr() % 16 == 0 else x.clone()
                                          for x in tensors)
-    out = torch.empty_like(q)
     _, ws_shape = plan(q, k_cache)
     ws = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
     ptrs = [x.data_ptr() for x in extra] if extra else [None, None, None]
-    err = _build.lib().ff_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), cache_lens.data_ptr(), *ptrs, out.data_ptr(), ws.data_ptr(),
-        b, nt, h, kh, s, d, CHUNK, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device),
-    )
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), cache_lens.data_ptr(), *ptrs)
+    tail = (b, nt, h, kh, s, d, CHUNK, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16))
+    if shard is None:
+        out = torch.empty_like(q)
+        err = _build.lib().ff_decode_attention(*args, out.data_ptr(), ws.data_ptr(), *tail,
+                                               _build.stream_ptr(q.device))
+    else:
+        out = torch.empty((*q.shape[:-1], d + 2), dtype=torch.float32, device=q.device)
+        err = _build.lib().ff_decode_attention_shard(*args, out.data_ptr(), ws.data_ptr(),
+                                                     *tail, shard[0], int(shard[1]),
+                                                     _build.stream_ptr(q.device))
     _build.check(err, name)
     return out

@@ -3,7 +3,10 @@ parallelism over ``torch.distributed`` ranks, for serving and training,
 with collectives autograd understands; ``hybrid_ffn`` and expert
 parallelism for serving; pipeline stages for serving, speculation included,
 and for training, with the stage hops of ``mesh`` and the stage cut and
-GPipe loop of ``pipeline``) and the search over placements on one device
+GPipe loop of ``pipeline``; context parallelism for serving, the KV cache
+cut on the ``seq`` axis, with the ring hops of ``mesh`` for
+``ops/ring_attention``) and the search over placements on one device
 (port of ``flexflow_tpu/parallel``'s ``mesh``, ``sharding``, ``auto``,
-``joint``, ``topology`` and ``pipeline``). The multi-process controller
-and the search on a mesh are ROADMAP A10 and A11c."""
+``joint``, ``topology`` and ``pipeline``). The multi-process controller,
+context parallelism under pipeline stages and elsewhere than in serving,
+and the search on a mesh are ROADMAP A10b, A10c and A11c."""

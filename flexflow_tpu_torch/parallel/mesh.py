@@ -7,10 +7,11 @@ engine on the same requests with its own shard of the parameters and of the
 KV cache, and the explicit collectives below make every value the host
 reads identical on every rank. Rank ``r`` of a ``data x pipe x model x
 seq`` mesh sits at JAX's coordinate ``np.arange(n).reshape(data, pipe,
-model, seq)``: its model rank is ``r % model``, its pipe rank (stage)
-``(r // model) % pipe`` and its data rank ``r // (pipe * model)``. Groups
-are made per coordinate: ``model`` per (data, pipe), ``data`` per (pipe,
-model), ``pipe`` per (data, model). Besides them a mesh holds the group
+model, seq)``: with ``seq == 1`` its model rank is ``r % model``, its pipe
+rank (stage) ``(r // model) % pipe`` and its data rank ``r // (pipe *
+model)`` (context parallelism below). Groups are made per coordinate:
+``model`` per (data, pipe, seq), ``data`` per (pipe, model, seq), ``pipe``
+per (data, model, seq). Besides them a mesh holds the group
 over ``("model", "data")`` (``FFN_AXES``: one pipe stage's model x data
 ranks), over which ``hybrid_ffn``'s FFN sums run: a group of its own only
 where both degrees exceed 1, else the ``model`` or ``data`` group itself.
@@ -51,8 +52,21 @@ replicated tensor is replicated and is never summed twice (the
 the gradient). Outside a gradient they are the in-place calls below, so a
 served step's graph holds plain in-place collectives.
 
-Context parallelism (``seq > 1``, ROADMAP A10) is not in the port yet and
-raises.
+Context parallelism (``seq > 1``): rank ``r`` sits at ``np.arange(n)
+.reshape(data, pipe, model, seq)`` with ``seq`` varying fastest, so its
+seq rank is ``r % seq``, its model rank ``(r // seq) % model``, its stage
+``(r // (seq * model)) % pipe`` and its data rank ``r // (pipe * model *
+seq)``; the model, data, FFN and pipe groups are made per seq coordinate,
+and a ``seq`` group per (data, pipe, model). The serving engines cut their
+verifier KV cache on it (``parallel/sharding.SeqCut``) and merge the
+ranks' attention states over it; the ring prefill
+(``ops/ring_attention``) rotates K/V blocks along it with
+:meth:`Mesh.ring_send` / :meth:`Mesh.ring_recv` (rank ``c`` to ``c + 1``,
+the stage hops' scheme: a broadcast over a two-rank group, each directed
+pair its own group, since at C = 2 both directions join the same two
+ranks). Pipeline stages under a context degree are ROADMAP A10c and raise
+(:func:`refuse_seq` names it for every other surface that does not take
+the seq axis).
 """
 
 from __future__ import annotations
@@ -79,10 +93,10 @@ Axis = Union[str, Tuple[str, str]]
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """One rank's view of a ``data x pipe x model x seq`` mesh: its
-    coordinate, its device, the ``model``, ``data``, ``pipe`` and
-    ``FFN_AXES`` process groups and the stage hops' two-rank groups (None
-    for a rank made by :meth:`fake`, which shards parameters but runs no
-    collective)."""
+    coordinate, its device, the ``model``, ``data``, ``pipe``, ``seq`` and
+    ``FFN_AXES`` process groups and the stage and ring hops' two-rank
+    groups (None for a rank made by :meth:`fake`, which shards parameters
+    but runs no collective)."""
 
     data: int
     pipe: int
@@ -98,31 +112,39 @@ class Mesh:
     next_group: Any = None  # (this stage, the next): the forward hop out
     prev_group: Any = None  # (the stage before, this stage): the forward hop in
     return_group: Any = None  # (last stage, stage 0), on those two ranks only
+    seq_group: Any = None  # this (data, pipe, model) coordinate's seq ranks (seq > 1)
+    ring_out_group: Any = None  # (this seq rank, the next): the ring hop out
+    ring_in_group: Any = None  # (the seq rank before, this one): the ring hop in
     hops: int = 0  # hops sent by this rank
     hop_bytes: int = 0
     _sends: list = dataclasses.field(default_factory=list, repr=False)
 
     @classmethod
     def fake(cls, data: int = 1, model: int = 1, rank: int = 0, device="cpu", *,
-             pipe: int = 1) -> "Mesh":
+             pipe: int = 1, seq: int = 1) -> "Mesh":
         """The mesh coordinate ``rank`` without a process group: what
         ``shard_params`` needs to cut that rank's tree."""
-        if not 0 <= rank < data * pipe * model:
-            raise ValueError(f"rank {rank} outside a {data} x {pipe} x {model} mesh")
-        return cls(data, pipe, model, 1, rank, torch.device(device))
+        if not 0 <= rank < data * pipe * model * seq:
+            raise ValueError(f"rank {rank} outside a {data} x {pipe} x {model} x {seq} mesh")
+        return cls(data, pipe, model, seq, rank, torch.device(device))
+
+    @property
+    def seq_rank(self) -> int:
+        """This rank's context-parallel coordinate (its block of positions)."""
+        return self.rank % self.seq
 
     @property
     def model_rank(self) -> int:
-        return self.rank % self.model
+        return (self.rank // self.seq) % self.model
 
     @property
     def pipe_rank(self) -> int:
         """This rank's pipeline stage."""
-        return (self.rank // self.model) % self.pipe
+        return (self.rank // (self.seq * self.model)) % self.pipe
 
     @property
     def data_rank(self) -> int:
-        return self.rank // (self.pipe * self.model)
+        return self.rank // (self.pipe * self.model * self.seq)
 
     @property
     def first_stage(self) -> bool:
@@ -137,28 +159,31 @@ class Mesh:
         """Whether a CUDA graph may capture this mesh's collectives (NCCL)."""
         return self.backend == "nccl"
 
-    def _at(self, d: int, p: int, m: int) -> int:
-        return (d * self.pipe + p) * self.model + m
+    def _at(self, d: int, p: int, m: int, c: int = 0) -> int:
+        return ((d * self.pipe + p) * self.model + m) * self.seq + c
 
     def group_ranks(self, axis: Axis = MODEL_AXIS) -> List[int]:
         """The ranks of this rank's ``axis`` group, in the group's order
         (``FFN_AXES``: this stage's model x data ranks, in rank order)."""
-        d, p, m = self.data_rank, self.pipe_rank, self.model_rank
+        d, p, m, c = self.data_rank, self.pipe_rank, self.model_rank, self.seq_rank
         if axis == MODEL_AXIS:
-            return [self._at(d, p, j) for j in range(self.model)]
+            return [self._at(d, p, j, c) for j in range(self.model)]
         if axis == DATA_AXIS:
-            return [self._at(j, p, m) for j in range(self.data)]
+            return [self._at(j, p, m, c) for j in range(self.data)]
         if axis == PIPE_AXIS:
-            return [self._at(d, j, m) for j in range(self.pipe)]
-        return [self._at(j, p, k) for j in range(self.data) for k in range(self.model)]
+            return [self._at(d, j, m, c) for j in range(self.pipe)]
+        if axis == SEQ_AXIS:
+            return [self._at(d, p, m, j) for j in range(self.seq)]
+        return [self._at(j, p, k, c) for j in range(self.data) for k in range(self.model)]
 
     def stage_rank(self, stage: int) -> int:
         """The global rank of ``stage`` in this rank's pipe group."""
-        return self._at(self.data_rank, stage % self.pipe, self.model_rank)
+        return self._at(self.data_rank, stage % self.pipe, self.model_rank, self.seq_rank)
 
     def _group(self, axis: Axis):
         group = {MODEL_AXIS: self.model_group, DATA_AXIS: self.data_group,
-                 PIPE_AXIS: self.pipe_group, FFN_AXES: self.ffn_group}[axis]
+                 PIPE_AXIS: self.pipe_group, FFN_AXES: self.ffn_group,
+                 SEQ_AXIS: self.seq_group}[axis]
         if group is None:
             raise RuntimeError("this mesh has no process group (Mesh.fake): it shards "
                                "parameters but runs no collective")
@@ -192,11 +217,12 @@ class Mesh:
         self.hops += 1
         self.hop_bytes += x.numel() * x.element_size()
 
-    def _recv(self, like: torch.Tensor, src_stage: int, group) -> torch.Tensor:
+    def _recv(self, like: torch.Tensor, src: int, group) -> torch.Tensor:
+        """The tensor the global rank ``src`` sends over ``group``."""
         if group is None:
-            raise RuntimeError("no stage hop into this rank (Mesh.fake, or no such neighbour)")
+            raise RuntimeError("no hop into this rank (Mesh.fake, or no such neighbour)")
         out = torch.empty_like(like, memory_format=torch.contiguous_format)
-        dist.broadcast(out, self.stage_rank(src_stage), group=group)
+        dist.broadcast(out, src, group=group)
         return out
 
     def send_next(self, x: torch.Tensor) -> None:
@@ -205,7 +231,7 @@ class Mesh:
 
     def recv_prev(self, like: torch.Tensor) -> torch.Tensor:
         """The previous stage's tensor of ``like``'s shape and dtype."""
-        return self._recv(like, self.pipe_rank - 1, self.prev_group)
+        return self._recv(like, self.stage_rank(self.pipe_rank - 1), self.prev_group)
 
     def send_prev(self, x: torch.Tensor) -> None:
         """The backward hop: send ``x`` (a gradient) to the previous
@@ -215,7 +241,7 @@ class Mesh:
     def recv_next(self, like: torch.Tensor) -> torch.Tensor:
         """The next stage's tensor of ``like``'s shape and dtype (the
         backward hop in)."""
-        return self._recv(like, self.pipe_rank + 1, self.next_group)
+        return self._recv(like, self.stage_rank(self.pipe_rank + 1), self.next_group)
 
     def sum_first_last(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over stage 0 and the last stage (the return hop's
@@ -232,7 +258,18 @@ class Mesh:
 
     def recv_last(self, like: torch.Tensor) -> torch.Tensor:
         """On stage 0: the last stage's tensor of ``like``'s shape and dtype."""
-        return self._recv(like, self.pipe - 1, self.return_group if self.first_stage else None)
+        return self._recv(like, self.stage_rank(self.pipe - 1),
+                          self.return_group if self.first_stage else None)
+
+    def ring_send(self, x: torch.Tensor) -> None:
+        """Send ``x`` to the next seq rank (``c + 1``, the last to 0;
+        asynchronous): the ring prefill's rotation."""
+        self._send(x, self.ring_out_group)
+
+    def ring_recv(self, like: torch.Tensor) -> torch.Tensor:
+        """The previous seq rank's tensor of ``like``'s shape and dtype."""
+        return self._recv(like, self.group_ranks(SEQ_AXIS)[self.seq_rank - 1],
+                          self.ring_in_group)
 
     def wait_sends(self) -> None:
         """Wait for every hop this rank has sent (each ends once its
@@ -245,10 +282,11 @@ class Mesh:
         """One eager collective on each group (NCCL makes a communicator at
         its first collective, which must not happen under graph capture).
         The hop groups are warmed in one global order: stage pairs (0, 1),
-        (1, 2), ..., then (last, 0), each rank joining those it is in."""
+        (1, 2), ..., then (last, 0), each rank joining those it is in; the
+        ring hops likewise: seq pairs (0, 1), ..., (last, 0)."""
         own = self.ffn_group is not self.model_group and self.ffn_group is not self.data_group
         axes = (MODEL_AXIS, DATA_AXIS) + ((FFN_AXES,) if own else ()) + (
-            (PIPE_AXIS,) if self.pipe > 1 else ())
+            (PIPE_AXIS,) if self.pipe > 1 else ()) + ((SEQ_AXIS,) if self.seq > 1 else ())
         for axis in axes:
             self.all_reduce(torch.zeros(1, device=device), axis)
         s = self.pipe_rank
@@ -258,6 +296,19 @@ class Mesh:
                 dist.all_reduce(torch.zeros(1, device=device), group=g)
         if self.pipe > 1 and (self.first_stage or self.last_stage):
             dist.all_reduce(torch.zeros(1, device=device), group=self.return_group)
+        c = self.seq_rank
+        for k in range(self.seq if self.seq > 1 else 0):
+            if k in (c, (c - 1) % self.seq):
+                g = self.ring_out_group if k == c else self.ring_in_group
+                dist.all_reduce(torch.zeros(1, device=device), group=g)
+
+
+def refuse_seq(mesh: Optional["Mesh"], what: str) -> None:
+    """Raise for a mesh with a context degree (``seq > 1``) on a surface
+    that does not take the seq axis (ROADMAP A10c)."""
+    if mesh is not None and mesh.seq > 1:
+        raise NotImplementedError(f"{what} under a context degree (seq = {mesh.seq} > 1) is "
+                                  "not in the port (ROADMAP.md Queue A, A10c)")
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -361,10 +412,11 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
     NCCL for CUDA devices and gloo for the CPU unless ``backend`` names
     one; the device is ``cuda:LOCAL_RANK`` unless ``device`` names one
     (without CUDA that raises: only ``device="cpu"`` gives a CPU mesh).
-    Every rank creates every group, in one order."""
-    if seq > 1:
-        raise NotImplementedError("context parallelism (seq > 1) is not in the port yet "
-                                  "(ROADMAP.md Queue A, A10)")
+    Every rank creates every group, in one order. Pipeline stages under a
+    context degree (``pipe > 1`` with ``seq > 1``) raise (ROADMAP A10c)."""
+    if pipe > 1 and seq > 1:
+        raise NotImplementedError("pipeline stages under a context degree (pipe > 1 with "
+                                  "seq > 1) are not in the port (ROADMAP.md Queue A, A10c)")
     need = data * pipe * model * seq
     if min(data, pipe, model, seq) < 1:
         raise ValueError(f"mesh degrees must be >= 1, got {data}x{pipe}x{model}x{seq}")
@@ -402,14 +454,17 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
     at = mesh._at
     for d in range(data):
         for p in range(pipe):
-            group(MODEL_AXIS, [at(d, p, m) for m in range(model)])
+            for c in range(seq):
+                group(MODEL_AXIS, [at(d, p, m, c) for m in range(model)])
     for p in range(pipe):
         for m in range(model):
-            group(DATA_AXIS, [at(d, p, m) for d in range(data)])
+            for c in range(seq):
+                group(DATA_AXIS, [at(d, p, m, c) for d in range(data)])
     if data > 1 and model > 1:  # else the model or the data group is the FFN's
         for p in range(pipe):
-            group(FFN_AXES, [at(d, p, m) for d in range(data) for m in range(model)])
-    if pipe > 1:
+            for c in range(seq):
+                group(FFN_AXES, [at(d, p, m, c) for d in range(data) for m in range(model)])
+    if pipe > 1:  # seq == 1 here
         for d in range(data):
             for m in range(model):
                 group(PIPE_AXIS, [at(d, p, m) for p in range(pipe)])
@@ -420,10 +475,24 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
                     elif rank == at(d, p + 1, m):
                         mesh.prev_group = g
                 group("return", [at(d, pipe - 1, m), at(d, 0, m)])
+    if seq > 1:
+        for d in range(data):
+            for p in range(pipe):
+                for m in range(model):
+                    group(SEQ_AXIS, [at(d, p, m, c) for c in range(seq)])
+                    for c in range(seq):  # the ring hop c -> c + 1, a group a direction
+                        src, dst = at(d, p, m, c), at(d, p, m, (c + 1) % seq)
+                        g = dist.new_group(sorted({src, dst}), backend=backend)
+                        if rank == src:
+                            mesh.ring_out_group = g
+                        if rank == dst:
+                            mesh.ring_in_group = g
     mesh.model_group, mesh.data_group = mine[MODEL_AXIS], mine[DATA_AXIS]
     mesh.ffn_group = mine.get(FFN_AXES) or (mesh.model_group if data == 1 else mesh.data_group)
     mesh.pipe_group, mesh.return_group = mine.get(PIPE_AXIS), mine.get("return")
+    mesh.seq_group = mine.get(SEQ_AXIS)
     if rank == 0:
-        print(f"[mesh] data={data} pipe={pipe} model={model} over {world} rank(s), backend "
+        print(f"[mesh] data={data} pipe={pipe} model={model}"
+              + (f" seq={seq}" if seq > 1 else "") + f" over {world} rank(s), backend "
               f"{backend}, rank 0 on {device}", flush=True)
     return mesh

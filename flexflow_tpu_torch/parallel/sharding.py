@@ -68,6 +68,14 @@ final norm and ``lm_head`` (and ``embed_tokens`` too where the embeddings
 are tied). JAX replicates every top leaf on every stage
 (``pp_engine.py:182-184``). :func:`gather_params` gathers the stages too.
 
+Context parallelism (``seq > 1``): the weights are replicated over
+``seq`` (every cut above is the same on each seq rank); a serving engine
+cuts its verifier's KV cache on the position axis (:class:`SeqCut`,
+:func:`with_seq`): seq rank ``c`` of C holds the global positions ``[c
+S/C, (c+1) S/C)``, as JAX's ``kv_cache_sharding`` places them, and where
+``S % C != 0`` or ``S < C`` the cache stays whole and no seq collective
+runs (JAX's ``_divisible``).
+
 The tree carries no mark of its cut: :func:`shard_params` keeps a leaf
 whose axis has the rank's width already, so it is idempotent, and the
 engines and the Trainer hold the :class:`Shard` beside the tree
@@ -110,11 +118,54 @@ def _even_blocks(n: int, t: int, r: int, planar: bool) -> Optional[Blocks]:
     return ((r * w, (r + 1) * w),)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqCut:
+    """Seq rank ``rank``'s block of a KV cache's positions: the global
+    positions ``[lo, hi)`` of a cache of ``size`` positions, held at local
+    indices ``[0, hi - lo)``."""
+
+    lo: int
+    hi: int
+    size: int
+    rank: int
+
+    @property
+    def local(self) -> int:
+        """Positions the rank's cache holds."""
+        return self.hi - self.lo
+
+
+def seq_cut(mesh: Optional[Mesh], max_seq_len: int) -> Optional[SeqCut]:
+    """This rank's :class:`SeqCut` of a cache of ``max_seq_len`` positions,
+    or None where the cache stays whole: no mesh, ``seq == 1``, or a length
+    the seq axis does not divide (JAX's ``_divisible``)."""
+    if mesh is None or mesh.seq == 1:
+        return None
+    n, c = mesh.seq, mesh.seq_rank
+    if max_seq_len % n or max_seq_len < n:
+        return None
+    w = max_seq_len // n
+    return SeqCut(c * w, (c + 1) * w, max_seq_len, c)
+
+
+def first_position(shard: Optional["Shard"]) -> int:
+    """The first global position of the KV cache ``shard`` cuts (0 without
+    a seq cut)."""
+    return 0 if shard is None or shard.seq is None else shard.seq.lo
+
+
+def with_seq(shard: "Shard", max_seq_len: int) -> "Shard":
+    """``shard`` with the seq cut of a cache of ``max_seq_len`` positions
+    (the decoder's attention then merges over the ``seq`` group)."""
+    return dataclasses.replace(shard, seq=seq_cut(shard.mesh, max_seq_len))
+
+
 @dataclasses.dataclass(eq=False)
 class Shard:
     """One rank's cut of a model: which global heads, KV heads, FFN columns,
     experts, vocabulary rows and (its pipeline stage's) layers it holds
-    (None: the whole axis, replicated), and the mesh whose collectives the
+    (None: the whole axis, replicated), which of its KV cache's positions
+    (``seq``, set by :func:`with_seq`), and the mesh whose collectives the
     decoder runs."""
 
     mesh: Mesh
@@ -128,6 +179,7 @@ class Shard:
     experts: Optional[Blocks] = None  # expert_parallel: the rank's global expert ids
     layout: Dict[str, bool] = dataclasses.field(default_factory=dict)  # rank_shard's flags
     layers: Optional[Tuple[int, int]] = None  # pipeline stage: its global layers [lo, hi)
+    seq: Optional[SeqCut] = None  # the KV cache's positions this rank holds (None: all)
     _index: Dict[Any, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -428,7 +480,8 @@ def _rank_blocks(shard: Shard, cut: str, spec: ModelSpec):
     mesh = shard.mesh
     axis = shard.ffn_axis if cut == "ffn" else MODEL_AXIS
     return axis, [_blocks_of(rank_shard(spec, Mesh.fake(mesh.data, mesh.model, r,
-                                                  pipe=mesh.pipe), **shard.layout), cut)
+                                                  pipe=mesh.pipe, seq=mesh.seq),
+                                        **shard.layout), cut)
                   for r in mesh.group_ranks(axis)]
 
 

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.models import decoder
-from flexflow_tpu_torch.parallel.mesh import all_reduce_grads
+from flexflow_tpu_torch.parallel.mesh import all_reduce_grads, refuse_seq
 from flexflow_tpu_torch.parallel.sharding import lora_partial_grads
 from flexflow_tpu_torch.peft.lora import LoraConfig, RoutedLora, lora_scaling
 from flexflow_tpu_torch.specs import ModelSpec
@@ -72,6 +72,7 @@ class FinetuneSession:
 
     def _build(self, engine) -> None:
         mesh = getattr(engine, "mesh", None)
+        refuse_seq(mesh, "finetuning (FinetuneSession)")
         if mesh is not None and mesh.pipe > 1:
             raise NotImplementedError(
                 "finetuning on a pipeline engine: its layers are cut into stages, and JAX's "

@@ -33,8 +33,14 @@ under ``T``) and serves through ``serving/pp_engine.PipelineInferenceEngine``
 (JAX's refusals kept: data > 1, LoRA with T > 1, offload, PEFT with drafts,
 merged trees); with draft models, through ``serving/pp_spec.PipelineSpecEngine``
 (the verifier staged, each draft whole on every rank; several drafts rotate
-over one staged verifier). Context degrees above 1 are A10;
-``start_server`` under a mesh A10 (JAX's request broadcaster).
+over one staged verifier). ``compile(context_parallel_degree=C)`` (alone
+or with the tensor and data degrees, with or without drafts) cuts the
+verifier's KV cache on its positions over C seq ranks and merges the
+attention over them (``serving/engine.py``, ``serving/speculative.py``;
+the draft whole on every rank; several drafts rotate or merge over it);
+under a context degree, pipeline stages, offload and LoRA adapters are
+ROADMAP A10c and raise.
+``start_server`` under a mesh is A10b (JAX's request broadcaster).
 """
 
 from __future__ import annotations
@@ -207,8 +213,13 @@ class LLM:
         serve through ``PipelineInferenceEngine``, each rank loading only its
         stage; with drafts, ``PipelineSpecEngine`` (each draft loaded whole on
         every rank). JAX's refusals are kept (data > 1, LoRA with T > 1, PEFT
-        with drafts, offload, merged trees of several drafts). Context
-        degrees above 1 raise (A10)."""
+        with drafts, offload, merged trees of several drafts).
+        ``context_parallel_degree`` C serves over ``C`` x the tensor and
+        data degrees: each rank holds its block of ``max_seq_length / C``
+        positions of the verifier's cache, the prefill is replicated over
+        the seq ranks and the attention merged over them; the draft models
+        stay whole on every rank. Under a context degree pipeline stages,
+        offload and LoRA adapters raise (A10c)."""
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
@@ -222,6 +233,12 @@ class LLM:
             auto_lib.refuse_mesh(auto_lib.device_count(self.device),
                                  "LLM.compile(auto_parallel=True)", serving=True)
         use_pp = pipeline_parallelism_degree > 1
+        if context_parallel_degree > 1:
+            for what, on in (("pipeline_parallelism_degree > 1", use_pp),
+                             ("offload", offload), ("LoRA adapters (PEFT)", bool(self._peft))):
+                if on:
+                    raise NotImplementedError(f"{what} under context_parallel_degree > 1 is not "
+                                              "in the port (ROADMAP.md Queue A, A10c)")
         if use_pp:
             # JAX's refusals under pipeline stages (flexflow_tpu/serve.py:250-268)
             if data_parallelism_degree > 1:
@@ -407,10 +424,10 @@ class LLM:
     def start_server(self) -> None:
         """Start the background serving loop (incremental or speculative).
         Under a mesh it raises: the ranks would each take requests on their
-        own (JAX's request broadcaster is ROADMAP A10)."""
+        own (JAX's request broadcaster is ROADMAP A10b)."""
         if self.mesh is not None:
             raise NotImplementedError("start_server under a device mesh needs the request "
-                                      "broadcaster (ROADMAP.md Queue A, A10)")
+                                      "broadcaster (ROADMAP.md Queue A, A10b)")
         self.rm.start_background_server()
 
     def stop_server(self) -> None:

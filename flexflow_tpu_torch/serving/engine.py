@@ -75,6 +75,17 @@ every slot and computes every row (JAX shards the cache's slots on
 engine (its ``shard_params(expert_parallel=True)`` tree is re-placed by
 the engine's TP rules); the port's engines refuse a tree cut that way
 and take the full tree.
+
+Context parallelism (a mesh with ``seq > 1``, alone or with ``model``
+and ``data``): every seq rank holds the weights (or its ``model`` cut)
+and its block of ``S / C`` positions of every slot's cache
+(``sharding.with_seq``; the whole cache where ``S % C != 0``, as JAX).
+The prefill is the one-device prefill on every seq rank, each keeping
+its block's positions (JAX's GSPMD replicates it over ``seq``); decode
+and the chunked prefill merge each layer's attention states over
+``seq`` in the decoder. Under NCCL the greedy step's graph holds the seq
+all-gathers; gloo's are not captured. LoRA, offload and ``hybrid_ffn``
+under a context degree raise (ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -94,8 +105,9 @@ from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 from flexflow_tpu_torch.serving.graphs import step_graphs
 from flexflow_tpu_torch.models.layer_store import LayerStore
-from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
-from flexflow_tpu_torch.parallel.sharding import shard_lora, shard_params, slot_block, tree_shard
+from flexflow_tpu_torch.parallel.mesh import DATA_AXIS, refuse_seq
+from flexflow_tpu_torch.parallel.sharding import (first_position, shard_lora, shard_params,
+                                                  slot_block, tree_shard, with_seq)
 from flexflow_tpu_torch.specs import ModelSpec
 
 
@@ -201,6 +213,10 @@ class InferenceEngine:
         if mesh is not None and mesh.pipe > 1:
             raise ValueError("a mesh with pipeline stages is served by "
                              "serving/pp_engine.PipelineInferenceEngine")
+        for what, on in (("LoRA serving", lora is not None), ("CPU offload", offload),
+                         ("hybrid_ffn", hybrid_ffn)):
+            if on:
+                refuse_seq(mesh, what)
         self.spec = spec
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None or device is not None
@@ -209,7 +225,8 @@ class InferenceEngine:
         self.shard = None
         if mesh is not None:
             refuse_expert_cut(spec, params)
-            self.shard = tree_shard(spec, params, mesh, hybrid_ffn=hybrid_ffn)
+            self.shard = with_seq(tree_shard(spec, params, mesh, hybrid_ffn=hybrid_ffn),
+                                  max_seq_len)
             params = shard_params(spec, params, mesh, hybrid_ffn=hybrid_ffn)
         if self.offload:  # the layers stay where they are until the store takes them
             params = {**_params_to({k: v for k, v in params.items() if k != "layers"},
@@ -237,9 +254,10 @@ class InferenceEngine:
         self.max_tokens_per_batch = max_tokens_per_batch
         self.min_prefill_bucket = min_prefill_bucket
         self.slots = SlotBlock(max_requests_per_batch, mesh, hybrid_ffn)
+        cut = None if self.shard is None else self.shard.seq
         self.cache = decoder.init_kv_cache(
-            spec, self.slots.n, max_seq_len, cache_dtype, self.device,
-            num_kv_heads=None if self.shard is None else self.shard.num_kv_cache(spec))
+            spec, self.slots.n, max_seq_len if cut is None else cut.local, cache_dtype,
+            self.device, num_kv_heads=None if self.shard is None else self.shard.num_kv_cache(spec))
         # the greedy step's static buffers (this rank's slots) and, on the
         # card, its graph
         self._lens = torch.zeros(self.slots.n, dtype=torch.int32, device=self.device)
@@ -360,12 +378,13 @@ class InferenceEngine:
         lens_d = to_device(lengths, self.device)
         positions = torch.arange(bucket, dtype=torch.int32, device=self.device)[None].expand(nb, bucket)
         starts = np.zeros(nb, np.int64)
+        first = first_position(self.shard)
 
-        def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows
+        def sink(layer, k, v):  # [NB, T, KH, D] -> the admitted slots' rows (the rank's block)
             decoder.commit_kv_windows(
                 self.cache.k[layer:layer + 1], self.cache.v[layer:layer + 1],
                 k.permute(0, 2, 1, 3)[None].to(self.cache.k.dtype),
-                v.permute(0, 2, 1, 3)[None].to(self.cache.v.dtype), starts, slots)
+                v.permute(0, 2, 1, 3)[None].to(self.cache.v.dtype), starts, slots, first=first)
 
         with torch.no_grad():
             logits, _ = decoder.forward(

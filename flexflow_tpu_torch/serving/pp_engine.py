@@ -67,6 +67,7 @@ from flexflow_tpu_torch.models import decoder
 from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
+from flexflow_tpu_torch.parallel.mesh import refuse_seq
 from flexflow_tpu_torch.parallel.pipeline import stage_params, stage_range
 from flexflow_tpu_torch.parallel.sharding import shard_params, tree_shard
 from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
@@ -109,6 +110,7 @@ class PipelineInferenceEngine:
             raise NotImplementedError("LoRA under pipeline parallelism requires "
                                       "tensor_parallelism_degree == 1")
         refuse_expert_cut(spec, params)
+        refuse_seq(mesh, "pipeline-parallel serving")
         self.spec, self.mesh = spec, mesh
         self.device = resolve_device(mesh.device if device is None else device)
         self.stage, self.first, self.last = mesh.pipe_rank, mesh.first_stage, mesh.last_stage

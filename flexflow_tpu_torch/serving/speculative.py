@@ -47,6 +47,15 @@ rank's block of slots, and every public method keeps the one-device shapes
 do not depend on the rows around them, and the results are gathered over
 the ``data`` axis). The tree verification runs the decode-attention
 kernel's tree form on the rank's own heads.
+
+Under a context degree (``seq > 1``) the verifier's cache is cut on its
+positions (``sharding.with_seq``): the tree verification runs the tree
+form's shard form and merges over ``seq``, and the prefill, the commits
+(``commit_from_buffer``, ``_commit``) write the rank's block of
+positions. The draft and its cache stay whole on every seq rank (JAX cuts
+both caches), as the verifier's stages leave the draft whole under
+pipeline parallelism, which keeps the draft's ``extra_kv`` expansion off
+the seq path.
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
 from flexflow_tpu_torch.ops.topk import top_k
+from flexflow_tpu_torch.parallel.mesh import SEQ_AXIS
+from flexflow_tpu_torch.parallel.sharding import first_position, with_seq
 from flexflow_tpu_torch.serving.engine import SlotBlock, _round_up_pow2, place_params
 from flexflow_tpu_torch.serving.graphs import step_graphs
 from flexflow_tpu_torch.serving.spec_sampling import tree_sample_walk
@@ -170,16 +181,18 @@ def build_draft_phase(ssm_spec: ModelSpec, width: int, depth: int, shard=None):
 
 
 def commit_from_buffer(cache: KVCache, cache_lens: torch.Tensor, buf_k: torch.Tensor,
-                       buf_v: torch.Tensor, path_slots: torch.Tensor) -> KVCache:
+                       buf_v: torch.Tensor, path_slots: torch.Tensor,
+                       first: int = 0) -> KVCache:
     """Write the accepted tree columns ``path_slots`` [B, n] of the buffers
     [L, B, T, KH, D] into the cache at [lens, lens + n), in place and without
     a host sync. Columns past S are dropped; junk beyond the accepted count
     lands past the committed length, where the next iteration overwrites it
-    before anything attends it."""
+    before anything attends it. ``first``: the cache holds a seq rank's
+    block of positions from ``first`` on (the columns inside it are written)."""
     ll, b, _, kh, dh = buf_k.shape
     n = path_slots.shape[1]
     idx = path_slots.long()[None, :, :, None, None].expand(ll, b, n, kh, dh)
-    slots, pos, keep = decoder.device_window(cache_lens, n, cache.max_seq_len)
+    slots, pos, keep = decoder.device_window(cache_lens, n, cache.max_seq_len, first)
     keep = keep[:, :, None, None, None]
     for c, buf in ((cache.k, buf_k), (cache.v, buf_v)):
         new = torch.gather(buf, 2, idx).permute(1, 2, 0, 3, 4).to(c.dtype)  # [B, n, L, KH, D]
@@ -220,13 +233,16 @@ def prefill_into(spec: ModelSpec, params, cache: KVCache, prompts, slots, bucket
                  shard=None) -> torch.Tensor:
     """One causal forward of ``prompts`` (padded to ``bucket``) through the
     flash-prefill kernel, each layer's K/V written into ``cache``'s rows
-    ``slots``; returns the logits at each prompt's last position [NB, V]."""
+    ``slots`` (a seq rank's block of positions under ``shard.seq``); returns
+    the logits at each prompt's last position [NB, V]."""
     nb, dev = len(prompts), cache.k.device
     padded = np.zeros((nb, bucket), np.int32)
     lengths = np.zeros((nb,), np.int32)
+    first = first_position(shard)
+    size = cache.max_seq_len if shard is None or shard.seq is None else shard.seq.size
     for i, p in enumerate(prompts):
-        if len(p) > cache.max_seq_len:
-            raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {cache.max_seq_len}")
+        if len(p) > size:
+            raise ValueError(f"prompt length {len(p)} exceeds max_seq_len {size}")
         padded[i, :len(p)] = p
         lengths[i] = len(p)
     lens_d = to_device(lengths, dev)
@@ -237,7 +253,7 @@ def prefill_into(spec: ModelSpec, params, cache: KVCache, prompts, slots, bucket
         decoder.commit_kv_windows(
             cache.k[layer:layer + 1], cache.v[layer:layer + 1],
             k.permute(0, 2, 1, 3)[None].to(cache.k.dtype),
-            v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots)
+            v.permute(0, 2, 1, 3)[None].to(cache.v.dtype), starts, slots, first=first)
 
     with torch.no_grad():
         return decoder.forward(spec, params, to_device(padded, dev), positions, lengths=lens_d,
@@ -300,6 +316,10 @@ class SpecEngine:
         # draft expansion and tree verification stay mutually consistent
         llm_params, self.llm_shard = place_params(llm_spec, llm_params, self.device, mesh)
         ssm_params, self.ssm_shard = place_params(ssm_spec, ssm_params, self.device, mesh)
+        if self.llm_shard is not None:  # the verifier's cache cut on seq; the draft's whole
+            self.llm_shard = with_seq(self.llm_shard, max_seq_len)
+        cut = None if self.llm_shard is None else self.llm_shard.seq
+        llm_len = max_seq_len if cut is None else cut.local
         self.llm_params, self.ssm_params = llm_params, ssm_params
         self.slots = SlotBlock(max_requests_per_batch, mesh)
         nb = self.slots.n
@@ -310,13 +330,13 @@ class SpecEngine:
             return None if sh is None else sh.num_kv_cache(spec)
 
         if llm_cache is None:
-            llm_cache = decoder.init_kv_cache(llm_spec, nb, max_seq_len, cache_dtype,
+            llm_cache = decoder.init_kv_cache(llm_spec, nb, llm_len, cache_dtype,
                                               self.device, kv_heads(llm_spec, self.llm_shard))
-        elif ((llm_cache.num_slots, llm_cache.max_seq_len) != (nb, max_seq_len)
+        elif ((llm_cache.num_slots, llm_cache.max_seq_len) != (nb, llm_len)
               or llm_cache.k.device.type != self.device.type):
             raise ValueError(f"a shared verifier cache {tuple(llm_cache.k.shape)} on "
                              f"{llm_cache.k.device} does not fit {nb} slots "
-                             f"x {max_seq_len} positions on {self.device}")
+                             f"x {llm_len} positions on {self.device}")
         self.llm_cache = llm_cache
         self.ssm_cache = decoder.init_kv_cache(ssm_spec, nb, max_seq_len, cache_dtype,
                                                self.device, kv_heads(ssm_spec, self.ssm_shard))
@@ -528,11 +548,21 @@ class SpecEngine:
         bidx = torch.arange(b, device=self.device)[:, None].expand(b, t)
         with torch.no_grad():
             for cache in caches:
-                src = torch.clamp(lens[:, None] + fs, max=cache.max_seq_len - 1)
-                # [B, T, L, KH, D] -> [L, B, KH, T, D] update windows
-                gk = cache.k[:, bidx, :, src].permute(2, 0, 3, 1, 4)
-                gv = cache.v[:, bidx, :, src].permute(2, 0, 3, 1, 4)
-                decoder.commit_kv_windows(cache.k, cache.v, gk, gv, lens_np)
+                cut = self.llm_shard.seq if cache is self.llm_cache and self.llm_shard else None
+                s = cache.max_seq_len
+                lo, local, size = (cut.lo, cut.local, cut.size) if cut else (0, s, s)
+                # [B, T, L, KH, D] -> [L, B, KH, T, D] update windows. Under a
+                # seq cut a source column may lie on another rank: each rank
+                # gives the columns it holds (zero elsewhere), summed over seq
+                # (exact: one rank holds each), then writes its own
+                loc = torch.clamp(lens[:, None] + fs, max=size - 1) - lo
+                mine = ((loc >= 0) & (loc < local))[:, :, None, None, None]
+                loc = loc.clamp(0, local - 1)
+                gk, gv = (torch.where(mine, c[:, bidx, :, loc], 0).permute(2, 0, 3, 1, 4)
+                          .contiguous() for c in (cache.k, cache.v))
+                if cut:
+                    gk, gv = (self.mesh.all_reduce(g, SEQ_AXIS) for g in (gk, gv))
+                decoder.commit_kv_windows(cache.k, cache.v, gk, gv, lens_np, first=lo)
 
     # ------------------------------------------------------------------
     # fused path: draft, verify, accept and commit without a host sync
@@ -557,7 +587,7 @@ class SpecEngine:
         logits, llm_buf = self._verify_reg(lens, tree_tokens, anc_self)
         produced, n_acc, from_slots = walk(logits, tree_tokens, tree_parents)
         path = from_slots[:, :self.depth + 1]
-        commit_from_buffer(self.llm_cache, lens, *llm_buf, path)
+        commit_from_buffer(self.llm_cache, lens, *llm_buf, path, first_position(self.llm_shard))
         commit_from_buffer(self.ssm_cache, lens, *ssm_buf, path)
         next_roots = torch.gather(produced, 1, (n_acc - 1).long()[:, None])[:, 0]
         return produced, n_acc, lens + n_acc, next_roots

@@ -50,7 +50,8 @@ import torch
 
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.models import decoder
-from flexflow_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_grads
+from flexflow_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_grads,
+                                             refuse_seq)
 from flexflow_tpu_torch.parallel.pipeline import gpipe_step
 from flexflow_tpu_torch.parallel.sharding import (data_rows, gather_params, partial_grads,
                                                   shard_params, tree_shard)
@@ -96,6 +97,7 @@ class Trainer:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh or 'auto', got "
                             f"{type(mesh).__name__}")
+        refuse_seq(mesh, "the Trainer")
         if pipeline_stages > 1 and (mesh is None or mesh.pipe != pipeline_stages):
             raise ValueError(f"pipeline_stages={pipeline_stages} needs a mesh whose pipe axis "
                              f"is {pipeline_stages}, got "

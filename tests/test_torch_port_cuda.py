@@ -371,6 +371,51 @@ def test_tree_attention_matches_plain_and_incremental_bits(cuda, dtype, h, kh, d
             assert torch.equal(one[0], got[bi, c])
 
 
+@pytest.mark.parametrize("dtype,tree", [(torch.bfloat16, False), (torch.float32, False),
+                                        (torch.bfloat16, True), (torch.float32, True)],
+                         ids=["bf16", "f32", "tree-bf16", "tree-f32"])
+def test_shard_form_and_merge_match_plain_and_one_device(cuda, dtype, tree):
+    """K5's shard form on C = 1, 2 and 4 slices of a cache (slots on a
+    shard boundary and shards with no position) and ``merge_states``: the
+    plain state and merge's output within the K5 limit, and at C = 1 the
+    one-device kernel's bits."""
+    g = torch.Generator().manual_seed(8)
+    b, s, h, kh, d = 5, 256, 8, 2, 64
+    t = 1 + 3 * 4 if tree else 1
+    lens = torch.tensor([0, 17, 64, 128, 250], dtype=torch.int32)
+    q = torch.randn((b, t, h, d), generator=g).to(dtype)
+    kn, vn = (torch.randn((b, t, kh, d), generator=g).to(dtype) for _ in range(2))
+    kc, vc = (torch.randn((b, kh, s, d), generator=g).to(dtype) for _ in range(2))
+    anc = _tree(g, b, 3, 4)[1] if tree else None
+    dev = [x.to(cuda) for x in (q, kc, vc, kn, vn, lens)]
+    mask = anc.to(cuda) if tree else None
+    one = (t_da.tree_attention(*dev, mask) if tree else
+           t_da.decode_attention(dev[0][:, 0], dev[1], dev[2], dev[3][:, 0], dev[4][:, 0],
+                                 dev[5])[:, None])
+    for c in (1, 2, 4):
+        w = s // c
+        got, want = [], []
+        for r in range(c):
+            kb, vb = (x[:, :, r * w:(r + 1) * w].contiguous() for x in dev[1:3])
+            kw = dict(first=r * w, inflight=r == 0)
+            if tree:
+                got.append(t_da.tree_attention_state(dev[0], kb, vb, *dev[3:], mask, **kw))
+                want.append(t_da.tree_attention_state_plain(dev[0], kb, vb, *dev[3:], mask, **kw))
+            else:
+                args = (dev[0][:, 0], kb, vb, dev[3][:, 0], dev[4][:, 0], dev[5])
+                got.append(t_da.decode_attention_state(*args, **kw)[:, None])
+                want.append(t_da.decode_attention_state_plain(*args, **kw)[:, None])
+        merged = [m(torch.stack(x, -2).reshape(b * t, h, c, d + 2), dtype).reshape(b, t, h, d)
+                  for m, x in ((t_da.merge_states, got), (t_da.merge_states_plain, want))]
+        err = (merged[0].float() - merged[1].float()).abs()
+        if dtype == torch.bfloat16:
+            assert (err <= 2.0 ** -7 * merged[1].float().abs() + 2.0 ** -12).all()
+        else:
+            assert err.max() <= 1e-4
+        if c == 1:
+            assert torch.equal(merged[0], one)
+
+
 # (B, S, H, KH, D, dtype, lengths): the kernel's edges - rows of length 0
 # and 1, S not a multiple of the 64-position tile, GQA groups of 4, 8 and
 # 64 (one position a tile), each instantiated head dim (32, 64, 128, 256)

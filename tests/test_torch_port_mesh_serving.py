@@ -278,9 +278,11 @@ def test_tp8_pipelined_and_jax_mesh_engine(tmp_path, unfused_jax):
 
 
 def test_refusals():
-    """Context degrees (A10); ``SpecEngine`` on a pipe mesh names
-    ``PipelineSpecEngine``, and PEFT with drafts under pipeline stages
-    raises; start_server under a mesh (A10). Pipeline stages are taken
+    """Pipeline stages under a context degree (A10c; a context degree with
+    the model axis is taken, past it the process group is asked for);
+    ``SpecEngine`` on a pipe mesh names ``PipelineSpecEngine``, and PEFT
+    with drafts under pipeline stages raises; start_server under a mesh
+    (A10b). Pipeline stages are taken
     (``test_torch_port_pp_serving``), as is LoRA under a mesh (the rank's
     cut of the stacks: ``test_torch_port_mesh_lora``), the PEFT CLI's mesh
     and offload under a mesh (``test_torch_port_mesh_layouts``)."""
@@ -291,9 +293,9 @@ def test_refusals():
     from flexflow_tpu_torch.serving.engine import InferenceEngine
     from flexflow_tpu_torch.serving.speculative import SpecEngine
 
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         make_mesh(pipe=2, seq=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(RuntimeError, match="a 4-rank mesh needs a process group"):
         make_mesh(model=2, seq=2, device="cpu")
     drafted = LLM.__new__(LLM)
     drafted._ssms, drafted._peft, drafted.quant_bits = [SSM.__new__(SSM)], [None], None
@@ -313,7 +315,7 @@ def test_refusals():
                        "--device", "cpu"])
     llm = LLM.__new__(LLM)
     llm.mesh = mesh
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         llm.start_server()
 
 
