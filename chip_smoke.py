@@ -18,6 +18,7 @@
     python3 chip_smoke.py --only card,build,pp
     python3 chip_smoke.py --only card,build,pptrain
     python3 chip_smoke.py --only card,build,kernels,cp
+    python3 chip_smoke.py --only card,build,dist
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
 
 Phases, in order; any failure exits non-zero:
@@ -460,7 +461,29 @@ Phases, in order; any failure exits non-zero:
               one-device plain prefill. (e) With more than one GPU, (a)-(d)
               over NCCL at min(4, count) ranks; otherwise it says why it did
               not run.
-22. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
+22. dist    — multi-process serving (``parallel/distributed.py``: the controller's
+              request broadcaster; the background server under a mesh). Two
+              plain subprocesses formed through ``init_distributed``
+              (``FF_COORDINATOR_ADDRESS``, ``FF_NUM_PROCESSES``,
+              ``FF_PROCESS_ID``) share the card over gloo, each killed at
+              ``DIST_LIMIT_S``; each builds the tp phase's LLaMA-2-7B INT8
+              at T = 2 (``_tp_llama``). (a) ``serve_distributed``: rank 0
+              broadcasts the 8 prompts, every rank serves ``DIST_NEW`` = 64
+              tokens: both ranks' tokens equal, every first token the serve
+              phase's (run here when serve is not selected), the tokens equal
+              to the serve phase's counted (bf16 near-ties at T = 2). (b)
+              ``LLM.start_server`` on both ranks: rank 0 streams one request
+              and registers 3 from a thread, then 4 more from a second
+              thread once the first delta has arrived; ``stop_server`` on
+              both: both ranks' guids and tokens equal, every first token
+              (a)'s, the deltas joined to the output, the requests equal to
+              (a)'s counted. qmm_int8, decode_attention and flash_prefill
+              launched in each run (rank 0's counts go into the kernels
+              line). Prints the ticks and bytes broadcast, the controller's
+              ms a message (mean, max), TTFT and decode tok/s as the
+              controller's caller sees them beside the serve phase's, and
+              the phase's wall.
+23. profile — (only with ``--profile``) one 16-step decode horizon (replayed,
               then uncaptured) and one batched prefill of the served model,
               one 8-iteration speculative horizon of the spec phase
               (replayed, then uncaptured), the mixtral phase's decode
@@ -499,7 +522,7 @@ PROMPT_LENS = (600, 400, 256, 128, 100, 64, 32, 17)  # the served runs' prompts
 PORT_KERNELS = ("qmm_", "decode_attention", "flash_prefill")  # in the kernels' symbol names
 PHASES = ("card", "build", "kernels", "variants", "crosscheck", "serve", "openai", "spec",
           "mixtral", "offload", "lora", "finetune", "train", "graph", "search", "tp", "meshtrain",
-          "layouts", "pp", "pptrain", "cp", "profile")
+          "layouts", "pp", "pptrain", "cp", "dist", "profile")
 DEFAULT_PHASES = PHASES[:-1]
 
 LLAMA2_7B = dict(
@@ -1931,7 +1954,8 @@ def serve_phase(card: str, with_profile: bool, hold: dict = None) -> dict:
     spec, engine, rm, prompts = _llama_serving()
     try:
         reqs, out = _served(rm, prompts, 64, spec.vocab_size, "serve")
-        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=out["decode_tok_s"])
+        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=out["decode_tok_s"],
+                       mean_ttft_ms=out["mean_ttft_ms"])
         lens = np.array([len(p) for p in prompts], np.int32)
         # not the served tokens, so the horizon writes other K/V than the run did
         toks = np.array([(r.output_tokens[0] + 1) % spec.vocab_size for r in reqs], np.int32)
@@ -4708,7 +4732,8 @@ def tp_phase(card: str) -> dict:
             reqs, st = _served(rm, prompts, 64, spec.vocab_size, "tp one device")
         finally:
             rm.close()
-        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+        _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"],
+                       mean_ttft_ms=st["mean_ttft_ms"])
         del engine, rm
         torch.cuda.empty_cache()
 
@@ -6438,7 +6463,8 @@ def _one_device_served(dev, what: str) -> None:
         reqs, st = _served(rm, _prompts(spec.vocab_size), 64, spec.vocab_size, what)
     finally:
         rm.close()
-    _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"])
+    _SERVED.update(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"],
+                   mean_ttft_ms=st["mean_ttft_ms"])
     del engine, rm
     gc.collect()
     torch.cuda.empty_cache()
@@ -6476,6 +6502,215 @@ def cp_phase(card: str) -> dict:
         f"it [{card}]")
     return out
 
+# ---------------------------------------------------------------------------
+# multi-process serving (parallel/distributed.py, the background server under
+# a mesh: the dist phase)
+# ---------------------------------------------------------------------------
+
+DIST_LIMIT_S = 300  # each rank's time limit; the ranks are killed past it
+DIST_NEW = 64  # new tokens a request, as the serve and tp phases
+
+
+def _dist_stats(reqs, t_end: float) -> dict:
+    """TTFT and decode tok/s of ``reqs`` as their caller sees them (as
+    ``_served``: tokens after each first one, from the last first token to
+    ``t_end``)."""
+    import numpy as np
+
+    first = max(r.profile.first_token_time for r in reqs)
+    return dict(mean_ttft_ms=1e3 * float(np.mean([r.profile.ttft for r in reqs])),
+                decode_tok_s=sum(len(r.output_tokens) - 1 for r in reqs) / (t_end - first))
+
+
+def _dist_rank(tmp: str) -> None:
+    """One rank of the dist phase, a process of its own formed through
+    ``init_distributed`` (the ``FF_*`` variables; gloo, card 0): LLaMA-2-7B
+    INT8 at T = 2 (``_tp_llama``), then (a) ``serve_distributed`` and (b)
+    ``LLM.start_server`` under the mesh; the results go to ``tmp``."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.distributed import (RequestBroadcaster, init_distributed,
+                                                         is_controller, serve_distributed)
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.serve import LLM
+    from flexflow_tpu_torch.serving.request_manager import GenerationConfig
+
+    with open(f"{tmp}/dist.json") as f:
+        ports = json.load(f)
+    dev = torch.device("cuda", 0)
+    init_distributed(device=dev, backend="gloo")
+    ctrl, rank = is_controller(), dist.get_rank()
+    if not ctrl:
+        global log
+        log = lambda *a: None  # noqa: E731 - rank 0 speaks for the mesh
+    rm = None
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(model=2, device=dev)
+        spec, engine, rm = _tp_llama(mesh, dev)
+        prompts = _prompts(spec.vocab_size)
+        rm.generate([prompts[-1]], GenerationConfig(max_new_tokens=4))  # warm-up, SPMD
+        torch.cuda.synchronize()
+        out = {"build_s": time.perf_counter() - t0}
+
+        # (a) the controller broadcasts the workload, every rank serves it
+        bc = RequestBroadcaster(port=ports["a"])
+        _launches(reset=True)
+        t0 = time.monotonic()
+        reqs = serve_distributed(rm, bc, prompts if ctrl else None,
+                                 GenerationConfig(max_new_tokens=DIST_NEW) if ctrl else None)
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        out["a"] = dict(_dist_stats(reqs, t_end), launches=_launches(), wall_s=t_end - t0,
+                        tokens=[r.output_tokens for r in reqs], guids=[r.guid for r in reqs],
+                        broadcast=dict(bc.stats))
+        bc.close()
+
+        # (b) the background server under the mesh: rank 0 takes the requests
+        class ServedLLM(LLM):
+            """The LLM API over this rank's manager, the id tokenizer and the mesh."""
+
+            def __init__(self):
+                self.rm, self.tokenizer, self.output_file = rm, IdTokenizer(), ""
+                self.mesh, self.broadcast_port = mesh, ports["b"]
+
+        llm = ServedLLM()
+        guid0 = max(rm._requests)
+        _launches(reset=True)
+        t0 = time.monotonic()
+        llm.start_server()
+        if ctrl:
+            stream = llm.generate_stream(prompts[0], max_new_tokens=DIST_NEW)
+            waves = {}
+
+            def wave(name, ps):
+                waves[name] = llm.generate(ps, max_new_tokens=DIST_NEW)
+
+            first_wave = threading.Thread(target=wave, args=("first", prompts[1:4]))
+            first_wave.start()
+            deltas = [next(stream)]  # decoding has begun: 4 more arrive now
+            t_more = time.monotonic() - t0
+            second_wave = threading.Thread(target=wave, args=("second", prompts[4:]))
+            second_wave.start()
+            deltas += list(stream)
+            first_wave.join()
+            second_wave.join()
+        llm.stop_server()  # a follower's returns on the controller's sentinel
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        served = {g: r for g, r in rm._requests.items() if g > guid0}
+        out["b"] = dict(launches=_launches(), wall_s=t_end - t0,
+                        requests={g: (r.prompt_tokens, r.output_tokens, r.state)
+                                  for g, r in served.items()})
+        if ctrl:
+            by_prompt = {tuple(r.prompt_tokens): g for g, r in served.items()}
+            out["b"].update(
+                _dist_stats(list(served.values()), t_end), more_after_s=t_more,
+                guids=[by_prompt[tuple(p)] for p in prompts],
+                stream_joined="".join(deltas) == IdTokenizer().decode(
+                    served[by_prompt[tuple(prompts[0])]].output_tokens),
+                stream_chunks=len([d for d in deltas if d]),
+                broadcast=dict(rm.broadcaster.stats))
+        torch.save(out, f"{tmp}/dist.{rank}.pt")
+    finally:
+        if rm is not None:
+            rm.close()
+        dist.destroy_process_group()
+
+
+def dist_phase(card: str) -> dict:
+    """Multi-process serving (see the module docstring, phase dist): two
+    plain subprocesses formed through ``init_distributed``, sharing the
+    card over gloo; each rank is killed at ``DIST_LIMIT_S``."""
+    import subprocess
+
+    import torch
+
+    from flexflow_tpu_torch.parallel.mesh import _free_port
+
+    t_phase = time.perf_counter()
+    if "tokens" not in _SERVED:
+        _one_device_served(torch.device("cuda"), "dist one device")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    procs = []
+    try:
+        with open(f"{tmp}/dist.json", "w") as f:
+            json.dump({"a": _free_port(), "b": _free_port()}, f)
+        coordinator = f"127.0.0.1:{_free_port()}"
+        for r in range(2):
+            env = dict(os.environ, FF_COORDINATOR_ADDRESS=coordinator, FF_NUM_PROCESSES="2",
+                       FF_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank", tmp], env=env))
+        deadline = time.monotonic() + DIST_LIMIT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"dist: the ranks did not finish within {DIST_LIMIT_S} s")
+        codes = [p.returncode for p in procs]
+        require(codes == [0, 0], f"dist: ranks exited {codes}")
+        ranks = [torch.load(f"{tmp}/dist.{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = ranks
+    a, b = r0["a"], r0["b"]
+    want = _SERVED["tokens"]
+    require(a["tokens"] == r1["a"]["tokens"] and a["guids"] == r1["a"]["guids"],
+            "dist (a): the ranks' tokens differ")
+    require(all(len(t) == DIST_NEW for t in a["tokens"]), "dist (a): a request came short")
+    apart = [i for i, (g, w) in enumerate(zip(a["tokens"], want)) if g[0] != w[0]]
+    require(not apart, f"dist (a): first tokens of requests {apart} differ from the serve "
+                       "phase's")
+    a_equal = sum(x == y for g, w in zip(a["tokens"], want) for x, y in zip(g, w))
+    require(b["requests"] == r1["b"]["requests"],
+            "dist (b): the ranks' guids or tokens differ")
+    require(all(s == "COMPLETED" and len(t) == DIST_NEW for _, t, s in b["requests"].values()),
+            "dist (b): a request did not complete with its tokens")
+    b_tokens = [b["requests"][g][1] for g in b["guids"]]
+    apart = [i for i, (g, w) in enumerate(zip(b_tokens, a["tokens"])) if g[0] != w[0]]
+    require(not apart, f"dist (b): first tokens of requests {apart} differ from (a)'s")
+    require(b["stream_joined"], "dist (b): the streamed deltas do not join to the output")
+    for run in (a, b):
+        for k in ("qmm_int8", "decode_attention", "flash_prefill"):
+            require(run["launches"][k] > 0, f"dist: {k} was never launched")
+    b_same = sum(g == w for g, w in zip(b_tokens, a["tokens"]))
+    prefix = _common_prefix(a["tokens"], want)
+    bst = b["broadcast"]
+    n_msg = max(bst["messages"], 1)
+    # the tokens and prompts stay out of the summary line
+    a = {k: v for k, v in a.items() if k not in ("tokens", "guids")}
+    b = {k: v for k, v in b.items() if k not in ("requests", "guids")}
+    out = dict(card=card, a=a, b=b, build_s=r0["build_s"], a_equal_to_serve=a_equal,
+               a_prefix=prefix, b_requests_equal_to_a=b_same)
+    log(f"  dist (a) serve_distributed at T=2 over gloo: both ranks' tokens equal, every first "
+        f"token the serve phase's, {a_equal} of {DIST_NEW * len(want)} tokens equal to the serve "
+        f"phase's (before the first difference, per request: {prefix}); decode "
+        f"{a['decode_tok_s']:.1f} tok/s, mean TTFT {a['mean_ttft_ms']:.1f} ms, "
+        f"{a['wall_s']:.3f} s [{card}]")
+    log(f"  dist (b) start_server under the mesh: 4 requests (1 streamed, "
+        f"{b['stream_chunks']} chunks), 4 more {b['more_after_s']:.3f} s in; both ranks' guids "
+        f"and tokens equal, every first token (a)'s, {b_same} of {len(b_tokens)} requests equal "
+        f"to (a)'s; decode {b['decode_tok_s']:.1f} tok/s, mean TTFT {b['mean_ttft_ms']:.1f} ms, "
+        f"{b['wall_s']:.3f} s [{card}]")
+    log(f"  dist (b) broadcast: {bst['messages']} messages (ticks and the sentinel), "
+        f"{bst['bytes']} bytes, {1e3 * bst['seconds'] / n_msg:.4f} ms a message on the "
+        f"controller (max {1e3 * bst['max_seconds']:.4f}) [{card}]")
+    log(f"  dist: one device (serve phase) decode {_SERVED['decode_tok_s']:.1f} tok/s, mean "
+        f"TTFT {_SERVED.get('mean_ttft_ms', float('nan')):.1f} ms; launches (a) "
+        f"{json.dumps(a['launches'])}, (b) {json.dumps(b['launches'])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  dist phase wall {out['seconds']:.1f} s, the ranks' build {r0['build_s']:.1f} s of it "
+        f"[{card}]")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6489,6 +6724,7 @@ def main(argv=None) -> int:
                          "decode_attention.cu: each built beside this one and timed beside its "
                          "rows; INT8 qmm held bitwise equal to it, the attention kernels to the "
                          "same limits as this tree's")
+    ap.add_argument("--dist-rank", metavar="DIR", help=argparse.SUPPRESS)  # a dist phase rank
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p] + (["profile"] if args.profile else [])
     unknown = set(phases) - set(PHASES)
@@ -6500,6 +6736,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.dist_rank:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _dist_rank(args.dist_rank)
+        return 0
     from flexflow_tpu_torch.ops.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6684,6 +6925,13 @@ def main(argv=None) -> int:
             "are several")
         summary["cp"] = cp_phase(card)
         lap("cp")
+    if "dist" in phases:
+        log("[dist] multi-process serving: two processes formed through init_distributed "
+            "(FF_COORDINATOR_ADDRESS, FF_NUM_PROCESSES, FF_PROCESS_ID) sharing the card over "
+            "gloo, LLaMA-2-7B INT8 at T=2: (a) serve_distributed of the 8 prompts; (b) "
+            "LLM.start_server under the mesh, 4 requests then 4 more from a second thread")
+        summary["dist"] = dist_phase(card)
+        lap("dist")
 
     # each path's launches, counted from 0 over its run: the served runs for
     # the serving kernels (two drafts rotated and merged, and Mixtral as a
@@ -6706,6 +6954,8 @@ def main(argv=None) -> int:
     served += [pp.get("pp-a", {}), pp.get("pp-b", {}), pp.get("pp-d", {})]
     cp = summary.get("cp", {})  # every rank's launches, each case's
     served += [cp.get("a", {}), cp.get("b", {}), cp.get("c", {})]
+    dist_ = summary.get("dist", {})  # rank 0's launches, each run's
+    served += [dist_.get("a", {}), dist_.get("b", {})]
     offload = summary.get("offload", {})
     served += [offload.get("llama", {}).get(r, {}) for r in ("resident", "offload")]
     served.append(offload.get("mixtral", {}))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import os
 
+from flexflow_tpu_torch.parallel.distributed import is_controller
+
 
 def _result(res) -> dict:
     return {"prompt": res.prompt, "output": res.output_text,
@@ -20,7 +22,9 @@ def _result(res) -> dict:
 
 def create_app(llm=None, ssms: bool = False):
     """The app over ``llm`` (default: ``FF_MODEL_DIR``, with the drafts of
-    ``FF_SSM_DIRS`` when ``ssms``), its background server started."""
+    ``FF_SSM_DIRS`` when ``ssms``), its background server started. Under a
+    mesh a rank other than 0 gets no app: it serves in step and returns
+    ``None`` once rank 0's server has stopped."""
     from fastapi import FastAPI
     from pydantic import BaseModel
 
@@ -35,6 +39,9 @@ def create_app(llm=None, ssms: bool = False):
         llm.compile(max_requests_per_batch=int(os.environ.get("FF_MAX_BATCH", 8)),
                     max_seq_length=int(os.environ.get("FF_MAX_SEQ", 256)), ssms=drafts)
     llm.start_server()
+    if llm.mesh is not None and not is_controller():
+        llm.stop_server()  # a follower's returns once rank 0's loop has stopped
+        return None
 
     class PromptRequest(BaseModel):
         prompt: str
@@ -59,4 +66,6 @@ def create_app(llm=None, ssms: bool = False):
 if __name__ == "__main__":
     import uvicorn
 
-    uvicorn.run(create_app(), host="0.0.0.0", port=8000)
+    app = create_app()
+    if app is not None:
+        uvicorn.run(app, host="0.0.0.0", port=8000)

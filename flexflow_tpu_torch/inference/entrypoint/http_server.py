@@ -6,7 +6,9 @@ mirror of ``inference/entrypoint/http_server.py``).
 "max_new_tokens": int, "temperature": float, "top_p": float, "top_k": int}``
 returns ``{"prompt", "output", "output_tokens", "decoding_steps", "ttft_ms",
 "latency_ms"}``; ``GET /health`` returns ``ok``. The requests of concurrent
-callers share the batch of the LLM's background server.
+callers share the batch of the LLM's background server. Over an ``LLM``
+compiled on a mesh only rank 0 binds the port; the other ranks serve its
+requests in step until rank 0 stops its server.
 
     python -m flexflow_tpu_torch.inference.entrypoint.http_server -llm-model DIR --port 8080
 """
@@ -18,6 +20,9 @@ import json
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from flexflow_tpu_torch.parallel.distributed import is_controller
 
 
 def make_handler(llm):
@@ -68,11 +73,16 @@ def make_handler(llm):
     return Handler
 
 
-def serve(llm, host: str = "127.0.0.1", port: int = 8080) -> ThreadingHTTPServer:
+def serve(llm, host: str = "127.0.0.1", port: int = 8080) -> Optional[ThreadingHTTPServer]:
     """Start ``llm``'s background server and an HTTP server on a daemon
     thread; returns the HTTP server (``shutdown()`` it, then
-    ``llm.stop_server()``)."""
+    ``llm.stop_server()``). Under a mesh a rank other than 0 binds nothing:
+    it serves in step, returns ``None`` once rank 0's ``stop_server`` has
+    run."""
     llm.start_server()
+    if llm.mesh is not None and not is_controller():
+        llm.stop_server()  # a follower's returns once rank 0's loop has stopped
+        return None
     server = ThreadingHTTPServer((host, port), make_handler(llm))
     threading.Thread(target=server.serve_forever, daemon=True).start()
     return server

@@ -13,7 +13,10 @@ serving loop has died; 500 for anything else.
     FF_MODEL_DIR=/path/to/model python -m flexflow_tpu_torch.inference.entrypoint.openai_server
 
 ``FF_MAX_BATCH``, ``FF_MAX_SEQ`` and ``FF_PORT`` size and place it;
-``FF_DEVICE=cpu`` runs it on the CPU (default: the GPU).
+``FF_DEVICE=cpu`` runs it on the CPU (default: the GPU). Over an ``LLM``
+compiled on a mesh every rank calls ``serve``: rank 0 binds the HTTP port
+and takes the requests, the other ranks serve them in step and return when
+rank 0's server stops.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import os
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from flexflow_tpu_torch.parallel.distributed import is_controller
 
 
 def _chat_to_prompt(messages):
@@ -181,7 +186,9 @@ def serve(llm=None, host: str = "0.0.0.0", port: int = 8000,
           model_name: str = "flexflow-tpu-torch"):
     """Serve ``llm`` (default: an ``LLM`` of ``FF_MODEL_DIR``, compiled for
     ``FF_MAX_BATCH`` requests of ``FF_MAX_SEQ`` tokens on ``FF_DEVICE``)
-    until interrupted; the background server stops on the way out."""
+    until interrupted; the background server stops on the way out. Under a
+    mesh only rank 0 binds ``port``; another rank serves in step and
+    returns when rank 0 stops."""
     if llm is None:
         from flexflow_tpu_torch.serve import LLM
 
@@ -191,6 +198,9 @@ def serve(llm=None, host: str = "0.0.0.0", port: int = 8000,
         llm.compile(max_requests_per_batch=int(os.environ.get("FF_MAX_BATCH", 8)),
                     max_seq_length=int(os.environ.get("FF_MAX_SEQ", 256)))
     llm.start_server()
+    if llm.mesh is not None and not is_controller():
+        llm.stop_server()  # a follower's returns once rank 0's loop has stopped
+        return
     srv = ThreadingHTTPServer((host, port), make_handler(llm, model_name))
     print(f"OpenAI-compatible server on http://{host}:{port}/v1")
     try:

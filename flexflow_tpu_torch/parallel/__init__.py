@@ -7,6 +7,8 @@ GPipe loop of ``pipeline``; context parallelism for serving, the KV cache
 cut on the ``seq`` axis, with the ring hops of ``mesh`` for
 ``ops/ring_attention``) and the search over placements on one device
 (port of ``flexflow_tpu/parallel``'s ``mesh``, ``sharding``, ``auto``,
-``joint``, ``topology`` and ``pipeline``). The multi-process controller,
-context parallelism under pipeline stages and elsewhere than in serving,
-and the search on a mesh are ROADMAP A10b, A10c and A11c."""
+``joint``, ``topology`` and ``pipeline``), and the multi-process
+controller (``distributed``: ``init_distributed`` and the request
+broadcaster that feeds a mesh's followers the controller's requests).
+Context parallelism under pipeline stages and elsewhere than in serving,
+and the search on a mesh are ROADMAP A10c and A11c."""

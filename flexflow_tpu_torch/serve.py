@@ -40,7 +40,12 @@ attention over them (``serving/engine.py``, ``serving/speculative.py``;
 the draft whole on every rank; several drafts rotate or merge over it);
 under a context degree, pipeline stages, offload and LoRA adapters are
 ROADMAP A10c and raise.
-``start_server`` under a mesh is A10b (JAX's request broadcaster).
+Under a mesh ``start_server()`` and ``stop_server()`` are called on every
+rank: rank 0 (the controller) takes the requests (``generate``,
+``generate_stream``) and its loop broadcasts each step's new ones to the
+other ranks' loops (``parallel/distributed.RequestBroadcaster``, made at the
+first ``start_server`` on ``compile(broadcast_port=)``, JAX's 47551 by
+default); on the other ranks ``generate`` raises while the server runs.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 from flexflow_tpu_torch.config import config as _ffconfig
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.parallel import auto as auto_lib
+from flexflow_tpu_torch.parallel.distributed import DEFAULT_PORT, RequestBroadcaster
 from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.peft.lora import (LoraConfig, export_hf_adapter, init_lora_params,
                                          load_hf_adapter_config, load_hf_adapter_into_slot,
@@ -91,6 +97,7 @@ class LLM:
     """A served causal LM."""
 
     mesh = None  # this rank's parallel/mesh.Mesh once compile has made one
+    broadcast_port = DEFAULT_PORT  # the request broadcaster's, under a mesh
 
     def __init__(self, model_dir: str, *, data_type: str = "bfloat16",
                  quantization: Optional[str] = None, output_file: str = "",
@@ -183,7 +190,8 @@ class LLM:
                 beam_width: int = 3,
                 beam_depth: int = 4, ssms: Sequence["SSM"] = (),
                 merge_ssm_trees: bool = False, offload: Optional[bool] = None,
-                auto_parallel: Optional[bool] = None) -> None:
+                auto_parallel: Optional[bool] = None,
+                broadcast_port: Optional[int] = None) -> None:
         """Load the weights and build the engine and the scheduler: the
         incremental ``RequestManager``; with one registered draft model
         (``ssms``) the speculative ``SpecRequestManager`` (fused, and
@@ -219,7 +227,10 @@ class LLM:
         positions of the verifier's cache, the prefill is replicated over
         the seq ranks and the attention merged over them; the draft models
         stay whole on every rank. Under a context degree pipeline stages,
-        offload and LoRA adapters raise (A10c)."""
+        offload and LoRA adapters raise (A10c). ``broadcast_port`` is the
+        TCP port of the mesh's request broadcaster (``start_server``)."""
+        if broadcast_port is not None:
+            self.broadcast_port = broadcast_port
         for ssm in ssms:
             self.register_ssm(ssm)
         if offload is None:
@@ -423,14 +434,17 @@ class LLM:
 
     def start_server(self) -> None:
         """Start the background serving loop (incremental or speculative).
-        Under a mesh it raises: the ranks would each take requests on their
-        own (JAX's request broadcaster is ROADMAP A10b)."""
-        if self.mesh is not None:
-            raise NotImplementedError("start_server under a device mesh needs the request "
-                                      "broadcaster (ROADMAP.md Queue A, A10b)")
+        Under a mesh every rank calls it: the first call connects the
+        ranks' request broadcaster (the controller waits for its
+        followers), and rank 0's loop then feeds the others its requests."""
+        if self.mesh is not None and self.rm.broadcaster is None:
+            self.rm.broadcaster = RequestBroadcaster(port=self.broadcast_port)
         self.rm.start_background_server()
 
     def stop_server(self) -> None:
+        """Stop the background loop. Under a mesh every rank calls it: rank
+        0 stops after its current step and sends the sentinel; the other
+        ranks return once it has arrived."""
         if self.rm is not None:
             self.rm.stop_server()
 

@@ -22,7 +22,9 @@ sleep when idle) while other threads register requests and wait on their
 every request not yet done is marked ``FAILED`` with the error and leaves
 its slot, ``generate`` raises, and new registrations are refused until the
 server is stopped or started again (``BackgroundServing``, shared with
-``SpecRequestManager``). ``--profiling`` (``FFConfig.profiling``) times the
+``SpecRequestManager``). Under a mesh (``broadcaster=``) the controller's
+loop broadcasts each step's new requests to the followers' loops, which
+step with it. ``--profiling`` (``FFConfig.profiling``) times the
 scheduler's phases and prints their report, and the per-op profile once,
 when ``run_until_idle`` drains. ``register_finetune`` queues LoRA
 finetuning sessions (``peft/finetune.py``): ``run_until_idle`` runs one
@@ -109,24 +111,56 @@ class BackgroundServing:
     other threads register requests and wait on their ``done`` events.
 
     The manager provides ``engine``, ``step()``, ``run_until_idle()``,
-    ``_pending`` (a queue), ``_requests`` (guid -> Request) and
-    ``_drop_inflight()`` (empties its slots and in-flight work), and calls
-    ``_init_server()`` in its constructor and ``_enqueue`` to register."""
+    ``_pending`` (a queue), ``_requests`` (guid -> Request), ``_guid`` (a
+    counter) and ``_drop_inflight()`` (empties its slots and in-flight
+    work), calls ``_init_server(broadcaster)`` in its constructor and
+    ``_enqueue`` to register.
 
-    def _init_server(self) -> None:
+    Under a mesh every rank is a process of its own and runs this loop, and
+    every rank must call ``step()`` the same number of times with the same
+    requests admitted at the same iteration, or the ranks' collectives
+    part. ``broadcaster`` (``parallel/distributed.RequestBroadcaster``)
+    keeps them in step. While the controller's (rank 0's) server runs, its
+    registrations wait in ``_inbox``; each loop iteration drains it,
+    broadcasts the list of new requests (one tick), moves them into
+    ``_pending`` and steps once. Idle (nothing in flight, nothing new) it
+    sleeps and sends nothing. A follower registers each tick's requests in
+    order, so they get the controller's guids, then steps once; while its
+    server runs it takes no registrations of its own. The controller's
+    ``stop_server`` sends the sentinel after its last step, which ends the
+    followers' loops; a loop that dies closes the broadcaster, so the other
+    side's ends with a ``ConnectionError``. Without a broadcaster the
+    registrations go straight to ``_pending``."""
+
+    def _init_server(self, broadcaster=None) -> None:
         self._lock = threading.Lock()  # _requests: registering threads vs the failing loop
         self._server_thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._failure: Optional[str] = None  # the error the last loop died of
+        self.broadcaster = broadcaster
+        self._inbox: "queue.Queue[Request]" = queue.Queue()  # the controller's, under a mesh
 
-    def _enqueue(self, req: Request) -> int:
-        req.profile.registration_time = time.monotonic()
+    def _following(self) -> bool:
+        return self.broadcaster is not None and not self.broadcaster.controller
+
+    def _enqueue(self, prompt_tokens: List[int], config: GenerationConfig) -> int:
+        """Register a checked request. Its guid is taken and the request
+        queued under one lock, so the controller's ticks list its requests
+        in guid order, the order in which the followers register them."""
         with self._lock:
             if self._failure is not None:
                 # nothing would ever serve it: refuse instead of leaving the caller waiting
                 raise RuntimeError(f"serving loop failed: {self._failure}")
+            serving = self._server_thread is not None
+            if serving and self._following() and threading.current_thread() is not \
+                    self._server_thread:
+                raise RuntimeError("this rank follows the controller while the server runs: "
+                                   "requests go to rank 0")
+            req = Request(guid=next(self._guid), prompt_tokens=prompt_tokens, config=config)
+            req.profile.registration_time = time.monotonic()
             self._requests[req.guid] = req
-        self._pending.put(req)
+            held = serving and self.broadcaster is not None and self.broadcaster.controller
+            (self._inbox if held else self._pending).put(req)
         return req.guid
 
     def finish(self, guids: Sequence[int]) -> List[Request]:
@@ -146,31 +180,76 @@ class BackgroundServing:
         return reqs
 
     def start_background_server(self) -> None:
-        """Run ``step()`` on a daemon thread, sleeping 1 ms when idle
-        (idempotent). On the card the thread runs under the engine's device
-        (the current device is per thread). If a step raises, every request
-        not yet done is failed and the exception is re-raised on the thread."""
+        """Run the serving loop on a daemon thread (idempotent): ``_lead``
+        on one device and on the controller, ``_follow`` on a follower. On
+        the card the thread runs under the engine's device (the current
+        device is per thread). If the loop raises, every request not yet
+        done is failed, the broadcaster is closed and the exception is
+        re-raised on the thread."""
         if self._server_thread is not None:
             return
+        bc = self.broadcaster
+        if bc is not None and bc.closed:
+            raise RuntimeError("the request broadcaster is closed (a serving loop died): the "
+                               "ranks can no longer serve in step")
         self._stop.clear()
         self._failure = None
         device = self.engine.device
+        body = self._follow if self._following() else self._lead
 
         def loop():
             try:
                 with (torch.cuda.device(device) if device.type == "cuda"
                       else contextlib.nullcontext()):
-                    while not self._stop.is_set():
-                        if not self.step() and self._pending.empty():
-                            time.sleep(0.001)
+                    body()
             except BaseException as e:
                 self._fail_all_inflight(e)
                 # a restarted loop serves new requests, not the failed ones
                 self._drop_inflight()
+                if bc is not None:
+                    bc.close()
                 raise
 
         self._server_thread = threading.Thread(target=loop, daemon=True)
         self._server_thread.start()
+
+    def _lead(self) -> None:
+        """One device's loop, or the controller's: each iteration takes the
+        new registrations, broadcasts them as one tick and steps once; it
+        sleeps 1 ms when idle. Stopped, it sends the sentinel."""
+        bc = self.broadcaster
+        busy = True  # a restart first steps the work left in flight
+        while not self._stop.is_set():
+            new = []
+            while True:
+                try:
+                    new.append(self._inbox.get_nowait())
+                except queue.Empty:
+                    break
+            if not (new or busy or not self._pending.empty()):
+                time.sleep(0.001)
+                continue
+            if bc is not None:
+                bc.broadcast([(r.guid, r.prompt_tokens, r.config) for r in new])
+            for r in new:
+                self._pending.put(r)
+            busy = self.step()
+        if bc is not None:
+            bc.broadcast(None)
+
+    def _follow(self) -> None:
+        """A follower's loop: one ``step()`` per tick received, after
+        registering the tick's requests; it ends on the sentinel."""
+        while True:
+            tick = self.broadcaster.recv()
+            if tick is None:
+                return
+            for guid, prompt_tokens, config in tick:
+                got = self.register_request(prompt_tokens, config)
+                if got != guid:
+                    raise RuntimeError(f"the controller's request {guid} registered here as "
+                                       f"{got}: the ranks have parted")
+            self.step()
 
     def _fail_all_inflight(self, exc: BaseException) -> None:
         """Unblock every waiter when the serving loop dies: requests not yet
@@ -187,7 +266,9 @@ class BackgroundServing:
     def stop_server(self) -> None:
         """Stop the loop between two steps and join it. Work still in flight
         (pipelined horizons) stays queued for the next ``step()``, from a
-        restarted server or an in-process ``generate``."""
+        restarted server or an in-process ``generate``. On a follower it
+        waits for the controller's sentinel: call it on every rank, as
+        ``start_server``, and the ranks stop at the same step."""
         if self._server_thread is None:
             return
         self._stop.set()
@@ -209,6 +290,7 @@ class RequestManager(BackgroundServing):
         pipelined: bool = False,
         pipeline_depth: int = 2,
         log_fn=None,
+        broadcaster=None,
     ):
         self.engine = engine
         self.decode_horizon = max(int(decode_horizon), 1)
@@ -225,7 +307,7 @@ class RequestManager(BackgroundServing):
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._requests: Dict[int, Request] = {}
         self._finetune_queue = []  # co-scheduled LoRA finetuning sessions
-        self._init_server()
+        self._init_server(broadcaster)
 
         b = engine.max_requests
         self._slots: List[Optional[Request]] = [None] * b
@@ -252,8 +334,7 @@ class RequestManager(BackgroundServing):
         if config.adapter_id >= self.engine.num_adapters:
             raise ValueError(f"adapter_id {config.adapter_id}: the engine holds "
                              f"{self.engine.num_adapters} adapters")
-        req = Request(guid=next(self._guid), prompt_tokens=list(prompt_tokens), config=config)
-        return self._enqueue(req)
+        return self._enqueue(list(prompt_tokens), config)
 
     def get_request(self, guid: int) -> Request:
         return self._requests[guid]
@@ -559,9 +640,12 @@ class RequestManager(BackgroundServing):
         return self.finish([self.register_request(p, config) for p in prompts])
 
     def close(self) -> None:
-        """Stop the server, if running, and the fetch worker thread."""
+        """Stop the server, if running, the fetch worker thread and the
+        broadcaster's connections."""
         self.stop_server()
         self._fetcher.shutdown(wait=True)
+        if self.broadcaster is not None:
+            self.broadcaster.close()
 
     @property
     def num_processed_requests(self) -> int:

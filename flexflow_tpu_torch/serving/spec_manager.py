@@ -66,6 +66,7 @@ class SpecRequestManager(BackgroundServing):
         pipeline_depth: Optional[int] = None,  # None -> FFConfig.pipeline_depth
         seed: int = 0,
         log_fn=None,
+        broadcaster=None,
     ):
         """``fused=True`` runs each iteration (draft tree, verify, accept,
         commit) on the device with no host round trip inside it;
@@ -88,7 +89,7 @@ class SpecRequestManager(BackgroundServing):
         self._guid = itertools.count(2000000)
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._requests: Dict[int, Request] = {}
-        self._init_server()
+        self._init_server(broadcaster)
         self.timer = StepTimer() if _ffconfig.profiling else None
 
         b = engine.max_requests
@@ -132,8 +133,7 @@ class SpecRequestManager(BackgroundServing):
                 f"{self._margin()} >= max_seq_len {self.engine.max_seq_len}")
         if config.adapter_id >= 0:
             raise NotImplementedError(NO_ADAPTERS)
-        req = Request(guid=next(self._guid), prompt_tokens=list(prompt_tokens), config=config)
-        return self._enqueue(req)
+        return self._enqueue(list(prompt_tokens), config)
 
     def _phase(self, name: str):
         return contextlib.nullcontext() if self.timer is None else self.timer.phase(name)

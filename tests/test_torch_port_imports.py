@@ -76,6 +76,7 @@ PORT_MODULES = [
     "flexflow_tpu_torch.parallel.pipeline",
     "flexflow_tpu_torch.parallel.topology",
     "flexflow_tpu_torch.parallel.mesh",
+    "flexflow_tpu_torch.parallel.distributed",
     "flexflow_tpu_torch.parallel.sharding",
     "flexflow_tpu_torch.ffmodel",
     "flexflow_tpu_torch.ffmodel.model",

@@ -281,8 +281,7 @@ def test_refusals():
     """Pipeline stages under a context degree (A10c; a context degree with
     the model axis is taken, past it the process group is asked for);
     ``SpecEngine`` on a pipe mesh names ``PipelineSpecEngine``, and PEFT
-    with drafts under pipeline stages raises; start_server under a mesh
-    (A10b). Pipeline stages are taken
+    with drafts under pipeline stages raises. Pipeline stages are taken
     (``test_torch_port_pp_serving``), as is LoRA under a mesh (the rank's
     cut of the stacks: ``test_torch_port_mesh_lora``), the PEFT CLI's mesh
     and offload under a mesh (``test_torch_port_mesh_layouts``)."""
@@ -313,10 +312,6 @@ def test_refusals():
     with pytest.raises(OSError):  # past the mesh: the model directory is read
         peft_cli.main(["-llm-model", "unused", "-tensor-parallelism-degree", "2",
                        "--device", "cpu"])
-    llm = LLM.__new__(LLM)
-    llm.mesh = mesh
-    with pytest.raises(NotImplementedError, match="A10b"):
-        llm.start_server()
 
 
 @pytest.mark.parametrize("kw", [dict(model=2), dict(data=2), dict(model=1),
