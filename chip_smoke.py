@@ -294,13 +294,13 @@ Phases, in order; any failure exits non-zero:
               token equal to one device's (rows whose top-2 margin lies
               within twice the observed error counted and printed as
               near-ties, held all the same), prefill logits within
-              ``TP_LOGITS_REL`` of their magnitude, each request's common
-              prefix printed; (c) D = 2: every token bitwise one device's
-              (a row's bits do not depend on the rows around it); (d) the
-              spec phase's INT4 verifier (``TP_SPEC_LAYERS`` layers) and
-              160M draft at T = 2: each
-              request's first 20 speculative tokens equal to the same cut's
-              incremental ones; (e) Mixtral-8x7B INT8 at
+              ``TP_LOGITS_REL`` of their magnitude (the served decode at
+              T = 2 is the dist phase's (a), on the same cut); (c) D = 2:
+              every token bitwise one device's (a row's bits do not depend
+              on the rows around it); (d) the spec phase's INT4 verifier
+              (``TP_SPEC_LAYERS`` layers) and 160M draft at T = 2,
+              ``TP_SPEC_NEW`` tokens a request: each request's first 20
+              speculative tokens equal to the same cut's incremental ones; (e) Mixtral-8x7B INT8 at
               ``TP_MIXTRAL_LAYERS`` layers, full width, T = 2: first tokens
               and prefill logits against one device's at that depth, as (b).
               (f) With more than one GPU, (b) over NCCL at min(4, count)
@@ -336,13 +336,14 @@ Phases, in order; any failure exits non-zero:
 18. layouts — the serving layouts left under a mesh (``parallel/sharding.py``'s
               ``hybrid_ffn`` and ``expert_parallel`` cuts, offload through
               ``models/layer_store.py`` under a mesh). (a) CPU offload under a
-              mesh: LLaMA-2-7B INT8 (32 layers, ``build_params(host_layers=True,
-              mesh=)``: each layer made, quantized whole, cut, fused and pinned)
-              on one rank over NCCL through the sharded path, the serve
-              traffic resident then offload from one pinned build: every token
-              of the offload run equal to the resident run's; then two ranks
-              sharing the card over gloo at T = 2, ``LAYOUT_OFFLOAD_LAYERS``
-              layers (cut for time), ``LAYOUT_NEW_TOKENS`` new tokens, each
+              mesh: LLaMA-2-7B INT8 (``LAYOUT_OFFLOAD_LAYERS`` layers, cut for
+              time; ``build_params(host_layers=True, mesh=)``: each layer made,
+              quantized whole, cut, fused and pinned) on one rank over NCCL
+              through the sharded path, the serve prompts x
+              ``LAYOUT_NEW_TOKENS`` resident then offload from one pinned
+              build: every token of the offload run equal to the resident
+              run's; then two ranks sharing the card over gloo at T = 2, the
+              same depth and tokens, each
               rank pinning its own cut: offload tokens equal to the resident
               ones. Prints each rank's pinned GiB, the copy-alone time (every
               layer through the copy stream, no compute) and an offload decode
@@ -439,7 +440,7 @@ Phases, in order; any failure exits non-zero:
               ``merge_states``). Two ranks share the card over gloo
               (spawned): (a) LLaMA-2-7B INT8, 32 layers, the serve phase's
               draw (each layer quantized whole, replicated over seq), C = 2,
-              the serve traffic (8 prompts x 64 tokens, horizon 16): the
+              the serve prompts x ``CP_NEW`` = 32 tokens (horizon 16): the
               ranks' tokens equal, every first token the serve phase's, each
               rank's KV half one device's, the first decode step's logits
               within ``TP_LOGITS_REL`` of one device's on the same tensors,
@@ -458,9 +459,34 @@ Phases, in order; any failure exits non-zero:
               greedy token one device's; (d) ``ops/ring_attention``'s ring
               prefill at ``CP_RING`` (S = 4096, 32 heads, D = 128, bf16)
               with and without a valid length, within ``CP_RING_TOL`` of the
-              one-device plain prefill. (e) With more than one GPU, (a)-(d)
-              over NCCL at min(4, count) ranks; otherwise it says why it did
-              not run.
+              one-device plain prefill. The same two ranks then run the
+              layouts and training surfaces under the seq axis: (f)
+              meshtrain (d)'s LoRA model (LLaMA-2-7B INT8 at
+              ``MT_LORA_LAYERS`` = 4 layers, f32, the lora phase's four
+              adapters) at C = 2, the serve prompts x ``CP_NEW`` routed
+              ``LORA_IDS`` with a finetuning session on slot ``MT_FT_SLOT``
+              beside it:
+              every token bitwise one device's (run first on rank 0 on the
+              same weight tensors), both ranks' losses and slot digests
+              equal, the losses within ``CP_REL`` of one device's, qmm_int8,
+              the shard form, the merge and flash_prefill launched; (g)
+              layouts (a)'s LLaMA-2-7B INT8 at ``LAYOUT_OFFLOAD_LAYERS``
+              layers at C = 2, resident then offload over one pinned build:
+              the offloaded tokens bitwise the resident run's, each rank's
+              pinned and KV GiB and copy-alone s printed; (h) meshtrain
+              (b)'s Trainer at C = 2: both ranks' losses equal, within
+              ``CP_REL`` of one device's. Four ranks then share the card
+              over gloo at P = 2 x C = 2 (spawned, killed at
+              ``CP_PP_LIMIT_S``): (i) (c)'s 4-layer f32 model through
+              ``PipelineInferenceEngine`` (M = 2): every token bitwise one
+              device's (run first on rank 0), each stage's two seq ranks
+              holding the stage's layers and its whole cache (1024
+              positions), decode_attention and flash_prefill launched, the
+              shard form not; (j) pptrain's Trainer (``_pt_case``) on the
+              same mesh: every rank's losses equal, within ``PT_LOSS_REL`` of
+              one device's, each rank its stage's layers. (e) With more
+              than one GPU, (a)-(d) and (f)-(h) over NCCL at min(4, count)
+              ranks; otherwise it says why it did not run.
 22. dist    — multi-process serving (``parallel/distributed.py``: the controller's
               request broadcaster; the background server under a mesh). Two
               plain subprocesses formed through ``init_distributed``
@@ -468,7 +494,7 @@ Phases, in order; any failure exits non-zero:
               ``FF_PROCESS_ID``) share the card over gloo, each killed at
               ``DIST_LIMIT_S``; each builds the tp phase's LLaMA-2-7B INT8
               at T = 2 (``_tp_llama``). (a) ``serve_distributed``: rank 0
-              broadcasts the 8 prompts, every rank serves ``DIST_NEW`` = 64
+              broadcasts the 8 prompts, every rank serves ``DIST_NEW`` = 32
               tokens: both ranks' tokens equal, every first token the serve
               phase's (run here when serve is not selected), the tokens equal
               to the serve phase's counted (bf16 near-ties at T = 2). (b)
@@ -4427,6 +4453,7 @@ TP_MIXTRAL_LAYERS = 4  # (e)'s depth at Mixtral-8x7B's full width
 # the phase over gloo; the draft's 12 (the block-embedding needs at least the
 # draft's depth) keep the cut, the tree and the prefix gate
 TP_SPEC_LAYERS = 12
+TP_SPEC_NEW = 32  # (d)'s new tokens a request, both runs (cut from 64 for the run's time)
 # (b), (e): the T-rank prefill's last-position logits against one device's,
 # max |difference| over the largest |logit|: both round every layer's output
 # to bf16 once, from f32 sums of the same products in another order (the
@@ -4538,18 +4565,12 @@ def _tp_llama(mesh, dev):
 
 
 def _tp_case_b(mesh, dev, refs) -> dict:
-    """(b): T ranks, each with its cut of the model: served tokens and the
-    prefill."""
+    """(b): T ranks, each with its cut of the model: the prefill's logits
+    and first tokens (the dist phase's (a) serves the traffic on this cut)."""
     spec, engine, rm = _tp_llama(mesh, dev)
-    prompts = _prompts(spec.vocab_size)
-    try:
-        reqs, st = _served(rm, prompts, 64, spec.vocab_size, f"tp (b) T={mesh.model}",
-                           replayed=engine.graphs is not None)
-        st["tokens"] = [r.output_tokens for r in reqs]
-        st["logits"], st["first"] = _prefill_logits(engine, spec, prompts)
-    finally:
-        rm.close()
-    return st
+    rm.close()
+    logits, first = _prefill_logits(engine, spec, _prompts(spec.vocab_size))
+    return dict(logits=logits, first=first)
 
 
 def _tp_case_c(mesh, dev, refs) -> dict:
@@ -4599,7 +4620,7 @@ def _tp_case_d(mesh, dev, refs) -> dict:
     managers = [SpecRequestManager(engine, fused=True, spec_horizon=horizon,
                                    pipelined=horizon > 1, pipeline_depth=ffconfig.pipeline_depth)
                 for _ in range(2)]
-    spec_reqs, st = _served(managers[1], prompts, 64, vspec.vocab_size,
+    spec_reqs, st = _served(managers[1], prompts, TP_SPEC_NEW, vspec.vocab_size,
                             f"tp (d) speculative T={mesh.model}", warm=managers[0],
                             replayed=engine.graphs is not None)
     st["mean_verified_tokens_per_step"] = managers[1].mean_verified_tokens_per_step
@@ -4610,7 +4631,7 @@ def _tp_case_d(mesh, dev, refs) -> dict:
                              mesh=mesh)
     rm = RequestManager(engine, decode_horizon=16, pipelined=True)
     try:
-        incr_reqs, incr = _served(rm, prompts, 64, vspec.vocab_size,
+        incr_reqs, incr = _served(rm, prompts, TP_SPEC_NEW, vspec.vocab_size,
                                   f"tp (d) incremental T={mesh.model}",
                                   replayed=engine.graphs is not None)
     finally:
@@ -4649,9 +4670,10 @@ def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
     """One rank of the tp, meshtrain, layouts, pp, pptrain and cp phases' spawned cases:
     ``backend`` gloo shares card 0, NCCL takes card ``rank``. Each case
     builds its own mesh over the group (all ranks on ``data`` for (c),
-    meshtrain's (c) and layouts' (b), on ``pipe`` for pp's and pptrain's, else on
-    ``model``, on ``seq`` for cp's); the results go to ``tmp`` for the parent to hold against
-    one device."""
+    meshtrain's (c) and layouts' (b), on ``pipe`` for pp's and pptrain's, on
+    ``seq`` for cp's (a)-(h), two stages by ``world / 2`` seq ranks for cp's
+    (i) and (j), else on ``model``); the results go to ``tmp`` for the
+    parent to hold against one device."""
     import torch
     import torch.distributed as dist
 
@@ -4672,10 +4694,12 @@ def _tp_rank(rank: int, world: int, backend: str, tmp: str, cases) -> None:
             t0 = time.perf_counter()
             degrees = (dict(data=world) if case in ("c", "mt-c", "la-b") else
                        dict(pipe=world) if case in {**PP_CASES, **PT_CASES} else
-                       dict(seq=world) if case in CP_CASES else dict(model=world))
+                       dict(seq=world) if case in CP_CASES else
+                       dict(pipe=2, seq=world // 2) if case in CP_PP_CASES else
+                       dict(model=world))
             mesh = make_mesh(**degrees, backend=backend, device=dev)
             out[case] = {**TP_CASES, **MT_CASES, **LA_CASES, **PP_CASES, **PT_CASES,
-                         **CP_CASES}[case](mesh, dev, None)
+                         **CP_CASES, **CP_PP_CASES}[case](mesh, dev, None)
             out[case]["seconds"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
@@ -4791,11 +4815,8 @@ def tp_phase(card: str) -> dict:
                         f"tp ({case}): ranks disagree on {key}")
     b = r0["b"]
     out["b"] = dict(_first_token_rule("tp (b) T=2 over gloo", b["logits"], ref_logits,
-                                      b["first"], ref_first),
-                    prefix=_common_prefix(b["tokens"], _SERVED["tokens"]),
-                    decode_tok_s=b["decode_tok_s"], launches=b["launches"], seconds=b["seconds"])
-    log(f"  tp (b) T=2 over gloo: tokens equal to one device's before the first difference, per "
-        f"request: {out['b']['prefix']}; {b['seconds']:.1f} s with the weights' build")
+                                      b["first"], ref_first), seconds=b["seconds"])
+    log(f"  tp (b) T=2 over gloo: {b['seconds']:.1f} s with the weights' build")
     c = r0["c"]
     require(c["tokens"] == _SERVED["tokens"], "tp (c) D=2: tokens differ from one device's")
     out["c"] = dict(decode_tok_s=c["decode_tok_s"], launches=c["launches"], seconds=c["seconds"])
@@ -4820,10 +4841,7 @@ def tp_phase(card: str) -> dict:
         f = nccl
         out["f"] = dict(_first_token_rule(f"tp (f) T={min(4, n)} over NCCL", f["logits"],
                                           ref_logits, f["first"], ref_first),
-                        prefix=_common_prefix(f["tokens"], _SERVED["tokens"]),
-                        decode_tok_s=f["decode_tok_s"], seconds=f["seconds"])
-        log(f"  tp (f) T={min(4, n)} over NCCL: tokens equal to one device's before the first "
-            f"difference, per request: {out['f']['prefix']}; decode {f['decode_tok_s']:.1f} tok/s")
+                        seconds=f["seconds"])
     else:
         log(f"  tp (f) did not run: the machine shows {n} GPU (NCCL takes one device a rank)")
     out["seconds"] = time.perf_counter() - t_phase
@@ -5254,6 +5272,7 @@ def _la_offload_pair(spec, mesh, dev, max_new: int, what: str, hybrid_ffn: bool 
             out["copy_alone_s"] = _copy_alone_s(store)
             out["step_wall_s"] = len(prompts) / st["decode_tok_s"]
             out["logits"], out["first"] = _prefill_logits(engine, spec, prompts)
+            out["kv_gib"] = _tree_gib(engine.cache._asdict())
             del store
         out[name] = st
         del engine, rm
@@ -5263,7 +5282,10 @@ def _la_offload_pair(spec, mesh, dev, max_new: int, what: str, hybrid_ffn: bool 
     gc.collect()
     require(out["offload"]["tokens"] == out["resident"]["tokens"],
             f"{what}: offload tokens differ from the resident run's")
-    for k in ("decode_attention", "flash_prefill"):
+    # a cache cut on seq decodes through K5's shard form and the merge
+    cut = mesh is not None and mesh.seq > 1
+    for k in (("decode_attention_shard", "merge_states") if cut else ("decode_attention",)) + (
+            "flash_prefill",):
         require(out["offload"]["launches"][k] > 0, f"{what}: {k} was never launched")
     return out
 
@@ -5435,9 +5457,10 @@ LA_CASES = {"la-a": _la_case_a, "la-b": _la_case_b, "la-c": _la_case_c}
 
 
 def _la_nccl_rank(card: str, dev) -> dict:
-    """(a) on one NCCL rank in this process: LLaMA-2-7B INT8, 32 layers, the
-    serve traffic, resident then offload over one pinned build through the
-    sharded path."""
+    """(a) on one NCCL rank in this process: LLaMA-2-7B INT8 at
+    LAYOUT_OFFLOAD_LAYERS layers, the serve prompts x LAYOUT_NEW_TOKENS,
+    resident then offload over one pinned build through the sharded path
+    (the offload phase serves all 32 layers on one device)."""
     import torch.distributed as dist
 
     from flexflow_tpu_torch.parallel.mesh import make_mesh
@@ -5446,14 +5469,16 @@ def _la_nccl_rank(card: str, dev) -> dict:
     mesh = make_mesh(model=1, device=dev)
     require(mesh.backend == "nccl", f"layouts (a): backend {mesh.backend}, not nccl")
     try:
-        out = _la_offload_pair(ModelSpec(**LLAMA2_7B), mesh, dev, 64,
+        spec = ModelSpec(**{**LLAMA2_7B, "num_layers": LAYOUT_OFFLOAD_LAYERS})
+        out = _la_offload_pair(spec, mesh, dev, LAYOUT_NEW_TOKENS,
                                "layouts (a) offload, one NCCL rank")
     finally:
         dist.destroy_process_group()
     for name in ("resident", "offload"):
-        _log_served(f"layouts (a) LLaMA-2-7B INT8 one NCCL rank, {name}", out[name], card)
+        _log_served(f"layouts (a) LLaMA-2-7B INT8 {LAYOUT_OFFLOAD_LAYERS} layers one NCCL rank, "
+                    f"{name}", out[name], card)
     log(f"  layouts (a) one NCCL rank: every token of the offload run equal to the resident "
-        f"run's (8 x 64); {out['pinned_gib']:.2f} GiB pinned, built in {out['init_s']:.1f} s; "
+        f"run's (8 x {LAYOUT_NEW_TOKENS}); {out['pinned_gib']:.2f} GiB pinned, built in {out['init_s']:.1f} s; "
         f"copy alone {out['copy_alone_s']:.3f} s, an offload decode step "
         f"{out['step_wall_s']:.3f} s; decode {out['offload']['decode_tok_s']:.1f} tok/s offload "
         f"against {out['resident']['decode_tok_s']:.1f} resident [{card}]")
@@ -6151,6 +6176,7 @@ def pptrain_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 CP_F32_LAYERS = 4  # (c): LLaMA-2-7B width, f32 weights and cache
+CP_NEW = 32  # (a), (f): new tokens a request (cut from the serve traffic's 64 for the run's time)
 # (c)'s prompts: the served lengths with 500 in place of 400, whose 32 new
 # tokens cross position 512, the shard boundary at C = 2 (600 crosses it in
 # its prefill)
@@ -6231,7 +6257,7 @@ def _cp_case_a(mesh, dev, refs) -> dict:
     first, logits = _cp_prefill_logits(engine, prompts)
     rm = RequestManager(engine, decode_horizon=16, pipelined=True)
     try:
-        reqs, st = _served(rm, prompts, 64, spec.vocab_size, f"cp (a) C={mesh.seq}",
+        reqs, st = _served(rm, prompts, CP_NEW, spec.vocab_size, f"cp (a) C={mesh.seq}",
                            replayed=False)
     finally:
         rm.close()
@@ -6340,7 +6366,145 @@ def _cp_case_d(mesh, dev, refs) -> dict:
     return out
 
 
-CP_CASES = {"cp-a": _cp_case_a, "cp-b": _cp_case_b, "cp-c": _cp_case_c, "cp-d": _cp_case_d}
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cp_lora_run(engine, spec, cfg, what: str) -> dict:
+    """The serve prompts x CP_NEW routed LORA_IDS through ``engine`` with a
+    finetuning session on slot MT_FT_SLOT registered beside it (meshtrain
+    (d) + (e)): the tokens, the run's stats, the losses, the slot and its
+    digest."""
+    from flexflow_tpu_torch.peft.finetune import FinetuneSession
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+
+    session = FinetuneSession(spec, cfg, MT_FT_SLOT,
+                              _finetune_data(spec.vocab_size)[:MT_FT_STEPS], epochs=1)
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, st = _served(rm, _prompts(spec.vocab_size), CP_NEW, spec.vocab_size, what,
+                           adapters=LORA_IDS, session=session,
+                           replayed=engine.graphs is not None)
+    finally:
+        rm.close()
+    slot = _mt_slot(engine, spec)
+    st.update(tokens=[r.output_tokens for r in reqs], losses=session.losses, slot=slot,
+              slot_digest=_digest([t for ab in slot.values() for t in ab.values()]))
+    return st
+
+
+def _cp_case_f(mesh, dev, refs) -> dict:
+    """(f): meshtrain (d)'s LoRA model (LLaMA-2-7B INT8 at MT_LORA_LAYERS
+    layers, MT_LORA_DTYPE, the lora phase's four adapters) at C = seq ranks,
+    the serve prompts x CP_NEW routed LORA_IDS with a finetuning session on
+    slot MT_FT_SLOT beside it. Rank 0 first runs one device on the same weight
+    tensors and a second draw of the same adapters."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    spec, engine, cfg = _mt_lora_model(mesh, dev)
+    out = {}
+    if mesh.rank == 0:
+        lora, _ = _lora_adapters(spec, 4, dev, seed=1, lr=MT_FT_LR)
+        one = InferenceEngine(spec, engine.params, max_requests_per_batch=8, max_seq_len=1024,
+                              max_tokens_per_batch=0, cache_dtype=engine.cache.k.dtype,
+                              device=dev, lora=lora, lora_config=cfg)
+        del lora
+        st = _cp_lora_run(one, spec, cfg, f"cp (f) LoRA one device, {MT_LORA_LAYERS} layers")
+        out["one"] = {k: st[k] for k in ("tokens", "losses", "slot_digest", "decode_tok_s")}
+        del one, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(_cp_lora_run(engine, spec, cfg, f"cp (f) LoRA C={mesh.seq} with finetuning"),
+               kv_gib=_tree_gib(engine.cache._asdict()), positions=engine.cache.k.shape[3])
+    out.pop("slot")
+    return out
+
+
+def _cp_case_g(mesh, dev, refs) -> dict:
+    """(g): layouts (a)'s LLaMA-2-7B INT8 at LAYOUT_OFFLOAD_LAYERS layers at
+    C = seq ranks, resident then offload over one pinned build (the weights
+    whole on each seq rank), the cache cut on seq."""
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": LAYOUT_OFFLOAD_LAYERS})
+    out = _la_offload_pair(spec, mesh, dev, LAYOUT_NEW_TOKENS, f"cp (g) offload C={mesh.seq}")
+    out.pop("logits")
+    return out
+
+
+CP_CASES = {"cp-a": _cp_case_a, "cp-b": _cp_case_b, "cp-c": _cp_case_c, "cp-d": _cp_case_d,
+            "cp-f": _cp_case_f, "cp-g": _cp_case_g, "cp-h": _mt_train}
+CP_PP_LIMIT_S = 600  # (i), (j): the four-rank spawn's time limit
+CP_PP_MICROBATCHES = 2  # (i): M = P, the overlapped horizon
+CP_REL = 1e-6  # (f)'s finetuning and (h)'s Trainer losses against one device's, relative
+
+
+def _cp_case_i(mesh, dev, refs) -> dict:
+    """(i): (c)'s LLaMA-2-7B width at CP_F32_LAYERS layers in f32 (weights
+    from seed 0, cache f32) through ``PipelineInferenceEngine`` on a P x C
+    mesh: every seq coordinate a copy of the stages, each stage's cache
+    whole. Rank 0 first runs one device's engine on the same tensors."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models import params as params_lib
+    from flexflow_tpu_torch.parallel.mesh import PIPE_AXIS
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
+    from flexflow_tpu_torch.serving.request_manager import RequestManager
+    from flexflow_tpu_torch.specs import ModelSpec
+
+    spec = ModelSpec(**{**LLAMA2_7B, "num_layers": CP_F32_LAYERS})
+    params = params_lib.init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                                    torch.float32, dev)
+    kw = dict(max_requests_per_batch=8, max_seq_len=1024, cache_dtype=torch.float32, device=dev)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(1, spec.vocab_size, size=n).tolist() for n in CP_F32_LENS]
+    out = {}
+    if mesh.rank == 0:
+        one = InferenceEngine(spec, params, **kw)
+        rm = RequestManager(one, decode_horizon=16, pipelined=True)
+        try:
+            reqs, st = _served(rm, prompts, CP_F32_NEW, spec.vocab_size,
+                               "cp (i) f32 one device", replayed=one.graphs is not None)
+        finally:
+            rm.close()
+        out["one"] = dict(tokens=[r.output_tokens for r in reqs], decode_tok_s=st["decode_tok_s"],
+                          kv_gib=_tree_gib(one.cache._asdict()),
+                          layer_gib=_tree_gib(params["layers"]))
+        del one, rm
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine = PipelineInferenceEngine(spec, params, mesh=mesh,
+                                     num_microbatches=CP_PP_MICROBATCHES, **kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = dict(layer_gib=_tree_gib(engine.params["layers"]),
+                kv_gib=_tree_gib(engine.cache._asdict()), cache=tuple(engine.cache.k.shape),
+                layers=engine.layers, top=sorted(k for k in engine.params if k != "layers"),
+                coord=(mesh.pipe_rank, mesh.seq_rank),
+                pipe_ranks=mesh.group_ranks(PIPE_AXIS))
+    hops0 = mesh.hops
+    rm = RequestManager(engine, decode_horizon=16, pipelined=True)
+    try:
+        reqs, st = _served(rm, prompts, CP_F32_NEW, spec.vocab_size,
+                           f"cp (i) f32 P={mesh.pipe} x C={mesh.seq}", replayed=False)
+    finally:
+        rm.close()
+    out.update(st, **held, tokens=[r.output_tokens for r in reqs], hops=mesh.hops - hops0)
+    return out
+
+
+CP_PP_CASES = {"cp-i": _cp_case_i, "cp-j": _pt_case}
 
 
 def _cp_check(what: str, ranks: list, card: str) -> dict:
@@ -6364,7 +6528,7 @@ def _cp_check(what: str, ranks: list, card: str) -> dict:
                                           "phase's")
     require(st["first"] == st["first_one"], f"cp {label}: the prefill's tokens differ")
     equal = sum(g == w for gs, ws in zip(st["tokens"], ref["tokens"]) for g, w in zip(gs, ws))
-    total = sum(len(w) for w in ref["tokens"])
+    total = sum(len(g) for g in st["tokens"])  # the serve phase's first CP_NEW of each
     for s_, r in enumerate(rs):
         require(abs(r["kv_gib"] * c - r["kv_one_gib"]) < 1e-6 and r["positions"] == 1024 // c,
                 f"cp {label}: rank {s_} holds {r['kv_gib']:.3f} GiB of KV, one device "
@@ -6446,6 +6610,153 @@ def _cp_check(what: str, ranks: list, card: str) -> dict:
     return out
 
 
+def _cp_check_layouts(what: str, ranks: list, card: str) -> dict:
+    """(f)-(h) of one spawned run: (f) every token of the LoRA run bitwise
+    one device's, both ranks' losses and slot digests equal, the losses
+    within CP_REL of one device's; (g) the offloaded tokens bitwise the
+    resident C = 2 run's (required inside ``_la_offload_pair``), each
+    rank's pinned and KV GiB; (h) both ranks' losses equal, within CP_REL of
+    one device's."""
+    c, out = len(ranks), {}
+    fs = [r["cp-f"] for r in ranks]
+    f, one = fs[0], fs[0]["one"]
+    label = f"cp (f) LoRA + finetuning C={c} {what}, LLaMA-2-7B INT8 {MT_LORA_LAYERS} layers"
+    for key in ("tokens", "losses", "slot_digest"):
+        require(all(r[key] == f[key] for r in fs[1:]), f"{label}: the ranks disagree on {key}")
+    apart = [i for i, (g, w) in enumerate(zip(f["tokens"], one["tokens"])) if g != w]
+    require(not apart, f"{label}: requests {apart} differ from one device's; common prefixes "
+                       f"{_common_prefix(f['tokens'], one['tokens'])}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], one["losses"]))
+    require(len(f["losses"]) == MT_FT_STEPS and rel <= CP_REL,
+            f"{label}: losses {f['losses']} against one device's {one['losses']}")
+    for k in ("qmm_int8", "decode_attention_shard", "merge_states", "flash_prefill"):
+        require(f["launches"][k] > 0, f"{label}: {k} was never launched")
+    require(f["launches"]["decode_attention"] == 0, f"{label}: the one-device decode kernel ran")
+    log(f"  {label}: every token of the 8 requests (adapters {LORA_IDS}) x {CP_NEW} bitwise one "
+        f"device's; {MT_FT_STEPS} SGD steps on slot {MT_FT_SLOT} beside the decode: losses "
+        f"{f['losses']} (one device's {one['losses']}, within {rel:.3g} relative), the slot's "
+        f"digest {'equal to' if f['slot_digest'] == one['slot_digest'] else 'apart from'} one "
+        f"device's and both ranks'; KV {f['kv_gib']:.3f} GiB a rank ({f['positions']} "
+        f"positions); decode {f['decode_tok_s']:.1f} tok/s against one device's "
+        f"{one['decode_tok_s']:.1f} [{card}]")
+    out["f"] = dict(losses=f["losses"], one_device_losses=one["losses"], loss_rel=rel,
+                    slot_equal=f["slot_digest"] == one["slot_digest"],
+                    decode_tok_s=f["decode_tok_s"], one_device_tok_s=one["decode_tok_s"],
+                    kv_gib=f["kv_gib"], seconds=f["seconds"],
+                    launches={k: sum(r["cp-f"]["launches"][k] for r in ranks)
+                              for k in f["launches"]})
+    gs = [r["cp-g"] for r in ranks]
+    g = gs[0]
+    label = f"cp (g) offload C={c} {what}, LLaMA-2-7B INT8 {LAYOUT_OFFLOAD_LAYERS} layers"
+    for run in ("resident", "offload"):
+        require(all(r[run]["tokens"] == g[run]["tokens"] for r in gs[1:]),
+                f"{label}: the ranks disagree on the {run} tokens")
+    for s_, r in enumerate(gs):
+        log(f"  {label} rank {s_}: {r['pinned_gib']:.3f} GiB pinned, KV {r['kv_gib']:.3f} GiB, "
+            f"copy alone {r['copy_alone_s']:.3f} s, an offload decode step "
+            f"{r['step_wall_s']:.3f} s [{card}]")
+    log(f"  {label}: every token of the offload run bitwise the resident C={c} run's (8 x "
+        f"{LAYOUT_NEW_TOKENS}); decode {g['offload']['decode_tok_s']:.1f} tok/s offload against "
+        f"{g['resident']['decode_tok_s']:.1f} resident [{card}]")
+    out["g"] = dict(pinned_gib=[r["pinned_gib"] for r in gs], kv_gib=[r["kv_gib"] for r in gs],
+                    copy_alone_s=[r["copy_alone_s"] for r in gs],
+                    step_wall_s=[r["step_wall_s"] for r in gs], seconds=g["seconds"],
+                    **{run: dict(decode_tok_s=g[run]["decode_tok_s"],
+                                 launches={k: sum(r["cp-g"][run]["launches"][k] for r in ranks)
+                                           for k in g[run]["launches"]})
+                       for run in ("resident", "offload")})
+    hs = [r["cp-h"] for r in ranks]
+    h = hs[0]
+    label = f"cp (h) Trainer C={c} {what}, {MT_RANK_LAYERS} layer"
+    require(all(r["losses"] == h["losses"] for r in hs[1:]), f"{label}: the ranks' losses differ")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(h["losses"], h["ref_losses"]))
+    require(rel <= CP_REL and h["params_rel"] <= PT_PARAMS_REL,
+            f"{label}: losses {h['losses']} against one device's {h['ref_losses']}, "
+            f"full_params {h['params_worst_leaf']} off by {h['params_rel']}")
+    step = sum(h["step_ms"][1:]) / (MT_STEPS - 1)
+    log(f"  {label}, {MT_STEPS} SGD steps: both ranks' losses {h['losses']} against one "
+        f"device's {h['ref_losses']} ({'bitwise' if h['losses'] == h['ref_losses'] else f'within {rel:.3g} relative'}), "
+        f"full_params within {h['params_rel']:.3g}; step {step:.1f} ms [{card}]")
+    out["h"] = dict(losses=h["losses"], ref_losses=h["ref_losses"], loss_rel=rel,
+                    params_rel=h["params_rel"], step_ms=step, seconds=h["seconds"])
+    return out
+
+
+def _cp_pp_check(what: str, ranks: list, card: str) -> dict:
+    """(i) and (j) of the four-rank P = 2 x C = 2 spawn: (i) every rank's
+    tokens bitwise one device's, each stage's seq ranks holding the stage's
+    layers and its whole cache; (j) every rank's losses equal, within
+    PT_LOSS_REL of one device's, each rank its stage's layers."""
+    out = {}
+    rs = [r["cp-i"] for r in ranks]
+    i0, one = rs[0], rs[0]["one"]
+    label = f"cp (i) PipelineInferenceEngine f32 {CP_F32_LAYERS} layers P=2 x C=2 {what}"
+    require(all(r["tokens"] == i0["tokens"] for r in rs[1:]),
+            f"{label}: the ranks disagree on the tokens")
+    apart = [k for k, (g, w) in enumerate(zip(i0["tokens"], one["tokens"])) if g != w]
+    require(not apart, f"{label}: requests {apart} differ from one device's; common prefixes "
+                       f"{_common_prefix(i0['tokens'], one['tokens'])}")
+    depth = CP_F32_LAYERS // 2
+    for r, st in enumerate(rs):
+        p, c = st["coord"]
+        require(p == r // 2 and c == r % 2 and st["pipe_ranks"] == [c, 2 + c],
+                f"{label}: rank {r} at stage {p}, seq {c}, pipe group {st['pipe_ranks']}")
+        require(tuple(st["layers"]) == (p * depth, (p + 1) * depth)
+                and st["cache"] == (depth, 8, LLAMA2_7B["num_kv_heads"], 1024,
+                                    LLAMA2_7B["head_dim"]),
+                f"{label}: rank {r} holds layers {st['layers']}, a cache {st['cache']}")
+        log(f"  {label} rank {r} (stage {p}, seq {c}): layers {st['layers'][0]}-"
+            f"{st['layers'][1] - 1}, {st['layer_gib']:.3f} GiB of layers, KV {st['kv_gib']:.3f} "
+            f"GiB (the stage's whole cache, 1024 positions; one device's {one['kv_gib']:.3f}), "
+            f"{st['hops']} hops sent [{card}]")
+    for p in range(2):  # each stage's two seq ranks: the same residency
+        a, b = rs[2 * p], rs[2 * p + 1]
+        require(a["layers"] == b["layers"] and a["kv_gib"] == b["kv_gib"] and a["top"] == b["top"],
+                f"{label}: stage {p}'s seq ranks hold different things")
+    launches = {k: sum(r["launches"][k] for r in rs) for k in i0["launches"]}
+    for k in ("decode_attention", "flash_prefill"):
+        require(launches[k] > 0, f"{label}: {k} was never launched")
+    require(launches["decode_attention_shard"] == 0, f"{label}: the shard form ran")
+    log(f"  {label}: every greedy token of the {len(CP_F32_LENS)} requests x {CP_F32_NEW} "
+        f"bitwise one device's on every rank; decode {i0['decode_tok_s']:.1f} tok/s against one "
+        f"device's {one['decode_tok_s']:.1f} (four gloo ranks share one card, every step "
+        f"eager) [{card}]")
+    out["i"] = dict(decode_tok_s=i0["decode_tok_s"], one_device_tok_s=one["decode_tok_s"],
+                    layer_gib=[r["layer_gib"] for r in rs], kv_gib=[r["kv_gib"] for r in rs],
+                    one_kv_gib=one["kv_gib"], one_layer_gib=one["layer_gib"],
+                    hops=[r["hops"] for r in rs], seconds=i0["seconds"], launches=launches)
+    js = [r["cp-j"] for r in ranks]
+    j0 = js[0]
+    label = f"cp (j) Trainer P=2 x C=2 {what}, {PT_LAYERS} layers f32"
+    require(all(r["losses"] == j0["losses"] for r in js[1:]),
+            f"{label}: the ranks disagree on the losses")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(j0["losses"], j0["ref_losses"]))
+    require(rel <= PT_LOSS_REL and j0["params_rel"] <= PT_PARAMS_REL and not j0["params_extra"],
+            f"{label}: losses {j0['losses']} against one device's {j0['ref_losses']}, "
+            f"full_params {j0['params_worst_leaf']} off by {j0['params_rel']}")
+    require(j0["uneven_rel"] <= PT_LOGITS_REL,
+            f"{label}: pipeline_forward over {PT_SIZES} off one device's by {j0['uneven_rel']}")
+    depth = PT_LAYERS // 2
+    for r, st in enumerate(js):
+        p = r // 2
+        require(st["stage"] == p and tuple(st["layers"]) == (p * depth, (p + 1) * depth)
+                and st["hops"] == MT_STEPS * PT_MICROBATCHES,
+                f"{label}: rank {r} at stage {st['stage']}, layers {st['layers']}, "
+                f"{st['hops']} hops")
+        launched = {k: v for k, v in st["launches"].items() if v}
+        require(not launched, f"{label}: rank {r} launched port kernels {launched}")
+    step = sum(j0["step_ms"][1:]) / (MT_STEPS - 1)
+    log(f"  {label}, {MT_STEPS} SGD steps: every rank's losses {j0['losses']} against one "
+        f"device's {j0['ref_losses']} (within {rel:.3g} relative), full_params within "
+        f"{j0['params_rel']:.3g}, pipeline_forward over {list(PT_SIZES)} within "
+        f"{j0['uneven_rel']:.3g}; {[round(r['rank_gib'], 3) for r in js]} GiB a rank of "
+        f"{j0['one_gib']:.3f}; step {step:.1f} ms [{card}]")
+    out["j"] = dict(losses=j0["losses"], ref_losses=j0["ref_losses"], loss_rel=rel,
+                    params_rel=j0["params_rel"], uneven_rel=j0["uneven_rel"], step_ms=step,
+                    rank_gib=[r["rank_gib"] for r in js], seconds=j0["seconds"])
+    return out
+
+
 def _one_device_served(dev, what: str) -> None:
     """The serve phase's run (``_SERVED``) when that phase did not run."""
     import torch
@@ -6472,8 +6783,9 @@ def _one_device_served(dev, what: str) -> None:
 
 def cp_phase(card: str) -> dict:
     """Context parallelism (see the module docstring, phase cp): two ranks
-    sharing the card over gloo for (a)-(d), spawned; (e) NCCL across GPUs
-    when the machine has more than one."""
+    sharing the card over gloo for (a)-(d) and (f)-(h), spawned, then four
+    for (i) and (j); (e) NCCL across GPUs when the machine has more than
+    one."""
     import torch
 
     t_phase = time.perf_counter()
@@ -6489,17 +6801,24 @@ def cp_phase(card: str) -> dict:
         ranks = _spawn_tp(2, "gloo", tmp, tuple(CP_CASES), 600)
         out["ranks_s"] = time.perf_counter() - t0
         out.update(_cp_check("C=2 over gloo", ranks, card))
+        out.update(_cp_check_layouts("over gloo", ranks, card))
+        t0 = time.perf_counter()
+        ranks = _spawn_tp(4, "gloo", tmp, tuple(CP_PP_CASES), CP_PP_LIMIT_S)
+        out["pp_ranks_s"] = time.perf_counter() - t0
+        out.update(_cp_pp_check("over gloo", ranks, card))
         n = torch.cuda.device_count()
         if n > 1:
-            out["e"] = _cp_check(f"C={min(4, n)} over NCCL",
-                                 _spawn_tp(min(4, n), "nccl", tmp, tuple(CP_CASES), 600), card)
+            what, nccl = f"C={min(4, n)} over NCCL", _spawn_tp(min(4, n), "nccl", tmp,
+                                                                tuple(CP_CASES), 600)
+            out["e"] = {**_cp_check(what, nccl, card), **_cp_check_layouts(what, nccl, card)}
         else:
             log(f"  cp (e) did not run: the machine shows {n} GPU (NCCL takes one device a rank)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"  cp phase wall {out['seconds']:.1f} s, the spawned ranks' {out['ranks_s']:.1f} s of "
-        f"it [{card}]")
+    log(f"  cp phase wall {out['seconds']:.1f} s: the two spawned ranks' {out['ranks_s']:.1f} s "
+        f"of it, the four P x C ranks' {out['pp_ranks_s']:.1f} s (their start included) "
+        f"[{card}]")
     return out
 
 # ---------------------------------------------------------------------------
@@ -6508,7 +6827,7 @@ def cp_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DIST_LIMIT_S = 300  # each rank's time limit; the ranks are killed past it
-DIST_NEW = 64  # new tokens a request, as the serve and tp phases
+DIST_NEW = 32  # new tokens a request (cut from the serve phase's 64 for the run's time)
 
 
 def _dist_stats(reqs, t_end: float) -> dict:
@@ -6876,7 +7195,8 @@ def main(argv=None) -> int:
     if "tp" in phases:
         log("[tp] tensor and data parallel serving: (a) LLaMA-2-7B INT8 through the sharded "
             "path on one rank over NCCL; two ranks sharing the card over gloo: (b) T=2, (c) D=2, "
-            f"(d) the INT4 speculative pair at T=2 ({TP_SPEC_LAYERS}-layer verifier), "
+            f"(d) the INT4 speculative pair at T=2 ({TP_SPEC_LAYERS}-layer verifier, "
+            f"{TP_SPEC_NEW} tokens), "
             f"(e) Mixtral-8x7B INT8 at "
             f"{TP_MIXTRAL_LAYERS} layers, T=2; (f) NCCL across GPUs when there are several")
         summary["tp"] = tp_phase(card)
@@ -6892,8 +7212,8 @@ def main(argv=None) -> int:
         lap("meshtrain")
     if "layouts" in phases:
         log("[layouts] the serving layouts left under a mesh: (a) CPU offload under a mesh, "
-            "LLaMA-2-7B INT8 on one NCCL rank (32 layers) and at T=2 over two gloo ranks "
-            f"({LAYOUT_OFFLOAD_LAYERS} layers); (b) hybrid_ffn at data=2 x model=1, INT8 and INT4 "
+            f"LLaMA-2-7B INT8 at {LAYOUT_OFFLOAD_LAYERS} layers on one NCCL rank and at T=2 over "
+            "two gloo ranks; (b) hybrid_ffn at data=2 x model=1, INT8 and INT4 "
             f"at {LAYOUT_LAYERS} layers ({LAYOUT_HYBRID_DTYPE}), with offload once; (c) expert "
             f"parallelism at T=2, Mixtral-8x7B {' and '.join(LAYOUT_EP_DTYPES)} at "
             f"{TP_MIXTRAL_LAYERS} layers; "
@@ -6921,8 +7241,9 @@ def main(argv=None) -> int:
             "cache cut on its positions: (a) LLaMA-2-7B INT8, 32 layers, C=2, the serve traffic; "
             "(b) the spec phase's INT4 pair at C=2; (c) LLaMA-2-7B width at "
             f"{CP_F32_LAYERS} layers in f32, prompts {list(CP_F32_LENS)} x {CP_F32_NEW} tokens; "
-            f"(d) the ring prefill at S={CP_RING['s']}, bf16; (e) NCCL across GPUs when there "
-            "are several")
+            f"(d) the ring prefill at S={CP_RING['s']}, bf16; (f) LoRA + finetuning, (g) "
+            "offload, (h) the Trainer at C=2; four ranks at P=2 x C=2: (i) the pipeline engine, "
+            "(j) the Trainer; (e) NCCL across GPUs when there are several")
         summary["cp"] = cp_phase(card)
         lap("cp")
     if "dist" in phases:
@@ -6953,7 +7274,8 @@ def main(argv=None) -> int:
     pp = summary.get("pp", {})  # every rank's launches, each case's
     served += [pp.get("pp-a", {}), pp.get("pp-b", {}), pp.get("pp-d", {})]
     cp = summary.get("cp", {})  # every rank's launches, each case's
-    served += [cp.get("a", {}), cp.get("b", {}), cp.get("c", {})]
+    served += [cp.get(k, {}) for k in ("a", "b", "c", "f", "i")]
+    served += [cp.get("g", {}).get(r, {}) for r in ("resident", "offload")]
     dist_ = summary.get("dist", {})  # rank 0's launches, each run's
     served += [dist_.get("a", {}), dist_.get("b", {})]
     offload = summary.get("offload", {})

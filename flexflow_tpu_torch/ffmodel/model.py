@@ -156,11 +156,10 @@ class FFModel:
     """Layer-graph builder and its executor on one device."""
 
     def __init__(self, seed: int = 0, mesh=None, device=None):
-        from flexflow_tpu_torch.parallel.mesh import Mesh, refuse_seq
+        from flexflow_tpu_torch.parallel.mesh import Mesh
 
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
-        refuse_seq(mesh, "FFModel (and the search it compiles with)")
         self._mesh = mesh  # stored as JAX stores it; nothing reads it
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)
@@ -865,7 +864,8 @@ class FFModel:
         if auto_parallel:
             n_devices = auto_lib.device_count(self.device)
             if self._mesh is not None:
-                n_devices = max(n_devices, self._mesh.data * self._mesh.model)
+                m = self._mesh
+                n_devices = max(n_devices, m.data * m.pipe * m.model * m.seq)
             auto_lib.refuse_mesh(n_devices, "compile(auto_parallel=True)")
         self.substitution_report = {}
         self.joint_plan = None

@@ -24,8 +24,13 @@ with ``-tensor-parallelism-degree`` / ``-data-parallelism-degree``:
     torchrun --nproc-per-node 2 -m flexflow_tpu_torch.inference.incr_decoding \
         -llm-model DIR --cp 2 [--device cpu]
 
-Pipeline stages, offload or LoRA under a context degree raise (ROADMAP
-A10c).
+``--cp`` composes with ``--pp`` (``P * T * C`` ranks: each seq
+coordinate its own copy of the stages, each stage's cache whole) and with
+``--offload``:
+
+    torchrun --nproc-per-node 4 -m flexflow_tpu_torch.inference.incr_decoding \
+        -llm-model DIR --pp 2 --cp 2 [--device cpu]
+
 ``-auto-parallelism`` is accepted for compatibility (one device). Legion
 resource flags (``-ll:*``) are ignored.
 """

@@ -3,12 +3,12 @@ parallelism over ``torch.distributed`` ranks, for serving and training,
 with collectives autograd understands; ``hybrid_ffn`` and expert
 parallelism for serving; pipeline stages for serving, speculation included,
 and for training, with the stage hops of ``mesh`` and the stage cut and
-GPipe loop of ``pipeline``; context parallelism for serving, the KV cache
-cut on the ``seq`` axis, with the ring hops of ``mesh`` for
-``ops/ring_attention``) and the search over placements on one device
-(port of ``flexflow_tpu/parallel``'s ``mesh``, ``sharding``, ``auto``,
-``joint``, ``topology`` and ``pipeline``), and the multi-process
-controller (``distributed``: ``init_distributed`` and the request
+GPipe loop of ``pipeline``; context parallelism, the incremental and
+speculative engines' KV cache cut on the ``seq`` axis, with the ring hops
+of ``mesh`` for ``ops/ring_attention``, and every other surface, the
+pipeline stages included, replicated over ``seq``) and the search over
+placements on one device (port of ``flexflow_tpu/parallel``'s ``mesh``,
+``sharding``, ``auto``, ``joint``, ``topology`` and ``pipeline``), and
+the multi-process controller (``distributed``: ``init_distributed`` and the request
 broadcaster that feeds a mesh's followers the controller's requests).
-Context parallelism under pipeline stages and elsewhere than in serving,
-and the search on a mesh are ROADMAP A10c and A11c."""
+The search on a mesh is ROADMAP A11c."""

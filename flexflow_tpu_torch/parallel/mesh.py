@@ -64,9 +64,13 @@ ranks' attention states over it; the ring prefill
 :meth:`Mesh.ring_send` / :meth:`Mesh.ring_recv` (rank ``c`` to ``c + 1``,
 the stage hops' scheme: a broadcast over a two-rank group, each directed
 pair its own group, since at C = 2 both directions join the same two
-ranks). Pipeline stages under a context degree are ROADMAP A10c and raise
-(:func:`refuse_seq` names it for every other surface that does not take
-the seq axis).
+ranks). Under pipeline stages (``pipe > 1`` with ``seq > 1``) the pipe
+group and the stage hops are made per (data, model, seq) coordinate, so
+each seq coordinate runs its own copy of the stage schedule (JAX's
+pipeline engine and GPipe loop map over ``("pipe", "model")`` only and
+replicate over ``seq``); the surfaces that do not cut on ``seq`` (the
+pipeline engines, the Trainer, finetuning) replicate their work over it,
+every collective staying inside the rank's seq coordinate.
 """
 
 from __future__ import annotations
@@ -303,14 +307,6 @@ class Mesh:
                 dist.all_reduce(torch.zeros(1, device=device), group=g)
 
 
-def refuse_seq(mesh: Optional["Mesh"], what: str) -> None:
-    """Raise for a mesh with a context degree (``seq > 1``) on a surface
-    that does not take the seq axis (ROADMAP A10c)."""
-    if mesh is not None and mesh.seq > 1:
-        raise NotImplementedError(f"{what} under a context degree (seq = {mesh.seq} > 1) is "
-                                  "not in the port (ROADMAP.md Queue A, A10c)")
-
-
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -412,11 +408,7 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
     NCCL for CUDA devices and gloo for the CPU unless ``backend`` names
     one; the device is ``cuda:LOCAL_RANK`` unless ``device`` names one
     (without CUDA that raises: only ``device="cpu"`` gives a CPU mesh).
-    Every rank creates every group, in one order. Pipeline stages under a
-    context degree (``pipe > 1`` with ``seq > 1``) raise (ROADMAP A10c)."""
-    if pipe > 1 and seq > 1:
-        raise NotImplementedError("pipeline stages under a context degree (pipe > 1 with "
-                                  "seq > 1) are not in the port (ROADMAP.md Queue A, A10c)")
+    Every rank creates every group, in one order."""
     need = data * pipe * model * seq
     if min(data, pipe, model, seq) < 1:
         raise ValueError(f"mesh degrees must be >= 1, got {data}x{pipe}x{model}x{seq}")
@@ -464,17 +456,19 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
         for p in range(pipe):
             for c in range(seq):
                 group(FFN_AXES, [at(d, p, m, c) for d in range(data) for m in range(model)])
-    if pipe > 1:  # seq == 1 here
+    if pipe > 1:  # the pipe group and the stage hops of each (data, model, seq)
         for d in range(data):
             for m in range(model):
-                group(PIPE_AXIS, [at(d, p, m) for p in range(pipe)])
-                for p in range(pipe - 1):
-                    g = dist.new_group([at(d, p, m), at(d, p + 1, m)], backend=backend)
-                    if rank == at(d, p, m):
-                        mesh.next_group = g
-                    elif rank == at(d, p + 1, m):
-                        mesh.prev_group = g
-                group("return", [at(d, pipe - 1, m), at(d, 0, m)])
+                for c in range(seq):
+                    group(PIPE_AXIS, [at(d, p, m, c) for p in range(pipe)])
+                    for p in range(pipe - 1):
+                        g = dist.new_group([at(d, p, m, c), at(d, p + 1, m, c)],
+                                           backend=backend)
+                        if rank == at(d, p, m, c):
+                            mesh.next_group = g
+                        elif rank == at(d, p + 1, m, c):
+                            mesh.prev_group = g
+                    group("return", [at(d, pipe - 1, m, c), at(d, 0, m, c)])
     if seq > 1:
         for d in range(data):
             for p in range(pipe):

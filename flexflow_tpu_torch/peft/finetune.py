@@ -23,7 +23,10 @@ decoder's conjugate collectives. The gradients that are partial over a
 group (``sharding.lora_partial_grads``: a column target's ``a``, over
 ``model`` or a hybrid FFN's group) are summed before the update; each rank updates its own cut. Every data rank
 runs the same step on the same sequence (JAX computes the replicated step
-once), so the adapters stay equal across data ranks, bit for bit.
+once), so the adapters stay equal across data ranks, bit for bit. So does
+every seq rank of an engine whose cache is cut on ``seq``: the step's
+forward is the decoder's prefill, which never reads the cache's seq cut,
+and no gradient is summed over ``seq``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.models import decoder
-from flexflow_tpu_torch.parallel.mesh import all_reduce_grads, refuse_seq
+from flexflow_tpu_torch.parallel.mesh import all_reduce_grads
 from flexflow_tpu_torch.parallel.sharding import lora_partial_grads
 from flexflow_tpu_torch.peft.lora import LoraConfig, RoutedLora, lora_scaling
 from flexflow_tpu_torch.specs import ModelSpec
@@ -72,7 +75,6 @@ class FinetuneSession:
 
     def _build(self, engine) -> None:
         mesh = getattr(engine, "mesh", None)
-        refuse_seq(mesh, "finetuning (FinetuneSession)")
         if mesh is not None and mesh.pipe > 1:
             raise NotImplementedError(
                 "finetuning on a pipeline engine: its layers are cut into stages, and JAX's "

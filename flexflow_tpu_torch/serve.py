@@ -37,9 +37,11 @@ over one staged verifier). ``compile(context_parallel_degree=C)`` (alone
 or with the tensor and data degrees, with or without drafts) cuts the
 verifier's KV cache on its positions over C seq ranks and merges the
 attention over them (``serving/engine.py``, ``serving/speculative.py``;
-the draft whole on every rank; several drafts rotate or merge over it);
-under a context degree, pipeline stages, offload and LoRA adapters are
-ROADMAP A10c and raise.
+the draft whole on every rank; several drafts rotate or merge over it),
+with offload and LoRA adapters (a co-scheduled finetuning session steps on
+every seq rank alike). With pipeline stages (``P x T x C`` ranks) each seq
+coordinate serves its own copy of the stages, each stage's cache whole, as
+JAX's pipeline engines replicate over ``seq``.
 Under a mesh ``start_server()`` and ``stop_server()`` are called on every
 rank: rank 0 (the controller) takes the requests (``generate``,
 ``generate_stream``) and its loop broadcasts each step's new ones to the
@@ -226,9 +228,11 @@ class LLM:
         data degrees: each rank holds its block of ``max_seq_length / C``
         positions of the verifier's cache, the prefill is replicated over
         the seq ranks and the attention merged over them; the draft models
-        stay whole on every rank. Under a context degree pipeline stages,
-        offload and LoRA adapters raise (A10c). ``broadcast_port`` is the
-        TCP port of the mesh's request broadcaster (``start_server``)."""
+        stay whole on every rank. Offload and LoRA adapters keep that cut;
+        with pipeline stages every seq rank runs its coordinate's copy of
+        the stages, each holding the stage's whole cache (JAX's placement).
+        ``broadcast_port`` is the TCP port of the mesh's request
+        broadcaster (``start_server``)."""
         if broadcast_port is not None:
             self.broadcast_port = broadcast_port
         for ssm in ssms:
@@ -244,12 +248,6 @@ class LLM:
             auto_lib.refuse_mesh(auto_lib.device_count(self.device),
                                  "LLM.compile(auto_parallel=True)", serving=True)
         use_pp = pipeline_parallelism_degree > 1
-        if context_parallel_degree > 1:
-            for what, on in (("pipeline_parallelism_degree > 1", use_pp),
-                             ("offload", offload), ("LoRA adapters (PEFT)", bool(self._peft))):
-                if on:
-                    raise NotImplementedError(f"{what} under context_parallel_degree > 1 is not "
-                                              "in the port (ROADMAP.md Queue A, A10c)")
         if use_pp:
             # JAX's refusals under pipeline stages (flexflow_tpu/serve.py:250-268)
             if data_parallelism_degree > 1:

@@ -85,7 +85,14 @@ its block's positions (JAX's GSPMD replicates it over ``seq``); decode
 and the chunked prefill merge each layer's attention states over
 ``seq`` in the decoder. Under NCCL the greedy step's graph holds the seq
 all-gathers; gloo's are not captured. LoRA, offload and ``hybrid_ffn``
-under a context degree raise (ROADMAP A10c).
+take a context degree as they take a mesh, the cache cut on ``seq`` all
+the same (JAX places its cache with ``kv_cache_sharding`` whatever the
+layout): the adapter stacks are whole over ``seq`` (cut on ``model`` by
+``shard_lora``) and every seq rank adds every row's deltas, since the
+decoder applies them outside the attention; each seq rank pins and
+streams its own copy of its cut under offload; a hybrid FFN's group is
+made per seq coordinate (``parallel/mesh``), and every slot stays on
+every rank.
 """
 
 from __future__ import annotations
@@ -105,7 +112,7 @@ from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray
 from flexflow_tpu_torch.serving.graphs import step_graphs
 from flexflow_tpu_torch.models.layer_store import LayerStore
-from flexflow_tpu_torch.parallel.mesh import DATA_AXIS, refuse_seq
+from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
 from flexflow_tpu_torch.parallel.sharding import (first_position, shard_lora, shard_params,
                                                   slot_block, tree_shard, with_seq)
 from flexflow_tpu_torch.specs import ModelSpec
@@ -213,10 +220,6 @@ class InferenceEngine:
         if mesh is not None and mesh.pipe > 1:
             raise ValueError("a mesh with pipeline stages is served by "
                              "serving/pp_engine.PipelineInferenceEngine")
-        for what, on in (("LoRA serving", lora is not None), ("CPU offload", offload),
-                         ("hybrid_ffn", hybrid_ffn)):
-            if on:
-                refuse_seq(mesh, what)
         self.spec = spec
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None or device is not None

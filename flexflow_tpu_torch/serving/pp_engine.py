@@ -34,7 +34,12 @@ results:
   draws bit for bit;
 - tensor parallelism composes inside each stage (``pipe x model``: each
   stage's layers cut over its ``model`` ranks, ``parallel/sharding``), as
-  does LoRA at T = 1 (the stage's slices of the adapter stacks).
+  does LoRA at T = 1 (the stage's slices of the adapter stacks);
+- under a context degree (``pipe x seq``) each seq coordinate runs its own
+  copy of the stage schedule over its own pipe group and stage hops, and
+  every stage holds its whole cache on each seq rank: JAX's ``shard_map``
+  runs over ``("pipe", "model")`` only and its cache spec has no ``seq``
+  entry, so its GSPMD replicates the pipeline over ``seq``.
 
 Modes, as in JAX: batched prefill over a fixed ``max_requests`` rows
 (padding rows write nothing; a microbatch of padding only is skipped on
@@ -67,7 +72,6 @@ from flexflow_tpu_torch.models import decoder
 from flexflow_tpu_torch.models.decoder import KVCache, to_device
 from flexflow_tpu_torch.ops import sampling as sampling_lib
 from flexflow_tpu_torch.ops.sampling import SamplingConfig
-from flexflow_tpu_torch.parallel.mesh import refuse_seq
 from flexflow_tpu_torch.parallel.pipeline import stage_params, stage_range
 from flexflow_tpu_torch.parallel.sharding import shard_params, tree_shard
 from flexflow_tpu_torch.peft.lora import lora_scaling, route_lora
@@ -110,7 +114,6 @@ class PipelineInferenceEngine:
             raise NotImplementedError("LoRA under pipeline parallelism requires "
                                       "tensor_parallelism_degree == 1")
         refuse_expert_cut(spec, params)
-        refuse_seq(mesh, "pipeline-parallel serving")
         self.spec, self.mesh = spec, mesh
         self.device = resolve_device(mesh.device if device is None else device)
         self.stage, self.first, self.last = mesh.pipe_rank, mesh.first_stage, mesh.last_stage

@@ -38,6 +38,12 @@ gradient sums of every step (``model``, ``data``, and a tied
 ``embed_tokens`` over the first and last stages, each of which holds one
 of its two uses) and this rank's update. The loss and metrics are the last
 stage's, broadcast over ``pipe``.
+
+A context degree (``seq > 1``; JAX shards the batch on ``data`` only and
+the parameters by the tensor rules, so its GSPMD replicates the step over
+``seq``): every seq rank trains the same rows of the same cut, and each
+of the sums above runs over the groups of the rank's own seq coordinate,
+so the loss is counted once and the ranks' parameters stay equal.
 """
 
 from __future__ import annotations
@@ -50,8 +56,7 @@ import torch
 
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.models import decoder
-from flexflow_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_grads,
-                                             refuse_seq)
+from flexflow_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_grads
 from flexflow_tpu_torch.parallel.pipeline import gpipe_step
 from flexflow_tpu_torch.parallel.sharding import (data_rows, gather_params, partial_grads,
                                                   shard_params, tree_shard)
@@ -97,7 +102,6 @@ class Trainer:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh or 'auto', got "
                             f"{type(mesh).__name__}")
-        refuse_seq(mesh, "the Trainer")
         if pipeline_stages > 1 and (mesh is None or mesh.pipe != pipeline_stages):
             raise ValueError(f"pipeline_stages={pipeline_stages} needs a mesh whose pipe axis "
                              f"is {pipeline_stages}, got "

@@ -17,7 +17,9 @@ JAX package's engines at float32 (the helpers of
   path (the kernel's and the plain path's: a chunk, a kv mask, extra draft
   columns, an attention window) against the one-device call;
 - the cache writes of a seq rank's block against the whole cache's, and
-  the refusals (ROADMAP A10c).
+  the surfaces that take a context degree beside the plain engines
+  (``test_torch_port_cp_layouts.py`` and ``test_torch_port_pp_cp.py``
+  hold them against JAX).
 """
 
 import contextlib
@@ -409,14 +411,18 @@ def test_block_writes_equal_the_whole_cache(first):
         assert torch.equal(whole.v[:, :, :, first:first + W], block.v)
 
 
-def test_refusals_name_a10c():
-    """Under a context degree: pipeline stages (``make_mesh``, the pipeline
-    engine), the Trainer, FFModel, FinetuneSession, LoRA / offload /
-    hybrid_ffn in the incremental engine and, in ``LLM.compile``, pipeline
-    stages, offload and LoRA adapters raise naming A10c; ``seq_cut`` keeps the cache whole where the length does not
-    divide."""
+def test_surfaces_under_a_context_degree_construct():
+    """Under a context degree (a seq rank's ``Mesh.fake``) the surfaces
+    build: the Trainer, FFModel, the pipeline engine under ``pipe x seq``
+    (its stage's layers, its whole cache), LoRA / offload / hybrid_ffn in
+    the incremental engine (the cache cut on ``seq``) and FinetuneSession
+    on a LoRA engine; ``make_mesh(pipe=2, seq=2)`` and ``LLM.compile``
+    with pipeline stages, offload or LoRA adapters under
+    ``context_parallel_degree=2`` go on to ask for the process group.
+    ``seq_cut`` keeps the cache whole where the length does not divide."""
     from flexflow_tpu_torch.ffmodel.model import FFModel
     from flexflow_tpu_torch.models import params as tp
+    from flexflow_tpu_torch.models.layer_store import LayerStore
     from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
     from flexflow_tpu_torch.parallel.sharding import seq_cut
     from flexflow_tpu_torch.peft.finetune import FinetuneSession
@@ -426,40 +432,39 @@ def test_refusals_name_a10c():
     from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
     from flexflow_tpu_torch.training import SGDOptimizer, Trainer
 
-    with pytest.raises(NotImplementedError, match="A10c"):
+    asks = pytest.raises(RuntimeError, match="a 4-rank mesh needs a process group")
+    with asks:
         make_mesh(pipe=2, seq=2, device="cpu")
     spec = _tspec(SPEC)
     params = tp.init_params(spec, 0)
-    cp = Mesh.fake(1, 1, 0, seq=2)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        Trainer(spec, params, SGDOptimizer(lr=0.1), mesh=cp)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        FFModel(mesh=cp)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        PipelineInferenceEngine(spec, params, mesh=Mesh.fake(1, 1, 0, pipe=2, seq=2))
-
-    class Engine:  # what FinetuneSession reads of an engine
-        mesh, lora = cp, None
-
-    with pytest.raises(NotImplementedError, match="A10c"):
-        FinetuneSession(spec, LoraConfig(), 0, [])._build(Engine())
+    cp = Mesh.fake(1, 1, 1, seq=2)
+    assert Trainer(spec, params, SGDOptimizer(lr=0.1), mesh=cp).mesh is cp
+    assert FFModel(mesh=cp)._mesh is cp
+    pp = PipelineInferenceEngine(spec, params, mesh=Mesh.fake(1, 1, 3, pipe=2, seq=2),
+                                 max_requests_per_batch=2, max_seq_len=SEQ,
+                                 cache_dtype=torch.float32)
+    assert pp.layers == (1, 2) and pp.cache.k.shape[:4] == (1, 2, 8, SEQ)  # the whole cache
     lora = {"wq": {"a": torch.zeros(2, 1, 64, 4), "b": torch.zeros(2, 1, 4, 64)}}
-    for kw in (dict(lora=lora), dict(offload=True), dict(hybrid_ffn=True)):
-        with pytest.raises(NotImplementedError, match="A10c"):
-            InferenceEngine(spec, params, device="cpu", mesh=cp, **kw)
+    kw = dict(device="cpu", mesh=cp, max_seq_len=SEQ, max_requests_per_batch=2)
+    for extra in (dict(lora=lora), dict(offload=True), dict(hybrid_ffn=True)):
+        eng = InferenceEngine(spec, params, **kw, **extra)
+        assert eng.shard.seq.lo == SEQ // 2 and eng.cache.k.shape[3] == SEQ // 2
+        assert isinstance(eng.params["layers"], LayerStore) == ("offload" in extra)
+    session = FinetuneSession(spec, LoraConfig(target_modules=("wq",)), 0, [])
+    session._build(InferenceEngine(spec, params, lora=lora, **kw))
+    assert session.params["wq"]["a"].shape == (2, 64, 4)
 
-    def llm(ssms=(), peft=()):
+    def llm(peft=()):
         out = LLM.__new__(LLM)
-        out._ssms, out._peft = list(ssms), list(peft)
+        out._ssms, out._peft = [], list(peft)
         out.quant_bits, out.device = None, torch.device("cpu")
         return out
 
-    for what, model, kw in (("pipeline_parallelism_degree", llm(),
-                             dict(pipeline_parallelism_degree=2)),
-                            ("offload", llm(), dict(offload=True)),
-                            ("LoRA", llm(peft=[(LoraConfig(), None)]), {})):
-        with pytest.raises(NotImplementedError, match=f"{what}.*A10c"):
-            model.compile(context_parallel_degree=2, **kw)
+    for model, extra in ((llm(), dict(pipeline_parallelism_degree=2)),
+                         (llm(), dict(offload=True, tensor_parallelism_degree=2)),
+                         (llm(peft=[(LoraConfig(), None)]), dict(tensor_parallelism_degree=2))):
+        with asks:
+            model.compile(context_parallel_degree=2, **extra)
     assert seq_cut(Mesh.fake(1, 1, 1, seq=2), 128).lo == 64
     assert seq_cut(Mesh.fake(1, 1, 1, seq=2), 127) is None
     assert seq_cut(Mesh.fake(1, 1, 0), 128) is None

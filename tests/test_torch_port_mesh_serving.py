@@ -278,9 +278,8 @@ def test_tp8_pipelined_and_jax_mesh_engine(tmp_path, unfused_jax):
 
 
 def test_refusals():
-    """Pipeline stages under a context degree (A10c; a context degree with
-    the model axis is taken, past it the process group is asked for);
-    ``SpecEngine`` on a pipe mesh names ``PipelineSpecEngine``, and PEFT
+    """A context degree with the model axis is taken (past it the process
+    group is asked for); ``SpecEngine`` on a pipe mesh names ``PipelineSpecEngine``, and PEFT
     with drafts under pipeline stages raises. Pipeline stages are taken
     (``test_torch_port_pp_serving``), as is LoRA under a mesh (the rank's
     cut of the stacks: ``test_torch_port_mesh_lora``), the PEFT CLI's mesh
@@ -292,8 +291,6 @@ def test_refusals():
     from flexflow_tpu_torch.serving.engine import InferenceEngine
     from flexflow_tpu_torch.serving.speculative import SpecEngine
 
-    with pytest.raises(NotImplementedError, match="A10c"):
-        make_mesh(pipe=2, seq=2, device="cpu")
     with pytest.raises(RuntimeError, match="a 4-rank mesh needs a process group"):
         make_mesh(model=2, seq=2, device="cpu")
     drafted = LLM.__new__(LLM)

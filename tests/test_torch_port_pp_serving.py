@@ -368,11 +368,11 @@ def test_refusals():
     ``LLM.compile``; ``SpecEngine`` names ``PipelineSpecEngine``; the
     Trainer's ``pipeline_stages`` without a mesh (a pipe mesh alone builds
     it), finetuning on a pipeline engine (JAX fails there too);
-    the one-device engine takes no pipe mesh; ``make_mesh(pipe=2, seq=2)`` (A10c);
-    ``layout_mesh`` with pipe > 1 (A11c)."""
+    the one-device engine takes no pipe mesh; ``layout_mesh`` with pipe > 1
+    (A11c)."""
     from flexflow_tpu_torch.models import params as tp
     from flexflow_tpu_torch.parallel import auto
-    from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from flexflow_tpu_torch.parallel.mesh import Mesh
     from flexflow_tpu_torch.peft.finetune import FinetuneSession
     from flexflow_tpu_torch.peft.lora import LoraConfig
     from flexflow_tpu_torch.serve import LLM, SSM
@@ -419,8 +419,6 @@ def test_refusals():
 
     with pytest.raises(NotImplementedError, match="JAX's FinetuneSession cannot run"):
         FinetuneSession(spec, LoraConfig(), 0, [])._build(Staged())
-    with pytest.raises(NotImplementedError, match="A10c"):
-        make_mesh(pipe=2, seq=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A11c"):
         auto.layout_mesh(auto.Layout(data=1, pipe=2, model=1))
 
