@@ -5,11 +5,17 @@ Two input towers, each a deep bias-free dense stack with relu between
 layers, summed and softmaxed — the Unity paper's co-optimization demo
 workload. Scaled-down dims for a CPU smoke; pass --full for the reference
 8x8192 stack on real hardware.
+
+``--auto-parallelism`` plans the graph with the joint search; under
+``torchrun`` (one process a GPU) the first batch then runs the measured
+(data, model) search over the ranks and every rank trains its cut
+(``FFModel.fit``); rank 0 prints.
 """
 
 import argparse
 
 import numpy as np
+import torch.distributed as dist
 
 from flexflow_tpu_torch.ffmodel import FFModel
 from flexflow_tpu_torch.training import SGDOptimizer
@@ -47,7 +53,8 @@ def main(argv=None, device=None):
     x2 = rng.randn(n, in_dim).astype(np.float32)
     y = rng.randint(0, hidden[-1], size=(n,)).astype(np.int32)
     hist = ff.fit([x1, x2], y, batch_size=batch, epochs=args.epochs)
-    print("final:", hist[-1])
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("final:", hist[-1])
     return hist
 
 

@@ -16,11 +16,15 @@ changes the optimizer's rate without rebuilding anything.
 ``compile(auto_parallel=True)`` runs JAX's joint rewrite x placement
 search (``parallel/joint.py``) and keeps its graph, planned as JAX plans it
 for at least two devices; on one device nothing is sharded, as in JAX.
-``FFModel(mesh=)`` takes a ``parallel/mesh.Mesh`` and keeps it as JAX
-keeps its mesh, unread: the graph is not sharded (JAX's executor never
-reads ``_mesh`` either); the model runs on ``mesh.device`` unless
-``device`` names another. The search over more than one device is ROADMAP
-A11c and raises.
+Over the ranks of a ``torch.distributed`` world (``parallel/auto.
+device_count``) the first ``fit`` batch then runs JAX's measured search
+(``_auto_parallelize``) on every rank alike: each (data, model) candidate
+is timed on copies of the parameters and the model keeps the fastest's
+cut (``ffmodel/cut.py``), which ``fit``, ``evaluate`` and ``forward``
+run. ``FFModel(mesh=)`` takes a ``parallel/mesh.Mesh`` and keeps it as JAX
+keeps its mesh, unread: the graph is not sharded by it (JAX's executor
+never reads ``_mesh`` either); the model runs on ``mesh.device`` unless
+``device`` names another.
 ``load_numpy`` takes the JAX model's ``params`` / ``state`` as numpy trees,
 so both packages can compute the same thing.
 """
@@ -40,6 +44,7 @@ from flexflow_tpu_torch.ops import activations as act_lib
 from flexflow_tpu_torch.ops import nn as nn_ops
 from flexflow_tpu_torch.ops import norms as norm_ops
 from flexflow_tpu_torch.ops.topk import top_k
+from flexflow_tpu_torch.parallel.mesh import DATA_AXIS
 from flexflow_tpu_torch.training import losses as loss_lib
 from flexflow_tpu_torch.training import metrics as metrics_lib
 from flexflow_tpu_torch.training.metrics import PerfMetrics
@@ -161,6 +166,8 @@ class FFModel:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
         self._mesh = mesh  # stored as JAX stores it; nothing reads it
+        self._cut = None  # the search's (data, model) cut over the ranks (ffmodel/cut.py)
+        self._pending_auto = False
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)
         self._nodes: List[_Node] = []
@@ -664,6 +671,8 @@ class FFModel:
         """Evaluate one node; returns (outputs list, new_state)."""
         a = node.attrs
         op = node.op
+        if self._cut is not None and node.name in self._cut.views:
+            return [self._cut.apply(node, p, xs[0], _ACT.get(a.get("activation")))], s
         if op in _UNARY:
             return [_UNARY[op](xs[0])], s
         if op == "pad":
@@ -751,7 +760,10 @@ class FFModel:
         if op == "flat":
             return [nn_ops.flat(xs[0])], s
         if op == "reshape":
-            return [xs[0].reshape(a["shape"])], s
+            shape = a["shape"]
+            if self._cut is not None and self._cut.mesh.data > 1:  # keeps the rows (mixed_rows)
+                shape = (xs[0].shape[0],) + tuple(shape[1:])
+            return [xs[0].reshape(shape)], s
         if op == "transpose":
             return [xs[0].permute(a["perm"])], s
         if op == "concat":
@@ -855,18 +867,15 @@ class FFModel:
         dimensions, ``config.search_budget * 4`` expansions and
         ``config.search_alpha``. Its graph replaces the model's, the plan is
         ``self.joint_plan`` and its rewrites join ``substitution_report``.
-        One device runs the graph unsharded; more raise (the search on a
-        mesh, A11c)."""
+        One device runs the graph unsharded. Over more than one rank the
+        measured (data, model) search runs at the first ``fit`` batch
+        (``_auto_parallelize``), as in JAX."""
         from flexflow_tpu_torch.config import config as _ffconfig
         from flexflow_tpu_torch.ffmodel.substitutions import load_rules, optimize_graph
         from flexflow_tpu_torch.parallel import auto as auto_lib
 
-        if auto_parallel:
-            n_devices = auto_lib.device_count(self.device)
-            if self._mesh is not None:
-                m = self._mesh
-                n_devices = max(n_devices, m.data * m.pipe * m.model * m.seq)
-            auto_lib.refuse_mesh(n_devices, "compile(auto_parallel=True)")
+        n_devices = auto_lib.device_count(self.device) if auto_parallel else 1
+        self.device = auto_lib.search_device(self.device, n_devices)
         self.substitution_report = {}
         self.joint_plan = None
         self.auto_report = None
@@ -915,6 +924,8 @@ class FFModel:
         self.opt_state = optimizer.init(params) if optimizer else None
         self._classification = loss_type in (
             "sparse_categorical_crossentropy", "categorical_crossentropy")
+        self._cut = None
+        self._pending_auto = bool(auto_parallel) and n_devices > 1
         self._compiled = True
 
     def load_numpy(self, params: Dict[str, Dict[str, Any]],
@@ -932,8 +943,11 @@ class FFModel:
                 if name not in own:
                     raise KeyError(f"the graph has no node {name!r} with {what}")
                 loaded = params_from_numpy(dict(leaves), self.device)
-                own[name] = ({k: v.requires_grad_() for k, v in loaded.items()}
-                             if own is self.params else loaded)
+                if own is self.params and self._cut is not None:
+                    own[name] = self._cut.place({name: loaded})[name]
+                else:
+                    own[name] = ({k: v.requires_grad_() for k, v in loaded.items()}
+                                 if own is self.params else loaded)
 
     def _require_compiled(self):
         if not self._compiled:
@@ -956,34 +970,140 @@ class FFModel:
         dt = torch.float32 if arr.dtype.kind == "f" else torch.int64
         return torch.as_tensor(arr).to(self.device, dt)
 
-    def _metrics(self, out, labels) -> Dict[str, float]:
+    def _metrics(self, out, labels, rows: bool = False) -> Dict[str, float]:
+        """The batch's metrics; of a data rank's ``rows`` under a cut, the
+        counts summed and the means averaged over the data ranks."""
         if self._classification:
             m = metrics_lib.classification_metrics(
                 out, labels if labels.ndim < out.ndim else torch.argmax(labels, -1))
         else:
             m = metrics_lib.regression_metrics(out, labels)
+        mesh = None if self._cut is None else self._cut.mesh
+        if rows and mesh is not None and mesh.data > 1:
+            both = mesh.all_reduce(torch.stack([v.double() for v in m.values()]), DATA_AXIS)
+            if self._classification:
+                return {k: int(v) for k, v in zip(m, both.tolist())}
+            return {k: v / mesh.data for k, v in zip(m, both.tolist())}
         return {k: v.item() for k, v in m.items()}
 
     def _step(self, inputs, labels, gen) -> Tuple[torch.Tensor, torch.Tensor]:
         """One training step: the forward, the loss (with the regularizers'
         penalties), autograd and the optimizer's in-place update. Returns the
-        loss and the output on the device; nothing waits for the device."""
+        loss and the output on the device; nothing waits for the device.
+        Under a cut ``inputs`` and ``labels`` are the data rank's rows, the
+        cut gives the loss's and the penalties' parts (``Cut.loss``,
+        ``Cut.penalty``) and sums the gradients over ``data``; the loss
+        returned is the whole batch's and the output the rank's rows."""
+        cut = self._cut
         with torch.enable_grad():
             out = self._run(inputs, True, gen)
-            loss = self.loss_fn(out, labels)
+            if cut is None:
+                loss = self.loss_fn(out, labels)
+                value = loss.detach()
+            else:
+                loss, value = cut.loss(self.loss_type, self.loss_fn, out, labels)
             for name, (l1, l2) in self._regularizers.items():
                 w = self.params[name]["w"]
-                if l2:
-                    loss = loss + l2 * torch.sum(torch.square(w))
-                if l1:
-                    loss = loss + l1 * torch.sum(torch.abs(w))
+                for coef, term in ((l2, torch.square), (l1, torch.abs)):
+                    if coef:
+                        pen = coef * torch.sum(term(w))
+                        own, whole = (pen, pen.detach()) if cut is None else cut.penalty(name, pen)
+                        loss, value = loss + own, value + whole
             if self.params:
                 loss.backward()
+        if cut is not None:
+            cut.reduce_grads(self.params)
         grads = tree_map(lambda p: p.grad, self.params)
         self.params, self.opt_state = self.optimizer.update(grads, self.opt_state, self.params)
         for p, in zip_leaves(self.params):
             p.grad = None
-        return loss.detach(), out.detach()
+        return value, out.detach()
+
+    def _auto_parallelize(self, bx, by, log_fn: Callable = print) -> None:
+        """JAX's measured (dp, tp) search over the ranks
+        (``flexflow_tpu/ffmodel/model.py`` ``_auto_parallelize``): the
+        candidates of ``cut.candidates``, each built on every rank (its
+        mesh and cut, copies of the parameters and batch-norm statistics,
+        a fresh optimizer state) and timed on a warm-up step and one more
+        on (``bx``, ``by``) with a dropout generator of its own
+        (``parallel/auto.measure_layout``: the build agreed, the slowest
+        rank's time). The model then keeps the fastest's cut of its
+        pre-search parameters, a fresh optimizer state and its batch-norm
+        statistics, as JAX re-places ``self.params``. Raises when no
+        candidate ran (JAX stays on one device)."""
+        from flexflow_tpu_torch.ffmodel import cut as cut_lib
+        from flexflow_tpu_torch.parallel import auto as auto_lib
+        from flexflow_tpu_torch.parallel.mesh import make_mesh
+
+        n = auto_lib.device_count(self.device)
+        dev = auto_lib.search_device(self.device, n)
+        batch = by.shape[0]
+        whole, state, opt_state = self.params, self.state, self.opt_state
+
+        def views(tp, kind):
+            return (cut_lib.uniform_views(whole, tp) if kind == "uniform"
+                    else cut_lib.joint_views(whole, self.joint_plan, tp))
+
+        def build(cand):
+            dp, tp, kind = cand
+            if dp > 1:
+                mixed = cut_lib.mixed_rows(self._nodes, batch)
+                if mixed:
+                    raise NotImplementedError(f"data={dp}: {mixed} mixes the batch's rows")
+            mesh = make_mesh(data=dp, model=tp, device=dev)
+
+            def build_step():
+                cut = cut_lib.Cut(mesh, views(tp, kind))
+                params = cut.place(whole)
+                run_state = {k: {n_: v.clone() for n_, v in st.items()} for k, st in state.items()}
+                rows = cut.rows(batch)
+                inputs = self._to_inputs([np.asarray(a)[rows] for a in bx])
+                labels = self._to_labels(np.asarray(by)[rows])
+                gen = torch.Generator(device=dev).manual_seed(0)
+                held = {"opt": self.optimizer.init(params)}
+
+                def run():
+                    self.params, self.state, self.opt_state, self._cut = (
+                        params, run_state, held["opt"], cut)
+                    try:
+                        loss, _ = self._step(inputs, labels, gen)
+                        loss.item()  # waits for the step
+                        held["opt"] = self.opt_state
+                    finally:
+                        self.params, self.state, self.opt_state, self._cut = (
+                            whole, state, opt_state, None)
+
+                return run
+
+            return auto_lib.on_mesh(mesh, build_step)
+
+        report, best = [], None
+        for cand in cut_lib.candidates(n, batch, self.joint_plan):
+            dp, tp, kind = cand
+            label = f"dp={dp} tp={tp}" + (" (joint per-op views)" if kind == "joint" else "")
+            t, err = auto_lib.measure_layout(build, cand, warmup=1, reps=1, device=dev)
+            report.append({"layout": label, "error": err} if err else
+                          {"layout": label, "measured_s": t})
+            if err is None and (best is None or t < best[0]):
+                best = (t, cand)
+        self.auto_report = report
+        if best is None:
+            raise RuntimeError("no auto-parallel candidate ran: " + "; ".join(
+                f"{r['layout']}: {r['error']}" for r in report))
+        dp, tp, kind = best[1]
+        if auto_lib.speaks():
+            log_fn(f"[auto-parallel] chose dp={dp} tp={tp} over {len(report)} candidates")
+        self._cut = cut_lib.Cut(make_mesh(data=dp, model=tp, device=dev), views(tp, kind))
+        self.params = self._cut.place(whole)
+        self.opt_state = self.optimizer.init(self.params)
+
+    def full_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The whole parameter tree, detached: under a cut each rank's
+        slices gathered over the model ranks (every rank calls it)."""
+        self._require_compiled()
+        if self._cut is None:
+            return tree_map(lambda p: p.detach(), self.params)
+        return self._cut.gather(self.params)
 
     def _batches(self, arrays, batch_size, shuffle=False, seed=0):
         n = arrays[0].shape[0]
@@ -999,20 +1119,32 @@ class FFModel:
             log_every: int = 0) -> List[dict]:
         """Train for ``epochs`` over ``batch_size`` batches (shuffled with
         ``np.random.RandomState(epoch)``, as JAX does); one history entry an
-        epoch with its mean loss and accuracy."""
+        epoch with its mean loss and accuracy. With the search pending
+        (``compile(auto_parallel=True)`` over more than one rank) the first
+        batch runs it first; under its cut each data rank steps on its rows
+        of every batch (every rank calls ``fit`` alike)."""
         self._require_compiled()
         xs = x if isinstance(x, (list, tuple)) else [x]
+        if self._pending_auto:  # JAX: the search at the first batch
+            self._pending_auto = False
+            first = next(self._batches(list(xs) + [y], batch_size), None)
+            if first is not None:
+                *bx, by = first
+                self._auto_parallelize(bx, by, log_fn=log_fn)
         gen = torch.Generator(device=self.device).manual_seed(self._seed + 1)  # dropout
         history = []
         for epoch in range(epochs):
             losses = []
             self.metrics = PerfMetrics()
             for batch in self._batches(list(xs) + [y], batch_size, shuffle, seed=epoch):
+                if self._cut is not None:  # this data rank's rows
+                    rows = self._cut.rows(batch_size)
+                    batch = [a[rows] for a in batch]
                 *bx, by = batch
                 labels = self._to_labels(by)
                 loss, out = self._step(self._to_inputs(bx), labels, gen)
                 losses.append(loss.item())
-                self.metrics.update(self._metrics(out, labels))
+                self.metrics.update(self._metrics(out, labels, rows=True))
                 if log_every and len(losses) % log_every == 0:
                     log_fn(f"epoch {epoch} it {len(losses)}: "
                            f"loss={losses[-1]:.4f} acc={self.metrics.accuracy:.4f}")
@@ -1023,6 +1155,9 @@ class FFModel:
 
     @torch.no_grad()
     def evaluate(self, x, y, *, batch_size: int) -> dict:
+        """The mean loss and the accuracy over ``batch_size`` batches. Under
+        a cut every rank runs every row (the model ranks' cut ops, no data
+        split) and gets the whole result."""
         self._require_compiled()
         xs = x if isinstance(x, (list, tuple)) else [x]
         total, n = 0.0, 0
@@ -1038,7 +1173,8 @@ class FFModel:
 
     @torch.no_grad()
     def forward(self, x) -> np.ndarray:
-        """The graph's output on host arrays ``x`` (one, or a list), as numpy."""
+        """The graph's output on host arrays ``x`` (one, or a list), as numpy
+        (under a cut: every row on every rank, as ``evaluate``)."""
         self._require_compiled()
         xs = x if isinstance(x, (list, tuple)) else [x]
         return self._run(self._to_inputs(xs), False).cpu().numpy()

@@ -31,8 +31,14 @@ coordinate its own copy of the stages, each stage's cache whole) and with
     torchrun --nproc-per-node 4 -m flexflow_tpu_torch.inference.incr_decoding \
         -llm-model DIR --pp 2 --cp 2 [--device cpu]
 
-``-auto-parallelism`` is accepted for compatibility (one device). Legion
-resource flags (``-ll:*``) are ignored.
+``-auto-parallelism`` with the degrees omitted runs JAX's serving layout
+search over the ranks (``LLM.compile(auto_parallel=True)``; on one device
+it does nothing, as in JAX):
+
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.inference.incr_decoding \
+        -llm-model DIR -auto-parallelism [--device cpu]
+
+Legion resource flags (``-ll:*``) are ignored.
 """
 
 import argparse
@@ -76,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profiling", action="store_true",
                    help="per-phase wall-time report and per-op profile")
     p.add_argument("-auto-parallelism", "--auto-parallelism", dest="auto_parallel",
-                   action="store_true", help="accepted for parity (one device)")
+                   action="store_true",
+                   help="search the tensor x pipeline layout over the ranks")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -97,7 +104,8 @@ def main(argv=None):
                 max_seq_length=args.max_sequence_length,
                 max_tokens_per_batch=args.max_tokens_per_batch, offload=args.offload,
                 tensor_parallelism_degree=args.tp, data_parallelism_degree=args.dp,
-                pipeline_parallelism_degree=args.pp, context_parallel_degree=args.cp)
+                pipeline_parallelism_degree=args.pp, context_parallel_degree=args.cp,
+                auto_parallel=args.auto_parallel)
 
     prompts = ["Three tips for staying healthy are: "]
     if args.prompt:

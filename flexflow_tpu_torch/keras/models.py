@@ -59,8 +59,9 @@ class Model:
     def compile(self, optimizer=None, loss="sparse_categorical_crossentropy",
                 metrics=("accuracy",), auto_parallel=False):
         """``auto_parallel=True`` runs ``FFModel.compile``'s joint rewrite x
-        placement search (on one device; more raise: the search on a mesh,
-        ROADMAP A11c)."""
+        placement search; over the ranks of a ``torch.distributed`` world
+        the first ``fit`` batch then runs the measured (data, model) search
+        and trains the chosen cut (``FFModel._auto_parallelize``)."""
         self.ff.compile(optimizer=optimizer, loss_type=_LOSS_MAP[loss],
                         metrics=metrics, auto_parallel=auto_parallel)
 

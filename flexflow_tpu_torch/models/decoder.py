@@ -114,8 +114,8 @@ from flexflow_tpu_torch.ops.kernels.decode_attention import (
 from flexflow_tpu_torch.ops.kernels.flash_prefill import flash_prefill
 from flexflow_tpu_torch.ops.kernels.quant_matmul import LayerQuant, quant_matmul
 from flexflow_tpu_torch.ops.ring_attention import gather_states
-from flexflow_tpu_torch.parallel.mesh import (MODEL_AXIS, copy_to_model, gather_from_model,
-                                             reduce_from_model)
+from flexflow_tpu_torch.parallel.mesh import (FFN_AXES, MODEL_AXIS, copy_to_model,
+                                             gather_from_model, reduce_from_model)
 from flexflow_tpu_torch.parallel.sharding import first_position
 from flexflow_tpu_torch.peft.lora import RoutedLora
 from flexflow_tpu_torch.quant.weight_only import QuantizedArray, concat_rest
@@ -287,11 +287,16 @@ def fuse_qkv_params(spec: ModelSpec, params: Params, shard=None) -> Params:
 def _row_parallel(p: Params, what: str) -> bool:
     """Whether this rank's ``what`` ("heads" or "ffn") is a row-parallel
     cut (or, for "ffn", a share of the experts) whose partial outputs are
-    summed over the mesh."""
+    summed over the mesh. Over a group of one rank (a mesh with one model
+    rank, and for a hybrid FFN one data rank too) the cut is the whole
+    axis: the one-device product, bit for bit, with nothing to sum."""
     sh = p.get("_shard")
     if sh is None:
         return False
-    return sh.ffn_partial if what == "ffn" else sh.heads is not None
+    m = sh.mesh
+    if what == "ffn":
+        return sh.ffn_partial and m.model * (m.data if sh.ffn_axis == FFN_AXES else 1) > 1
+    return sh.heads is not None and m.model > 1
 
 
 def _reduced(p: Params, partial, bias, dtype, axis=MODEL_AXIS):

@@ -21,14 +21,16 @@ Differences from the JAX module:
 
 - ``MachineModel``'s defaults are the H100 SXM's datasheet figures (dense
   bf16 rate, HBM3 rate and size, one direction of NVLink 4), not a v5e's.
-- The search places on one device: ``layout_mesh`` gives ``None`` for
-  ``Layout(1, 1, 1)`` and refuses any other layout, and
-  ``optimize_train_layout`` / ``optimize_serving_layout`` refuse more than
-  one device before measuring anything (the search over a mesh, ROADMAP
-  A11c). The meshes themselves are in the port (``parallel/mesh.make_mesh``:
-  serving, and training with pipeline stages too). Without
-  ``n_devices`` they count the CUDA devices for a CUDA device and one for
-  the CPU.
+- The devices are the ranks of the default process group (one process a
+  rank, each its device; ``device_count``): JAX counts the devices its one
+  controller sees. Over more than one rank every rank runs the search, in
+  the same order: it enumerates and ranks the candidates alike, builds
+  each candidate's mesh (``layout_mesh``: ``parallel/mesh.make_mesh``, a
+  collective), agrees with the others whether the build succeeded before
+  any step runs, times the step, and takes the longest of the ranks' times
+  (``measure_layout``), so every rank's report and choice are the same. A
+  candidate's groups (``on_mesh``: on every rank, whether or not its build
+  failed there), Trainer or engine are released before the next is built.
 - A candidate that fails to build or run is skipped, as in JAX, but the
   exception's text goes into the report; when no candidate ran the search
   raises with those texts instead of returning nothing (or, for serving,
@@ -40,12 +42,16 @@ Differences from the JAX module:
 from __future__ import annotations
 
 import dataclasses
+import gc
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from flexflow_tpu_torch.device import resolve_device
+from flexflow_tpu_torch.parallel import mesh as mesh_lib
 from flexflow_tpu_torch.specs import ModelSpec
 
 
@@ -83,26 +89,65 @@ class MachineModel:
 
 
 def device_count(device=None) -> int:
-    """The devices a search may place on: the CUDA devices for a CUDA
-    device, one for the CPU."""
+    """The devices a search places on: the world size of the default
+    process group (under ``torchrun`` before it is formed, its
+    ``WORLD_SIZE``); one without a group. More than one CUDA device in a
+    process without a group raises ``make_mesh``'s error: each rank is a
+    process of its own."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
     dev = resolve_device(device)
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n > 1:
+        raise mesh_lib.needs_group(n)
+    return 1
 
 
-def refuse_mesh(n_devices: int, what: str, serving: bool = False) -> None:
-    """The search places on one device. Over more, serving and training
-    have their meshes (pass the degrees, or ``Trainer(mesh=make_mesh(...))``)
-    but not the search over them (A11c)."""
-    if n_devices > 1:
-        if serving:
-            raise NotImplementedError(
-                f"{what} over {n_devices} devices: the serving mesh (ROADMAP.md Queue A, A8a) "
-                "is in the port (pass tensor_parallelism_degree / data_parallelism_degree), "
-                "the layout search on it (A11c) is not yet")
-        raise NotImplementedError(
-            f"{what} over {n_devices} devices: the training mesh is in the port (pass "
-            "mesh=parallel.mesh.make_mesh(data=, model=)), the layout search on it (ROADMAP.md "
-            "Queue A, A11c) is not yet")
+def search_device(device, n: int) -> torch.device:
+    """The device this rank searches on: ``device``, except that an
+    unnumbered CUDA device over more than one rank is ``cuda:LOCAL_RANK``
+    (``make_mesh``'s default). Under ``torchrun`` the default group is
+    formed here, as ``make_mesh`` forms it."""
+    dev = resolve_device(device)
+    if n > 1 and not dist.is_initialized() and "WORLD_SIZE" in os.environ \
+            and "RANK" in os.environ:
+        mesh_lib.init_world(n, "nccl" if dev.type == "cuda" else "gloo")
+    if n > 1 and dev.type == "cuda" and dev.index is None:
+        return mesh_lib._default_device()
+    return dev
+
+
+def speaks() -> bool:
+    """Whether this process logs a search's choice: rank 0 of a world (JAX's
+    one controller), or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _world_all(value: float, op, device: torch.device) -> float:
+    """``value`` reduced over every rank of the default group with ``op``."""
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=op)
+    return float(t.item())
+
+
+_ERROR_BYTES = 512  # an agreed error text's bytes (longer texts are cut)
+
+
+def _agreed_error(err: Optional[str], device: torch.device) -> Optional[str]:
+    """The error every rank reports for a candidate: None when no rank
+    failed, else the lowest failing rank's text (``rank r: ...``)."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    first = int(_world_all(rank if err is not None else world, dist.ReduceOp.MIN, device))
+    if first == world:
+        return None
+    buf = torch.zeros(_ERROR_BYTES, dtype=torch.uint8, device=device)
+    if rank == first:
+        text = f"rank {rank}: {err}".encode()[:_ERROR_BYTES]
+        buf[:len(text)] = torch.frombuffer(bytearray(text), dtype=torch.uint8)
+    dist.broadcast(buf, src=first)
+    return bytes(buf.cpu().tolist()).rstrip(b"\0").decode(errors="replace")
 
 
 def _sync(device: torch.device) -> None:
@@ -225,6 +270,23 @@ def analytic_cost(
     return compute * bubble + comm
 
 
+def on_mesh(mesh, build: Callable[[], Callable[[], None]]) -> Callable[[], None]:
+    """A candidate's step, ``build()``, on its ``mesh`` (a step factory's
+    last line once it has made the mesh): the step carries the mesh's
+    ``release``, and so does the exception when ``build`` raises, so that
+    ``measure_layout`` frees the groups on every rank at one point whether
+    or not this rank's build failed."""
+    try:
+        run = build()
+    except Exception as e:
+        if mesh is not None:
+            e.release = mesh.release
+        raise
+    if mesh is not None:
+        run.release = mesh.release
+    return run
+
+
 def measure_layout(
     step_factory: Callable[[Layout], Callable[[], None]],
     layout: Layout,
@@ -235,20 +297,55 @@ def measure_layout(
 ) -> Tuple[float, Optional[str]]:
     """Build and time the real step for a layout: (mean seconds a step,
     None), or (inf, the exception's text) when the candidate fails to build
-    or run (it is skipped, not fatal to the search)."""
+    or run (it is skipped, not fatal to the search).
+
+    Over a world (the default group's ranks, more than one) every rank
+    calls this for the same layout at the same point. Whether every rank
+    built it is agreed before any step runs: a candidate is skipped on
+    every rank or on none, with the lowest failing rank's text. The time is
+    the longest rank's. The factory makes its mesh before anything that
+    can fail on one rank alone, and returns through ``on_mesh``. A step
+    that raises on one rank after the build cannot be agreed on: the
+    others wait in its collectives.
+
+    The step (and what it holds) is dropped, its mesh's groups released
+    (every rank, built or failed) and the device's cache emptied before
+    this returns."""
     dev = resolve_device(device)
+    world = dist.is_initialized() and dist.get_world_size() > 1
+    step, err, release = None, None, None
     try:
         step = step_factory(layout)
-        for _ in range(warmup):
-            step()
-        _sync(dev)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        _sync(dev)
-        return (time.perf_counter() - t0) / reps, None
+        release = getattr(step, "release", None)
     except Exception as e:  # noqa: BLE001 — recorded in the report
-        return float("inf"), f"{type(e).__name__}: {e}"
+        err = f"{type(e).__name__}: {e}"
+        release = getattr(e, "release", None)
+    try:
+        if world:
+            err = _agreed_error(err, dev)
+        if err is not None:
+            return float("inf"), err
+        try:
+            for _ in range(warmup):
+                step()
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            _sync(dev)
+            t = (time.perf_counter() - t0) / reps
+        except Exception as e:  # noqa: BLE001 — recorded in the report
+            return float("inf"), f"{type(e).__name__}: {e}"
+        if world:
+            t = _world_all(t, dist.ReduceOp.MAX, dev)
+        return t, None
+    finally:
+        step = None
+        gc.collect()
+        if release is not None:
+            release()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def _measure_ranked(ranked, cost_of, step_factory, measure_top_k, device, what):
@@ -286,9 +383,13 @@ def optimize_layout(
     """Pick the fastest layout; returns (best, report).
 
     ``step_factory(layout)`` must return a zero-arg callable running one real
-    training or serving step under that layout. Raises when no candidate
-    ran (each report entry then holds its ``error``)."""
+    training or serving step under that layout (with a ``release``
+    attribute, a callable, when it holds something to free explicitly; a
+    factory that makes a mesh returns through ``on_mesh``). Over more than
+    one rank every rank calls this alike (``measure_layout``). Raises when no candidate ran (each report entry
+    then holds its ``error``)."""
     n = n_devices or device_count(device)
+    dev = search_device(device, n)
     candidates = enumerate_layouts(n, spec, batch_size)
     if not candidates:
         raise ValueError(f"no legal layouts for {n} devices")
@@ -297,18 +398,17 @@ def optimize_layout(
         return analytic_cost(lo, spec, batch_size, seq_len, machine)
 
     return _measure_ranked(sorted(candidates, key=cost_of), cost_of, step_factory,
-                           measure_top_k, device, "layout")
+                           measure_top_k, dev, "layout")
 
 
-def layout_mesh(layout: Layout):
-    """The mesh a Layout describes: ``None`` (one device) for
-    ``Layout(1, 1, 1)``; any other layout is a result of the search over a
-    mesh, which the port does not run yet."""
-    if (layout.data, layout.pipe, layout.model) == (1, 1, 1) and not layout.hybrid_ffn:
+def layout_mesh(layout: Layout, device=None):
+    """The mesh a Layout describes (``parallel/mesh.make_mesh(data=, pipe=,
+    model=)`` over the default group, on ``device``; ``None`` (one device)
+    for ``Layout(1, 1, 1)``)."""
+    if layout.data * layout.pipe * layout.model == 1:
         return None
-    raise NotImplementedError(
-        f"layout {layout}: training under a searched layout over more than one device needs "
-        "the search on a mesh (ROADMAP.md Queue A, A11c), which is not in the port yet")
+    return mesh_lib.make_mesh(data=layout.data, pipe=layout.pipe, model=layout.model,
+                              device=device)
 
 
 def optimize_train_layout(
@@ -325,42 +425,64 @@ def optimize_train_layout(
     device=None,
 ) -> Tuple[Layout, List[Dict]]:
     """Measured layout search for the Trainer (``Trainer(mesh="auto")``):
-    a real Trainer per candidate layout, one train step timed on synthetic
-    tokens. On one device the only candidate is dp = pp = tp = 1."""
+    a real Trainer per candidate layout (its mesh, stages and microbatches),
+    one train step timed on synthetic tokens. On one device the only
+    candidate is dp = pp = tp = 1. Each candidate's Trainer trains copies
+    of ``params`` (``optimizer`` holds no state), so the search leaves them
+    as it found them."""
     import numpy as np
 
     from flexflow_tpu_torch.training.trainer import Trainer
 
-    dev = resolve_device(device)
-    n = n_devices or device_count(dev)
-    refuse_mesh(n, "the training layout search")
+    n = n_devices or device_count(device)
+    dev = search_device(device, n)
     vocab = spec.vocab_size
     rng = np.random.RandomState(0)
     toks = rng.randint(1, vocab, size=(batch_size, seq_len)).astype(np.int32)
     labels = np.roll(toks, -1, axis=1)
 
     def step_factory(layout: Layout):
-        mesh = layout_mesh(layout)
-        tr = Trainer(spec, params, optimizer, mesh=mesh,
-                     pipeline_stages=layout.pipe,
-                     num_microbatches=layout.num_microbatches, loss=loss, device=dev)
+        mesh = layout_mesh(layout, dev)
 
-        def run():
-            tr.train_step(toks, labels)  # returns the loss as a float: it waits
+        def build():
+            tr = Trainer(spec, params, optimizer, mesh=mesh, pipeline_stages=layout.pipe,
+                         num_microbatches=layout.num_microbatches, loss=loss, device=dev)
 
-        return run
+            def run():
+                tr.train_step(toks, labels)  # returns the loss as a float: it waits
+
+            return run
+
+        return on_mesh(mesh, build)
 
     best, report = optimize_layout(
         spec, step_factory, n_devices=n, batch_size=batch_size,
         seq_len=seq_len, measure_top_k=measure_top_k, device=dev,
     )
-    log_fn(f"[auto-parallel] chose layout {best} "
-           f"(measured {len(report)} candidates)")
-    for r in report:
-        log_fn(f"[auto-parallel]   {r['layout']}: "
-               f"analytic {r['analytic_s']:.4g}s measured "
-               f"{r['measured_s']:.4g}s")
+    if speaks():
+        log_fn(f"[auto-parallel] chose layout {best} "
+               f"(measured {len(report)} candidates)")
+        for r in report:
+            log_fn(f"[auto-parallel]   {r['layout']}: "
+                   f"analytic {r['analytic_s']:.4g}s measured "
+                   f"{r['measured_s']:.4g}s")
     return best, report
+
+
+def serving_candidates(n: int, spec: ModelSpec, batch_size: int) -> List[Layout]:
+    """JAX's serving candidates over ``n`` devices: the TP x PP layouts
+    (serving keeps data == 1), then, for each pp = 1 layout whose TP is
+    capped below ``n`` (kv_heads / head divisibility), its per-op hybrid
+    twin ``Layout(n // tp, 1, tp, hybrid_ffn=True)`` where the FFN divides
+    by ``n`` (the leftover factor cuts the FFN only)."""
+    candidates = [lo for lo in enumerate_layouts(n, spec, batch_size) if lo.data == 1]
+    for lo in list(candidates):
+        if lo.pipe != 1 or lo.model >= n:
+            continue
+        rem = n // lo.model
+        if rem > 1 and spec.intermediate_size % (lo.model * rem) == 0:
+            candidates.append(Layout(rem, 1, lo.model, hybrid_ffn=True))
+    return candidates
 
 
 def optimize_serving_layout(
@@ -375,45 +497,44 @@ def optimize_serving_layout(
     log_fn: Callable[[str], None] = print,
     device=None,
 ) -> Tuple[Layout, List[Dict]]:
-    """Measured serving-layout search: TP x PP candidates (serving keeps
-    data == 1), ranked analytically, then timed on one decode step of an
-    ``InferenceEngine``. On one device the only candidate is
-    ``Layout(1, 1, 1)``."""
+    """Measured serving-layout search: ``serving_candidates``, ranked
+    analytically, then timed on one decode step of an ``InferenceEngine``
+    under each (``hybrid_ffn`` for a hybrid candidate) or, with pipeline
+    stages, a ``PipelineInferenceEngine``. On one device the only candidate
+    is ``Layout(1, 1, 1)``."""
     import numpy as np
 
-    dev = resolve_device(device)
-    n = n_devices or device_count(dev)
-    refuse_mesh(n, "the serving layout search", serving=True)
+    n = n_devices or device_count(device)
+    dev = search_device(device, n)
     dtype = cache_dtype if cache_dtype is not None else torch.bfloat16
 
     def step_factory(layout: Layout):
         from flexflow_tpu_torch.ops.sampling import SamplingConfig
         from flexflow_tpu_torch.serving.engine import InferenceEngine
+        from flexflow_tpu_torch.serving.pp_engine import PipelineInferenceEngine
 
-        layout_mesh(layout)
-        eng = InferenceEngine(spec, params, max_requests_per_batch=batch_size,
-                              max_seq_len=max_seq_len, cache_dtype=dtype, device=dev)
+        mesh = layout_mesh(layout, dev)
+        kw = dict(max_requests_per_batch=batch_size, max_seq_len=max_seq_len,
+                  cache_dtype=dtype, device=dev)
         lens = np.full((batch_size,), 8, np.int32)
         toks = np.ones((batch_size,), np.int32)
-        scfg = SamplingConfig.greedy(batch_size, dev)
+        scfg = SamplingConfig.greedy(batch_size)  # host values, as a manager passes them
 
-        def run():
-            eng.decode(lens, toks, 0, scfg)  # returns host tokens: it waits
+        def build():
+            if layout.pipe > 1:
+                eng = PipelineInferenceEngine(spec, params, mesh=mesh, **kw)
+            else:
+                eng = InferenceEngine(spec, params, mesh=mesh, hybrid_ffn=layout.hybrid_ffn,
+                                      **kw)
 
-        return run
+            def run():
+                eng.decode(lens, toks, 0, scfg)  # returns host tokens: it waits
 
-    candidates = [
-        lo for lo in enumerate_layouts(n, spec, batch_size) if lo.data == 1
-    ]
-    # per-op hybrid candidates: when uniform TP is capped below the device
-    # count (kv_heads / head divisibility), the leftover factor shards the
-    # FFN only
-    for lo in list(candidates):
-        if lo.pipe != 1 or lo.model >= n:
-            continue
-        rem = n // lo.model
-        if rem > 1 and spec.intermediate_size % (lo.model * rem) == 0:
-            candidates.append(Layout(rem, 1, lo.model, hybrid_ffn=True))
+            return run
+
+        return on_mesh(mesh, build)
+
+    candidates = serving_candidates(n, spec, batch_size)
     if not candidates:
         raise ValueError(f"no legal serving layouts for {n} devices")
 
@@ -422,8 +543,9 @@ def optimize_serving_layout(
 
     best, report = _measure_ranked(sorted(candidates, key=cost_of), cost_of, step_factory,
                                    measure_top_k, dev, "serving layout")
-    log_fn(f"[auto-parallel] serving layout {best} "
-           f"(measured {len(report)} candidates)")
+    if speaks():
+        log_fn(f"[auto-parallel] serving layout {best} "
+               f"(measured {len(report)} candidates)")
     return best, report
 
 

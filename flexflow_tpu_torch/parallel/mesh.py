@@ -282,6 +282,25 @@ class Mesh:
         for work, _ in sends:
             work.wait()
 
+    def release(self) -> None:
+        """Destroy this rank's groups of the mesh (the default group stays);
+        every rank calls it once it is done with the mesh (a layout search's
+        candidate). The mesh runs no collective after it. The default
+        group's barriers around it keep a rank from closing a gloo group's
+        connections while a peer still reads them, or from making the next
+        groups while a peer still closes these."""
+        dist.barrier()
+        names = ("model_group", "data_group", "ffn_group", "pipe_group", "next_group",
+                 "prev_group", "return_group", "seq_group", "ring_out_group", "ring_in_group")
+        done = []
+        for name in names:
+            g = getattr(self, name)
+            setattr(self, name, None)
+            if g is not None and not any(g is d for d in done):
+                done.append(g)
+                dist.destroy_process_group(g)
+        dist.barrier()
+
     def warm(self, device) -> None:
         """One eager collective on each group (NCCL makes a communicator at
         its first collective, which must not happen under graph capture).
@@ -396,6 +415,27 @@ def _default_device() -> torch.device:
     return torch.device("cuda", local)
 
 
+def needs_group(n: int) -> RuntimeError:
+    """The error of ``n`` ranks asked for in a process without a group."""
+    return RuntimeError(f"a {n}-rank mesh needs a process group: run under torchrun or call "
+                        "torch.distributed.init_process_group first")
+
+
+def init_world(need: int, backend: str) -> None:
+    """Form the default process group unless one is initialised: from
+    ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``),
+    or, for ``need == 1``, one rank on a free localhost port; else raise."""
+    if dist.is_initialized():
+        return
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    elif need == 1:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0)
+    else:
+        raise needs_group(need)
+
+
 def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
               backend: Optional[str] = None,
               device: Optional[Union[str, torch.device]] = None) -> Mesh:
@@ -420,15 +460,7 @@ def make_mesh(data: int = 1, pipe: int = 1, model: int = 1, seq: int = 1, *,
             backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if not dist.is_initialized():
-        if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
-            dist.init_process_group(backend, init_method="env://")
-        elif need == 1:
-            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
-                                    world_size=1, rank=0)
-        else:
-            raise RuntimeError(f"a {need}-rank mesh needs a process group: run under torchrun "
-                               "or call torch.distributed.init_process_group first")
+    init_world(need, backend)
     world, rank = dist.get_world_size(), dist.get_rank()
     if need != world:
         raise ValueError(f"mesh {data}x{pipe}x{model}x{seq} needs {need} ranks, the world "

@@ -99,6 +99,7 @@ class LLM:
     """A served causal LM."""
 
     mesh = None  # this rank's parallel/mesh.Mesh once compile has made one
+    auto_report = None  # the serving layout search's, when compile ran it
     broadcast_port = DEFAULT_PORT  # the request broadcaster's, under a mesh
 
     def __init__(self, model_dir: str, *, data_type: str = "bfloat16",
@@ -185,6 +186,54 @@ class LLM:
         self.device = mesh.device
         return mesh
 
+    def _auto_layout(self, batch: int, max_seq_len: int):
+        """JAX's serving layout over the ranks (``flexflow_tpu/serve.py``
+        ``LLM.compile``): analytically alone when the whole model in the
+        serving dtype passes 0.35 of a device's memory (the probe would not
+        fit), else ``optimize_serving_layout`` on a seeded probe model of
+        the spec. Only the tensor and pipeline degrees are served, as in
+        JAX: a hybrid winner ``Layout(n / m, 1, m, hybrid_ffn=True)`` is
+        served at T = m, which JAX runs on its first m devices. At m = 1
+        every rank serves the whole model (JAX's one device); for 1 < m < n
+        the ranks past m would idle, which one program over every rank
+        cannot do: it raises."""
+        from flexflow_tpu_torch.models.params import init_params
+
+        sp, n = self.spec, auto_lib.device_count(self.device)
+        mlp_mults = 3 if sp.act == "silu_gate" else 2
+        n_params = sp.num_layers * (
+            sp.hidden_size * (sp.num_heads + 2 * sp.num_kv_heads) * sp.head_dim
+            + sp.num_heads * sp.head_dim * sp.hidden_size
+            + mlp_mults * sp.hidden_size * sp.intermediate_size
+        ) + 2 * sp.vocab_size * sp.hidden_size
+        bpp = 2 if self.dtype == torch.bfloat16 else 4
+        machine = auto_lib.MachineModel()
+        if n_params * bpp > 0.35 * machine.hbm_bytes:
+            cands = [lo for lo in auto_lib.enumerate_layouts(n, sp, batch) if lo.data == 1]
+            layout = min(cands, key=lambda lo: auto_lib.analytic_cost(lo, sp, batch, max_seq_len,
+                                                                      machine))
+            self.auto_report = [{
+                "layout": str(layout),
+                "analytic_s": auto_lib.analytic_cost(layout, sp, batch, max_seq_len, machine),
+                "measured_s": None, "note": "analytic-only (unsharded probe exceeds HBM)"}]
+            if auto_lib.speaks():
+                print(f"[auto-parallel] serving layout {layout} (analytic-only: model too "
+                      "large for probe)")
+        else:
+            dev = auto_lib.search_device(self.device, n)
+            probe = init_params(sp, 0, self.dtype, dev)
+            layout, self.auto_report = auto_lib.optimize_serving_layout(
+                sp, probe, batch_size=batch, max_seq_len=max_seq_len, cache_dtype=self.dtype,
+                n_devices=n, device=dev)
+            del probe
+        m = layout.model * layout.pipe
+        if 1 < m < n:
+            raise NotImplementedError(
+                f"the serving search chose {layout} over {n} ranks: JAX serves its tensor degree "
+                f"alone (T={layout.model}) on its first {m} devices and leaves the others idle, "
+                "which one program over every rank cannot do")
+        return layout
+
     def compile(self, *, max_requests_per_batch: int = 8, max_seq_length: int = 256,
                 max_tokens_per_batch: Optional[int] = None,
                 tensor_parallelism_degree: int = 1, data_parallelism_degree: int = 1,
@@ -212,8 +261,8 @@ class LLM:
         ``-auto-parallelism``) is JAX's serving layout search, which runs
         only over more than one device (and not with drafts, adapters or
         quantization), with the degrees left at 1: on one device it does
-        nothing, as in JAX; over more it raises (the search over a mesh is
-        ROADMAP A11c).
+        nothing, as in JAX; over the ranks of the default process group it
+        picks the tensor and pipeline degrees (``_auto_layout``).
 
         ``tensor_parallelism_degree`` x ``data_parallelism_degree`` (JAX's
         signature) serve over that many ranks (``parallel/mesh.make_mesh``;
@@ -244,9 +293,10 @@ class LLM:
         degrees = (tensor_parallelism_degree, data_parallelism_degree,
                    pipeline_parallelism_degree, context_parallel_degree)
         if (auto_parallel and max(degrees) == 1 and not self._ssms and not self._peft
-                and self.quant_bits is None):
-            auto_lib.refuse_mesh(auto_lib.device_count(self.device),
-                                 "LLM.compile(auto_parallel=True)", serving=True)
+                and self.quant_bits is None and auto_lib.device_count(self.device) > 1):
+            layout = self._auto_layout(max_requests_per_batch, max_seq_length)
+            tensor_parallelism_degree, pipeline_parallelism_degree = layout.model, layout.pipe
+            degrees = (layout.model, 1, layout.pipe, 1)
         use_pp = pipeline_parallelism_degree > 1
         if use_pp:
             # JAX's refusals under pipeline stages (flexflow_tpu/serve.py:250-268)

@@ -10,10 +10,11 @@ grad on the Trainer's device.
 
 Quantized parameters are refused (``TypeError``): JAX cannot take a
 gradient of integer leaves either. ``mesh="auto"`` runs the layout search
-(``parallel/auto.optimize_train_layout``: on one device it measures the
-only layout, dp = pp = tp = 1, and trains under it; its report is
-``auto_report``); over more than one device it raises (the search on a
-mesh, ROADMAP A11c).
+(``parallel/auto.optimize_train_layout``; its report is ``auto_report``)
+over the ranks of the default process group, every rank alike: a Trainer
+a candidate layout, each on copies of the parameters, timed on synthetic
+tokens; then this Trainer trains from the given parameters under the
+chosen layout's mesh, stages and microbatches (on one device: no mesh).
 
 ``mesh=`` a ``parallel/mesh.Mesh`` (JAX: Megatron shardings for the
 parameters, ``P("data")`` for the batch, GSPMD's gradient sums): each rank
@@ -87,8 +88,9 @@ class Trainer:
                  loss: str = "sparse_categorical_crossentropy",
                  auto_batch_size: int = 8, auto_seq_len: int = 128, device=None):
         """``mesh="auto"`` measures the legal layouts' train steps at
-        (``auto_batch_size``, ``auto_seq_len``) and trains under the
-        fastest; on one device that is no mesh."""
+        (``auto_batch_size``, ``auto_seq_len``) over the default group's
+        ranks and trains under the fastest (its mesh, pipeline stages and
+        microbatches); on one device that is no mesh."""
         self.auto_report = None
         if isinstance(mesh, str):
             if mesh != "auto":
@@ -98,7 +100,8 @@ class Trainer:
             layout, self.auto_report = auto_lib.optimize_train_layout(
                 spec, params, optimizer, batch_size=auto_batch_size, seq_len=auto_seq_len,
                 loss=loss, device=device)
-            mesh = auto_lib.layout_mesh(layout)
+            mesh = auto_lib.layout_mesh(layout, device)
+            pipeline_stages, num_microbatches = layout.pipe, layout.num_microbatches
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh or 'auto', got "
                             f"{type(mesh).__name__}")

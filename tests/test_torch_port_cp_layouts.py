@@ -19,7 +19,8 @@ computes JAX's side while they run):
   equal bit for bit;
 - the Trainer at C = 2 and D = 2 x C = 2 against JAX's ``Trainer(mesh=)``
   (``test_torch_port_mesh_training.py``'s tolerances), every seq rank's
-  parameters equal bit for bit;
+  parameters equal bit for bit, and at C = 2 its losses and parameters
+  bitwise the port's one-device Trainer's;
 - ``FFModel(mesh=)`` with a seq mesh trains as without it;
 - ``LLM.compile(context_parallel_degree=2)`` with ``offload=True`` and with
   an HF PEFT adapter against JAX's ``LLM`` at one device.
@@ -304,6 +305,24 @@ def _close(got, want, tol):
             np.testing.assert_allclose(got[k], np.asarray(w), atol=tol, rtol=tol, err_msg=k)
 
 
+def _one_device_train(params, batches):
+    """The port's one-device Trainer on the "train" case: its losses and
+    final parameters (numpy)."""
+    from flexflow_tpu_torch.models import params as tp
+    from flexflow_tpu_torch.training import SGDOptimizer, Trainer
+
+    tr = Trainer(_tspec(TSPEC), tp.params_from_numpy(params), SGDOptimizer(lr=0.05),
+                 device="cpu")
+    losses = [tr.train_step(toks, labels) for toks, labels in batches]
+    full = tr.full_params()
+
+    def numpy(tree):
+        return ({k: numpy(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.detach().numpy().copy())
+
+    return dict(losses=losses, full=numpy(full))
+
+
 def _equal_on_ranks(res, name, key):
     """``key`` of case ``name`` bitwise the same on every rank."""
     def flat(tree, pre=""):
@@ -409,6 +428,12 @@ def test_two_seq_ranks_lora_offload_finetune_trainer_llm(tmp_path, unfused_jax):
     np.testing.assert_allclose(jtrain["losses"], jtrain_one["losses"], atol=1e-5, rtol=1e-5)
     _equal_on_ranks(res, "train", "losses")
     _equal_on_ranks(res, "train", "full")
+    # and bitwise the port's one-device Trainer: no sum runs over seq, and a
+    # mesh of one model rank takes the one-device products (C6)
+    one = {"train": _one_device_train(ntrain, batches)}
+    for r in res:
+        assert r["train"]["losses"] == one["train"]["losses"]
+        _equal_on_ranks([r, one], "train", "full")
     llm = [r["llm"] for r in res]
     assert all(x == llm[0] for x in llm)
     assert llm[0]["offload"]["tokens"] == want_llm and llm[0]["offload"]["store"]
@@ -471,8 +496,9 @@ def test_four_ranks_lora_hybrid_trainer_with_a_seq_axis(tmp_path, unfused_jax):
 def test_ffmodel_with_a_seq_mesh_trains_as_without():
     """``FFModel(mesh=)`` keeps a seq mesh unread, as JAX does: the same
     builder calls train to the same losses with and without it (bitwise),
-    and ``compile(auto_parallel=True)`` over the mesh's two devices raises
-    (the search on a mesh, A11c)."""
+    and ``compile(auto_parallel=True)`` counts the world's ranks, not the
+    mesh's axes: in one process it plans for one device and trains as
+    without the search."""
     import pytest
 
     from flexflow_tpu_torch.ffmodel import FFModel, SGDOptimizer
@@ -495,5 +521,6 @@ def test_ffmodel_with_a_seq_mesh_trains_as_without():
         got.append([h["loss"] for h in ff.fit(x, y, batch_size=8, epochs=2)])
         assert ff.device == torch.device("cpu")
     assert ff._mesh is mesh and got[0] == got[1]
-    with pytest.raises(NotImplementedError, match="A11c"):
-        build(FFModel(seed=0, mesh=mesh), auto_parallel=True)
+    auto = build(FFModel(seed=0, mesh=mesh), auto_parallel=True)
+    assert not auto._pending_auto and auto._cut is None
+    assert [h["loss"] for h in auto.fit(x, y, batch_size=8, epochs=2)] == got[0]

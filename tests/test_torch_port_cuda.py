@@ -1377,3 +1377,20 @@ def test_alexnet_shaped_forward_on_card_matches_cpu(cuda):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_serving_layout_search_measures_on_the_card(cuda):
+    """``optimize_serving_layout`` on one CUDA device times a real decode
+    step (its sampling values on the host, as a manager passes them): the
+    one candidate runs, no error in the report."""
+    from flexflow_tpu_torch.parallel import auto as t_auto
+
+    spec = ModelSpec(arch="LlamaForCausalLM", vocab_size=256, hidden_size=128, num_layers=2,
+                     num_heads=4, num_kv_heads=4, head_dim=32, intermediate_size=256,
+                     max_position_embeddings=256)
+    params = t_params.init_params(spec, 0, torch.bfloat16, cuda)
+    best, report = t_auto.optimize_serving_layout(spec, params, batch_size=4, max_seq_len=64,
+                                                  n_devices=1, device=cuda,
+                                                  log_fn=lambda s: None)
+    assert best == t_auto.Layout(1, 1, 1) and "error" not in report[0], report
+    assert 0 < report[0]["measured_s"] < float("inf")

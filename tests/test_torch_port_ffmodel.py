@@ -540,9 +540,12 @@ def test_regularizer_and_set_learning_rate_match_jax():
 
 def test_refusals(monkeypatch):
     """A mesh that is not a ``parallel.mesh.Mesh`` is a TypeError; a Mesh is
-    kept unread, as JAX keeps its own, and names the device; the search
-    runs on one device (``test_torch_port_search``) and names A11c over
-    more than one, a two-rank mesh included."""
+    kept unread, as JAX keeps its own, and names the device: the search
+    counts the world's ranks, not the mesh's axes (one in this process);
+    over more than one device without a process group the pending search
+    (JAX's, at the first ``fit`` batch) finds no candidate that builds and
+    raises ``make_mesh``'s "run under torchrun" (over a world of ranks:
+    ``test_torch_port_search_mesh``)."""
     from flexflow_tpu_torch.parallel import auto as auto_lib
     from flexflow_tpu_torch.parallel.mesh import Mesh
 
@@ -552,15 +555,18 @@ def test_refusals(monkeypatch):
     meshed = FFModel(mesh=mesh)
     assert meshed._mesh is mesh and meshed.device == torch.device("cpu")
     meshed.dense(meshed.create_tensor((2, 4)), 3)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        meshed.compile(auto_parallel=True)
+    meshed.compile(auto_parallel=True)
+    assert not meshed._pending_auto and meshed.joint_plan is not None
     ff = FFModel(device="cpu")
     ff.dense(ff.create_tensor((2, 4)), 3)
-    monkeypatch.setattr(auto_lib, "device_count", lambda device=None: 2)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        ff.compile(auto_parallel=True)
     with pytest.raises(RuntimeError, match="compile"):
         ff.forward(np.zeros((2, 4), np.float32))
+    monkeypatch.setattr(auto_lib, "device_count", lambda device=None: 2)
+    ff.compile(SGDOptimizer(lr=0.1), auto_parallel=True)
+    assert ff._pending_auto
+    x, y = np.zeros((2, 4), np.float32), np.zeros(2, np.int32)
+    with pytest.raises(RuntimeError, match="no auto-parallel candidate ran.*process group"):
+        ff.fit(x, y, batch_size=2, epochs=1)
     ff.compile()
     with pytest.raises(KeyError):
         ff.load_numpy({"no_such_node": {"w": np.zeros((4, 3), np.float32)}})

@@ -369,7 +369,8 @@ def test_refusals():
     Trainer's ``pipeline_stages`` without a mesh (a pipe mesh alone builds
     it), finetuning on a pipeline engine (JAX fails there too);
     the one-device engine takes no pipe mesh; ``layout_mesh`` with pipe > 1
-    (A11c)."""
+    builds the mesh, which without a process group raises ``make_mesh``'s
+    "run under torchrun"."""
     from flexflow_tpu_torch.models import params as tp
     from flexflow_tpu_torch.parallel import auto
     from flexflow_tpu_torch.parallel.mesh import Mesh
@@ -419,8 +420,8 @@ def test_refusals():
 
     with pytest.raises(NotImplementedError, match="JAX's FinetuneSession cannot run"):
         FinetuneSession(spec, LoraConfig(), 0, [])._build(Staged())
-    with pytest.raises(NotImplementedError, match="A11c"):
-        auto.layout_mesh(auto.Layout(data=1, pipe=2, model=1))
+    with pytest.raises(RuntimeError, match="2-rank mesh needs a process group"):
+        auto.layout_mesh(auto.Layout(data=1, pipe=2, model=1), device="cpu")
 
     def llm(ssms=(), peft=()):
         out = LLM.__new__(LLM)

@@ -519,30 +519,38 @@ def test_optimize_serving_layout_one_device(tiny_params):
 
 
 def test_refusals_over_more_than_one_device(tiny_params, monkeypatch):
-    """More than one device needs the search on a mesh (A11c); so does a
-    layout other than (1, 1, 1)."""
+    """The devices are the world's ranks: one in a process without a
+    process group (``WORLD_SIZE`` under torchrun). Over more than one
+    device without a group every layout's mesh raises ``make_mesh``'s "run
+    under torchrun", so the searches find no candidate that builds and
+    raise; ``Layout(1, 1, 1)`` is no mesh. Over a world of ranks:
+    ``test_torch_port_search_mesh``."""
     _, _, ts, npp = tiny_params
     params = tp.params_from_numpy(npp)
     assert ta.layout_mesh(ta.Layout(1, 1, 1)) is None
     for lo in (ta.Layout(2, 1, 1), ta.Layout(1, 1, 2), ta.Layout(1, 2, 1, 2),
-               ta.Layout(1, 1, 1, hybrid_ffn=True)):
-        with pytest.raises(NotImplementedError, match="A11c"):
-            ta.layout_mesh(lo)
-    with pytest.raises(NotImplementedError, match="A11c"):
+               ta.Layout(2, 1, 1, hybrid_ffn=True)):
+        with pytest.raises(RuntimeError, match="2-rank mesh needs a process group"):
+            ta.layout_mesh(lo, device="cpu")
+    with pytest.raises(RuntimeError, match="no layout candidate ran.*needs a process group"):
         ta.optimize_train_layout(ts, params, TSGD(), batch_size=4, seq_len=8, n_devices=2,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A8a.*A11c"):
+    with pytest.raises(RuntimeError, match="no serving layout candidate ran.*process group"):
         ta.optimize_serving_layout(ts, params, batch_size=2, max_seq_len=32, n_devices=8,
                                    device="cpu")
     assert ta.device_count("cpu") == 1
+    with monkeypatch.context() as m:
+        m.setenv("WORLD_SIZE", "4")
+        m.setenv("RANK", "1")
+        assert ta.device_count("cpu") == 4
     monkeypatch.setattr(ta, "device_count", lambda device=None: 2)
-    with pytest.raises(NotImplementedError, match="A11c"):
+    with pytest.raises(RuntimeError, match="no layout candidate ran"):
         TTrainer(ts, params, TSGD(), mesh="auto", device="cpu")
     ff = _interplay(TFF(device="cpu"))[0]
-    with pytest.raises(NotImplementedError, match="A11c"):
-        ff.compile(auto_parallel=True)
+    ff.compile(auto_parallel=True)  # the search is JAX's, pending until the first fit
+    assert ff._pending_auto and ff.joint_plan is not None
     ff.compile()  # without the search, one device's graph either way
-    assert ff.joint_plan is None
+    assert ff.joint_plan is None and not ff._pending_auto
 
 
 @pytest.fixture(scope="module")
@@ -572,8 +580,12 @@ def model_dir(tmp_path_factory):
 
 def test_llm_compile_auto_parallel(model_dir, monkeypatch):
     """JAX's serving search runs only over more than one device: on one,
-    ``LLM.compile(auto_parallel=True)`` serves as without it; over more it
-    raises (A8, A11c), also when ``config.auto_parallel`` asks for it."""
+    ``LLM.compile(auto_parallel=True)`` serves as without it. Over more, it
+    searches (here without a process group no candidate builds, and it
+    raises), also when ``config.auto_parallel`` asks for it. JAX serves a
+    hybrid winner ``Layout(n / m, 1, m, hybrid_ffn=True)`` at T = m on its
+    first m devices: at m = 1 every rank serves the whole model (one
+    device's tokens); at 1 < m < n it raises, naming JAX's rule."""
     from flexflow_tpu_torch.serve import LLM
 
     kw = dict(max_requests_per_batch=2, max_seq_length=64)
@@ -583,11 +595,69 @@ def test_llm_compile_auto_parallel(model_dir, monkeypatch):
         llm.compile(auto_parallel=auto, **kw)
         [res] = llm.generate([[1, 5, 9, 12]], max_new_tokens=6)
         outs.append(res.output_tokens)
+        assert llm.auto_report is None
     assert outs[0] == outs[1] and len(outs[0]) == 6
     monkeypatch.setattr(ta, "device_count", lambda device=None: 2)
-    with pytest.raises(NotImplementedError, match="A8.*A11c"):
+    with pytest.raises(RuntimeError, match="no serving layout candidate ran"):
         LLM(model_dir, data_type="float32", device="cpu").compile(auto_parallel=True, **kw)
     monkeypatch.setattr(tconfig, "auto_parallel", True)
-    with pytest.raises(NotImplementedError, match="A11c"):
+    with pytest.raises(RuntimeError, match="no serving layout candidate ran"):
         LLM(model_dir, data_type="float32", device="cpu").compile(**kw)
     LLM(model_dir, data_type="float32", device="cpu").compile(auto_parallel=False, **kw)
+    chosen = {}
+
+    def winner(spec, params, *, n_devices, **_):
+        lo = chosen["layout"]
+        return lo, [{"layout": str(lo), "analytic_s": 0.0, "measured_s": 1.0}]
+
+    monkeypatch.setattr(ta, "optimize_serving_layout", winner)
+    chosen["layout"] = ta.Layout(2, 1, 1, hybrid_ffn=True)
+    llm = LLM(model_dir, data_type="float32", device="cpu")
+    llm.compile(**kw)
+    assert llm.mesh is None and llm.auto_report[0]["layout"] == "dp=2 pp=1 tp=1 mb=1 ffn-tp=2"
+    [res] = llm.generate([[1, 5, 9, 12]], max_new_tokens=6)
+    assert res.output_tokens == outs[0]
+    monkeypatch.setattr(ta, "device_count", lambda device=None: 4)
+    chosen["layout"] = ta.Layout(2, 1, 2, hybrid_ffn=True)
+    with pytest.raises(NotImplementedError, match="T=2.*first 2 devices"):
+        LLM(model_dir, data_type="float32", device="cpu").compile(**kw)
+
+
+def test_llm_auto_parallel_large_model_analytic_only(monkeypatch):
+    """JAX's ``tests/test_auto_parallel.py`` case: a model whose whole
+    weights in the serving dtype pass 0.35 of a device's memory ranks the
+    layouts analytically (no probe) and serves JAX's choice at the
+    port's machine values. The port's device is an H100 (80 GB), so the
+    model is LLaMA-2-70B's width (JAX's 7B passes a v5e's 16 GB)."""
+    import flexflow_tpu_torch.serve as serve_mod
+    from flexflow_tpu_torch.serve import LLM
+
+    kw = dict(arch="LlamaForCausalLM", vocab_size=32000, hidden_size=8192, num_layers=80,
+              num_heads=64, num_kv_heads=8, head_dim=128, intermediate_size=28672,
+              max_position_embeddings=4096, norm_eps=1e-5)
+    js, big = _spec_pair(**kw)
+    llm = LLM.__new__(LLM)
+    llm.model_dir, llm.dtype, llm.quant_bits = "<big>", torch.bfloat16, None
+    llm.spec, llm.params, llm.tokenizer, llm.rm = big, None, object(), None
+    llm._ssms, llm._peft, llm.lora, llm.lora_config = [], [], None, None
+    llm.device = torch.device("cpu")
+    made = {}
+
+    def stop(self, tp_, dp, pp, cp):
+        made.update(tp=tp_, dp=dp, pp=pp, cp=cp)
+        raise RuntimeError("stop after layout choice")
+
+    monkeypatch.setattr(ta, "device_count", lambda device=None: 8)
+    monkeypatch.setattr(LLM, "_make_mesh", stop)
+    monkeypatch.setattr(serve_mod.auto_lib, "optimize_serving_layout",
+                        lambda *a, **k: pytest.fail("the probe must not be measured"))
+    with pytest.raises(RuntimeError, match="stop after layout choice"):
+        llm.compile(max_requests_per_batch=8, max_seq_length=256, auto_parallel=True)
+    [entry] = llm.auto_report
+    assert entry["measured_s"] is None and "analytic-only" in entry["note"]
+    jm, _ = _machines(_port_defaults())
+    cands = [lo for lo in ja.enumerate_layouts(8, js, 8) if lo.data == 1]
+    want = min(cands, key=lambda lo: ja.analytic_cost(lo, js, 8, 256, jm))
+    assert entry["layout"] == str(want)
+    _close(entry["analytic_s"], ja.analytic_cost(want, js, 8, 256, jm))
+    assert made == dict(tp=want.model, dp=1, pp=want.pipe, cp=1)

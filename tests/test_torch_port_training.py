@@ -249,8 +249,10 @@ def test_dataloader_batches_equal_jax(drop_last, shuffle):
 
 
 def test_refusals(monkeypatch):
-    """The pipelined Trainer, and the auto one over more than one device (on
-    one it trains: ``test_torch_port_search``), name their ROADMAP items; a
+    """The pipelined Trainer names its ROADMAP item, and the auto one over
+    more than one device without a process group raises ``make_mesh``'s
+    "run under torchrun" (on one device it trains: ``test_torch_port_search``;
+    over a world of ranks: ``test_torch_port_search_mesh``); a
     mesh that is not a ``parallel.mesh.Mesh`` is a TypeError, and a Mesh is
     taken (each rank's cut: ``test_torch_port_mesh_training``); a quantized
     parameter tree is a TypeError, as a gradient of JAX's integer leaves
@@ -269,7 +271,7 @@ def test_refusals(monkeypatch):
     assert tr.params["layers"]["wq"].shape[-2] == TINY["num_heads"] // 2
     with monkeypatch.context() as m:
         m.setattr(auto_lib, "device_count", lambda device=None: 2)
-        with pytest.raises(NotImplementedError, match="A11c"):
+        with pytest.raises(RuntimeError, match="no layout candidate ran.*needs a process group"):
             Trainer(ts, params, SGDOptimizer(), mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="'auto'"):
         Trainer(ts, params, SGDOptimizer(), mesh="manual", device="cpu")
