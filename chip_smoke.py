@@ -20,6 +20,7 @@
     python3 chip_smoke.py --only card,build,kernels,cp
     python3 chip_smoke.py --only card,build,dist
     python3 chip_smoke.py --only card,build,kernels --parent DIR   # beside an earlier kernel
+    python3 chip_smoke.py --only card,build,variants --parent DIR  # split-K variants vs earlier
 
 Phases, in order; any failure exits non-zero:
 
@@ -71,7 +72,13 @@ Phases, in order; any failure exits non-zero:
               its plain version (1% of the output's magnitude) and by its
               identity probe (one-hot rows of x return the dequantized
               weight's rows, rounded to bf16, bitwise), and the plain version
-              and one PyTorch library call timed beside it.
+              and one PyTorch library call timed beside it. The split-K
+              variants (i8_group, i4_and_2dot) must give the same bits on a
+              second call, and log their split of the contraction. With
+              ``--parent DIR`` an earlier checkout's qmm_variants.cu is built
+              too: its i8_group and i4_and_2dot are held to the same 1% of
+              the plain versions and timed beside this tree's in turns
+              (earlier, new, new, earlier) at every width.
 5. crosscheck — a 2-layer decoder at full 7B width, INT8 and INT4: prefill
               and ``CROSSCHECK_STEPS`` = 2 decode steps through the kernels on the GPU against the
               plain versions on the CPU (same weights, same tokens). At INT8,
@@ -541,7 +548,8 @@ Phases, in order; any failure exits non-zero:
               below them; for LoRA also the adapters' device time (the busy
               time the adapters add) and the kernels that grew most.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (the split-K variants'
+rows also carry ``split``, their blocks along the contraction); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -733,16 +741,19 @@ def _weight_bytes(bits: int, d: int, f: int, g: int) -> int:
 
 def build_parent(root: str) -> dict:
     """Build each of an earlier checkout's (``root``) ``quant_matmul.cu``,
-    ``flash_prefill.cu`` and ``decode_attention.cu`` (under
-    ``flexflow_tpu_torch/csrc``) that exists into a library of its own, one
-    nvcc each, started together, and load it beside this one. Returns
-    {"quant_matmul": handle, ...} for the sources found. The earlier
+    ``flash_prefill.cu``, ``decode_attention.cu`` and ``qmm_variants.cu``
+    (under ``flexflow_tpu_torch/csrc``) that exists into a library of its
+    own, one nvcc each, started together, and load it beside this one.
+    Returns {"quant_matmul": handle, ...} for the sources found. The earlier
     quant-matmul's entry points take no scratch pointer: ``ff_qmm_int8(x, q,
     scale, out, M, D, Fp, n_out, g, layer, x_bf16, out_f32, stream)`` and
     ``ff_qmm_int4`` with ``offset`` after ``scale``; ``ff_flash_prefill`` has
     this tree's signature; the earlier ``ff_decode_attention`` takes no
     workspace or chunk: ``(q, k_cache, v_cache, k_new, v_new, lens, idx, nx,
-    self, out, B, NT, H, KH, S, D, scale, is_bf16, stream)``."""
+    self, out, B, NT, H, KH, S, D, scale, is_bf16, stream)``; the earlier
+    ``ff_qmm_v_i8_group`` takes no workspace, counters or split: ``(x, q,
+    scale, out, M, D, Fp, n_out, g, cols, stream)``, and ``ff_qmm_v_i4_and_2dot``
+    the same with ``offset`` after ``scale``."""
     import ctypes
     import hashlib
     import subprocess
@@ -756,6 +767,8 @@ def build_parent(root: str) -> dict:
                          "ff_qmm_int4": [P] * 5 + [I] * 5 + [L, I, I, P]},
         "flash_prefill": {"ff_flash_prefill": _build.SIGNATURES["ff_flash_prefill"]},
         "decode_attention": {"ff_decode_attention": [P] * 10 + [I] * 6 + [F, I, P]},
+        "qmm_variants": {"ff_qmm_v_i8_group": [P] * 4 + [I] * 6 + [P],
+                         "ff_qmm_v_i4_and_2dot": [P] * 5 + [I] * 6 + [P]},
     }
     builds = {}
     for name in entries:
@@ -782,6 +795,23 @@ def build_parent(root: str) -> dict:
             getattr(handle, fn).restype = ctypes.c_int
         handles[name] = handle
     return handles
+
+
+def _variant_parent(plib, name, x, qa, cols):
+    """The earlier kernel of split-K variant ``name`` (``build_parent``) on
+    carrier ``qa``."""
+    import torch
+
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    out = torch.empty((x.shape[0], qa.d_rest), dtype=x.dtype, device=x.device)
+    tables = [qa.scale] + ([qa.offset] if qa.bits == 4 else [])
+    err = getattr(plib, f"ff_qmm_v_{name}")(
+        x.data_ptr(), qa.q.data_ptr(), *[t.data_ptr() for t in tables], out.data_ptr(),
+        x.shape[0], x.shape[1], qa.q.shape[-1], qa.d_rest, qa.group_size, cols,
+        _build.stream_ptr(x.device))
+    _build.check(err, f"earlier {name}")
+    return out
 
 
 def _qmm_parent(plib, qa, x, layer=None, out_dtype=None):
@@ -1597,13 +1627,17 @@ def flash_prefill_phase(reps: int, records: list, parent=None) -> None:
         torch.cuda.empty_cache()
 
 
-def variants_phase(reps: int, records: list) -> dict:
+def variants_phase(reps: int, records: list, parent=None) -> dict:
     """The quant-kernel tuning path at its full shape, with the launch counts
     set to 0 just before and read just after; then, on the tuning run's own
     x and carriers, each variant at each column width against its plain
     version and by its identity probe, timed beside its plain version and
     ``torch.matmul`` on the pre-dequantized bf16 weight (both rotating past
-    L2, as the tuning run's kernel times do)."""
+    L2, as the tuning run's kernel times do). The split-K variants
+    (``qmm_variants.SPLIT_K``) must give the same bits on a second call; with
+    ``parent`` (``build_parent``'s ``qmm_variants``) the earlier kernel of
+    each is held to the same 1% of its plain version and timed beside it in
+    turns (earlier, new, new, earlier)."""
     import torch
 
     from flexflow_tpu_torch.benchmarks import tune_int4_variants as tv
@@ -1635,10 +1669,12 @@ def variants_phase(reps: int, records: list) -> dict:
         lib_ms[bits] = tq.op_time(lambda w: torch.matmul(x, w), w_lib, reps, dev) * 1e3
         del w_lib
     nbytes = {bits: x.numel() * 2 + _weight_bytes(bits, d, f, g) + b * f * 2 for bits in (8, 4)}
+    earlier = {}
     for r in cases:
         name, cols, bits = r["variant"], r["cols"], r["bits"]
         if cols is None:
             continue
+        split = r["split"]
         label = f"{name} cols={cols} B={b} {d}x{f} g={g}"
         got = qv.variant(name, x, qa[bits], cols)
         want = qv.plain(name, x, qa[bits])
@@ -1651,18 +1687,42 @@ def variants_phase(reps: int, records: list) -> dict:
         require(torch.equal(qv.variant(name, eye, qa[bits], cols),
                             weight[bits][idx].to(torch.bfloat16)),
                 f"{label}: identity probe differs from the dequantized weight")
+        note = ""
+        if split is not None:
+            require(torch.equal(qv.variant(name, x, qa[bits], cols), got),
+                    f"{label}: two calls give different bits")
+            note = (f"; split {split.splits} x {split.units_per_block} units, "
+                    f"{split.tiles_per_block} tiles a block, two calls bitwise; "
+                    f"tuning run {r['seconds'] * 1e3:.4f} ms")
+        if split is not None and parent is not None:
+            old = _variant_parent(parent, name, x, qa[bits], cols)
+            old_err = (old.float() - want.float()).abs().max().item()
+            require(bool(torch.isfinite(old).all()) and old_err <= 1e-2 * scale,
+                    f"{label}: the earlier kernel's max|err| {old_err} > 1e-2 * {scale}")
+            runs = {"earlier": lambda c: _variant_parent(parent, name, x, c, cols),
+                    "new": lambda c: qv.variant(name, x, c, cols)}
+            turns = [(k, tq.op_time(runs[k], rot[bits], reps, dev) * 1e3)
+                     for k in ("earlier", "new", "new", "earlier")]
+            pair = {k: sum(t for kk, t in turns if kk == k) / 2 for k in runs}
+            earlier[f"{name} cols={cols}"] = pair
+            note += (f"; in turns new {pair['new']:.4f} ms, earlier kernel {pair['earlier']:.4f} "
+                     f"ms (err {old_err:.3g}), {pair['earlier'] / pair['new']:.2f}x")
         if name not in plain_ms:
             plain_ms[name] = tq.op_time(lambda c: qv.plain(name, x, c), rot[bits],
                                         max(2, reps // 4), dev, warmup=1) * 1e3
         b_ms, b_by = bound(nbytes[bits], 2.0 * b * d * f, PEAK_BF16_FLOPS)
         ms = r["seconds"] * 1e3
-        records.append(dict(name=f"{name}[cols={cols} B={b} {d}x{f} g={g}]", kernel=name,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms[name], bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms[bits]))
+        rec = dict(name=f"{name}[cols={cols} B={b} {d}x{f} g={g}]", kernel=name,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms[name], bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms[bits])
+        if split is not None:  # blocks along D, a field of its own: the name stays the key
+            rec["split"] = split.splits
+        records.append(rec)
         log(f"  {label}: err {err:.3g} (tol {1e-2 * scale:.3g}), identity probe bitwise; "
             f"kernel {ms:.4f} ms plain {plain_ms[name]:.4f} ms cuBLAS-bf16 {lib_ms[bits]:.4f} ms "
-            f"bound {b_ms:.4f} ms ({b_by})")
-    out = dict(launches=launches, cases={r["name"]: r["seconds"] * 1e3 for r in cases})
+            f"bound {b_ms:.4f} ms ({b_by}){note}")
+    out = dict(launches=launches, cases={r["name"]: r["seconds"] * 1e3 for r in cases},
+               earlier=earlier)
     log(f"  launches during the tuning run: {json.dumps(launches)}")
     del data, qa, rot, weight
     torch.cuda.empty_cache()
@@ -7343,10 +7403,11 @@ def main(argv=None) -> int:
                     help="add the profile phase (traces the serve and spec phases run)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout holding an earlier quant_matmul.cu, flash_prefill.cu and/or "
-                         "decode_attention.cu: each built beside this one and timed beside its "
-                         "rows; INT8 qmm held bitwise equal to it, the attention kernels to the "
-                         "same limits as this tree's")
+                    help="a checkout holding an earlier quant_matmul.cu, flash_prefill.cu, "
+                         "decode_attention.cu and/or qmm_variants.cu: each built beside this one "
+                         "and timed beside its rows; INT8 qmm held bitwise equal to it, the "
+                         "attention kernels and the i8_group / i4_and_2dot variants to the same "
+                         "limits as this tree's")
     ap.add_argument("--dist-rank", metavar="DIR", help=argparse.SUPPRESS)  # a dist phase rank
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p] + (["profile"] if args.profile else [])
@@ -7424,7 +7485,7 @@ def main(argv=None) -> int:
     if "variants" in phases:
         log("[variants] quant-kernel tuning path: six dequant-matmul variants x "
             "column widths, qmm_int8 / qmm_int4, B=8 4096x11008 g=128")
-        summary["variants"] = variants_phase(args.reps, records)
+        summary["variants"] = variants_phase(args.reps, records, parent.get("qmm_variants"))
         lap("variants")
     if "crosscheck" in phases:
         for bits in (8, 4):
@@ -7598,7 +7659,8 @@ def main(argv=None) -> int:
         dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],
              replaces=REPLACES[r["kernel"]], launches=launches[r["kernel"]],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+             **({"split": r["split"]} if "split" in r else {}))
         for r in records
     ]
     summary["phase_seconds"] = phase_s

@@ -6,14 +6,17 @@ production kernels (counterpart of ``benchmarks/tune_int4_variants.py``).
 
 At D=4096, F=11008 (11264 with ``--padded``; the quantizer pads the carrier
 to 11264 either way), B=8, group 128, seed 0, each variant of
-``ops/kernels/qmm_variants.py`` runs at three column widths per block
+``ops/kernels/qmm_variants.py`` runs at three column tile widths
 (``COLS``; an H100 has 132 SMs, and 11008 columns make 688, 344 and 172
-blocks of them), followed by the production kernels ``i8-prod``
+tiles of them), followed by the production kernels ``i8-prod``
 (``qmm_int8``) and ``i4-prod`` (``qmm_int4``). Each case prints its time in
 us, the packed weight bytes over that time, the time those bytes take at
 3.35 TB/s, and ``relerr`` against ``x @ dequantize(qa)`` (see
-``tune_quant_kernel``). Cases whose name contains none of the patterns are
-skipped. A failed case prints ``FAILED``; the run then exits non-zero.
+``tune_quant_kernel``); on a GPU, ``i8_group`` and ``i4_and_2dot`` then print
+the split of the contraction they launched with (``qmm_variants.split_plan``:
+blocks along it, groups or group pairs a block, column tiles a block).
+Cases whose name contains none of the patterns are skipped. A failed case
+prints ``FAILED``; the run then exits non-zero.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ def run(d: int = 4096, f: int = 11008, b: int = 8, group_size: int = 128, *, dev
     ``qmm_int8`` / ``qmm_int4``), ``cols`` (None for the production kernels)
     and ``bits``, and the run's data: ``x``, the carriers by bit width
     (``qa``) and the L2 rotations the cases were timed on (``rot``, by bit
-    width; its first entry is the carrier itself)."""
+    width; its first entry is the carrier itself). A split-K variant's record
+    on a GPU also holds its ``split`` (``qmm_variants.SplitPlan``; else None)."""
     dev = resolve_device(device)
     x, w = make_data(d, f, b, dev)
     qa = {8: quantize(w, 8, group_size), 4: quantize(w, 4, group_size)}
@@ -63,7 +67,12 @@ def run(d: int = 4096, f: int = 11008, b: int = 8, group_size: int = 128, *, dev
             def fn(carrier, name=name, c=c):
                 return qv.variant(name, x, carrier, c)
         rec = run_case(label, fn, rot[bits], qa[bits].q.numel(), ref[bits], reps, dev)
-        rec.update(variant=name, cols=c, bits=bits)
+        split = qv.plan_of(name, x, qa[bits], c)
+        if split is not None:
+            print(f"{label}: split {split.splits} blocks along D, {split.units_per_block} of "
+                  f"{split.units} units a block, {split.tiles_per_block} column tiles a block",
+                  flush=True)
+        rec.update(variant=name, cols=c, bits=bits, split=split)
         recs.append(rec)
     return recs, dict(x=x, qa=qa, rot=rot)
 

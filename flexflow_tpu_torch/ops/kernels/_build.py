@@ -42,9 +42,10 @@ SIGNATURES = {
     "ff_decode_attention_shard": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I, _P],
     "ff_merge_states": [_P, _P] + [_I] * 5 + [_P],
     "ff_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    "ff_qmm_v_i8_group": [_P] * 4 + [_I] * 6 + [_P],
+    "ff_qmm_v_i8_group": [_P] * 6 + [_I] * 7 + [_L, _I, _P],
+    "ff_qmm_v_i4_and_2dot": [_P] * 7 + [_I] * 7 + [_L, _I, _P],
     **{f"ff_qmm_v_{v}": [_P] * 5 + [_I] * 6 + [_P]
-       for v in ("i4_floor", "i4_3dot", "i4_and", "i4_and_bigdot", "i4_and_2dot")},
+       for v in ("i4_floor", "i4_3dot", "i4_and", "i4_and_bigdot")},
 }
 
 _lock = threading.Lock()

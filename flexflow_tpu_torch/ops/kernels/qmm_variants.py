@@ -22,16 +22,31 @@ one-hot row of x returns the dequantized weight's row bitwise. Inputs are the
 port's carriers (``quant.weight_only.QuantizedArray``): INT8 ``q`` [D, Fp]
 with ``scale`` [D/g, Fp], or INT4 planar ``q`` [D/2, Fp] uint8 with
 ``scale`` and ``offset`` [D/g, Fp] (g | D/2), all f32; the output is
-[B, n_out] in x's dtype. ``cols`` is the kernel's output columns per block.
+[B, n_out] in x's dtype. ``cols`` is the kernel's column tile: a block's
+columns in the other variants.
+
+``i8_group`` and ``i4_and_2dot`` (``SPLIT_K``) hold several column tiles
+side by side in a block and cut the contraction across blocks in whole
+groups (group pairs for INT4): :func:`split_plan` chooses the blocks along
+it from the shape and the SM count, and the wrapper hands the kernel a
+workspace for the splits' partial sums and zeroed counters, which the
+kernel leaves zeroed, with their sizes: the kernel's launcher works its
+geometry out again and refuses buffers smaller than it indexes.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
 
 import torch
 
 from flexflow_tpu_torch.ops.kernels import _build
 
 VARIANTS = ("i8_group", "i4_floor", "i4_3dot", "i4_and", "i4_and_bigdot", "i4_and_2dot")
+SPLIT_K = ("i8_group", "i4_and_2dot")
 # kernel launches of this process per variant (plain-version calls not counted)
 LAUNCHES = {name: 0 for name in VARIANTS}
 
@@ -180,6 +195,131 @@ def _check(name, x, q, tables, group_size, n_out, cols):
     return d, fp
 
 
+# the split-K kernels' constants (csrc/qmm_variants.cu SK_ROWS, SK_STAGES,
+# SK_WARPS, SK_SMEM)
+_SK_ROWS, _SK_STAGES, _SK_WARPS, _SK_SMEM = 32, 4, 8, 232448
+_INFLIGHT = 52 * 1024  # packed bytes in flight an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """A split-K launch (``SplitGeom`` in csrc/qmm_variants.cu)."""
+
+    splits: int  # blocks along the contraction (grid z)
+    units: int  # groups (INT8) or group pairs (INT4) along D
+    units_per_block: int  # every warp of a block walks them all
+    warp_cols: int  # columns of a warp
+    tiles_per_block: int  # column tiles of ``cols`` side by side in a block
+    rows: int  # rows of x a block
+    grid: tuple  # (column tiles / tiles_per_block, row tiles, splits)
+    threads: int
+    smem: int  # dynamic shared memory of a block, bytes
+    ws_shape: Optional[tuple]  # f32 partial sums (None when splits == 1)
+    tickets: int  # counters, one a block of a split (0 when splits == 1)
+
+
+def _geometry(int4: bool, m: int, d: int, n_out: int, g: int, cols: int,
+              splits: int) -> SplitPlan:
+    units = d // (2 * g) if int4 else d // g
+    ub = -(-units // splits)
+    rows = 8 if m <= 8 else 16
+    nsub = 1
+    while nsub * 2 <= (2 if int4 else 4) // (rows // 8) and cols // 16 % (nsub * 2) == 0:
+        nsub *= 2
+    ncw = cols // (16 * nsub)
+    tpb = max(1, _SK_WARPS // ncw)
+    gp = -(-g // 32) * 32
+    bw = ncw * tpb * 16 * nsub  # packed bytes of a row the block reads
+    pitch = bw + (0 if bw // 16 % 2 else 16)
+    stage = _SK_ROWS * pitch + (4 if int4 else 1) * bw * 4
+    x_bytes = -(-(2 if int4 else 1) * rows * (ub * gp + 8) * 2 // 128) * 128
+    smem = x_bytes + _SK_STAGES * stage
+    threads = ncw * tpb * 32
+    grid = (-(-(-(-n_out // cols)) // tpb), -(-m // rows), splits)
+    vals = nsub * rows // 8 * (8 if int4 else 4)
+    tiles = grid[0] * grid[1]
+    return SplitPlan(splits, units, ub, 16 * nsub, tpb, rows, grid, threads, smem,
+                     (splits, tiles, threads // 32, vals, 32) if splits > 1 else None,
+                     tiles if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def split_candidates(name: str, m: int, d: int, n_out: int, group_size: int,
+                     cols: int) -> tuple:
+    """Every split-K launch of ``name`` (one of ``SPLIT_K``) for x [m, d] and
+    ``n_out`` columns that leaves no block along D without a unit and fits a
+    block's shared memory, by rising split."""
+    int4 = name == "i4_and_2dot"
+    units = d // (2 * group_size) if int4 else d // group_size
+    plans = []
+    for splits in range(1, units + 1):
+        if -(-units // -(-units // splits)) != splits:
+            continue  # the same blocks as fewer splits, one left empty
+        p = _geometry(int4, m, d, n_out, group_size, cols, splits)
+        if p.smem <= _SK_SMEM:
+            plans.append(p)
+    return tuple(plans)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(name: str, m: int, d: int, n_out: int, group_size: int, cols: int,
+               sms: int) -> SplitPlan:
+    """The split-K launch of ``name`` (one of ``SPLIT_K``) for x [m, d] and
+    ``n_out`` columns on a card of ``sms`` SMs. Of :func:`split_candidates`,
+    the one whose block count is nearest to ``_INFLIGHT`` bytes of packed
+    rows in flight an SM (a block keeps SK_STAGES - 1 of its stages in
+    flight), the fewest splits on a tie. (Measured on an H100 at the tuning
+    shape, B = 8, 4096 x 11008, g = 128: each width ran fastest with 47-56 KB
+    in flight an SM, but INT4 at 16 columns, with 31 KB.)"""
+    def key(p):
+        block_bytes = (_SK_STAGES - 1) * _SK_ROWS * p.threads // 32 * p.warp_cols
+        return abs(math.prod(p.grid) - _INFLIGHT * sms / block_bytes), p.splits
+
+    plans = split_candidates(name, m, d, n_out, group_size, cols)
+    if not plans:
+        raise ValueError(f"{name}: no split of D = {d} in groups of {group_size} fits a block's "
+                         "shared memory")
+    return min(plans, key=key)
+
+
+_SMS: dict = {}  # device index -> SM count
+_TICKETS: dict = {}  # (device index, stream) -> zeroed int32 counters
+
+
+def _sm_count(device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters for launches on the current stream: the
+    kernels leave them zeroed, so they are allocated once per stream (calls
+    on one stream run in order; another stream gets its own)."""
+    key = (device.index, _build.stream_ptr(device))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
+
+
+def _workspace(p: SplitPlan, device):
+    """The f32 partial sums and the counters split-K launch ``p`` needs on
+    ``device`` (None, None when it does not split across blocks)."""
+    if p.ws_shape is None:
+        return None, None
+    return torch.empty(p.ws_shape, dtype=torch.float32, device=device), _tickets(device, p.tickets)
+
+
+def plan_of(name: str, x: torch.Tensor, qa, cols: int) -> Optional[SplitPlan]:
+    """The split-K launch variant ``name`` takes for x on carrier ``qa``
+    (None for the other variants and on the CPU, where no kernel runs)."""
+    if name not in SPLIT_K or x.device.type != "cuda":
+        return None
+    return split_plan(name, x.shape[0], x.shape[1], qa.d_rest, qa.group_size, cols,
+                      _sm_count(x.device))
+
+
 def _run(name, plain, x, q, tables, group_size, n_out, cols):
     d, fp = _check(name, x, q, tables, group_size, n_out, cols)
     if x.device.type == "cpu":
@@ -187,9 +327,16 @@ def _run(name, plain, x, q, tables, group_size, n_out, cols):
     out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return out
-    err = getattr(_build.lib(), f"ff_qmm_v_{name}")(
-        x.data_ptr(), q.data_ptr(), *[t.data_ptr() for t in tables], out.data_ptr(),
-        x.shape[0], d, fp, n_out, group_size, cols, _build.stream_ptr(x.device))
+    fn = getattr(_build.lib(), f"ff_qmm_v_{name}")
+    ptrs = [x.data_ptr(), q.data_ptr(), *[t.data_ptr() for t in tables], out.data_ptr()]
+    dims = [x.shape[0], d, fp, n_out, group_size, cols]
+    if name in SPLIT_K:
+        p = split_plan(name, x.shape[0], d, n_out, group_size, cols, _sm_count(x.device))
+        ws, tk = _workspace(p, x.device)
+        ptrs += [0 if ws is None else ws.data_ptr(), 0 if tk is None else tk.data_ptr()]
+        # the launcher refuses a workspace or counters smaller than its own geometry asks
+        dims += [p.splits, 0 if ws is None else ws.numel(), 0 if tk is None else tk.numel()]
+    err = fn(*ptrs, *dims, _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out

@@ -8,6 +8,7 @@ This file imports nothing of JAX. ``python3 chip_smoke.py`` checks the same
 kernels at LLaMA-2-7B shapes.
 """
 
+import dataclasses
 import gc
 import weakref
 
@@ -205,6 +206,78 @@ def test_qmm_variant_matches_plain_and_probe(cuda, name, d, f, g, b):
         assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
         assert torch.equal(t_qv.variant(name, eye, qa, cols), w[rows, :f].to(torch.bfloat16))
         assert t_qv.LAUNCHES[name] == before + 2
+
+
+@pytest.mark.parametrize("name", t_qv.SPLIT_K)
+@pytest.mark.parametrize("d,f,g,b", [
+    (4096, 11008, 128, 1), (4096, 11008, 128, 8),
+    (1000, 190, 20, 1), (1000, 190, 20, 8),
+    (1024, 256, 256, 1), (1024, 256, 256, 8),
+], ids=["7b-b1", "7b-b8", "unaligned-b1", "unaligned-b8", "long-groups-b1", "long-groups-b8"])
+def test_split_k_variant_is_deterministic(cuda, name, d, f, g, b):
+    """The split-K kernels at B = 1 and 8 on the shapes above, each column
+    width: two calls give the same bits (the splits' sums are combined in a
+    fixed order), within 1% of the output's magnitude of the plain version,
+    one launch counted per call, and the per-stream counters left zeroed."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qa = quantize(torch.randn((d, f), generator=gen, device=cuda) * 0.02,
+                  8 if name == "i8_group" else 4, g)
+    x = torch.randn((b, d), generator=gen, device=cuda).to(torch.bfloat16)
+    want = t_qv.plain(name, x, qa)
+    for cols in (16, 32, 64, 128):
+        before = t_qv.LAUNCHES[name]
+        got = t_qv.variant(name, x, qa, cols)
+        assert torch.equal(t_qv.variant(name, x, qa, cols), got)
+        assert t_qv.LAUNCHES[name] == before + 2
+        assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+        torch.cuda.synchronize()
+        assert all(int(t.abs().sum()) == 0 for t in t_qv._TICKETS.values())
+
+
+def test_split_k_kernel_refuses_a_split_past_the_groups(cuda, monkeypatch):
+    """More blocks along D than it has groups: the kernel's launcher refuses
+    with cudaErrorInvalidValue (1), and the wrapper raises."""
+    qa = quantize(torch.randn((1024, 256), device=cuda), 8, 128)  # 8 groups
+    x = torch.randn((8, 1024), device=cuda).to(torch.bfloat16)
+    plan = t_qv.split_plan
+    monkeypatch.setattr(t_qv, "split_plan",
+                        lambda *a: dataclasses.replace(plan(*a), splits=9, ws_shape=(1 << 22,),
+                                                       tickets=1024))
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        t_qv.variant("i8_group", x, qa, 32)
+
+
+@pytest.mark.parametrize("name", t_qv.SPLIT_K)
+def test_split_k_kernel_refuses_a_workspace_too_small(cuda, name):
+    """The launcher works its geometry out itself: a workspace one float
+    short of the plan's, or one counter short of a tile each, is refused with
+    cudaErrorInvalidValue (1) before anything is written; the plan's own sizes
+    launch and give the plain version's output."""
+    int4 = name == "i4_and_2dot"
+    qa = quantize(torch.randn((4096, 1024), device=cuda) * 0.02, 4 if int4 else 8, 128)
+    x = torch.randn((8, 4096), device=cuda).to(torch.bfloat16)
+    p = t_qv.split_plan(name, 8, 4096, 1024, 128, 32, t_qv._sm_count(x.device))
+    assert p.splits > 1
+    tables = [qa.scale] + ([qa.offset] if int4 else [])
+    ws = torch.zeros(p.ws_shape, dtype=torch.float32, device=cuda).flatten()
+    tk = torch.zeros(p.tickets, dtype=torch.int32, device=cuda)
+    fn = getattr(t_qv._build.lib(), f"ff_qmm_v_{name}")
+
+    def launch(out, n_ws, n_tk):
+        return fn(x.data_ptr(), qa.q.data_ptr(), *[t.data_ptr() for t in tables], out.data_ptr(),
+                  ws.data_ptr(), tk.data_ptr(), 8, 4096, qa.q.shape[-1], 1024, 128, 32, p.splits,
+                  n_ws, n_tk, t_qv._build.stream_ptr(x.device))
+
+    out = torch.full((8, 1024), 7.0, dtype=torch.bfloat16, device=cuda)
+    assert launch(out, ws.numel() - 1, p.tickets) == 1
+    assert launch(out, ws.numel(), p.tickets - 1) == 1
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and int(ws.abs().sum()) == 0 and int(tk.abs().sum()) == 0
+    assert launch(out, ws.numel(), p.tickets) == 0
+    want = t_qv.plain(name, x, qa).float()
+    assert (out.float() - want).abs().max() <= 1e-2 * want.abs().max()
+    torch.cuda.synchronize()
+    assert int(tk.abs().sum()) == 0
 
 
 _C = t_da.CHUNK

@@ -34,6 +34,7 @@ PORT_MODULES = [
     "flexflow_tpu_torch.ops.kernels.qmm_variants",
     "flexflow_tpu_torch.benchmarks.tune_quant_kernel",
     "flexflow_tpu_torch.benchmarks.tune_int4_variants",
+    "flexflow_tpu_torch.benchmarks.splitk_breakdown",
     "flexflow_tpu_torch.utils.profiling",
     "flexflow_tpu_torch.inference.chat",
     "flexflow_tpu_torch.inference.entrypoint.http_server",

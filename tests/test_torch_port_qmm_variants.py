@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl
 
 from benchmarks import tune_int4_variants as j_tv
 from flexflow_tpu.quant import weight_only as jw
+from flexflow_tpu_torch.benchmarks import splitk_breakdown as t_sb
 from flexflow_tpu_torch.benchmarks import tune_int4_variants as t_tv
 from flexflow_tpu_torch.benchmarks import tune_quant_kernel as t_tq
 from flexflow_tpu_torch.models import params as t_params
@@ -185,3 +186,126 @@ def test_card_raises_when_nvidia_smi_fails(monkeypatch):
     assert t_tq.card(torch.device("cpu")).startswith("cpu")
     with pytest.raises(FileNotFoundError):
         t_tq.card(torch.device("cuda"))
+
+
+# (m, d, n_out, group): the CUDA tests' shapes (7B, unaligned, long groups)
+# and a shape whose units do not divide evenly among the splits
+_SPLIT_SHAPES = [(8, 4096, 11008, 128), (1, 4096, 11008, 128), (4, 4096, 11008, 128),
+                 (5, 1000, 190, 20), (8, 1000, 190, 20), (19, 1024, 256, 256),
+                 (8, 1024, 256, 256), (8, 3584, 512, 128)]
+
+
+@pytest.mark.parametrize("cols", (16, 32, 64, 128))
+@pytest.mark.parametrize("name", t_qv.SPLIT_K)
+def test_split_plan_covers_the_contraction(name, cols):
+    """On 132, 8 and 1 SMs: the split is a whole number of groups (INT8) or
+    group pairs (INT4) a block, the blocks along D cover it with none empty,
+    the blocks' column tiles cover the output, and a block fits one SM (8
+    warps, the shared memory)."""
+    for m, d, f, g in _SPLIT_SHAPES:
+        for sms in (132, 8, 1):
+            p = t_qv.split_plan(name, m, d, f, g, cols, sms)
+            span = 2 * g if name == "i4_and_2dot" else g  # x columns of a unit
+            assert p.units * span == d
+            assert (p.splits - 1) * p.units_per_block < p.units <= p.splits * p.units_per_block
+            tiles = -(-f // cols)
+            assert p.grid == (-(-tiles // p.tiles_per_block), -(-m // p.rows), p.splits)
+            assert p.rows == (8 if m <= 8 else 16) and cols % p.warp_cols == 0
+            assert p.threads == cols // p.warp_cols * p.tiles_per_block * 32 <= 256
+            assert p.grid[0] * p.tiles_per_block * cols >= f
+            assert p.smem <= 232448
+
+
+def test_split_plan_workspace_shapes():
+    """The workspace the wrapper asks for: [splits, tiles, column warps,
+    sums a lane, 32 lanes] f32 (4 a 16-column subtile and n8 tile; INT4 keeps
+    both halves' sums), one counter a tile, nothing when the blocks do not
+    split D."""
+    p = t_qv.split_plan("i8_group", 8, 4096, 11008, 128, 64, 132)
+    assert (p.splits, p.warp_cols, p.tiles_per_block, p.units_per_block) == (6, 64, 8, 6)
+    assert p.grid == (22, 1, 6) and p.ws_shape == (6, 22, 8, 16, 32) and p.tickets == 22
+    p = t_qv.split_plan("i4_and_2dot", 19, 1024, 256, 256, 128, 132)
+    assert p.warp_cols == 16 and p.ws_shape == (2, 4, 8, 16, 32) and p.tickets == 4
+    p = t_qv.split_plan("i4_and_2dot", 8, 4096, 11008, 128, 16, 1)
+    assert (p.splits, p.ws_shape, p.tickets) == (1, None, 0)
+    assert t_qv._workspace(p, torch.device("cpu")) == (None, None)
+
+
+@pytest.mark.parametrize("name", t_qv.SPLIT_K)
+def test_split_k_wrapper_hands_the_kernel_its_plan(monkeypatch, name):
+    """The wrapper's call on a non-CPU tensor (meta, with the library faked):
+    the C entry's argument list as ``_build.SIGNATURES`` declares it, the
+    plan's split, a workspace of its shape and the sizes of the workspace and
+    the counters (which the launcher checks), counters allocated once per
+    stream, one launch counted."""
+    calls, spaces = [], []
+
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda *args: calls.append((fn, args)) or 0
+
+    workspace = t_qv._workspace
+    monkeypatch.setattr(t_qv._build, "lib", lambda: Lib())
+    monkeypatch.setattr(t_qv._build, "stream_ptr", lambda device: 7)
+    monkeypatch.setattr(t_qv, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(t_qv, "_TICKETS", {})
+    monkeypatch.setattr(t_qv, "_check", lambda n, x, q, tables, *a: (x.shape[1], q.shape[1]))
+    monkeypatch.setattr(t_qv, "_workspace",
+                        lambda p, device: spaces.append(workspace(p, device)) or spaces[-1])
+    int4 = name == "i4_and_2dot"
+    d, fp, f, g = 4096, 11264, 11008, 128
+    meta = dict(device="meta")
+    x = torch.empty((8, d), dtype=torch.bfloat16, **meta)
+    q = torch.empty((d // 2 if int4 else d, fp), dtype=torch.uint8 if int4 else torch.int8, **meta)
+    tables = [torch.empty((d // g, fp), **meta) for _ in range(2 if int4 else 1)]
+    before = t_qv.LAUNCHES[name]
+    for _ in range(2):
+        out = getattr(t_qv, name)(x, q, *tables, group_size=g, n_out=f, cols=64)
+    assert out.shape == (8, f) and t_qv.LAUNCHES[name] == before + 2
+    p = t_qv.split_plan(name, 8, d, f, g, 64, 132)
+    fn, args = calls[0]
+    assert fn == f"ff_qmm_v_{name}" and len(args) == len(t_qv._build.SIGNATURES[fn])
+    ws, tk = spaces[0]
+    assert args[-10:] == (8, d, fp, f, g, 64, p.splits, ws.numel(), tk.numel(), 7)
+    assert [ws.shape for ws, _ in spaces] == [p.ws_shape] * 2
+    assert spaces[1][1] is tk and tk.numel() >= p.tickets
+    assert list(t_qv._TICKETS) == [(None, 7)]
+
+
+@pytest.mark.parametrize("part", sorted(t_sb.PARTS))
+def test_splitk_breakdown_switches_off_one_part(part):
+    """Each of the breakdown's builds defines one bit of FF_SPLITK_OFF, a bit
+    of its own, which the kernel's source tests; the kernel's own build
+    defines none (the source's default, 0)."""
+    src = t_sb._build.CSRC_DIR / "qmm_variants.cu"
+    bit = t_sb.PARTS[part]
+    assert bit & (bit - 1) == 0 and sorted(t_sb.PARTS.values()) == [1, 2, 4]
+    args = t_sb.nvcc_args(src, part, "lib.so")
+    assert [a for a in args if a.startswith("-D")] == [f"-DFF_SPLITK_OFF={bit}"]
+    assert not [a for a in t_sb.nvcc_args(src, None, "lib.so") if a.startswith("-D")]
+    text = src.read_text()
+    assert "#define FF_SPLITK_OFF 0" in text and f"FF_SPLITK_OFF & {bit})" in text
+
+
+@pytest.mark.parametrize("name", t_qv.SPLIT_K)
+def test_split_candidates_are_the_plans_choices(name):
+    """The splits the breakdown sweeps and the plan chooses from: rising,
+    each a distinct block count along D with every block holding a unit, each
+    fitting a block's shared memory, the plan's choice among them, and both
+    memoised (the same objects on a second call)."""
+    for m, d, f, g in _SPLIT_SHAPES:
+        plans = t_qv.split_candidates(name, m, d, f, g, 32)
+        splits = [p.splits for p in plans]
+        assert splits == sorted(set(splits)) and splits[0] == 1
+        assert all((p.splits - 1) * p.units_per_block < p.units and p.smem <= 232448
+                   for p in plans)
+        assert len({p.units_per_block for p in plans}) == len(plans)
+        chosen = t_qv.split_plan(name, m, d, f, g, 32, 132)
+        assert chosen in plans and t_qv.split_plan(name, m, d, f, g, 32, 132) is chosen
+        assert t_qv.split_candidates(name, m, d, f, g, 32) is plans
+
+
+def test_splitk_breakdown_needs_a_gpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert t_sb.main(["--reps", "1"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
